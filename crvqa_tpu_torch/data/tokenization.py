@@ -1,0 +1,174 @@
+"""Self-contained BERT WordPiece tokenizer, pure Python (the port's copy of
+`crvqa_tpu/data/tokenization.py` without its native bulk encoder).
+
+The exact algorithm of the vendored `hg_transformers/tokenization_bert.py`
+(BasicTokenizer :347-483, WordpieceTokenizer :485-543): text cleaning, CJK
+isolation, lowercase + NFD accent stripping, punctuation splitting, then
+greedy longest-match-first WordPiece with '##' continuations. Special
+tokens split out of the raw text first, as HF's `split_on_tokens` does.
+"""
+from __future__ import annotations
+
+import unicodedata
+from typing import Iterable, Sequence, Union
+
+_CJK_RANGES = (
+    (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+    (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF),
+    (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
+)
+
+
+def _is_whitespace(ch: str) -> bool:
+    # \t/\n/\r are control chars in unicode, but BERT treats them as spaces
+    return ch in " \t\n\r" or unicodedata.category(ch) == "Zs"
+
+
+def _is_control(ch: str) -> bool:
+    if ch in "\t\n\r":
+        return False
+    return unicodedata.category(ch).startswith("C")
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    # ASCII non-alphanumerics count as punctuation even when unicode
+    # disagrees ('$', '@', '`', ...) — tokenization_bert.py:569-583
+    if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_cjk(cp: int) -> bool:
+    return any(lo <= cp <= hi for lo, hi in _CJK_RANGES)
+
+
+def _clean(text: str) -> str:
+    out = []
+    for ch in text:
+        cp = ord(ch)
+        if cp == 0 or cp == 0xFFFD or _is_control(ch):
+            continue
+        out.append(" " if _is_whitespace(ch) else ch)
+    return "".join(out)
+
+
+def _isolate_cjk(text: str) -> str:
+    return "".join(f" {ch} " if _is_cjk(ord(ch)) else ch for ch in text)
+
+
+def _strip_accents(text: str) -> str:
+    return "".join(ch for ch in unicodedata.normalize("NFD", text)
+                   if unicodedata.category(ch) != "Mn")
+
+
+def _split_punc(token: str) -> list[str]:
+    pieces: list[list[str]] = []
+    fresh = True
+    for ch in token:
+        if _is_punctuation(ch):
+            pieces.append([ch])
+            fresh = True
+        else:
+            if fresh:
+                pieces.append([])
+            fresh = False
+            pieces[-1].append(ch)
+    return ["".join(p) for p in pieces]
+
+
+def basic_tokenize(text: str, do_lower_case: bool = True,
+                   never_split: Iterable[str] = ()) -> list[str]:
+    """BasicTokenizer.tokenize (tokenization_bert.py:370-399)."""
+    never = set(never_split)
+    text = _isolate_cjk(_clean(text))
+    out: list[str] = []
+    for token in text.split():
+        if token in never:
+            out.append(token)
+            continue
+        if do_lower_case:
+            token = _strip_accents(token.lower())
+        out.extend(_split_punc(token))
+    return [t for t in out if t]
+
+
+def wordpiece_tokenize(token: str, vocab: dict, unk: str,
+                       max_chars: int = 100) -> list[str]:
+    """Greedy longest-match-first WordPiece
+    (WordpieceTokenizer.tokenize, tokenization_bert.py:493-543)."""
+    if len(token) > max_chars:
+        return [unk]
+    pieces: list[str] = []
+    start = 0
+    while start < len(token):
+        end = len(token)
+        match = None
+        while start < end:
+            sub = token[start:end]
+            if start > 0:
+                sub = "##" + sub
+            if sub in vocab:
+                match = sub
+                break
+            end -= 1
+        if match is None:
+            return [unk]
+        pieces.append(match)
+        start = end
+    return pieces
+
+
+SPECIAL_TOKENS = ("[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]")
+
+
+class WordPieceTokenizer:
+    """The slice of `BertTokenizer` the serving path uses, over a BERT
+    `vocab.txt` (one token per line, id = line number)."""
+
+    def __init__(self, vocab_file: str, do_lower_case: bool = True):
+        with open(vocab_file, encoding="utf-8") as f:
+            self.vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        self.do_lower_case = do_lower_case
+        self.unk_token = "[UNK]"
+        self.all_special_tokens = list(SPECIAL_TOKENS)
+        for t in self.all_special_tokens:
+            if t not in self.vocab:
+                raise ValueError(f"special token {t!r} missing from vocab")
+        self.unk_token_id = self.vocab[self.unk_token]
+
+    def _split_on_specials(self, text: str) -> list[str]:
+        """Split special tokens out of the raw text as substrings, before
+        basic tokenization (HF's `split_on_tokens`)."""
+        parts = [text]
+        for sp in self.all_special_tokens:
+            nxt: list[str] = []
+            for p in parts:
+                if p in self.all_special_tokens:
+                    nxt.append(p)
+                    continue
+                pieces = p.split(sp)
+                for i, frag in enumerate(pieces):
+                    if i:
+                        nxt.append(sp)
+                    if frag:
+                        nxt.append(frag)
+            parts = nxt
+        return parts
+
+    def tokenize(self, text: str) -> list[str]:
+        out: list[str] = []
+        for part in self._split_on_specials(text):
+            if part in self.all_special_tokens:
+                out.append(part)
+                continue
+            for token in basic_tokenize(part, self.do_lower_case,
+                                        self.all_special_tokens):
+                out.extend(wordpiece_tokenize(token, self.vocab,
+                                              self.unk_token))
+        return out
+
+    def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
+        if isinstance(tokens, str):
+            return self.vocab.get(tokens, self.unk_token_id)
+        return [self.vocab.get(t, self.unk_token_id) for t in tokens]

@@ -1,0 +1,127 @@
+"""Which LXMERT weights a stage-2 mask covers, and their modality.
+
+A copy of the LXMERT table of `crvqa_tpu/masking/spec.py` (itself the name
+tables of the reference's `masking/maskers_Robust.py:24-95`). The port
+reads `mask.pt` by `torch_name`, its own parameter names; `path` keeps the
+JAX package's param path so the two tables can be compared line by line.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    """One masked weight matrix."""
+
+    path: tuple[str, ...]  # JAX param path, ending in 'kernel'/'embedding'
+    torch_name: str  # e.g. 'lxmert.encoder.x_layers.3.visual_attention.att.query'
+    weight_type: str  # abbrev like 'lK', 'vlVQ', 'E', 'P'
+    modality: str  # 'Lang' | 'Vis' | 'Fus' | 'P'
+    is_embedding: bool = False
+
+    @property
+    def key(self) -> str:
+        return "/".join(self.path)
+
+
+# weight-type -> (subpath function, modality, torch name, is_embedding)
+_LXMERT_TYPES: dict[str, tuple] = {
+    "E": (lambda l: ("embeddings", "word_embeddings"), "Lang", "embeddings.word_embeddings", True),
+    "VV": (lambda l: ("encoder", "visn_fc", "visn_fc"), "Vis", "encoder.visn_fc.visn_fc", False),
+    "VB": (lambda l: ("encoder", "visn_fc", "box_fc"), "Vis", "encoder.visn_fc.box_fc", False),
+}
+_LXMERT_LAYER_TYPES: dict[str, tuple[str, tuple[str, ...], str]] = {
+    # abbrev: (torch layer-group, submodule path, modality)
+    "lK": ("layer", ("attention", "self", "key"), "Lang"),
+    "lQ": ("layer", ("attention", "self", "query"), "Lang"),
+    "lV": ("layer", ("attention", "self", "value"), "Lang"),
+    "lAO": ("layer", ("attention", "output", "dense"), "Lang"),
+    "lI": ("layer", ("intermediate", "dense"), "Lang"),
+    "lO": ("layer", ("output", "dense"), "Lang"),
+    "vK": ("r_layers", ("attention", "self", "key"), "Vis"),
+    "vQ": ("r_layers", ("attention", "self", "query"), "Vis"),
+    "vV": ("r_layers", ("attention", "self", "value"), "Vis"),
+    "vAO": ("r_layers", ("attention", "output", "dense"), "Vis"),
+    "vI": ("r_layers", ("intermediate", "dense"), "Vis"),
+    "vO": ("r_layers", ("output", "dense"), "Vis"),
+    "vlVK": ("x_layers", ("visual_attention", "att", "key"), "Fus"),
+    "vlVQ": ("x_layers", ("visual_attention", "att", "query"), "Fus"),
+    "vlVV": ("x_layers", ("visual_attention", "att", "value"), "Fus"),
+    "vlVAO": ("x_layers", ("visual_attention", "output", "dense"), "Fus"),
+    "vlLaK": ("x_layers", ("lang_self_att", "self", "key"), "Fus"),
+    "vlLaQ": ("x_layers", ("lang_self_att", "self", "query"), "Fus"),
+    "vlLaV": ("x_layers", ("lang_self_att", "self", "value"), "Fus"),
+    "vlLaAO": ("x_layers", ("lang_self_att", "output", "dense"), "Fus"),
+    "vlVaK": ("x_layers", ("visn_self_att", "self", "key"), "Fus"),
+    "vlVaQ": ("x_layers", ("visn_self_att", "self", "query"), "Fus"),
+    "vlVaV": ("x_layers", ("visn_self_att", "self", "value"), "Fus"),
+    "vlVaAO": ("x_layers", ("visn_self_att", "output", "dense"), "Fus"),
+    "vlLi": ("x_layers", ("lang_inter", "dense"), "Fus"),
+    "vlLo": ("x_layers", ("lang_output", "dense"), "Fus"),
+    "vlVi": ("x_layers", ("visn_inter", "dense"), "Fus"),
+    "vlVo": ("x_layers", ("visn_output", "dense"), "Fus"),
+}
+
+LXMERT_WEIGHT_TYPES: tuple[str, ...] = (
+    "E", "VV", "VB",
+    "lK", "lQ", "lV", "lAO", "lI", "lO",
+    "vK", "vQ", "vV", "vAO", "vI", "vO",
+    "vlVK", "vlVQ", "vlVV", "vlVAO",
+    "vlLaK", "vlLaQ", "vlLaV", "vlLaAO",
+    "vlVaK", "vlVaQ", "vlVaV", "vlVaAO",
+    "vlLi", "vlLo", "vlVi", "vlVo",
+    "P",
+)
+
+
+def lxmert_mask_specs(
+    l_layers: int = 9,
+    r_layers: int = 5,
+    x_layers: int = 5,
+    weight_types: Sequence[str] = LXMERT_WEIGHT_TYPES,
+    ptl: str = "lxmert",
+    layers_to_mask: Optional[Sequence[int]] = None,
+) -> list[MaskSpec]:
+    """Every masked LXMERT weight (`chain_module_names`,
+    `prune_debias_VQA.py:300-310`), `layers_to_mask` (default: all)
+    intersected with each group's real layer count."""
+    layer_counts = {"layer": l_layers, "r_layers": r_layers, "x_layers": x_layers}
+    allowed = set(layers_to_mask) if layers_to_mask is not None else None
+    specs: list[MaskSpec] = []
+    for wt in weight_types:
+        if wt in _LXMERT_TYPES:
+            subpath_fn, modality, tname, is_emb = _LXMERT_TYPES[wt]
+            specs.append(
+                MaskSpec(
+                    path=(ptl,) + subpath_fn(None) + (("embedding",) if is_emb else ("kernel",)),
+                    torch_name=f"{ptl}.{tname}",
+                    weight_type=wt,
+                    modality=modality,
+                    is_embedding=is_emb,
+                )
+            )
+        elif wt == "P":
+            specs.append(
+                MaskSpec(
+                    path=(ptl, "pooler", "dense", "kernel"),
+                    torch_name=f"{ptl}.pooler.dense",
+                    weight_type="P",
+                    modality="P",
+                )
+            )
+        else:
+            group, subpath, modality = _LXMERT_LAYER_TYPES[wt]
+            for l in range(layer_counts[group]):
+                if allowed is not None and l not in allowed:
+                    continue
+                specs.append(
+                    MaskSpec(
+                        path=(ptl, "encoder", f"{group}_{l}") + subpath + ("kernel",),
+                        torch_name=f"{ptl}.encoder.{group}.{l}." + ".".join(subpath),
+                        weight_type=wt,
+                        modality=modality,
+                    )
+                )
+    return specs

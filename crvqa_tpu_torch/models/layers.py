@@ -1,0 +1,273 @@
+"""Shared building blocks (counterpart of `crvqa_tpu/models/layers.py`).
+
+Module and parameter names are the reference PyTorch names
+(`hg_transformers/modeling_lxmert.py`), so a reference state_dict, a
+`mask.pt` and a `classifier4masker.bin` load directly.
+
+Dtype policy, as in the JAX package: Linear weights live in the compute
+dtype (a state_dict loaded into them is cast once), embeddings, LayerNorms
+and the weight-norm classifier keep fp32 parameters; LayerNorm computes in
+fp32 and returns the compute dtype; attention scores and softmax are fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_attention import MAX_HEADS_TIMES_SEQ, fused_attention
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf gelu in fp32 (the reference's F.gelu); the tanh form in
+    bf16, as the JAX package does (`crvqa_tpu/models/layers.py:17-36`: its
+    error vs erf is below bf16 rounding of the FFN activations)."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16
+                  else "none")
+
+
+ACT2FN = {"gelu": gelu, "relu": F.relu, "tanh": torch.tanh}
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-12) with fp32 parameters and fp32 statistics that
+    returns its input's dtype (flax LayerNorm with dtype=bf16)."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-12):
+        super().__init__(hidden_size, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class WeightNormDense(nn.Module):
+    """Linear with torch-style weight normalisation, dim=None (scalar g):
+    W = g * V / ||V||_F (`SimpleClassifier`'s `weight_norm(nn.Linear)`).
+
+    Own `weight_v` [out, in] / `weight_g` [] / `bias` parameters — the
+    reference state_dict keys — rather than `torch.nn.utils.weight_norm`,
+    whose parametrization renames them. W is formed in fp32 and cast to the
+    input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features = in_features
+        self.weight_v = nn.Parameter(torch.empty(out_features, in_features))
+        self.weight_g = nn.Parameter(torch.empty(()))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.in_features)
+        v = torch.empty(self.weight_v.shape).uniform_(-bound, bound,
+                                                      generator=generator)
+        b = torch.empty(self.bias.shape).uniform_(-bound, bound,
+                                                  generator=generator)
+        with torch.no_grad():
+            self.weight_v.copy_(v)
+            self.weight_g.copy_(v.norm())
+            self.bias.copy_(b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight_v * (self.weight_g
+                             / self.weight_v.norm().clamp_min(1e-12))
+        return F.linear(x, w.to(x.dtype), self.bias.to(x.dtype))
+
+
+class PadFrozenEmbed(nn.Embedding):
+    """`nn.Embedding(padding_idx=0)`: an ordinary gather whose pad row gets
+    no gradient — the reference builds word, position and token-type
+    embeddings this way (`modeling_lxmert.py:734-736`)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        super().__init__(num_embeddings, embedding_dim, padding_idx=0)
+
+
+class MultiHeadAttention(nn.Module):
+    """`LxmertAttention` over an explicit context (self- or cross-attention):
+    query/key/value Linear, additive key bias, fp32 softmax.
+
+    Attention whose contexts fit the short-sequence scope (H*Sq and H*Sk <=
+    1024) with a key-wise bias goes through `ops.fused_attention` — every
+    LXMERT attention does; anything else takes the eager path below, the
+    counterpart of the JAX package's XLA einsum path."""
+
+    def __init__(self, hidden_size: int, num_heads: int, head_size: int,
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d = num_heads * head_size
+        self.num_heads, self.head_size = num_heads, head_size
+        self.dropout_rate = dropout_rate
+        self.query = nn.Linear(hidden_size, d, dtype=dtype)
+        self.key = nn.Linear(hidden_size, d, dtype=dtype)
+        self.value = nn.Linear(hidden_size, d, dtype=dtype)
+
+    def forward(self, hidden: torch.Tensor, context: torch.Tensor,
+                attention_bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return self._attend(self.query(hidden), self.key(context),
+                            self.value(context), attention_bias)
+
+    def _attend(self, q, k, v, attention_bias):
+        rate = self.dropout_rate if self.training else 0.0
+        keywise = attention_bias is None or (
+            attention_bias.dim() == 4 and attention_bias.shape[1] == 1
+            and attention_bias.shape[2] == 1)
+        short = (k.shape[1] * self.num_heads <= MAX_HEADS_TIMES_SEQ
+                 and q.shape[1] * self.num_heads <= MAX_HEADS_TIMES_SEQ)
+        if keywise and short:
+            if attention_bias is None:
+                bias2d = torch.zeros(q.shape[0], k.shape[1],
+                                     dtype=torch.float32, device=q.device)
+            else:
+                bias2d = attention_bias[:, 0, 0, :].float()
+            return fused_attention(q, k, v, bias2d, self.num_heads,
+                                   self.head_size, rate)
+        return self._attend_heads(q, k, v, attention_bias, rate)
+
+    def _attend_heads(self, q, k, v, attention_bias, rate):
+        """Eager attention for contexts out of the kernel's scope."""
+        b, sq, d = q.shape
+        split = lambda t: t.reshape(b, t.shape[1], self.num_heads,
+                                    self.head_size).transpose(1, 2)
+        scores = torch.matmul(split(q), split(k).transpose(-1, -2)).float()
+        scores = scores / math.sqrt(self.head_size)
+        if attention_bias is not None:
+            scores = scores + attention_bias.float()
+        probs = F.dropout(torch.softmax(scores, dim=-1).to(q.dtype), rate)
+        ctx = torch.matmul(probs, split(v))
+        return ctx.transpose(1, 2).reshape(b, sq, d)
+
+
+class AttentionOutput(nn.Module):
+    """dense -> dropout -> residual add -> LayerNorm (`LxmertAttentionOutput`)."""
+
+    def __init__(self, hidden_size: int, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dense = nn.Linear(hidden_size, hidden_size, dtype=dtype)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.LayerNorm = LayerNorm(hidden_size)
+
+    def forward(self, hidden, residual):
+        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+
+
+class SelfAttentionLayer(nn.Module):
+    """`LxmertSelfAttentionLayer`: attention (named `self`) + output."""
+
+    def __init__(self, num_heads: int, head_size: int, hidden_size: int,
+                 attn_dropout: float = 0.1, hidden_dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.self = MultiHeadAttention(hidden_size, num_heads, head_size,
+                                       attn_dropout, dtype)
+        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype)
+
+    def forward(self, x, attention_bias=None):
+        return self.output(self.self(x, x, attention_bias), x)
+
+
+class CrossAttentionLayer(nn.Module):
+    """`LxmertCrossAttentionLayer`: attention (named `att`) + output."""
+
+    def __init__(self, num_heads: int, head_size: int, hidden_size: int,
+                 attn_dropout: float = 0.1, hidden_dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.att = MultiHeadAttention(hidden_size, num_heads, head_size,
+                                      attn_dropout, dtype)
+        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype)
+
+    def forward(self, x, context, ctx_attention_bias=None):
+        return self.output(self.att(x, context, ctx_attention_bias), x)
+
+
+class Intermediate(nn.Module):
+    """`LxmertIntermediate`: dense -> activation."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 act: str = "gelu", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dense = nn.Linear(hidden_size, intermediate_size, dtype=dtype)
+        self.act = ACT2FN[act]
+
+    def forward(self, x):
+        return self.act(self.dense(x))
+
+
+class FFNOutput(nn.Module):
+    """`LxmertOutput`: dense -> dropout -> residual add -> LayerNorm."""
+
+    def __init__(self, intermediate_size: int, hidden_size: int,
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dense = nn.Linear(intermediate_size, hidden_size, dtype=dtype)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.LayerNorm = LayerNorm(hidden_size)
+
+    def forward(self, hidden, residual):
+        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+
+
+class TransformerLayer(nn.Module):
+    """Self-attention + FFN block (`LxmertLayer`, a BERT layer)."""
+
+    def __init__(self, num_heads: int, head_size: int, hidden_size: int,
+                 intermediate_size: int, act: str = "gelu",
+                 attn_dropout: float = 0.1, hidden_dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention = SelfAttentionLayer(num_heads, head_size, hidden_size,
+                                            attn_dropout, hidden_dropout,
+                                            dtype)
+        self.intermediate = Intermediate(hidden_size, intermediate_size, act,
+                                         dtype)
+        self.output = FFNOutput(intermediate_size, hidden_size,
+                                hidden_dropout, dtype)
+
+    def forward(self, x, attention_bias=None):
+        att = self.attention(x, attention_bias)
+        return self.output(self.intermediate(att), att)
+
+
+def extend_attention_mask(mask: Optional[torch.Tensor]
+                          ) -> Optional[torch.Tensor]:
+    """[B, L] 1/0 mask -> additive [B, 1, 1, L] fp32 bias, -10000 at pads
+    (`LxmertModel.forward`, modeling_lxmert.py:1386-1402)."""
+    if mask is None:
+        return None
+    return ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+
+
+def init_weights_(module: nn.Module, generator: torch.Generator,
+                  initializer_range: float = 0.02) -> None:
+    """Seeded init matching the JAX package's distributions (not its bits):
+    Linear weights lecun-normal truncated at two standard deviations
+    (flax's Dense default) with zero bias, embeddings N(0, 0.02),
+    LayerNorm ones/zeros, weight-norm layers uniform(+-1/sqrt(in)) with
+    g = ||V||. Works on modules built on the meta device after
+    `to_empty`."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                # flax truncated_normal variance scaling: std corrected for
+                # the truncation at +-2
+                std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.weight.copy_(w)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                w.normal_(0.0, initializer_range, generator=generator)
+                m.weight.copy_(w)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, WeightNormDense):
+                m.reset_parameters(generator)

@@ -1,0 +1,59 @@
+"""The port stands alone: `crvqa_tpu_torch` and `chip_smoke.py` import
+neither JAX (jax, flax, optax) nor anything of the JAX package."""
+import ast
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "crvqa_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "crvqa_tpu")
+
+
+def _port_modules():
+    import crvqa_tpu_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(
+        crvqa_tpu_torch.__path__, "crvqa_tpu_torch."))
+
+
+def test_every_module_is_found():
+    mods = _port_modules()
+    for expected in ("crvqa_tpu_torch.ops.fused_attention",
+                     "crvqa_tpu_torch.models.lxmert",
+                     "crvqa_tpu_torch.cli.serve_vqa",
+                     "crvqa_tpu_torch.native.feature_store"):
+        assert expected in mods
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
