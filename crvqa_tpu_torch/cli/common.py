@@ -1,27 +1,314 @@
-"""Shared CLI plumbing (the slice of `crvqa_tpu/cli/common.py` the server
-uses)."""
+"""Shared CLI plumbing (counterpart of `crvqa_tpu/cli/common.py`): the
+training argv, data assembly, logging and the step-cadence helpers.
+
+The argv is the JAX CLIs' (`add_common_args`), so one command line drives
+either package. Flags of paths the port has not reached yet are parsed and
+raise "not yet ported" when set away from their defaults
+(`reject_unported`); the JAX-only switches that select nothing here
+(`--prng_impl`, `--fused_attention`, `--midseq_attention`) are accepted
+and ignored.
+"""
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+import json
+import logging
+import os
+import signal
+from typing import Iterator, Optional
 
+import numpy as np
 import torch
+
+logger = logging.getLogger("crvqa_tpu_torch")
 
 
 def str2bool(v: str) -> bool:
     return str(v).lower() in ("1", "true", "yes", "y")
 
 
+def dict_parser(s: Optional[str]) -> dict:
+    """The 'k=v,k2=v2' mini-DSL of `--masking_scheduler_conf`
+    (`utils/param_parser.py:dict_parser` of the reference)."""
+    out: dict = {}
+    for item in (s or "").split(","):
+        if not item.strip():
+            continue
+        k, _, v = item.partition("=")
+        v = v.strip()
+        if v.lower() in ("true", "false"):
+            out[k.strip()] = v.lower() == "true"
+            continue
+        for cast in (int, float):
+            try:
+                out[k.strip()] = cast(v)
+                break
+            except ValueError:
+                pass
+        else:
+            out[k.strip()] = v
+    return out
+
+
 def add_kernel_flags(p: argparse.ArgumentParser) -> None:
     """The JAX CLIs' attention-kernel switches, parsed so the same argv
     works on both packages. In the port they select nothing: on the card
-    the fused-attention kernel always runs where its scope admits the
+    the fused-attention kernels always run where their scope admits the
     shape."""
     p.add_argument("--fused_attention", type=str2bool, default=False,
                    help="accepted for argv compatibility; the port always "
-                        "runs its attention kernel")
+                        "runs its attention kernels")
     p.add_argument("--midseq_attention", type=str2bool, default=False,
                    help="accepted for argv compatibility; not yet ported")
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    """The JAX package's training flags (crvqa_tpu/cli/common.py:125-237)
+    plus `--device`."""
+    p.add_argument("--dataroot", type=str, default=None)
+    p.add_argument("--img_root", type=str, default=None,
+                   help="image-feature pickle or native .bin store")
+    p.add_argument("--vocab_file", type=str, default=None)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--label4save", type=str, default="run")
+    p.add_argument("--learning_rate", type=float, default=5e-5)
+    p.add_argument("--per_gpu_train_batch_size", "--train_batch_size",
+                   dest="train_batch_size", type=int, default=64)
+    p.add_argument("--per_gpu_eval_batch_size", "--eval_batch_size",
+                   dest="eval_batch_size", type=int, default=64)
+    p.add_argument("--num_train_epochs", type=float, default=20)
+    p.add_argument("--warmup_steps", type=int, default=0)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--logging_steps", type=int, default=100)
+    p.add_argument("--save_steps", type=int, default=1712)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_eval", action="store_true")
+    p.add_argument("--do_predict", action="store_true")
+    p.add_argument("--evaluate_during_training", action="store_true")
+    p.add_argument("--gamma", type=float, default=5.0)
+    p.add_argument("--ans_num", type=int, default=2274)
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="not yet ported (data-parallel mesh)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="not yet ported (tensor parallelism)")
+    p.add_argument("--multihost", type=str2bool, default=False,
+                   help="not yet ported (multi-process runtime)")
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--backbone_dtype", type=str, default="float32",
+                   choices=["bfloat16", "float32"],
+                   help="storage dtype of the masked frozen weights")
+    p.add_argument("--prng_impl", type=str, default="threefry2x32",
+                   choices=["threefry2x32", "rbg", "unsafe_rbg"],
+                   help="accepted for argv compatibility: the port draws "
+                        "from torch generators seeded by --seed")
+    add_kernel_flags(p)
+    p.add_argument("--transfer_dtype", type=str, default="auto",
+                   choices=["auto", "float32", "bfloat16"],
+                   help="host->device dtype of the visual inputs; 'auto' = "
+                        "bfloat16 iff --dtype bfloat16 (the first matmul "
+                        "casts them to it anyway)")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="run on N synthetic examples instead of real data")
+    p.add_argument("--synthetic_pool", type=int, default=0,
+                   help="cycle this many pre-generated synthetic train "
+                        "batches instead of regenerating each step")
+    p.add_argument("--prefetch_batches", type=int, default=2,
+                   help="batches prepared and copied to the device ahead "
+                        "on a producer thread; 0 disables")
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="a checkpoint written by this port (ckpt_<step>)")
+    p.add_argument("--train_shuffle", type=str2bool, default=True)
+    p.add_argument("--hidden_dropout_prob", type=float, default=None)
+    p.add_argument("--attention_probs_dropout_prob", type=float, default=None)
+    p.add_argument("--classifier_dropout", type=float, default=None)
+    p.add_argument("--wandb_project", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--tensorboard_dir", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="not yet ported")
+    p.add_argument("--profile_start_step", type=int, default=10)
+    p.add_argument("--profile_steps", type=int, default=5)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny 2/1/1-layer config for smoke tests")
+    p.add_argument("--dataset", type=str, default="vqacp",
+                   choices=["vqacp", "vqavs"])
+    p.add_argument("--data_ratio", type=float, default=1.0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+
+
+# flag -> its default; setting one elsewhere raises "not yet ported"
+COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
+                   "wandb_project": None, "tensorboard_dir": None,
+                   "profile_dir": None, "dataset": "vqacp"}
+
+
+def reject_unported(args: argparse.Namespace, defaults: dict) -> None:
+    for name, default in defaults.items():
+        value = getattr(args, name)
+        if value != default:
+            raise NotImplementedError(
+                f"--{name} {value}: not yet ported to crvqa_tpu_torch "
+                f"(ROADMAP); leave it at {default!r}")
+
+
+def setup_logging(output_dir: str) -> None:
+    os.makedirs(output_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+
+
+def dump_args(args: argparse.Namespace, output_dir: str) -> None:
+    """`args.txt`: every flag (prune_debias_VQA.py:953-957)."""
+    with open(os.path.join(output_dir, "args.txt"), "w") as f:
+        json.dump(vars(args), f, indent=2, default=str)
+
+
+class RunLog:
+    """JSON-line step logs on stdout, mirrored into
+    `<output_dir>/metrics.jsonl` (the JAX package's MetricsWriter sink)."""
+
+    def __init__(self, output_dir: str):
+        self.path = os.path.join(output_dir, "metrics.jsonl")
+
+    def step(self, step: int, **metrics) -> None:
+        payload = {"step": step}
+        payload.update({k: (round(float(v), 6)
+                            if isinstance(v, (int, float, np.floating))
+                            else v) for k, v in metrics.items()})
+        line = json.dumps(payload)
+        print(line, flush=True)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+
+
+class PreemptionGuard:
+    """SIGTERM latches a flag the train loop polls once per step: the step
+    in flight finishes, one checkpoint is written and the driver returns
+    for a `--resume_from` restart. SIGINT keeps its meaning."""
+
+    def __init__(self):
+        self.triggered = False
+        try:
+            signal.signal(signal.SIGTERM, self._on_signal)
+        except ValueError:
+            pass  # not the main thread
+
+    def _on_signal(self, signum, frame):
+        self.triggered = True
+
+
+def write_eval_results(output_dir: str, name: str, **results) -> None:
+    """`key = value` lines (prune_debias_VQA.py:979-986)."""
+    with open(os.path.join(output_dir, name), "w") as f:
+        for k, v in results.items():
+            f.write("%s = %s\n" % (k, v))
+
+
+def config_overrides(args: argparse.Namespace) -> dict:
+    """Model-config kwargs from the optional dropout overrides."""
+    return {k: getattr(args, k) for k in
+            ("hidden_dropout_prob", "attention_probs_dropout_prob",
+             "classifier_dropout") if getattr(args, k, None) is not None}
+
+
+def scheduler_horizon(n_train: int, batch_size: int, epochs: float) -> int:
+    """The reference's LR horizon `int(int(n / bs + 1) * epochs)`
+    (prune_debias_VQA.py:626-628): one step per epoch longer than the steps
+    run, so the decay never reaches 0 in training."""
+    return int(int(n_train / batch_size + 1) * epochs)
+
+
+def crossed(step: int, prev: int, every) -> bool:
+    """True when (prev, step] contains a multiple of `every`."""
+    return bool(every) and step // every > prev // every
+
+
+def transfer_dtype(args) -> Optional[torch.dtype]:
+    """--transfer_dtype resolved: bf16 iff chosen, or 'auto' under a bf16
+    model; None = no cast."""
+    choice = args.transfer_dtype
+    if choice == "auto":
+        choice = "bfloat16" if args.dtype == "bfloat16" else "float32"
+    return torch.bfloat16 if choice == "bfloat16" else None
+
+
+def build_data(args, config, device: torch.device):
+    """(train_batches(epoch), eval_batches(), label2ans, n_train): VQA-CP
+    from --dataroot/--img_root, else --synthetic N examples. Batches arrive
+    as device tensors through the prefetcher (`data/prefetch.py`)."""
+    from ..data.prefetch import prefetch_batches
+    from ..data.synthetic import synthetic_batch
+
+    cast = transfer_dtype(args)
+    depth = args.prefetch_batches
+
+    def staged(batches: Iterator[dict]) -> Iterator[dict]:
+        return prefetch_batches(batches, device, depth, float_dtype=cast)
+
+    if args.synthetic:
+        n = args.synthetic
+        label2ans = [f"ans_{i}" for i in range(config.ans_num)]
+        pool: list = []
+
+        def make(bs: int, seed: int) -> dict:
+            return synthetic_batch(
+                batch_size=bs, seed=seed, vocab_size=config.vocab_size,
+                ans_num=config.ans_num, feat_dim=config.visual_feat_dim,
+                pos_dim=config.visual_pos_dim)
+
+        def train_iter(epoch: int) -> Iterator[dict]:
+            bs = args.train_batch_size
+            for i in range(max(n // bs, 1)):
+                if args.synthetic_pool > 0:
+                    if not pool:
+                        pool.extend(make(bs, j)
+                                    for j in range(args.synthetic_pool))
+                    yield pool[i % args.synthetic_pool]
+                else:
+                    yield make(bs, epoch * 10000 + i)
+
+        def eval_iter() -> Iterator[dict]:
+            bs = args.eval_batch_size
+            for i in range(max(n // bs, 1)):
+                yield make(bs, 777000 + i)
+
+        return (lambda epoch: staged(train_iter(epoch)),
+                lambda: staged(eval_iter()), label2ans, n)
+
+    from ..data import vqacp
+
+    tokenizer = vqacp.make_tokenizer(args.vocab_file)
+    ans2label, label2ans = vqacp.load_answer_vocab(args.dataroot)
+    ans_num = len(ans2label)
+    train = vqacp.load_entries(args.dataroot, "train", tokenizer, ans_num,
+                               ratio=args.data_ratio, seed=args.seed)
+    test = vqacp.load_entries(args.dataroot, "test", tokenizer, ans_num)
+    priors = vqacp.compute_bias_priors(train, ans_num)
+    vqacp.attach_bias(train, priors, ans_num)
+    vqacp.attach_bias(test, priors, ans_num)
+    features = vqacp.open_image_features(args.img_root)
+
+    def train_batches(epoch: int) -> Iterator[dict]:
+        return staged(vqacp.iterate_batches(
+            train, features, args.train_batch_size,
+            shuffle=args.train_shuffle, seed=args.seed + epoch,
+            drop_last=True))
+
+    def eval_batches() -> Iterator[dict]:
+        return staged(vqacp.iterate_batches(test, features,
+                                            args.eval_batch_size))
+
+    return train_batches, eval_batches, label2ans, len(train)
 
 
 def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]

@@ -34,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..masking.prune import lxmert_specs_for, prune_state_dict
 from ..models import LxmertConfig, build_lxmert
+from ..train.common import model_inputs
 from . import common
 
 
@@ -72,15 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default; raises without a card) or 'cpu'")
     common.add_kernel_flags(p)
     return p
-
-
-def model_inputs(batch: dict) -> dict:
-    """Forward kwargs of an LXMERT batch (the contract of
-    `crvqa_tpu/train/common.py:model_inputs`)."""
-    kw = {k: batch[k] for k in ("input_ids", "visual_feats", "visual_pos")}
-    if "attention_mask" in batch:
-        kw["attention_mask"] = batch["attention_mask"]
-    return kw
 
 
 def load_serving_params(args, model, config) -> dict[str, torch.Tensor]:

@@ -14,7 +14,9 @@ the same mapping, written without flax, over a nested dict of numpy arrays
   `weight_g` [].
 
 `model.load_state_dict(state_dict_from_jax(params), strict=True)` then
-gives the same model.
+gives the same model. `stage2_from_jax` carries a JAX stage-2 state
+(`crvqa_tpu/train/stage2.py:Stage2State`, as numpy) across the same way,
+so both packages can start a trajectory from one state.
 """
 from __future__ import annotations
 
@@ -58,10 +60,67 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
                 continue
-            leaf, arr = _leaf(key, np.asarray(value))
+            arr = np.asarray(value)
+            if arr.dtype.name == "bfloat16":  # torch.from_numpy has no bf16
+                arr = arr.astype(np.float32)
+            leaf, arr = _leaf(key, arr)
             name = ".".join(([prefix] if prefix else [])
                             + _torch_parts(path) + [leaf])
             out[name] = torch.from_numpy(np.array(arr, copy=True))
 
     walk(params, ())
     return out
+
+
+def stage2_from_jax(frozen_params: Mapping[str, Any],
+                    train_params: Mapping[str, Any],
+                    scores: Mapping[str, Any], thresholds: Mapping[str, Any],
+                    specs) -> dict[str, Any]:
+    """A JAX stage-2 state's parts (numpy) -> the port's:
+
+    - `params`: the full state_dict (frozen backbone + classifier), the
+      `params` argument of `crvqa_tpu_torch.train.stage2.init_state`;
+    - `scores`: by spec key, transposed to the torch layout [out, in]
+      (embeddings keep [vocab, hidden]);
+    - `thresholds`: by spec key, 0-d fp32 tensors;
+    - `lmh` (when present): LearnedMixin's `bias_lin.weight` [1, hidden]
+      (the flax kernel [hidden, 1] transposed), `bias_lin.bias` and
+      `smooth_param`.
+
+    `carry_into_state` writes these into a port state."""
+    params = state_dict_from_jax(frozen_params)
+    params.update(state_dict_from_jax(train_params["classifier"],
+                                      prefix="classifier"))
+    by_key = {s.key: s for s in specs}
+    port_scores = {}
+    for key, arr in scores.items():
+        arr = np.asarray(arr, np.float32)
+        if not by_key[key].is_embedding:
+            arr = arr.T
+        port_scores[key] = torch.from_numpy(np.array(arr, copy=True))
+    out = {"params": params, "scores": port_scores,
+           "thresholds": {k: torch.tensor(np.asarray(v, np.float32))
+                          for k, v in thresholds.items()}}
+    if "lmh" in train_params:
+        lmh = train_params["lmh"]
+        out["lmh"] = {
+            "bias_lin.weight": torch.from_numpy(np.array(
+                np.asarray(lmh["bias_lin"]["kernel"], np.float32).T)),
+            "bias_lin.bias": torch.from_numpy(
+                np.asarray(lmh["bias_lin"]["bias"], np.float32).copy()),
+            "smooth_param": torch.from_numpy(
+                np.asarray(lmh["smooth_param"], np.float32).copy())}
+    return out
+
+
+@torch.no_grad()
+def carry_into_state(state, carried: Mapping[str, Any]) -> None:
+    """Overwrite a port `Stage2State`'s scores, thresholds and LMH
+    parameters in place with `stage2_from_jax`'s (the frozen backbone and
+    classifier enter through `init_state`'s `params`)."""
+    for key, t in carried["scores"].items():
+        state.scores[key].copy_(t)
+    state.thresholds = {k: t.to(state.scores[k].device)
+                        for k, t in carried["thresholds"].items()}
+    for name, t in carried.get("lmh", {}).items():
+        state.train_params["lmh"][name].copy_(t)

@@ -1,4 +1,4 @@
-"""Reference checkpoint and artifact import (counterpart of
+"""Reference checkpoint and artifact import and export (counterpart of
 `crvqa_tpu/core/torch_compat.py`).
 
 The reference's API is its files:
@@ -39,6 +39,26 @@ def import_mask_pt(path: str, specs: Sequence[MaskSpec]
         raise KeyError(f"{path}: mask.pt lacks {missing[:10]}"
                        f"{'...' if len(missing) > 10 else ''}")
     return {n: raw[n].to(torch.bool) for n in names}
+
+
+def export_mask_pt(path: str, masks: dict[str, torch.Tensor],
+                   specs: Sequence[MaskSpec]) -> None:
+    """Write bool masks keyed by spec key, already in the torch orientation,
+    as a reference-format `mask.pt`: {`<torch_name>.weight`: BoolTensor}
+    (mask_trainer_Robust_VQA.py:943-991)."""
+    torch.save({f"{spec.torch_name}.weight":
+                masks[spec.key].detach().to("cpu", torch.bool).contiguous()
+                for spec in specs}, path)
+
+
+def export_classifier_bin(path: str, classifier: dict[str, torch.Tensor]
+                          ) -> None:
+    """Save the classifier's state_dict (`main.0.*` / `main.3.*`) as
+    `classifier4masker.bin` (mask_trainer_Robust_VQA.py:734-740, the
+    module pickle replaced by its state_dict, as the JAX package writes
+    it)."""
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous()
+                for k, v in classifier.items()}, path)
 
 
 # ------------------------------------------------------ checkpoints / .bin

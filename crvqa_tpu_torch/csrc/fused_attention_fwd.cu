@@ -1,12 +1,23 @@
-// Fused short-sequence multi-head attention, forward only, for NVIDIA Hopper
+// Fused short-sequence multi-head attention, forward, for NVIDIA Hopper
 // (compiled for sm_90a; plain CUDA C++, no tensor-core instructions).
 //
-// Replaces the TPU kernel `crvqa_tpu/ops/fused_attention.py:_fwd_kernel`
-// (reached through `fused_attention_seeded` -> `_fa_primal` -> `pallas_call`)
-// for dropout rate 0. Per batch row b and head h:
+// Replaces the TPU kernel `crvqa_tpu/ops/fused_attention.py:_fwd_kernel` in
+// both of its calls:
+//
+// - the primal (`fused_attention_fwd`, eval and serving, dropout rate 0;
+//   `fused_attention_seeded` -> `_fa_primal` -> `pallas_call`);
+// - the forward for grad (`fused_attention_fwd_train`; `_fas_fwd` ->
+//   `_fa_fwd`): it also writes the pre-dropout probabilities p
+//   [B, Sq, H*Sk] fp32 as the stored backward's residual (when given a
+//   residual pointer) and applies dropout with the counter-hash keep mask of
+//   `_keep_mask` (fused_attention_common.cuh), kept values scaled by
+//   1 / (1 - rate), before p is rounded to the activation dtype.
+//
+// Per batch row b and head h:
 //
 //   s[i, j]   = (q_h[i] . k_h[j]) / sqrt(D) + bias[b, j]          (fp32)
 //   p[i, :]   = softmax(s[i, :])                                   (fp32)
+//   [train]     p_out[b, i, h*Sk + j] = p[i, j];  p = dropout(p)
 //   out_h[i]  = sum_j round_to_activation_dtype(p[i, j]) * v_h[j]  (fp32 acc)
 //
 // q [B, Sq, H*D], k and v [B, Sk, H*D] are read in place from the projection
@@ -36,6 +47,9 @@
 // - context: each lane owns output columns lane and lane + 32 and walks the
 //   staged V tile with p broadcast from shared memory.
 //
+// The forward for grad adds the fp32 residual write (4*B*Sq*H*Sk bytes,
+// 16 MB at batch 256, (36, 36)), which dominates its traffic.
+//
 // At serving batch 32 a call moves 2.8-7.1 MB in bf16, 0.8-2.1 us of HBM
 // time. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) the
 // kernel takes 10-38 us per call there, 7-18x that bound: the row-tile
@@ -44,45 +58,18 @@
 // operands from shared memory. This design is the simple, correct first
 // version; making it fast is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "fused_attention_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;        // D: each lane owns D / 32 = 2 columns
+using fa::from_f32;
+using fa::kHeadDim;
+using fa::kMaxHeadsTimesSeq;
+using fa::kPitch;
+using fa::to_f32;
+
 constexpr int kRows = 8;            // query rows (one warp each) per block
 constexpr int kKeyTile = 32;        // keys per staged tile, one per lane
-constexpr int kPitch = kHeadDim + 1;  // staged row pitch in floats
-constexpr int kMaxHeadsTimesSeq = 1024;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Rows [j0, j0 + n) of one head's [S, D] slice -> tile[kKeyTile][kPitch] as
 // fp32; tile rows at and past n are zeroed.
@@ -96,7 +83,11 @@ __device__ __forceinline__ void stage_tile(float* tile, const T* src,
   }
 }
 
-template <typename T>
+// kTrain = false: the primal (no residual, no dropout). kTrain = true: the
+// forward for grad; `p_out` may be null (the recompute backward keeps no
+// residual), and rate 0 is threshold 0 with keep_scale 1 (every bit kept,
+// p * 1 == p).
+template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kRows * 32)
     fused_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -105,7 +96,9 @@ __global__ void __launch_bounds__(kRows * 32)
                                T* __restrict__ out, int sq, int sk, int heads,
                                int64_t q_sb, int64_t q_ss, int64_t k_sb,
                                int64_t k_ss, int64_t v_sb, int64_t v_ss,
-                               float scale) {
+                               float scale, float* __restrict__ p_out,
+                               uint32_t seed, uint32_t threshold,
+                               float keep_scale) {
   extern __shared__ float smem[];
   float* tile = smem;                        // [kKeyTile][kPitch]
   float* qs = tile + kKeyTile * kPitch;      // [kRows][D]
@@ -148,18 +141,26 @@ __global__ void __launch_bounds__(kRows * 32)
   // before the context product, as the TPU kernel does
   if (live) {
     __syncwarp();
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < sk; j += 32) m = fmaxf(m, p[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < sk; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      sum += e;
+    const float denom = fa::row_exp_sum(p, sk, lane);
+    if (kTrain) {
+      // residual (pre-dropout p), then dropout keyed on the lane-blocked
+      // column h * Sk + j, as crvqa_tpu/ops/fused_attention.py:205-211
+      const uint32_t key = fa::keep_key(seed, (uint32_t)b);
+      float* res = p_out == nullptr
+                       ? nullptr
+                       : p_out + ((int64_t)b * sq + row) * heads * sk +
+                             (int64_t)h * sk;
+      for (int j = lane; j < sk; j += 32) {
+        const float pf = p[j] / denom;
+        if (res != nullptr) res[j] = pf;
+        const bool keep = fa::keep_bit(key, (uint32_t)row,
+                                       (uint32_t)(h * sk + j), threshold);
+        p[j] = to_f32(from_f32<T>(keep ? pf * keep_scale : 0.f));
+      }
+    } else {
+      for (int j = lane; j < sk; j += 32)
+        p[j] = to_f32(from_f32<T>(p[j] / denom));
     }
-    const float denom = fmaxf(warp_sum(sum), 1e-30f);
-    for (int j = lane; j < sk; j += 32)
-      p[j] = to_f32(from_f32<T>(p[j] / denom));
     __syncwarp();
   }
 
@@ -185,19 +186,13 @@ __global__ void __launch_bounds__(kRows * 32)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). Pointers are device pointers; strides are in
-// elements. `is_bf16` selects bf16 (1) or fp32 (0) for q, k, v and out.
-int fused_attention_fwd(const void* q, const void* k, const void* v,
-                        const float* bias, void* out, int batch, int sq,
-                        int sk, int heads, int head_dim, int64_t q_sb,
-                        int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                        int64_t v_sb, int64_t v_ss, int is_bf16,
-                        void* stream) {
+template <bool kTrain>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           void* out, int batch, int sq, int sk, int heads, int head_dim,
+           int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+           int64_t v_sb, int64_t v_ss, int is_bf16, float* p_out,
+           uint32_t seed, uint32_t threshold, float keep_scale,
+           void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads * sq > kMaxHeadsTimesSeq ||
       heads * sk > kMaxHeadsTimesSeq)
@@ -209,19 +204,54 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
   const float scale = 1.0f / sqrtf((float)kHeadDim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    fused_attention_fwd_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
+    fused_attention_fwd_kernel<__nv_bfloat16, kTrain><<<grid, block, smem, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), bias,
         static_cast<__nv_bfloat16*>(out), sq, sk, heads, q_sb, q_ss, k_sb,
-        k_ss, v_sb, v_ss, scale);
+        k_ss, v_sb, v_ss, scale, p_out, seed, threshold, keep_scale);
   } else {
-    fused_attention_fwd_kernel<float><<<grid, block, smem, s>>>(
+    fused_attention_fwd_kernel<float, kTrain><<<grid, block, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bias, static_cast<float*>(out), sq, sk,
-        heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale);
+        heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, p_out, seed,
+        threshold, keep_scale);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the primal kernel on `stream` and returns cudaGetLastError() (0
+// when the launch was accepted). Pointers are device pointers; strides are
+// in elements. `is_bf16` selects bf16 (1) or fp32 (0) for q, k, v and out.
+int fused_attention_fwd(const void* q, const void* k, const void* v,
+                        const float* bias, void* out, int batch, int sq,
+                        int sk, int heads, int head_dim, int64_t q_sb,
+                        int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                        int64_t v_sb, int64_t v_ss, int is_bf16,
+                        void* stream) {
+  return launch<false>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
+                       q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, nullptr,
+                       0u, 0u, 1.f, stream);
+}
+
+// The forward for grad: as above, plus the fp32 residual p_out
+// [B, Sq, H*Sk] (contiguous; null to skip it) and dropout from `seed` (the
+// int32 seed's bits), `threshold` and `keep_scale` = 1 / (1 - rate).
+int fused_attention_fwd_train(const void* q, const void* k, const void* v,
+                              const float* bias, void* out, float* p_out,
+                              int batch, int sq, int sk, int heads,
+                              int head_dim, int64_t q_sb, int64_t q_ss,
+                              int64_t k_sb, int64_t k_ss, int64_t v_sb,
+                              int64_t v_ss, int is_bf16, uint32_t seed,
+                              uint32_t threshold, float keep_scale,
+                              void* stream) {
+  return launch<true>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
+                      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, p_out,
+                      seed, threshold, keep_scale, stream);
 }
 
 const char* fused_attention_fwd_error_string(int code) {

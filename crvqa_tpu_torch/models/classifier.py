@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import WeightNormDense
+from .layers import Dropout, WeightNormDense
 
 
 class SimpleClassifier(nn.Module):
@@ -16,7 +16,7 @@ class SimpleClassifier(nn.Module):
                  dropout: float = 0.5):
         super().__init__()
         self.main = nn.Sequential(WeightNormDense(in_dim, hid_dim), nn.ReLU(),
-                                  nn.Dropout(dropout),
+                                  Dropout(dropout),
                                   WeightNormDense(hid_dim, out_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

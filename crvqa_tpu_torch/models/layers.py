@@ -8,6 +8,13 @@ Dtype policy, as in the JAX package: Linear weights live in the compute
 dtype (a state_dict loaded into them is cast once), embeddings, LayerNorms
 and the weight-norm classifier keep fp32 parameters; LayerNorm computes in
 fp32 and returns the compute dtype; attention scores and softmax are fp32.
+
+Randomness: a training forward draws only from explicit generators, never
+from the global RNG. `set_generators(model, device_gen, seed_gen)` hands
+every `Dropout` (hidden, embedding, classifier) and every attention its
+device generator, and the attentions a CPU generator for the int32 seed of
+the fused-attention kernel's counter-hash dropout (one draw per call, only
+when dropout is live). Eval draws nothing.
 """
 from __future__ import annotations
 
@@ -30,6 +37,47 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACT2FN = {"gelu": gelu, "relu": F.relu, "tanh": torch.tanh}
+
+
+def _need_generator(gen: Optional[torch.Generator], what: str
+                    ) -> torch.Generator:
+    if gen is None:
+        raise RuntimeError(
+            f"{what}: dropout in training mode draws from an explicit "
+            "generator; call models.layers.set_generators(model, ...) first")
+    return gen
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from `generator` (on x's
+    device): where(keep, x / (1 - rate), 0), as flax's nn.Dropout."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=_need_generator(generator,
+                                                         "dropout"),
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+class Dropout(nn.Module):
+    """`nn.Dropout` drawing from an explicit generator (`set_generators`);
+    the identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, self.generator)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 class LayerNorm(nn.LayerNorm):
@@ -101,6 +149,8 @@ class MultiHeadAttention(nn.Module):
         d = num_heads * head_size
         self.num_heads, self.head_size = num_heads, head_size
         self.dropout_rate = dropout_rate
+        self.generator: Optional[torch.Generator] = None       # masks
+        self.seed_generator: Optional[torch.Generator] = None  # kernel seeds
         self.query = nn.Linear(hidden_size, d, dtype=dtype)
         self.key = nn.Linear(hidden_size, d, dtype=dtype)
         self.value = nn.Linear(hidden_size, d, dtype=dtype)
@@ -124,8 +174,13 @@ class MultiHeadAttention(nn.Module):
                                      dtype=torch.float32, device=q.device)
             else:
                 bias2d = attention_bias[:, 0, 0, :].float()
+            seed = 0
+            if rate > 0.0:  # the kernel's int32 dropout seed, one per call
+                seed = int(torch.randint(
+                    -2 ** 31, 2 ** 31, (), generator=_need_generator(
+                        self.seed_generator, "fused attention")))
             return fused_attention(q, k, v, bias2d, self.num_heads,
-                                   self.head_size, rate)
+                                   self.head_size, rate, seed)
         return self._attend_heads(q, k, v, attention_bias, rate)
 
     def _attend_heads(self, q, k, v, attention_bias, rate):
@@ -137,7 +192,8 @@ class MultiHeadAttention(nn.Module):
         scores = scores / math.sqrt(self.head_size)
         if attention_bias is not None:
             scores = scores + attention_bias.float()
-        probs = F.dropout(torch.softmax(scores, dim=-1).to(q.dtype), rate)
+        probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), rate,
+                        self.generator)
         ctx = torch.matmul(probs, split(v))
         return ctx.transpose(1, 2).reshape(b, sq, d)
 
@@ -149,7 +205,7 @@ class AttentionOutput(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = nn.Linear(hidden_size, hidden_size, dtype=dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
 
     def forward(self, hidden, residual):
@@ -206,7 +262,7 @@ class FFNOutput(nn.Module):
                  dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = nn.Linear(intermediate_size, hidden_size, dtype=dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
 
     def forward(self, hidden, residual):
@@ -241,6 +297,19 @@ def extend_attention_mask(mask: Optional[torch.Tensor]
     if mask is None:
         return None
     return ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+
+
+def set_generators(model: nn.Module, device_generator: torch.Generator,
+                   seed_generator: torch.Generator) -> None:
+    """Give every dropout of `model` its generators: `device_generator` (on
+    the model's device) for dropout masks, `seed_generator` (CPU) for the
+    fused-attention kernel's per-call seeds."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = device_generator
+        elif isinstance(m, MultiHeadAttention):
+            m.generator = device_generator
+            m.seed_generator = seed_generator
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator,

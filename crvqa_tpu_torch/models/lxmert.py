@@ -15,8 +15,8 @@ import torch
 from torch import nn
 
 from .classifier import SimpleClassifier
-from .layers import (CrossAttentionLayer, FFNOutput, Intermediate, LayerNorm,
-                     PadFrozenEmbed, SelfAttentionLayer, TransformerLayer,
+from .layers import (CrossAttentionLayer, Dropout, FFNOutput, Intermediate,
+                     LayerNorm, PadFrozenEmbed, SelfAttentionLayer, TransformerLayer,
                      extend_attention_mask, init_weights_)
 
 
@@ -77,7 +77,7 @@ class LxmertEmbeddings(nn.Module):
         self.token_type_embeddings = PadFrozenEmbed(c.type_vocab_size,
                                                     c.hidden_size)
         self.LayerNorm = LayerNorm(c.hidden_size)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None):
         pos_ids = torch.arange(input_ids.shape[1],
@@ -102,7 +102,7 @@ class LxmertVisualFeatureEncoder(nn.Module):
         self.box_fc = nn.Linear(c.visual_pos_dim, c.hidden_size,
                                 dtype=c.dtype)
         self.box_layer_norm = LayerNorm(c.hidden_size)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, visual_feats, visual_pos):
         x = self.visn_layer_norm(self.visn_fc(visual_feats.to(self.dtype)))

@@ -4,7 +4,8 @@ CUDA sources under `crvqa_tpu_torch/csrc/` are compiled with `nvcc` for
 `sm_90a` into plain-C shared libraries and loaded with ctypes (no PyTorch
 headers, so a build takes seconds). Host C++ (native/feature_store.cpp) goes
 through the same stale-check. Outputs land in `crvqa_tpu_torch/build/`
-(gitignored). A library is rebuilt when its source is newer, written under a
+(gitignored). A library is rebuilt when its source or a `csrc/*.cuh` header
+is newer, written under a
 temporary name and renamed into place atomically, so concurrent builds
 never load a half-written file.
 
@@ -36,7 +37,10 @@ def build_library(src: str, lib_name: str, command: list[str]) -> str:
     compiler's output (for nvcc: `-Xptxas -v` register and shared-memory
     use) is kept beside the library as `<lib_name>.log`. Returns the path."""
     lib = os.path.join(BUILD_DIR, lib_name)
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    newest = max([os.path.getmtime(src)]
+                 + [os.path.getmtime(os.path.join(CSRC_DIR, h))
+                    for h in os.listdir(CSRC_DIR) if h.endswith(".cuh")])
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"

@@ -1,0 +1,162 @@
+"""Shared training-step machinery (counterpart of `crvqa_tpu/train/common.py`):
+the reference's AdamW, clip-by-global-norm, the linear warmup schedule and
+the batch helpers.
+
+The JAX package's optimizers are pure functions over pytrees; here the
+optimizer updates parameters and moments IN PLACE (no second copy of the
+210M mask scores or their moments), over flat dicts of tensors, with
+PyTorch's multi-tensor (`torch._foreach_*`) ops. The arithmetic is the JAX
+package's, step for step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Union
+
+import torch
+
+Schedule = Callable[[int], float]
+
+
+def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int
+                           ) -> Schedule:
+    """`get_linear_schedule_with_warmup` (hg_transformers/optimization.py),
+    as the JAX package spells it with optax: a linear ramp from 0 to lr
+    over `warmup_steps`, then linear decay to 0 over the rest of
+    `total_steps` (at least one step); constant past the end."""
+    def ramp(init: float, end: float, steps: int, count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    if warmup_steps > 0:
+        decay = max(total_steps - warmup_steps, 1)
+        return lambda c: (ramp(0.0, lr, warmup_steps, c) if c < warmup_steps
+                          else ramp(lr, 0.0, decay, c - warmup_steps))
+    return lambda c: ramp(lr, 0.0, max(total_steps, 1), c)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: every gradient scaled by
+    max_norm / ||g|| when the global norm ||g|| (over all of them) reaches
+    max_norm; on the device, with no host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    torch._foreach_mul_(grads, factor)
+
+
+@dataclasses.dataclass
+class HfAdamWState:
+    """`count` steps taken; first and second moments and (when on) the
+    |grad| accumulator, keyed like the parameters."""
+
+    count: int
+    mu: dict[str, torch.Tensor]
+    nu: dict[str, torch.Tensor]
+    abs_grad_sum: Optional[dict[str, torch.Tensor]]
+
+
+class HfAdamW:
+    """The reference's custom AdamW (root `optimization.py:8-129`), as the
+    JAX package's `hf_adamw`:
+
+      m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g^2
+      step = lr * sqrt(1 - b2^t) / (1 - b1^t)
+      u = -step * m / (sqrt(v) + eps)            (eps OUTSIDE the bias
+                                                  correction)
+      u -= lr * weight_decay * (p + u)           (decay of the updated p)
+      p += u
+
+    The schedule is read at the PRE-increment count (torch's LambdaLR
+    steps after optimizer.step()); the bias correction uses the
+    post-increment count. `grad_mask` multiplies gradients before the
+    moments; without it, `accumulate_abs_grad` integrates |g| per step.
+    `moment_dtype` (e.g. torch.bfloat16) stores m and v narrower while each
+    step's moment math stays fp32."""
+
+    def __init__(self, learning_rate: Union[float, Schedule],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.0,
+                 grad_mask: Optional[dict[str, torch.Tensor]] = None,
+                 accumulate_abs_grad: bool = False,
+                 moment_dtype: Optional[torch.dtype] = None):
+        self.schedule = (learning_rate if callable(learning_rate)
+                         else (lambda _: learning_rate))
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.grad_mask = grad_mask
+        self.accumulate_abs_grad = accumulate_abs_grad
+        self.moment_dtype = moment_dtype
+
+    def init(self, params: dict[str, torch.Tensor]) -> HfAdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype
+                                           or p.dtype)
+        sums = ({k: torch.zeros_like(p) for k, p in params.items()}
+                if self.accumulate_abs_grad and self.grad_mask is None
+                else None)
+        return HfAdamWState(0, {k: zeros(p) for k, p in params.items()},
+                            {k: zeros(p) for k, p in params.items()}, sums)
+
+    @torch.no_grad()
+    def step(self, params: dict[str, torch.Tensor],
+             grads: dict[str, torch.Tensor], state: HfAdamWState) -> None:
+        """One update of `params` (in place) from `grads`; advances
+        `state` in place."""
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        if self.grad_mask is not None:
+            g = torch._foreach_mul(g, [self.grad_mask[k] for k in keys])
+        if state.abs_grad_sum is not None:
+            torch._foreach_add_([state.abs_grad_sum[k] for k in keys],
+                                torch._foreach_abs(g))
+        mu = [state.mu[k] for k in keys]
+        nu = [state.nu[k] for k in keys]
+        narrow = self.moment_dtype is not None
+        m = [x.float() for x in mu] if narrow else mu
+        v = [x.float() for x in nu] if narrow else nu
+        torch._foreach_mul_(m, self.b1)
+        torch._foreach_add_(m, g, alpha=1 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - self.b2)
+
+        lr = float(self.schedule(state.count))
+        state.count += 1
+        c = state.count
+        step_size = lr * math.sqrt(1.0 - self.b2 ** c) / (1.0 - self.b1 ** c)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(m, denom)
+        torch._foreach_mul_(u, -step_size)
+        if self.weight_decay > 0.0:
+            decay = torch._foreach_add(p, u)
+            torch._foreach_mul_(decay, lr * self.weight_decay)
+            torch._foreach_sub_(u, decay)
+        torch._foreach_add_(p, u)
+        if narrow:
+            for dst, src in zip(mu + nu, m + v):
+                dst.copy_(src)
+
+
+def batch_score(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """VQA soft accuracy summed over the batch: labels[argmax(logits)]
+    (`compute_score_with_logits`, data/metrics/__init__.py:90-104)."""
+    idx = torch.argmax(logits, dim=1)
+    return torch.gather(labels, 1, idx[:, None]).sum()
+
+
+@dataclasses.dataclass
+class TrainMetrics:
+    loss: torch.Tensor
+    score: torch.Tensor  # summed soft accuracy over the batch
+    batch_size: int
+
+
+def model_inputs(batch: dict) -> dict:
+    """Forward kwargs of an LXMERT batch."""
+    kw = {k: batch[k] for k in ("input_ids", "visual_feats", "visual_pos")}
+    if "attention_mask" in batch:
+        kw["attention_mask"] = batch["attention_mask"]
+    return kw

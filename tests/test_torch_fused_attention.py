@@ -1,16 +1,18 @@
 """The port's fused attention (crvqa_tpu_torch/ops/fused_attention.py) vs
-the JAX package's Pallas kernel, run interpreted on the CPU, and its XLA
+the JAX package's Pallas kernels, run interpreted on the CPU, and its XLA
 reference. Inputs are made with numpy from a seed and fed to both.
 
-fp32 throughout, atol 1e-5: both sides compute scores and softmax in fp32
-and differ only in summation order.
+fp32 throughout, atol 1e-5 (outputs) and 2e-5 (gradients): both sides
+compute scores and softmax in fp32 and differ only in summation order.
+The dropout keep mask is compared bit for bit.
 
-The CUDA kernel itself runs only on the card: tests/test_torch_gpu.py.
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from crvqa_tpu.ops import fused_attention as jfa
@@ -57,10 +59,98 @@ def test_cpu_wrapper_takes_plain_version_and_launches_nothing():
                                                           12, 64))
 
 
-def test_dropout_rate_raises():
+@pytest.mark.parametrize("rate", [1.0, -0.1])
+def test_dropout_rate_raises(rate):
+    """Dropout is ported; a rate outside [0, 1) is refused."""
     q, k, v, bias = _torch(*_inputs(2, 14, 14, 12, 64))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.fused_attention(q, k, v, bias, 12, 64, rate=0.1)
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.fused_attention(q, k, v, bias, 12, 64, rate=rate)
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.fused_attention_fwd_train(q, k, v, bias, 12, 64, rate, 0)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("seed", [0, 7, -1, -2 ** 31, 2 ** 31 - 1])
+def test_keep_mask_bit_identical_to_jax(seed, rate):
+    for b in (0, 1, 13, 255):
+        for sq, cols in ((14, 12 * 14), (36, 12 * 36), (5, 48)):
+            want = np.asarray(jfa._keep_mask((sq, cols), rate,
+                                             jnp.int32(seed), b, 0))
+            got = tfa.keep_mask(torch.tensor([b]), sq, cols, rate, seed)[0]
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sq,sk", [(14, 36), (36, 14)])
+def test_dropout_forward_matches_jax_kernel(sq, sk):
+    """rate 0.1 with a negative seed: the interpreted JAX kernel's primal,
+    and its forward for grad's residual, against the port."""
+    q, k, v, bias = _inputs(3, sq, sk, 4, 16, seed=sq + sk)
+    jargs = [jnp.asarray(a) for a in (q, k, v, bias)]
+    seed = jnp.asarray([-5], jnp.int32)
+    want = np.asarray(jfa.fused_attention_seeded(*jargs, seed, 4, 16, 0.1,
+                                                 True))
+    got = tfa.fused_attention(*_torch(q, k, v, bias), 4, 16, rate=0.1,
+                              seed=-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    _, res = jfa._fa_fwd(*jargs, 4, 16, 0.1, True, seed)
+    out, p = tfa.fused_attention_fwd_train(*_torch(q, k, v, bias), 4, 16,
+                                           0.1, -5)
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(p.numpy(), np.asarray(res[5]), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["stored", "recompute"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_gradients_match_jax_kernel(impl, rate, monkeypatch):
+    """dq, dk, dv from torch.autograd through the port's autograd function
+    against jax.grad through the interpreted Pallas forward-for-grad and
+    backward kernels, BWD_IMPL stored and recompute."""
+    monkeypatch.setattr(jfa, "BWD_IMPL", impl)
+    monkeypatch.setattr(tfa, "BWD_IMPL", impl)
+    q, k, v, bias = _inputs(3, 14, 36, 4, 16, seed=3)
+    g = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    seed = 1234
+
+    def loss(q_, k_, v_):
+        out = jfa.fused_attention_seeded(
+            q_, k_, v_, jnp.asarray(bias), jnp.asarray([seed], jnp.int32),
+            4, 16, rate, True)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                               for a in (q, k, v)))
+    leaves = [t.requires_grad_() for t in _torch(q, k, v)]
+    out = tfa.fused_attention(*leaves, torch.from_numpy(bias), 4, 16, rate,
+                              seed)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bwd_reference_equals_autograd_of_plain_forward(rate):
+    q, k, v, bias = _torch(*_inputs(2, 36, 14, 4, 16, seed=8))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, p = tfa.fused_attention_train_reference(*leaves, bias, 4, 16, rate,
+                                                 77)
+    want = torch.autograd.grad(out, leaves, g)
+    got = tfa.fused_attention_bwd_reference(q, k, v, p.detach(), g, 4, 16,
+                                            rate, 77)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_cpu_training_wrappers_launch_nothing():
+    q, k, v, bias = _torch(*_inputs(2, 14, 14, 4, 16))
+    counters = (tfa.fused_attention_fwd_train, tfa.fused_attention_bwd_stored,
+                tfa.fused_attention_bwd_recompute, tfa.fused_attention)
+    before = [c.launches for c in counters]
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    tfa.fused_attention(*leaves, bias, 4, 16, 0.1, 3).sum().backward()
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("sq,sk", [(86, 14), (14, 86)])

@@ -6,7 +6,9 @@ that has none:
 
 Tolerances: fp32 atol 2e-5 (the same fp32 math, summed in another order);
 bf16 atol/rtol 2e-2 (p and the outputs round to bf16, and the plain
-version's bf16 matmuls accumulate in another order).
+version's bf16 matmuls accumulate in another order). The backward's fp32
+gradients atol 1e-4: dp = g v^T reaches tens, summed in another order than
+cuBLAS sums it. The fp32 residual p atol 1e-6.
 """
 import pytest
 import torch
@@ -82,6 +84,97 @@ def test_kernel_raises_on_what_it_does_not_take(case):
     assert fa.fused_attention.launches == before
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_train_matches_plain(dtype, rate):
+    """The forward for grad: output and fp32 residual against the plain
+    version, with the same counter-hash dropout."""
+    _need_card()
+    tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    for sq, sk in SHAPES:
+        q, k, v, bias = _inputs(32, sq, sk, dtype, seed=sq + sk)
+        before = fa.fused_attention_fwd_train.launches
+        out, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, rate,
+                                              seed=-7)
+        torch.cuda.synchronize()
+        assert fa.fused_attention_fwd_train.launches == before + 1
+        ref, pref = fa.fused_attention_train_reference(q, k, v, bias, 12, 64,
+                                                       rate, -7)
+        assert p.shape == (32, sq, 12 * sk) and p.dtype == torch.float32
+        torch.testing.assert_close(p, pref, atol=1e-6, rtol=0)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("impl", ["stored", "recompute"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_matches_plain(dtype, rate, impl):
+    _need_card()
+    tol = (dict(atol=1e-4, rtol=0) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    wrapper = (fa.fused_attention_bwd_stored if impl == "stored"
+               else fa.fused_attention_bwd_recompute)
+    for sq, sk in SHAPES:
+        q, k, v, bias = _inputs(32, sq, sk, dtype, seed=sq * sk)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                        ).cuda().to(dtype)
+        _, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, rate, 11)
+        before = wrapper.launches
+        grads = wrapper(q, k, v, p if impl == "stored" else bias, g, 12, 64,
+                        rate, 11)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = fa.fused_attention_bwd_reference(q, k, v, p, g, 12, 64, rate,
+                                               11)
+        for name, got, want in zip("qkv", grads, ref):
+            assert got.dtype == dtype, name
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda m: f"d{name}: {m}")
+
+
+def test_autograd_through_kernels_matches_plain_autograd():
+    """torch.autograd through the forward-for-grad and stored-backward
+    kernels equals autograd of the plain forward, dropout on (fp32)."""
+    _need_card()
+    q, k, v, bias = _inputs(16, 36, 14, torch.float32, seed=5)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).cuda()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.fused_attention(*leaves, bias, 12, 64, rate=0.1, seed=99)
+    grads = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = fa.fused_attention_train_reference(*plain, bias, 12, 64, 0.1, 99)
+    want = torch.autograd.grad(ref, plain, g)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    for got, exp in zip(grads, want):
+        torch.testing.assert_close(got, exp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["residual_dtype", "g_dtype", "head_size",
+                                  "smem"])
+def test_bwd_raises_on_what_it_does_not_take(case):
+    _need_card()
+    q, k, v, bias = _inputs(2, 14, 14, torch.float32)
+    _, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.0, 0)
+    g = torch.randn_like(q)
+    heads, head_size = 12, 64
+    if case == "residual_dtype":
+        p = p.to(torch.bfloat16)
+    elif case == "g_dtype":
+        g = g.to(torch.bfloat16)
+    elif case == "head_size":
+        heads, head_size = 24, 32
+    else:  # one head over 1024 keys: the staged tiles exceed 227 KB
+        q = torch.randn(1, 1024, 64, device="cuda")
+        k = v = g = q
+        p = torch.zeros(1, 1024, 1024, device="cuda")
+        heads = 1
+    before = fa.fused_attention_bwd_stored.launches
+    with pytest.raises((TypeError, ValueError)):
+        fa.fused_attention_bwd_stored(q, k, v, p, g, heads, head_size, 0.0, 0)
+    assert fa.fused_attention_bwd_stored.launches == before
+
+
 def test_lxmert_forward_kernel_matches_plain():
     """A 1/1/1-layer LXMERT at full width (768 hidden, 12x64 heads) in fp32:
     the forward through the kernel (6 launches: 1 language, 1 visual, 4 in
@@ -102,7 +195,7 @@ def test_lxmert_forward_kernel_matches_plain():
         logits, _ = model(**inputs)
     assert fa.fused_attention.launches == before + 6
 
-    def plain(q, k, v, bias, num_heads, head_size, rate=0.0):
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
         return fa.fused_attention_reference(q, k, v, bias, num_heads,
                                             head_size)
 
@@ -114,3 +207,58 @@ def test_lxmert_forward_kernel_matches_plain():
     finally:
         layers.fused_attention = saved
     torch.testing.assert_close(logits, ref, atol=1e-3, rtol=0)
+
+
+def test_train_step_kernels_match_plain_versions():
+    """One stage-2 step (loss and gradients) of a 1/1/1-layer LXMERT at
+    full width, fp32, dropout on, through the kernels (6 forward-for-grad
+    launches; 4 backward: the cross layer's visual branch does not reach
+    the logits) and through the plain versions, from the same generators:
+    the counter-hash dropout makes them the same function. Loss within
+    1e-5 relative, score gradients within 1e-3 of their largest."""
+    _need_card()
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.masking.masker import Masker
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.train import stage2
+
+    cfg = LxmertConfig(vocab_size=64, l_layers=1, r_layers=1, x_layers=1,
+                       ans_num=16)
+    masker = Masker.create(lxmert_mask_specs(1, 1, 1),
+                           ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7),
+                           controlled_init="magnitude")
+    params = build_lxmert(cfg, "cpu",
+                          torch.Generator().manual_seed(0)).state_dict()
+    sc = stage2.Stage2Config(masker_type="lmh", hidden_size=768)
+    model = stage2.lxmert_meta_model(cfg)
+    state, _ = stage2.init_state(model, masker, params, sc, 0, "cuda")
+    batch = to_device(synthetic_batch(batch_size=8, vocab_size=64, ans_num=16,
+                                      seed=1), torch.device("cuda"))
+    fn = stage2.make_loss_and_grads(model, masker, sc)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    fwd, bwd = fa.fused_attention_fwd_train, fa.fused_attention_bwd_stored
+    before = (fwd.launches, bwd.launches)
+    loss_k, _, grads_k = fn(state, batch)
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (6, 4)
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+        return fa.fused_attention_train_reference(q, k, v, bias, num_heads,
+                                                  head_size, rate, seed)[0]
+
+    saved = layers.fused_attention
+    layers.fused_attention = plain
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.fused_attention = saved
+    assert fwd.launches - before[0] == 6
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    scores = [k for k in grads_k if k.startswith("scores/")]
+    gmax = max(grads_p[k].abs().max().item() for k in scores)
+    for k in scores:
+        torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
+                                   atol=1e-3 * gmax, msg=k)

@@ -23,9 +23,22 @@ def _port_modules():
 def test_every_module_is_found():
     mods = _port_modules()
     for expected in ("crvqa_tpu_torch.ops.fused_attention",
+                     "crvqa_tpu_torch.ops.kthvalue",
                      "crvqa_tpu_torch.models.lxmert",
                      "crvqa_tpu_torch.cli.serve_vqa",
-                     "crvqa_tpu_torch.native.feature_store"):
+                     "crvqa_tpu_torch.cli.prune_debias_vqa",
+                     "crvqa_tpu_torch.native.feature_store",
+                     "crvqa_tpu_torch.masking.binarizers",
+                     "crvqa_tpu_torch.masking.masker",
+                     "crvqa_tpu_torch.masking.sparsity_control",
+                     "crvqa_tpu_torch.losses.vqa_losses",
+                     "crvqa_tpu_torch.train.common",
+                     "crvqa_tpu_torch.train.stage2",
+                     "crvqa_tpu_torch.train.evaluation",
+                     "crvqa_tpu_torch.data.synthetic",
+                     "crvqa_tpu_torch.data.prefetch",
+                     "crvqa_tpu_torch.core.checkpoint",
+                     "crvqa_tpu_torch.core.convert"):
         assert expected in mods
 
 
