@@ -7,22 +7,29 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py --rehearse   # CPU, tiny widths, plain versions: a
                                        # dry run of the control flow, never a result
 
-Phases:
+Phases (each one's seconds are logged):
   1. device   the card's name, count and power limit; TF32 off for matmuls
               and cuDNN (fp32 comparisons are full fp32).
   2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
               feature store, compiled from the checkout, all at once.
-  3. kernel   the primal attention kernel against its plain PyTorch version
-              at the serving shapes (batch 32 and 256; every (Sq, Sk)
-              LXMERT gives it; fp32 and bf16), then timed: the kernel, the
-              plain version and one PyTorch library call computing the same
+  3. kernel   the primal short attention kernel against its plain PyTorch
+              version at the LXMERT serving shapes (batch 32 and 256; every
+              (Sq, Sk) LXMERT gives it) and at mPLUG's (25,25) and (1,1)
+              (batch 8), fp32 and bf16, then timed: the kernel, the plain
+              version and one PyTorch library call computing the same
               function (a yardstick the port never calls).
-  4. train-kernels  the forward-for-grad and both backward kernels (stored,
+  4. midseq-kernel  the mid-length attention kernel against its plain
+              version at mPLUG's five shapes ((577,577) ViT, (25,577)
+              fusion cross, (602,602) stride joint, (1,602) and (120,602)
+              rank), batch 8 and 32, fp32 and bf16, dropout 0 and 0.1;
+              timed at rate 0 beside the plain version and
+              `scaled_dot_product_attention` with a float mask.
+  5. train-kernels  the forward-for-grad and both backward kernels (stored,
               recompute) against their plain versions at batch 256, the four
               (Sq, Sk), fp32 and bf16, dropout rates 0 and 0.1; timed beside
               the plain versions and `scaled_dot_product_attention` forward
               and forward + backward under autograd.
-  5. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
+  6. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
               (768 hidden, 12x64 heads, 9/5/5 layers, 2274 answers) on
               seeded weights and fabricated data: 512 requests at batch 32 in
               bf16 (the default) and fp32, through a stage-2 mask.pt and
@@ -30,8 +37,23 @@ Phases:
               served run, checks no response carries an error, and holds
               the fp32 answers and logits against the same model with the
               plain attention swapped in.
-  6. profile  device time by kernel of one bf16 forward at batch 32.
-  7. train    `crvqa_tpu_torch.cli.prune_debias_vqa.main` at full width,
+  7. profile  device time by kernel of one bf16 LXMERT forward at batch 32.
+  8. mplug-serve  `crvqa_tpu_torch.cli.serve_mplug.build_server` and the
+              serve loop at the full width of `MPlugConfig()` (ViT-B-16 at
+              384 px, BERT 768 x 12 heads, 6 text / 6 fusion (stride 3) / 12
+              decoder layers, vocab 30522) on seeded weights in `--mode
+              mask` (zero rate 0.5, magnitude_soft): 256 requests over
+              fabricated uint8 images and a 30522-line vocab, beam 5 at
+              batch 8 and 32 in bf16, rank (k_test 10 over 3129 fabricated
+              answers) at batch 8 in bf16, and beam at batch 8 in fp32 and
+              bf16 with the plain attentions swapped in. Checks zero error
+              responses, 18 mid-length and 11 short launches per encoded
+              batch (42 and 23 when ranking), string answers, fp32 answers
+              equal to the plain attentions' and the fp32 fused memory and
+              first decode step's logits within tolerance of them; profiles
+              one bf16 batch-8 beam request batch (device time by kernel,
+              idle share).
+  9. train    `crvqa_tpu_torch.cli.prune_debias_vqa.main` at full width,
               batch 256, bf16, the canonical configuration (compression
               0.3/0.3/0.3 at zero rate 0.7, magnitude init, LMH loss,
               MaskedLinear1) on fabricated VQA-CP train/test files: 24 steps
@@ -40,12 +62,12 @@ Phases:
               batch, the zero rates, and serves the exported mask.pt and
               classifier4masker.bin with serve_vqa. Then 8 steps with the
               recompute backward (`BWD_IMPL = "recompute"`).
-  8. step     examples per second over timed train steps (synchronised,
+ 10. step     examples per second over timed train steps (synchronised,
               after warm-up), device time by kernel of one step (profile),
               and one full-width fp32 step with dropout on through the
               kernels against the same step through the plain versions from
               the same generators.
-  9. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 11. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -54,6 +76,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import gc
 import json
 import os
 import pickle
@@ -71,6 +95,25 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # tensor cores
               "float32": 67e12}     # outside the tensor cores (no TF32)
 
 SERVE_SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
+MPLUG_SHORT_SHAPES = [(25, 25), (1, 1)]  # text towers; the rank bos pass
+MPLUG_SHORT_BATCH = 8
+# mPLUG's mid-length attentions: the ViT (577,577), the fusion cross
+# (25,577), the stride layer's joint (602,602), rank's bos-only pass (1,602)
+# and its shortlist pass (k_test * max_answer_len = 120, 602)
+MIDSEQ_SHAPES = [(577, 577), (25, 577), (602, 602), (1, 602), (120, 602)]
+MIDSEQ_BATCHES = (8, 32)
+MIDSEQ_PER_ENCODE = {(577, 577): 12, (25, 577): 5, (602, 602): 1}
+MIDSEQ_TOL = {"float32": dict(atol=1e-5, rtol=0.0),
+              # p rounds to bf16 before the context product, the output
+              # to bf16; the sums run in another order. Outputs are about
+              # 0.07 here, so this is tight enough to catch a missed
+              # rounding point or a few mishandled padded keys
+              "bfloat16": dict(atol=5e-3, rtol=1e-2)}
+MPLUG_REQUESTS = 256
+MPLUG_BATCHES = (8, 32)
+MPLUG_IMAGES = 32
+MPLUG_ANSWERS = 3129  # the size of mPLUG's VQA answer list
+MPLUG_K_TEST = 10
 SERVE_REQUESTS = 512
 SERVE_BATCH = 32
 IMAGES = 64
@@ -168,8 +211,9 @@ def _attention_inputs(torch, b, sq, sk, dtype, device, seed):
     k = torch.randn(b, sk, d, generator=g)
     v = torch.randn(b, sk, d, generator=g)
     bias = torch.zeros(b, sk)
-    for i in range(1, b, 3):  # -10000 pads on a third of the rows
-        bias[i, sk - 1 - (i % (sk // 2)):] = -10000.0
+    if sk > 1:  # -10000 pads on a third of the rows
+        for i in range(1, b, 3):
+            bias[i, sk - 1 - (i % (sk // 2)):] = -10000.0
     dt = getattr(torch, dtype)
     return (q.to(device, dt), k.to(device, dt), v.to(device, dt),
             bias.to(device))
@@ -216,9 +260,11 @@ def _eager_ms(torch, fn, iters: int = 100) -> float:
 
 
 def _bound_terms(b, sq, sk, dtype):
-    """(ms to move the bytes, ms to do the FLOPs) of one call on an H100:
-    q, k, v and the fp32 bias read once and the output written once, over
-    HBM; the two products' FLOPs over the peak rate of the inputs' type."""
+    """(ms to move the bytes, ms to do the FLOPs) of one forward call of
+    either attention kernel (the short primal and the mid-length forward
+    read and write the same tensors) on an H100: q, k, v and the fp32 bias
+    read once and the output written once, over HBM; the two products'
+    FLOPs over the peak rate of the inputs' type."""
     item = 2 if dtype == "bfloat16" else 4
     d = 12 * 64
     nbytes = item * b * d * (2 * sq + 2 * sk) + 4 * b * sk
@@ -232,51 +278,83 @@ def _bound(t_bytes, t_ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel(torch, device, rehearse: bool, seed: int) -> list[dict]:
+def _kernel_point(torch, name, kernel, plain, b, sq, sk, dtype, device,
+                  seed, tol, rehearse, rate=0.0, timed=True) -> dict:
+    """One (batch, Sq, Sk, dtype, rate) point of a forward attention
+    kernel: its output against its plain version on the same inputs
+    (`tol`), its bound, and (`timed`, on the card) its device time beside
+    the plain version's and `scaled_dot_product_attention`'s with the bias
+    as a float mask (a yardstick the port never calls)."""
     import torch.nn.functional as F
 
+    q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype, device, seed)
+    args = (q, k, v, bias, 12, 64, rate, KERNEL_SEED)
+    out = kernel(*args)
+    ref = plain(*args)
+    if not rehearse:
+        torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = bool(torch.allclose(out.float(), ref.float(), **tol))
+    row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq, "sk": sk,
+           "max_abs_err": err, "ok": ok}
+    row["bytes_ms"], row["ops_ms"] = _bound_terms(b, sq, sk, dtype)
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes_ms"], row["ops_ms"])
+    if timed and not rehearse:
+        mask = bias.to(q.dtype)[:, None, None, :]
+        split = lambda t: t.view(b, t.shape[1], 12, 64).transpose(1, 2)
+        qh, kh, vh = split(q), split(k), split(v)
+        row["ms"] = _graph_ms(torch, lambda: kernel(*args))
+        row["plain_ms"] = _graph_ms(torch, lambda: plain(*args))
+        row["library_ms"] = _graph_ms(torch, lambda: (
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)))
+        row["call_ms"] = _eager_ms(torch, lambda: kernel(*args))
+    log(f"{name}: " + json.dumps(row))
+    check(ok, f"{name} disagrees with its plain version at B={b} {dtype} "
+              f"rate {rate} ({sq},{sk}): max abs err {err} (tolerance "
+              f"{tol})")
+    return row
+
+
+def _fused_primal(q, k, v, bias, num_heads, head_size, rate, seed):
     from crvqa_tpu_torch.ops import fused_attention as fa
 
-    rows = []
-    batches = (2,) if rehearse else (SERVE_BATCH, 256)
-    for b in batches:
-        for dtype in ("float32", "bfloat16"):
-            for sq, sk in SERVE_SHAPES:
-                q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
-                                                  device, seed + sq + sk)
-                out = fa.fused_attention(q, k, v, bias, 12, 64)
-                ref = fa.fused_attention_reference(q, k, v, bias, 12, 64)
-                if not rehearse:
-                    torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = TOL[dtype]
-                ok = bool(torch.allclose(out.float(), ref.float(), **tol))
-                row = {"batch": b, "dtype": dtype, "sq": sq, "sk": sk,
-                       "max_abs_err": err, "ok": ok}
-                row["bytes_ms"], row["ops_ms"] = _bound_terms(b, sq, sk,
-                                                              dtype)
-                row["bound_ms"], row["bound_by"] = _bound(row["bytes_ms"],
-                                                          row["ops_ms"])
-                if not rehearse:
-                    h = 12
-                    mask = bias.to(q.dtype)[:, None, None, :]
-                    split = lambda t: t.view(b, t.shape[1], h, 64).transpose(1, 2)
-                    qh, kh, vh = split(q), split(k), split(v)
-                    kern = lambda: fa.fused_attention(q, k, v, bias, 12, 64)
-                    plain = lambda: fa.fused_attention_reference(
-                        q, k, v, bias, 12, 64)
-                    lib = lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask)
-                    row["ms"] = _graph_ms(torch, kern)
-                    row["plain_ms"] = _graph_ms(torch, plain)
-                    row["library_ms"] = _graph_ms(torch, lib)
-                    row["call_ms"] = _eager_ms(torch, kern)
-                rows.append(row)
-                log("kernel: " + json.dumps(row))
-                check(ok, f"fused_attention_fwd disagrees with its plain "
-                          f"version at B={b} {dtype} ({sq},{sk}): max abs "
-                          f"err {err} (tolerance {tol})")
-    return rows
+    return fa.fused_attention(q, k, v, bias, num_heads, head_size)
+
+
+def _fused_primal_plain(q, k, v, bias, num_heads, head_size, rate, seed):
+    from crvqa_tpu_torch.ops import fused_attention as fa
+
+    return fa.fused_attention_reference(q, k, v, bias, num_heads, head_size)
+
+
+def phase_kernel(torch, device, rehearse: bool, seed: int) -> list[dict]:
+    """The primal short kernel at LXMERT's serving shapes (batch 32, 256)
+    and mPLUG's text-tower and rank shapes (batch 8)."""
+    points = [(b, sq, sk) for b in ((2,) if rehearse else (SERVE_BATCH, 256))
+              for sq, sk in SERVE_SHAPES]
+    points += [(2 if rehearse else MPLUG_SHORT_BATCH, sq, sk)
+               for sq, sk in MPLUG_SHORT_SHAPES]
+    return [_kernel_point(torch, "fused_attention_fwd", _fused_primal,
+                          _fused_primal_plain, b, sq, sk, dtype, device,
+                          seed + sq + sk, TOL[dtype], rehearse)
+            for b, sq, sk in points for dtype in ("float32", "bfloat16")]
+
+
+def phase_midseq_kernel(torch, device, rehearse: bool, seed: int
+                        ) -> list[dict]:
+    """The mid-length kernel at mPLUG's five shapes, batch 8 (the serve
+    default) and 32, fp32 and bf16, dropout rates 0 and 0.1 against its
+    plain version; timed at rate 0 (serving's)."""
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    return [_kernel_point(torch, "midseq_attention_fwd",
+                          ma.midseq_attention, ma.midseq_attention_reference,
+                          b, sq, sk, dtype, device, seed + 3 * sq + sk,
+                          MIDSEQ_TOL[dtype], rehearse, rate=rate,
+                          timed=rate == 0.0)
+            for b in ((2,) if rehearse else MIDSEQ_BATCHES)
+            for dtype in ("float32", "bfloat16")
+            for rate in TRAIN_RATES for sq, sk in MIDSEQ_SHAPES]
 
 
 # ----------------------------------------------------------------- phase 4
@@ -719,13 +797,354 @@ def phase_profile(torch, device, seed: int) -> None:
             f"{e.count // 5:5d} calls/forward  {e.key[:90]}")
 
 
+# ---------------------------------------------------------- phases 8-9
+
+def fabricate_mplug(root: str, rehearse: bool, rng) -> dict:
+    """What the mPLUG server reads, made from `rng`: a BERT-shaped vocab
+    file (30522 lines, [PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
+    103, question and answer words, fillers elsewhere, so every id the
+    beam can emit decodes; 128 lines for the tiny rehearsal), an answer
+    list of 3129 answers, uint8 [res, res, 3] images kept in memory and
+    keyed by name (no image file, so no PIL), and the requests."""
+    import numpy as np
+
+    vocab_size = 128 if rehearse else 30522
+    n_words = 30 if rehearse else 400
+    words = iter(sorted(set(WORDS)) + ["?"] + [f"a{i}" for i in
+                                                range(n_words)])
+    special = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]",
+               103: "[MASK]"}
+    tokens = [special.get(i) or next(words, f"filler{i}")
+              for i in range(vocab_size)]
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    n_answers = 40 if rehearse else MPLUG_ANSWERS
+    answers = [f"a{j}" if j < n_words else
+               f"a{j % n_words} a{(j // n_words) % n_words}"
+               for j in range(n_answers)]
+    with open(os.path.join(root, "answer_list.json"), "w") as f:
+        json.dump(answers, f)
+    res = 32 if rehearse else 384
+    pixels = rng.integers(0, 256, (MPLUG_IMAGES, res, res, 3), dtype=np.uint8)
+    images = {f"img_{i:03d}.jpg": pixels[i] for i in range(MPLUG_IMAGES)}
+    names = sorted(images)
+    n_requests = 32 if rehearse else MPLUG_REQUESTS
+    with open(os.path.join(root, "requests.jsonl"), "w") as f:
+        for n in range(n_requests):
+            q = TEMPLATES[n % len(TEMPLATES)].format(
+                SUBJECTS[int(rng.integers(len(SUBJECTS)))])
+            f.write(json.dumps({"question_id": n, "question": q,
+                                "image": names[int(rng.integers(
+                                    len(names)))]}) + "\n")
+    return {"images": images, "answers": answers, "requests": n_requests}
+
+
+def _plain_midseq(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    return ma.midseq_attention_reference(q, k, v, bias, num_heads, head_size,
+                                         rate, seed)
+
+
+class _PlainAttention:
+    """The model's two attention kernels swapped for their plain versions
+    (`models.layers` looks both up at call time) inside the block."""
+
+    def __enter__(self):
+        from crvqa_tpu_torch.models import layers
+
+        self.saved = (layers.midseq_attention, layers.fused_attention)
+        layers.midseq_attention = _plain_midseq
+        layers.fused_attention = _plain_attention
+        return self
+
+    def __exit__(self, *exc):
+        from crvqa_tpu_torch.models import layers
+
+        layers.midseq_attention, layers.fused_attention = self.saved
+        return False
+
+
+def _mplug_args(root, device, rehearse, seed, dtype, batch, tag, extra=()):
+    from crvqa_tpu_torch.cli import serve_mplug
+
+    return serve_mplug.build_parser().parse_args(
+        ["--vocab_file", os.path.join(root, "vocab.txt"),
+         "--output_dir", os.path.join(root, "out"), "--dtype", dtype,
+         "--seed", str(seed), "--serve_batch_size", str(batch),
+         "--max_wait_ms", "5",
+         "--input", os.path.join(root, "requests.jsonl"),
+         "--output", os.path.join(root, f"responses_{tag}.jsonl"),
+         "--device", str(device), *extra] + (["--tiny"] if rehearse else []))
+
+
+def _profile_categories(torch, prof, wall_ms: float, calls: int) -> dict:
+    """Device time per call of the profiled work by kernel, summed into the
+    port's kernels, the cuBLAS GEMMs and the rest (the decode loop's small
+    kernels: elementwise, reductions, top-k, gathers, copies)."""
+    dev_us = lambda e: (getattr(e, "device_time_total", None)
+                        or getattr(e, "cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if dev_us(e) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("profile: the profiler recorded no device time: not measured")
+        return {"measured": False}
+
+    def category(name: str) -> str:
+        if "midseq_attention" in name:
+            return "midseq_attention_fwd"
+        if "fused_attention" in name:
+            return "fused_attention_fwd"
+        low = name.lower()
+        if any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma",
+                                  "gemv", "sm90_")):
+            return "gemm"
+        return "other"
+
+    cats: dict = {}
+    launches: dict = {}
+    for e in events:
+        c = category(e.key)
+        cats[c] = cats.get(c, 0.0) + dev_us(e) / 1e3 / calls
+        launches[c] = launches.get(c, 0) + e.count // calls
+    busy_ms = sum(cats.values())
+    top = [{"ms": dev_us(e) / 1e3 / calls, "calls": e.count // calls,
+            "name": e.key[:100]}
+           for e in sorted(events, key=lambda e: -dev_us(e))[:15]]
+    return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "by_category_ms": cats, "kernels_by_category": launches,
+            "top": top}
+
+
+def _serve_mplug(torch, root, images, args, device, tag, expect,
+                 plain=False, profile=False) -> tuple[list, dict]:
+    """Build the server (`serve_mplug.build_server` on `images`), warm it
+    up, then drive the serve loop over the requests with every launch
+    counter set to 0 just before and read just after. `expect` maps a
+    kernel to its launches per encoded batch. With `profile`, one more
+    batch of the first requests runs under the profiler."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import serve_mplug
+    from crvqa_tpu_torch.cli.serve_vqa import serve_loop
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.monotonic()
+    run_batch = serve_mplug.build_server(args, device, images=images)
+    build_s = time.monotonic() - t0
+    with (_PlainAttention() if plain else contextlib.nullcontext()):
+        warm_s = serve_mplug.warm_up(args, run_batch)
+        sync()
+        stats, launches = _run_counted(lambda: serve_loop(
+            args, run_batch, tag=f"serve_mplug {tag}"))
+        sync()
+    with open(args.output) as f:
+        responses = [json.loads(line) for line in f]
+    with open(args.input) as f:
+        requests = [json.loads(line) for line in f]
+    errors = [r for r in responses if "error" in r]
+    check(not errors, f"mplug {tag}: {len(errors)} error responses, first: "
+                      f"{errors[:1]}")
+    check([r["question_id"] for r in responses]
+          == [r["question_id"] for r in requests],
+          f"mplug {tag}: responses missing or out of order")
+    check(all(isinstance(r["answer"], str) for r in responses),
+          f"mplug {tag}: an answer is not a string")
+    batches = stats["batches"]
+    want = {name: 0 for name in launches}
+    if not plain:
+        for name, per_batch in expect.items():
+            want[name] = per_batch * batches * on_card
+    check(launches == want,
+          f"mplug {tag}: launches {launches} != {want} ({expect} per "
+          f"encoded batch x {batches} batches)")
+    lat = np.asarray(stats["batch_ms"])
+    summary = {"tag": tag, "dtype": args.dtype,
+               "batch": args.serve_batch_size, "method": args.eval_method,
+               "plain_attention": plain, "requests": stats["requests"],
+               "batches": batches, "occupancy": stats["occupancy"],
+               "batch_ms_p50": float(np.percentile(lat, 50)),
+               "batch_ms_p99": float(np.percentile(lat, 99)),
+               "batch_ms_min": float(lat.min()),
+               "batch_ms_max": float(lat.max()),
+               "requests_per_s": stats["requests"] / stats["wall_s"],
+               "build_s": build_s, "warm_up_s": warm_s,
+               "launches": launches}
+    if profile and on_card:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        first = requests[:args.serve_batch_size]
+        run_batch(first)
+        sync()
+        t1 = time.monotonic()
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            run_batch(first)
+            sync()
+        summary["profile"] = prof_out = _profile_categories(
+            torch, prof, 1e3 * (time.monotonic() - t1), 1)
+        if prof_out["measured"]:
+            log(f"mplug-profile: one {args.dtype} batch-"
+                f"{args.serve_batch_size} beam request batch: host wall "
+                f"{prof_out['wall_ms']:.3f} ms (profiler on), device busy "
+                f"{prof_out['busy_ms']:.3f} ms, idle share "
+                f"{prof_out['idle_share']:.3f}; by category (ms) "
+                f"{json.dumps(prof_out['by_category_ms'])}, kernels "
+                f"{json.dumps(prof_out['kernels_by_category'])}")
+            for t in prof_out["top"]:
+                log(f"mplug-profile: {t['ms']:9.4f} ms {t['calls']:5d} "
+                    f"calls  {t['name'][:90]}")
+    log(f"mplug-serve: " + json.dumps(
+        {k: v for k, v in summary.items() if k != "profile"}))
+    del run_batch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return responses, summary
+
+
+def _mplug_direct(torch, args, images, requests, device) -> dict:
+    """The served model's fp32 fused memory and first decode step's logits
+    for the first batch of requests, through the kernels and through the
+    plain versions (`_PlainAttention`), on one state."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import serve_mplug, vqa_mplug
+    from crvqa_tpu_torch.data.mplug_data import (_tokenize_fixed,
+                                                 question_token_len)
+    from crvqa_tpu_torch.train import mplug_train
+
+    config, tokenizer, model = vqa_mplug.build_model(args)
+    masker = vqa_mplug.build_masker(args, config)
+    state = serve_mplug.build_state(args, config, model, masker, device)
+    reqs = requests[:args.serve_batch_size]
+    ids, mask = _tokenize_fixed(tokenizer, [r["question"] for r in reqs],
+                                question_token_len(args.add_ocr,
+                                                   args.max_input_length))
+    batch = (torch.from_numpy(np.stack([images[r["image"]] for r in reqs]))
+             .to(device), torch.from_numpy(ids).to(device, torch.long),
+             torch.from_numpy(mask).to(device))
+
+    def first_step(m, images_, ids_, mask_):
+        states, state_mask = m.encode(images_, ids_, mask_)
+        bos = torch.full((states.shape[0], 1), config.bos_token_id,
+                         dtype=torch.long, device=states.device)
+        logits = m.decode_logits(bos, torch.ones(bos.shape, device=device),
+                                 states, state_mask)
+        return states, logits[:, 0]
+
+    (states_k, logits_k), launches = _run_counted(
+        lambda: mplug_train.run_masked(model, masker, state, first_step,
+                                       *batch))
+    with _PlainAttention():
+        states_p, logits_p = mplug_train.run_masked(model, masker, state,
+                                                    first_step, *batch)
+    check(bool(torch.isfinite(logits_k).all()) and logits_k.shape
+          == (len(reqs), config.bert.vocab_size),
+          f"mplug direct: logits {tuple(logits_k.shape)} or non-finite")
+    out = {"batch": len(reqs),
+           "states_max_abs_diff": (states_k - states_p).abs().max().item(),
+           "states_max_abs": states_p.abs().max().item(),
+           "logits_max_abs_diff": (logits_k - logits_p).abs().max().item(),
+           "logits_max_abs": logits_p.abs().max().item(),
+           "argmax_equal": bool(torch.equal(logits_k.argmax(-1),
+                                            logits_p.argmax(-1))),
+           "launches": launches}
+    del state, model
+    gc.collect()
+    return out
+
+
+def phase_mplug_serve(torch, device, rehearse: bool, seed: int) -> dict:
+    """mPLUG serving at full width: beam 5 at batch 8 (the main path) and
+    32 in bf16, rank at batch 8 in bf16, beam at batch 8 in fp32 through
+    the kernels and through the plain attentions, and bf16 beam at batch 8
+    through the plain attentions; then the direct fp32 check."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    beam = {"midseq_attention_fwd": 18, "fused_attention_fwd": 11}
+    # rank with 0 < k_test < answers: + the bos-only pass (12 at (1,602),
+    # 12 short at (1,1)) and the shortlist pass (12 at (120,602))
+    rank = {"midseq_attention_fwd": 42, "fused_attention_fwd": 23}
+    if rehearse:  # tiny widths: every attention is short or eager
+        beam = rank = {}
+    out: dict = {"runs": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mplug_") as root:
+        t0 = time.monotonic()
+        fab = fabricate_mplug(root, rehearse, rng)
+        images = fab["images"]
+        log(f"mplug-serve: fabricated a {'128' if rehearse else '30522'}-"
+            f"line vocab, {len(fab['answers'])} answers, {len(images)} "
+            f"uint8 images, {fab['requests']} requests in "
+            f"{time.monotonic() - t0:.1f} s")
+        args = lambda *a, **kw: _mplug_args(root, device, rehearse, seed,
+                                            *a, **kw)
+        rank_flags = ("--eval_method", "rank", "--answer_list",
+                      os.path.join(root, "answer_list.json"),
+                      "--k_test", str(MPLUG_K_TEST))
+        runs = {}
+        # the main path: bf16 beam at batch 8, profiled after
+        runs["bf16_b8"], main = _serve_mplug(
+            torch, root, images, args("bfloat16", 8, "bf16_b8"), device,
+            "bf16_b8", beam, profile=True)
+        out["main_launches"] = main["launches"]
+        out["runs"].append(main)
+        for tag, dtype, batch, extra, expect, plain in (
+                ("bf16_b32", "bfloat16", 32, (), beam, False),
+                ("bf16_rank_b8", "bfloat16", 8, rank_flags, rank, False),
+                ("fp32_b8", "float32", 8, (), beam, False),
+                ("fp32_b8_plain", "float32", 8, (), beam, True),
+                ("bf16_b8_plain", "bfloat16", 8, (), beam, True)):
+            runs[tag], summary = _serve_mplug(
+                torch, root, images, args(dtype, batch, tag, extra), device,
+                tag, expect, plain=plain)
+            out["runs"].append(summary)
+        answers = lambda tag: [r["answer"] for r in runs[tag]]
+        check(all(a in fab["answers"] for a in answers("bf16_rank_b8")),
+              "mplug rank: an answer outside the answer list")
+        same = lambda a, b: sum(x == y for x, y in zip(answers(a),
+                                                       answers(b)))
+        out["bf16_b8_vs_b32_same"] = same("bf16_b8", "bf16_b32")
+        out["fp32_kernel_vs_plain_same"] = same("fp32_b8", "fp32_b8_plain")
+        out["bf16_kernel_vs_plain_same"] = same("bf16_b8", "bf16_b8_plain")
+        out["bf16_vs_fp32_same"] = same("bf16_b8", "fp32_b8")
+        n = len(runs["fp32_b8"])
+        log(f"mplug-serve: answers, kernels vs plain attentions: fp32 "
+            f"{out['fp32_kernel_vs_plain_same']}/{n}, bf16 "
+            f"{out['bf16_kernel_vs_plain_same']}/{n} identical; bf16 vs "
+            f"fp32 (kernels) {out['bf16_vs_fp32_same']}/{n}; bf16 batch 8 "
+            f"vs 32 {out['bf16_b8_vs_b32_same']}/{n}")
+        check(out["fp32_kernel_vs_plain_same"] == n,
+              "mplug fp32 answers differ between the kernels and the plain "
+              "attentions")
+        with open(os.path.join(root, "requests.jsonl")) as f:
+            requests = [json.loads(line) for line in f]
+        direct = _mplug_direct(torch, args("float32", 8, "direct"), images,
+                               requests, device)
+    log("mplug-serve: fp32 direct, kernels vs plain: " + json.dumps(direct))
+    # fp32 through 24 encoder layers and the decoder; the kernels sum in
+    # another order than the plain versions' cuBLAS products
+    check(direct["states_max_abs_diff"] <= 1e-3
+          and direct["logits_max_abs_diff"] <= 1e-3 and direct["argmax_equal"],
+          f"mplug fp32 memory or first-step logits: kernels vs plain "
+          f"differ: {direct} (tolerance 1e-3 absolute, argmax equal)")
+    out["direct"] = direct
+    return out
+
+
 # ----------------------------------------------------------------- phase 7
 
 def _counters() -> dict:
     """Each kernel's wrapper, by the name its launch counter reports."""
     from crvqa_tpu_torch.ops import fused_attention as fa
+    from crvqa_tpu_torch.ops import midseq_attention as ma
 
-    return {"fused_attention_fwd": fa.fused_attention,
+    return {"midseq_attention_fwd": ma.midseq_attention,
+            "fused_attention_fwd": fa.fused_attention,
             "fused_attention_fwd_train": fa.fused_attention_fwd_train,
             "fused_attention_bwd_stored": fa.fused_attention_bwd_stored,
             "fused_attention_bwd_recompute": fa.fused_attention_bwd_recompute}
@@ -792,7 +1211,8 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         check(len(losses) == steps and all(np.isfinite(losses)),
               f"train: {len(losses)} losses (want {steps}), finite: "
               f"{bool(np.all(np.isfinite(losses)))}")
-        want = {"fused_attention_fwd_train": per_fwd * steps,
+        want = {"midseq_attention_fwd": 0,
+                "fused_attention_fwd_train": per_fwd * steps,
                 "fused_attention_bwd_stored": per_bwd * steps,
                 "fused_attention_bwd_recompute": 0,
                 "fused_attention_fwd": per_fwd * eval_batches}
@@ -833,7 +1253,8 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         finally:
             fa.BWD_IMPL = saved
         rsteps = N_TRAIN // TRAIN_BATCH * RECOMPUTE_EPOCHS
-        rwant = {"fused_attention_fwd_train": per_fwd * rsteps,
+        rwant = {"midseq_attention_fwd": 0,
+                 "fused_attention_fwd_train": per_fwd * rsteps,
                  "fused_attention_bwd_stored": 0,
                  "fused_attention_bwd_recompute": per_bwd * rsteps,
                  "fused_attention_fwd": 0}
@@ -1000,12 +1421,15 @@ def _profile_steps(torch, fn, steps: int = 2) -> dict:
 
 # ----------------------------------------------------------------- summary
 
-def kernel_summary(rows, train_rows, serve, train) -> list[dict]:
+def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train
+                   ) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
-    (36,36) x r+x, (14,36) and (36,14) x x). The training kernels: one bf16
-    train step at batch 256, dropout rate 0.1, summed over the step's 34
-    forward-for-grad and 32 backward launches (`launch_mult`)."""
+    (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
+    bf16 mPLUG encode at batch 8, summed over its 18 launches
+    (`MIDSEQ_PER_ENCODE`). The training kernels: one bf16 train step at
+    batch 256, dropout rate 0.1, summed over the step's 34 forward-for-grad
+    and 32 backward launches (`launch_mult`)."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
@@ -1028,6 +1452,28 @@ def kernel_summary(rows, train_rows, serve, train) -> list[dict]:
                  f"{sum(fwd_mult.values())} launches over (Sq,Sk) "
                  + ", ".join(f"{k}x{v}" for k, v in fwd_mult.items()),
     }]
+    batch = MPLUG_BATCHES[0]
+    main = [r for r in midseq_rows if r["batch"] == batch
+            and r["dtype"] == "bfloat16" and r["rate"] == 0.0
+            and (r["sq"], r["sk"]) in MIDSEQ_PER_ENCODE]
+    total = lambda key: sum(r[key] * MIDSEQ_PER_ENCODE[(r["sq"], r["sk"])]
+                            for r in main)
+    bound_ms, bound_by = _bound(total("bytes_ms"), total("ops_ms"))
+    out.append({
+        "name": "midseq_attention_fwd", "route": "cuda",
+        "source": src + "midseq_attention_fwd.cu",
+        "replaces": "crvqa_tpu/ops/midseq_attention.py:103",
+        "launches": mplug["main_launches"]["midseq_attention_fwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": total("library_ms"),
+        "basis": f"one bf16 mPLUG encode at batch {batch}: "
+                 f"{sum(MIDSEQ_PER_ENCODE.values())} launches over (Sq,Sk) "
+                 + ", ".join(f"{k}x{v}" for k, v in MIDSEQ_PER_ENCODE.items())
+                 + "; library_ms: scaled_dot_product_attention with the "
+                   "bias as a float mask",
+    })
     main = [r for r in train_rows if r["batch"] == TRAIN_BATCH
             and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
     for name, kind, replaces, mult, launches, err_keys, library in (
@@ -1093,34 +1539,51 @@ def main(argv=None) -> int:
     device = torch.device("cpu" if args.rehearse else "cuda")
 
     t0 = time.monotonic()
+    phase_s: dict = {}
+
+    def phase(name, fn, *a):
+        t = time.monotonic()
+        result = fn(*a)
+        phase_s[name] = time.monotonic() - t
+        log(f"chip_smoke: phase {name} in {phase_s[name]:.1f} s")
+        return result
+
+    rehearse, seed = args.rehearse, args.seed
     try:
-        dev = phase_device(torch, args.rehearse)
-        if not args.rehearse:
-            phase_build()
-        rows = phase_kernel(torch, device, args.rehearse, args.seed)
-        train_rows = phase_train_kernels(torch, device, args.rehearse,
-                                         args.seed)
-        serve = phase_serve(torch, device, args.rehearse, args.seed)
-        if not args.rehearse:
-            phase_profile(torch, device, args.seed)
-        train = phase_train(torch, device, args.rehearse, args.seed)
-        step = phase_step(torch, device, args.rehearse, args.seed)
+        dev = phase("device", phase_device, torch, rehearse)
+        if not rehearse:
+            phase("build", phase_build)
+        rows = phase("kernel", phase_kernel, torch, device, rehearse, seed)
+        midseq_rows = phase("midseq-kernel", phase_midseq_kernel, torch,
+                            device, rehearse, seed)
+        train_rows = phase("train-kernels", phase_train_kernels, torch,
+                           device, rehearse, seed)
+        serve = phase("serve", phase_serve, torch, device, rehearse, seed)
+        if not rehearse:
+            phase("profile", phase_profile, torch, device, seed)
+        mplug = phase("mplug-serve", phase_mplug_serve, torch, device,
+                      rehearse, seed)
+        train = phase("train", phase_train, torch, device, rehearse, seed)
+        step = phase("step", phase_step, torch, device, rehearse, seed)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: all phases in {time.monotonic() - t0:.1f} s")
-    if args.rehearse:
+    log(f"chip_smoke: all phases in {time.monotonic() - t0:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in phase_s.items()})})")
+    if rehearse:
         log("chip_smoke: rehearsal finished (CPU, tiny widths): no result")
         return 3
-    kernels = kernel_summary(rows, train_rows, serve, train)
+    kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
+                             train)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"device": dev, "kernel_rows": rows,
+            json.dump({"device": dev, "phase_s": phase_s, "kernel_rows": rows,
+                       "midseq_kernel_rows": midseq_rows,
                        "train_kernel_rows": train_rows, "serve": serve,
-                       "train": train, "step": step, "kernels": kernels},
-                      f, indent=1)
+                       "mplug": mplug, "train": train, "step": step,
+                       "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

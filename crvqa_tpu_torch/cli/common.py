@@ -6,7 +6,8 @@ either package. Flags of paths the port has not reached yet are parsed and
 raise "not yet ported" when set away from their defaults
 (`reject_unported`); the JAX-only switches that select nothing here
 (`--prng_impl`, `--fused_attention`, `--midseq_attention`) are accepted
-and ignored.
+and ignored: on the card the short and the mid-length attention kernels
+always run where their scope admits the shape.
 """
 from __future__ import annotations
 
@@ -53,13 +54,14 @@ def dict_parser(s: Optional[str]) -> dict:
 def add_kernel_flags(p: argparse.ArgumentParser) -> None:
     """The JAX CLIs' attention-kernel switches, parsed so the same argv
     works on both packages. In the port they select nothing: on the card
-    the fused-attention kernels always run where their scope admits the
-    shape."""
+    the short (fused) and the mid-length attention kernels always run
+    where their scope admits the shape."""
     p.add_argument("--fused_attention", type=str2bool, default=False,
                    help="accepted for argv compatibility; the port always "
                         "runs its attention kernels")
     p.add_argument("--midseq_attention", type=str2bool, default=False,
-                   help="accepted for argv compatibility; not yet ported")
+                   help="accepted for argv compatibility; the port always "
+                        "runs its mid-length attention kernel")
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:

@@ -14,7 +14,8 @@ the same mapping, written without flax, over a nested dict of numpy arrays
   `weight_g` [].
 
 `model.load_state_dict(state_dict_from_jax(params), strict=True)` then
-gives the same model. `stage2_from_jax` carries a JAX stage-2 state
+gives the same model. mPLUG's tree needs renames beyond that rule
+(`mplug_state_dict_from_jax`). `stage2_from_jax` carries a JAX stage-2 state
 (`crvqa_tpu/train/stage2.py:Stage2State`, as numpy) across the same way,
 so both packages can start a trajectory from one state.
 """
@@ -91,16 +92,10 @@ def stage2_from_jax(frozen_params: Mapping[str, Any],
     params = state_dict_from_jax(frozen_params)
     params.update(state_dict_from_jax(train_params["classifier"],
                                       prefix="classifier"))
-    by_key = {s.key: s for s in specs}
-    port_scores = {}
-    for key, arr in scores.items():
-        arr = np.asarray(arr, np.float32)
-        if not by_key[key].is_embedding:
-            arr = arr.T
-        port_scores[key] = torch.from_numpy(np.array(arr, copy=True))
+    port_scores, port_thresholds = mask_state_from_jax(scores, thresholds,
+                                                       specs)
     out = {"params": params, "scores": port_scores,
-           "thresholds": {k: torch.tensor(np.asarray(v, np.float32))
-                          for k, v in thresholds.items()}}
+           "thresholds": port_thresholds}
     if "lmh" in train_params:
         lmh = train_params["lmh"]
         out["lmh"] = {
@@ -124,3 +119,106 @@ def carry_into_state(state, carried: Mapping[str, Any]) -> None:
                         for k, t in carried["thresholds"].items()}
     for name, t in carried.get("lmh", {}).items():
         state.train_params["lmh"][name].copy_(t)
+
+
+# ------------------------------------------------------------------ mPLUG
+
+_VIT_MODULES = {"attn_out_proj": ["attn", "out_proj"],
+                "mlp_c_fc": ["mlp", "c_fc"], "mlp_c_proj": ["mlp", "c_proj"]}
+_DECODER_HEAD = {
+    "predictions_transform_dense": ["cls", "predictions", "transform",
+                                    "dense"],
+    "predictions_transform_LayerNorm": ["cls", "predictions", "transform",
+                                        "LayerNorm"]}
+
+
+def mplug_torch_name(path: tuple[str, ...], arr: np.ndarray
+                     ) -> tuple[str, np.ndarray]:
+    """One leaf of the JAX package's mPLUG param tree (its path, its array)
+    -> the port's state_dict name and tensor layout (the reference's names;
+    `crvqa_tpu/core/torch_compat.py:_mplug_remap_key` read in reverse):
+
+    - ViT: `resblocks_{l}` -> `transformer.resblocks.{l}`, `ln_1` keeps its
+      name, the fused `attn_in_proj` Dense -> `attn.in_proj_weight` /
+      `attn.in_proj_bias`, `attn_out_proj` -> `attn.out_proj`,
+      `mlp_c_fc` -> `mlp.c_fc`; the conv kernel HWIO -> OIHW;
+    - text / fusion encoders: `layer_{l}` -> `encoder.layer.{l}`;
+    - decoder: `embeddings` and `layer_{l}` under `bert`, the LM head's
+      transform under `cls.predictions.transform`, `predictions_bias` ->
+      `cls.predictions.bias`;
+    - Dense kernels [in, out] -> weights [out, in]; LayerNorm `scale` and
+      Embed `embedding` -> `weight`."""
+    tower, mods, leaf = path[0], list(path[1:-1]), path[-1]
+    if tower == "visual_encoder":
+        parts = ["visual_encoder", "visual"]
+        if mods and mods[0].startswith("resblocks_"):
+            parts += ["transformer", "resblocks", mods[0].split("_")[1]]
+            mods = mods[1:]
+            if mods == ["attn_in_proj"]:
+                return (".".join(parts + ["attn", "in_proj_" + (
+                    "weight" if leaf == "kernel" else "bias")]),
+                    arr.T if leaf == "kernel" else arr)
+            if mods and mods[0] in _VIT_MODULES:
+                mods = _VIT_MODULES[mods[0]] + mods[1:]
+        if mods == ["conv1"]:
+            return ".".join(parts + ["conv1", "weight"]), arr.transpose(
+                3, 2, 0, 1)
+        parts += mods
+    elif tower in ("text_encoder", "fusion_encoder", "text_decoder"):
+        body = ["bert"] if tower == "text_decoder" else []
+        parts = [tower]
+        if mods and mods[0].startswith("layer_"):
+            parts += body + ["encoder", "layer", mods[0].split("_")[1]]
+            mods = mods[1:]
+        elif mods and mods[0] == "embeddings":
+            parts += body
+        elif mods and mods[0] in _DECODER_HEAD:
+            parts += _DECODER_HEAD[mods[0]]
+            mods = mods[1:]
+        elif not mods and leaf == "predictions_bias":
+            return f"{tower}.cls.predictions.bias", arr
+        parts += mods
+    else:  # the ViT-L adapter: visn_fc, visn_layer_norm
+        parts = [tower] + mods
+    name, arr = _leaf(leaf, arr)
+    return ".".join(parts + [name]), arr
+
+
+def mplug_state_dict_from_jax(params: Mapping[str, Any]
+                              ) -> dict[str, torch.Tensor]:
+    """The JAX package's mPLUG params (nested dict of arrays) -> the port's
+    state_dict; `load_state_dict(..., strict=True)` then gives the same
+    model."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (key,))
+                continue
+            arr = np.asarray(value)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            name, arr = mplug_torch_name(path + (key,), arr)
+            out[name] = torch.from_numpy(np.array(arr, copy=True))
+
+    walk(params, ())
+    return out
+
+
+def mask_state_from_jax(scores: Mapping[str, Any],
+                        thresholds: Mapping[str, Any], specs
+                        ) -> tuple[dict[str, torch.Tensor],
+                                   dict[str, torch.Tensor]]:
+    """A JAX masker's (scores, thresholds), keyed by spec key, -> the
+    port's: scores in the torch layout [out, in] (embeddings keep theirs),
+    thresholds as fp32 tensors."""
+    by_key = {s.key: s for s in specs}
+    port_scores = {}
+    for key, arr in scores.items():
+        arr = np.asarray(arr, np.float32)
+        if not by_key[key].is_embedding:
+            arr = arr.T
+        port_scores[key] = torch.from_numpy(np.array(arr, copy=True))
+    return port_scores, {k: torch.tensor(np.asarray(v, np.float32))
+                         for k, v in thresholds.items()}

@@ -1,7 +1,9 @@
 // Device helpers shared by the fused-attention forward and backward kernels
-// (fused_attention_fwd.cu, fused_attention_bwd.cu). Both include this file,
-// so the recompute backward rebuilds exactly the probabilities the forward
-// computed and stored.
+// (fused_attention_fwd.cu, fused_attention_bwd.cu) and the mid-length
+// attention forward (midseq_attention_fwd.cu). All include this file, so the
+// recompute backward rebuilds exactly the probabilities the forward computed
+// and stored, and the two attention kernels share one softmax and one
+// dropout hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +69,14 @@ __device__ __forceinline__ float row_exp_sum(float* row, int sk, int lane) {
 // threshold = min(int(rate * 2^32), 2^32 - 1).
 __device__ __forceinline__ uint32_t keep_key(uint32_t seed, uint32_t b) {
   return seed * 2654435761u + b * 97531u;
+}
+
+// The same key with a head argument h (`_keep_mask(..., b, h)` adds
+// h * 1000003): the mid-length kernel keys each head's plain [Sq, Sk] rows
+// on its absolute head index (crvqa_tpu/ops/midseq_attention.py:125).
+__device__ __forceinline__ uint32_t keep_key(uint32_t seed, uint32_t b,
+                                             uint32_t h) {
+  return keep_key(seed, b) + h * 1000003u;
 }
 
 __device__ __forceinline__ bool keep_bit(uint32_t key, uint32_t i, uint32_t j,

@@ -123,19 +123,25 @@ SPECIAL_TOKENS = ("[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]")
 
 
 class WordPieceTokenizer:
-    """The slice of `BertTokenizer` the serving path uses, over a BERT
+    """The slice of `BertTokenizer` the serving paths use, over a BERT
     `vocab.txt` (one token per line, id = line number)."""
 
     def __init__(self, vocab_file: str, do_lower_case: bool = True):
         with open(vocab_file, encoding="utf-8") as f:
             self.vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
         self.do_lower_case = do_lower_case
-        self.unk_token = "[UNK]"
+        self.unk_token, self.cls_token, self.sep_token = (
+            "[UNK]", "[CLS]", "[SEP]")
+        self.pad_token = "[PAD]"
         self.all_special_tokens = list(SPECIAL_TOKENS)
         for t in self.all_special_tokens:
             if t not in self.vocab:
                 raise ValueError(f"special token {t!r} missing from vocab")
         self.unk_token_id = self.vocab[self.unk_token]
+        self.cls_token_id = self.vocab[self.cls_token]
+        self.sep_token_id = self.vocab[self.sep_token]
+        self.pad_token_id = self.vocab[self.pad_token]
 
     def _split_on_specials(self, text: str) -> list[str]:
         """Split special tokens out of the raw text as substrings, before
@@ -172,3 +178,44 @@ class WordPieceTokenizer:
         if isinstance(tokens, str):
             return self.vocab.get(tokens, self.unk_token_id)
         return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+    def convert_ids_to_tokens(self, ids) -> list[str]:
+        return [self.ids_to_tokens.get(int(i), self.unk_token) for i in ids]
+
+    def __call__(self, texts, padding: str = "max_length",
+                 truncation: bool = True, max_length: int = 25,
+                 add_special_tokens: bool = True) -> dict:
+        """Fixed-length batch encoding (the JAX tokenizer's `__call__` with
+        `padding="max_length"`, `crvqa_tpu/data/tokenization.py:268-302`):
+        [CLS] + wordpieces cut to max_length - 2 + [SEP], padded with
+        [PAD]; returns {"input_ids", "attention_mask"} as lists of rows."""
+        if padding != "max_length" or not truncation:
+            raise NotImplementedError("only padding='max_length' with "
+                                      "truncation is ported")
+        if isinstance(texts, str):
+            texts = [texts]
+        ids, mask = [], []
+        for t in texts:
+            r = self.convert_tokens_to_ids(self.tokenize(t))
+            if add_special_tokens:
+                r = ([self.cls_token_id] + r[: max(0, max_length - 2)]
+                     + [self.sep_token_id])
+            else:
+                r = r[:max_length]
+            pad_n = max(0, max_length - len(r))
+            ids.append(r + [self.pad_token_id] * pad_n)
+            mask.append([1] * len(r) + [0] * pad_n)
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        """Ids -> text: '##' pieces joined, HF's clean-up of punctuation and
+        contractions (`crvqa_tpu/data/tokenization.py:305-315`)."""
+        toks = self.convert_ids_to_tokens(ids)
+        if skip_special_tokens:
+            toks = [t for t in toks if t not in self.all_special_tokens]
+        text = " ".join(toks).replace(" ##", "")
+        for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+                     (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+                     (" 's", "'s"), (" 've", "'ve"), (" 're", "'re")):
+            text = text.replace(a, b)
+        return text

@@ -28,6 +28,12 @@ Thresholds = dict[str, torch.Tensor]
 
 
 def weight_name(spec: MaskSpec) -> str:
+    """The masked weight's state_dict name. A momentum-only spec names the
+    twin's module (`text_decoder_m.`); its scores come from the live
+    module's weight, as the JAX package reads them from the live path."""
+    if spec.momentum_only:
+        tower, rest = spec.torch_name.split(".", 1)
+        return f"{tower.removesuffix('_m')}.{rest}.weight"
     return f"{spec.torch_name}.weight"
 
 
@@ -169,6 +175,8 @@ class Masker:
         binarize = get_binarizer(self.binarizer_name, generator)
         out = dict(params)
         for spec in self.specs:
+            if spec.momentum_only:  # the twin's mask; no twin is held here
+                continue
             name = weight_name(spec)
             w = params[name]
             t = thresholds[spec.key]

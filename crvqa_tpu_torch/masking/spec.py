@@ -1,4 +1,5 @@
-"""Which LXMERT weights a stage-2 mask covers, and their modality.
+"""Which weights a mask covers, and their modality (mPLUG's table is
+`mplug_specs.py`).
 
 A copy of the LXMERT table of `crvqa_tpu/masking/spec.py` (itself the name
 tables of the reference's `masking/maskers_Robust.py:24-95`). The port
@@ -18,8 +19,11 @@ class MaskSpec:
     path: tuple[str, ...]  # JAX param path, ending in 'kernel'/'embedding'
     torch_name: str  # e.g. 'lxmert.encoder.x_layers.3.visual_attention.att.query'
     weight_type: str  # abbrev like 'lK', 'vlVQ', 'E', 'P'
-    modality: str  # 'Lang' | 'Vis' | 'Fus' | 'P'
+    modality: str  # 'Lang' | 'Vis' | 'Fus' | 'P' | 'Uni'
     is_embedding: bool = False
+    # masks only the momentum twin (mPLUG's `mask_classifier` quirk):
+    # `apply_masks` skips it on the live parameters
+    momentum_only: bool = False
 
     @property
     def key(self) -> str:

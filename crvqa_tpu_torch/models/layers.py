@@ -13,8 +13,8 @@ Randomness: a training forward draws only from explicit generators, never
 from the global RNG. `set_generators(model, device_gen, seed_gen)` hands
 every `Dropout` (hidden, embedding, classifier) and every attention its
 device generator, and the attentions a CPU generator for the int32 seed of
-the fused-attention kernel's counter-hash dropout (one draw per call, only
-when dropout is live). Eval draws nothing.
+the attention kernels' counter-hash dropout (one draw per call, only when
+dropout is live). Eval draws nothing.
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_attention import MAX_HEADS_TIMES_SEQ, fused_attention
+from ..ops.midseq_attention import midseq_attention
+from ..ops.midseq_attention import supported as midseq_supported
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -134,14 +136,87 @@ class PadFrozenEmbed(nn.Embedding):
         super().__init__(num_embeddings, embedding_dim, padding_idx=0)
 
 
+def kernel_seed(rate: float, seed_generator: Optional[torch.Generator],
+                what: str) -> int:
+    """The attention kernels' int32 dropout seed: one draw per call from
+    the module's CPU seed generator, only when dropout is live."""
+    if rate == 0.0:
+        return 0
+    return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=_need_generator(
+        seed_generator, what)))
+
+
+def dispatch_attention(q, k, v, attention_bias, num_heads: int,
+                       head_size: int, rate: float,
+                       generator: Optional[torch.Generator],
+                       seed_generator: Optional[torch.Generator],
+                       short_kernel: bool = True) -> torch.Tensor:
+    """Attention on flat [B, S, H*D] projections, dispatched as the JAX
+    package's `MultiHeadAttention._attend` (crvqa_tpu/models/layers.py:
+    255-307) dispatches when its kernels are on:
+
+    - a key-wise bias (None or [B, 1, 1, Sk]) with H*Sq and H*Sk <= 1024
+      -> `fused_attention` (only with `short_kernel`; the ViT's short
+      contexts stay eager, as in crvqa_tpu/models/mplug/vit.py:99-112);
+    - a key-wise bias past that bound that `midseq_attention.supported`
+      admits -> `midseq_attention`;
+    - anything else (a causal [B, 1, L, L] bias, shapes out of scope) ->
+      the eager path, the counterpart of the XLA einsums."""
+    keywise = attention_bias is None or (
+        attention_bias.dim() == 4 and attention_bias.shape[1] == 1
+        and attention_bias.shape[2] == 1)
+    short = (k.shape[1] * num_heads <= MAX_HEADS_TIMES_SEQ
+             and q.shape[1] * num_heads <= MAX_HEADS_TIMES_SEQ)
+    if keywise and (short and short_kernel or not short and midseq_supported(
+            q.shape[0], q.shape[1], k.shape[1], num_heads, head_size,
+            q.element_size())):
+        if attention_bias is None:
+            bias2d = torch.zeros(q.shape[0], k.shape[1], dtype=torch.float32,
+                                 device=q.device)
+        else:
+            bias2d = attention_bias[:, 0, 0, :].float()
+        kernel = fused_attention if short else midseq_attention
+        seed = kernel_seed(rate, seed_generator, "attention kernel")
+        return kernel(q, k, v, bias2d, num_heads, head_size, rate, seed)
+    return eager_attention(q, k, v, attention_bias, num_heads, head_size,
+                           rate, generator)
+
+
+def eager_attention(q, k, v, attention_bias, num_heads: int, head_size: int,
+                    rate: float, generator: Optional[torch.Generator]
+                    ) -> torch.Tensor:
+    """Attention for contexts out of the kernels' scope, on flat
+    [B, S, H*D] projections: scores as the product in the activation dtype,
+    then fp32 bias and softmax, probabilities in the activation dtype (the
+    JAX package's `_attend_heads` einsum path)."""
+    b, sq, d = q.shape
+    split = lambda t: t.reshape(b, t.shape[1], num_heads,
+                                head_size).transpose(1, 2)
+    scores = torch.matmul(split(q), split(k).transpose(-1, -2)).float()
+    scores = scores / math.sqrt(head_size)
+    if attention_bias is not None:
+        scores = scores + attention_bias.float()
+    probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), rate,
+                    generator)
+    ctx = torch.matmul(probs, split(v))
+    return ctx.transpose(1, 2).reshape(b, sq, d)
+
+
 class MultiHeadAttention(nn.Module):
     """`LxmertAttention` over an explicit context (self- or cross-attention):
-    query/key/value Linear, additive key bias, fp32 softmax.
+    query/key/value Linear, additive key bias, fp32 softmax, dispatched to
+    the attention kernels by `dispatch_attention`.
 
-    Attention whose contexts fit the short-sequence scope (H*Sq and H*Sk <=
-    1024) with a key-wise bias goes through `ops.fused_attention` — every
-    LXMERT attention does; anything else takes the eager path below, the
-    counterpart of the JAX package's XLA einsum path."""
+    Two more entries, for autoregressive decoding (the JAX module's `kv`
+    and `self_cache`; crvqa_tpu/models/layers.py:222-249), both on the
+    eager path as in the JAX package:
+
+    - `kv`: precomputed (k, v) projections of the context, each
+      [B, S, H, D] (the decoder's cached cross-attention memory);
+    - `self_cache` / `cache_position`: `hidden`/`context` is the one new
+      row [N, 1, hidden]; its k and v are written into the caches
+      [N, max_len, H, D] at `cache_position` (in place) and the row attends
+      the whole cache under the caller's key bias. Returns (out, caches)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_size: int,
                  dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -156,46 +231,34 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(hidden_size, d, dtype=dtype)
 
     def forward(self, hidden: torch.Tensor, context: torch.Tensor,
-                attention_bias: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        return self._attend(self.query(hidden), self.key(context),
-                            self.value(context), attention_bias)
+                attention_bias: Optional[torch.Tensor] = None, kv=None,
+                self_cache=None, cache_position: Optional[int] = None):
+        q = self.query(hidden)
+        rate = self.dropout_rate if self.training else 0.0
+        if self_cache is not None:
+            k_cache, v_cache = self_cache
+            n, _, h, d = k_cache.shape
+            k_cache[:, cache_position] = self.key(context)[:, 0].reshape(
+                n, h, d).to(k_cache.dtype)
+            v_cache[:, cache_position] = self.value(context)[:, 0].reshape(
+                n, h, d).to(v_cache.dtype)
+            out = eager_attention(q, k_cache.flatten(2), v_cache.flatten(2),
+                                  attention_bias, self.num_heads,
+                                  self.head_size, rate, self.generator)
+            return out, (k_cache, v_cache)
+        if kv is not None:
+            k, v = kv
+            return eager_attention(q, k.flatten(2), v.flatten(2),
+                                   attention_bias, self.num_heads,
+                                   self.head_size, rate, self.generator)
+        return self._attend(q, self.key(context), self.value(context),
+                            attention_bias)
 
     def _attend(self, q, k, v, attention_bias):
         rate = self.dropout_rate if self.training else 0.0
-        keywise = attention_bias is None or (
-            attention_bias.dim() == 4 and attention_bias.shape[1] == 1
-            and attention_bias.shape[2] == 1)
-        short = (k.shape[1] * self.num_heads <= MAX_HEADS_TIMES_SEQ
-                 and q.shape[1] * self.num_heads <= MAX_HEADS_TIMES_SEQ)
-        if keywise and short:
-            if attention_bias is None:
-                bias2d = torch.zeros(q.shape[0], k.shape[1],
-                                     dtype=torch.float32, device=q.device)
-            else:
-                bias2d = attention_bias[:, 0, 0, :].float()
-            seed = 0
-            if rate > 0.0:  # the kernel's int32 dropout seed, one per call
-                seed = int(torch.randint(
-                    -2 ** 31, 2 ** 31, (), generator=_need_generator(
-                        self.seed_generator, "fused attention")))
-            return fused_attention(q, k, v, bias2d, self.num_heads,
-                                   self.head_size, rate, seed)
-        return self._attend_heads(q, k, v, attention_bias, rate)
-
-    def _attend_heads(self, q, k, v, attention_bias, rate):
-        """Eager attention for contexts out of the kernel's scope."""
-        b, sq, d = q.shape
-        split = lambda t: t.reshape(b, t.shape[1], self.num_heads,
-                                    self.head_size).transpose(1, 2)
-        scores = torch.matmul(split(q), split(k).transpose(-1, -2)).float()
-        scores = scores / math.sqrt(self.head_size)
-        if attention_bias is not None:
-            scores = scores + attention_bias.float()
-        probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), rate,
-                        self.generator)
-        ctx = torch.matmul(probs, split(v))
-        return ctx.transpose(1, 2).reshape(b, sq, d)
+        return dispatch_attention(q, k, v, attention_bias, self.num_heads,
+                                  self.head_size, rate, self.generator,
+                                  self.seed_generator)
 
 
 class AttentionOutput(nn.Module):
@@ -307,7 +370,7 @@ def set_generators(model: nn.Module, device_generator: torch.Generator,
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = device_generator
-        elif isinstance(m, MultiHeadAttention):
+        elif hasattr(m, "seed_generator"):  # every attention module
             m.generator = device_generator
             m.seed_generator = seed_generator
 

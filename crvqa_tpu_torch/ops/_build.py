@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per library: builds overlap
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -75,8 +76,10 @@ def nvcc_path() -> str:
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if stale) and load `csrc/<name>.cu` as `lib<name>.so`; one
-    load per process."""
+    load per process. Different libraries build concurrently."""
     with _lock:
+        name_lock = _locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is None:
             path = build_library(os.path.join(CSRC_DIR, name + ".cu"),

@@ -58,19 +58,23 @@ def keep_threshold(rate: float) -> int:
 
 
 def keep_mask(batch_rows: torch.Tensor, sq: int, cols: int, rate: float,
-              seed: int) -> torch.Tensor:
-    """Bool keep mask [len(batch_rows), sq, cols] of
-    `crvqa_tpu/ops/fused_attention.py:_keep_mask` with head argument 0:
-    keyed on (seed as uint32, global batch row, row i, lane-blocked column
-    j = h*Sk + k). uint32 arithmetic in int64 with explicit wrap-around."""
+              seed: int, head=0) -> torch.Tensor:
+    """Bool keep mask [*batch_rows.shape, sq, cols] of
+    `crvqa_tpu/ops/fused_attention.py:_keep_mask`: keyed on (seed as
+    uint32, global batch row, head argument, row i, column j). This
+    module's kernels pass head 0 and the lane-blocked column j = h*Sk + k;
+    the mid-length kernel passes the absolute head (an int or an int64
+    tensor broadcastable against `batch_rows`) and the plain key index.
+    uint32 arithmetic in int64 with explicit wrap-around."""
     dev = batch_rows.device
     seed_u = seed & _MASK32
     key = (((seed_u * 2654435761) & _MASK32)
-           + batch_rows.to(torch.int64) * 97531) & _MASK32
+           + batch_rows.to(torch.int64) * 97531
+           + ((head * 1000003) & _MASK32)) & _MASK32
     i = torch.arange(sq, dtype=torch.int64, device=dev)[:, None]
     j = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
     x = (i * 374761393 + j * 668265263) & _MASK32            # [sq, cols]
-    x = (x[None] + key[:, None, None]) & _MASK32
+    x = (x + key[..., None, None]) & _MASK32
     x = x ^ (x >> 13)
     x = (x * 1274126177) & _MASK32
     x = x ^ (x >> 16)

@@ -1,0 +1,228 @@
+"""Mid-length multi-head attention — the Hopper kernel's binding.
+
+Counterpart of `crvqa_tpu/ops/midseq_attention.py`: the attentions out of
+the short kernel's H*S <= 1024 scope (mPLUG's 577-patch ViT self-attention,
+the fusion encoder's text->image cross-attention, the stride layer's joint
+attention, the rank decoder's grouped cross-attention). The kernel is
+`csrc/midseq_attention_fwd.cu`; see its header for what it replaces, its
+bound and its design. This module holds its ctypes binding, its plain
+PyTorch version and the wrapper that chooses between them by the tensor's
+device:
+
+- CPU tensors take the plain version (the tests' path), differentiable by
+  autograd;
+- CUDA tensors launch the kernel or raise. There is no fallback.
+
+`midseq_attention.launches` counts the kernel's launches and nothing else.
+
+The forward is ported; its backward (`_bwd_kernel`, the recompute backward
+of mPLUG training) is not yet, so a CUDA call that needs a gradient raises.
+
+Dropout uses the JAX kernel's counter-hash keep mask keyed on the ABSOLUTE
+head index and the plain key index (`fused_attention.keep_mask` with a head
+argument): the port's masks equal the JAX package's bit for bit.
+
+`supported()` and `_pick_hg()` are copies of the JAX module's: the model
+dispatch asks the same question of the same shapes, so both packages send
+the same attentions to this kernel (`_pick_hg` only aligns TPU lanes; it
+enters the dispatch through the TPU's VMEM budget).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .fused_attention import (KERNEL_HEAD_SIZE, _dropout_args, _merge,
+                              _probs, _split, keep_mask)
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+_ROWS, _KEY_TILE = 16, 32  # the kernel's query rows per block, staged keys
+
+# The JAX module's per-program VMEM budget (bytes): its dispatch predicate.
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+# -------------------------------------------- the JAX dispatch predicate
+
+def _pick_hg(num_heads: int, head_size: int) -> int:
+    """Heads per TPU program: the smallest divisor of H whose lane width
+    hg*D is 128-aligned, else all heads (`_pick_hg` of the JAX module)."""
+    for hg in range(1, num_heads):
+        if num_heads % hg == 0 and (hg * head_size) % 128 == 0:
+            return hg
+    return num_heads
+
+
+def _pad_to(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def supported(batch: int, sq: int, sk: int, num_heads: int, head_size: int,
+              itemsize: int) -> bool:
+    """The JAX module's dispatch predicate: True iff its recompute backward
+    fits the TPU's VMEM budget at these shapes (Sq padded to 16, Sk to 128,
+    double-buffered io blocks of hg heads plus four fp32 [Sqp, Skp]
+    planes). The model dispatch sends the mid-length attentions it admits
+    to this kernel and the rest to the eager path."""
+    if batch < 1 or sq < 1 or sk < 1:
+        return False
+    w = _pick_hg(num_heads, head_size) * head_size
+    sqp, skp = _pad_to(sq, 16), _pad_to(sk, 128)
+    io = (3 * sqp * w + 4 * skp * w) * itemsize + skp * 4
+    return 2 * io + 4 * sqp * skp * 4 <= _VMEM_BUDGET
+
+
+# ----------------------------------------------------------- plain version
+
+def drop_factor(b: int, num_heads: int, sq: int, sk: int, rate: float,
+                seed: int, device) -> torch.Tensor:
+    """[B, H, Sq, Sk] fp32: 1/(1-rate) where kept, 0 where dropped (1 at
+    rate 0), the mask keyed on (b, absolute head h, row i, key j)."""
+    if rate == 0.0:
+        return torch.ones((), device=device)
+    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    heads = torch.arange(num_heads, dtype=torch.int64, device=device)[None]
+    keep = keep_mask(rows, sq, sk, rate, seed, head=heads)
+    return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
+
+
+def midseq_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               num_heads: int, head_size: int,
+                               rate: float = 0.0, seed: int = 0
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel's forward, step by step: fp32
+    scores and full-row softmax, dropout from the counter-hash mask, p
+    rounded to the activation dtype before the context product.
+    Differentiable by autograd.
+
+    q [B, Sq, H*D]; k, v [B, Sk, H*D]; bias [B, Sk] additive fp32."""
+    b, sq, _ = q.shape
+    p = _probs(q, k, bias, num_heads, head_size)
+    p = p * drop_factor(b, num_heads, sq, k.shape[1], rate, seed, q.device)
+    ctx = torch.matmul(p.to(q.dtype), _split(v, num_heads, head_size))
+    return _merge(ctx)
+
+
+# ----------------------------------------------------------------- wrapper
+
+def midseq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, num_heads: int, head_size: int,
+                     rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + bias) (dropout) @ v per head, in the
+    projection layout: q [B, Sq, H*D], k and v [B, Sk, H*D], bias [B, Sk]
+    fp32 (0 for live keys, -10000 for padding). Returns [B, Sq, H*D] in q's
+    dtype. `seed` (int32 range) keys the dropout mask; unused at rate 0."""
+    _check_shapes(q, k, v, bias, num_heads, head_size)
+    _dropout_args(rate, seed)  # validates the rate
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.device.type == "cpu":
+        return midseq_attention_reference(q, k, v, bias, num_heads,
+                                          head_size, rate, seed)
+    if needs_grad:
+        raise NotImplementedError(
+            "midseq backward: mPLUG training slice, not yet ported "
+            "(crvqa_tpu/ops/midseq_attention.py:_bwd_kernel)")
+    _check_cuda(q, k, v, bias, head_size)
+    return _launch(q, k, v, bias, num_heads, head_size, rate, seed)
+
+
+midseq_attention.launches = 0
+
+
+# ------------------------------------------------------------------ checks
+
+def _check_shapes(q, k, v, bias, num_heads, head_size):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or bias.dim() != 2:
+        raise ValueError("midseq_attention: q/k/v must be [B, S, H*D] and "
+                         "bias [B, Sk]")
+    b, _, d = q.shape
+    sk = k.shape[1]
+    if d != num_heads * head_size:
+        raise ValueError(f"midseq_attention: width {d} != {num_heads} heads "
+                         f"x {head_size}")
+    if k.shape != (b, sk, d) or v.shape != (b, sk, d) or bias.shape != (b, sk):
+        raise ValueError(
+            f"midseq_attention: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, bias {tuple(bias.shape)} "
+            "do not agree")
+    if len({t.device for t in (q, k, v, bias)}) != 1:
+        raise ValueError("midseq_attention: q, k, v and bias must share a "
+                         "device")
+
+
+def smem_bytes(sk: int) -> int:
+    """Shared memory the kernel's block needs at Sk keys: a staged key tile
+    (pitch D + 1), the block's q rows and one fp32 probability row of Sk
+    per query row."""
+    return 4 * (_KEY_TILE * (KERNEL_HEAD_SIZE + 1)
+                + _ROWS * KERNEL_HEAD_SIZE + _ROWS * sk)
+
+
+def _check_cuda(q, k, v, bias, head_size):
+    """What the kernel takes; raises on anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"midseq_attention: unsupported device {q.device}")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"midseq_attention kernel: q/k/v must share fp32 or "
+                        f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        raise TypeError("midseq_attention kernel: bias must be a contiguous "
+                        "fp32 [B, Sk] tensor")
+    if head_size != KERNEL_HEAD_SIZE:
+        raise ValueError(f"midseq_attention kernel: head_size {head_size} "
+                         f"(the kernel takes {KERNEL_HEAD_SIZE})")
+    if any(t.stride(2) != 1 for t in (q, k, v)):
+        raise ValueError("midseq_attention kernel: the H*D dimension of "
+                         "q/k/v must be contiguous")
+    sk = k.shape[1]
+    if smem_bytes(sk) > _SMEM_LIMIT:
+        raise ValueError(f"midseq_attention kernel: Sk = {sk} needs "
+                         f"{smem_bytes(sk)} bytes of shared memory for its "
+                         f"probability rows, over the {_SMEM_LIMIT} a block "
+                         "may use")
+
+
+# ------------------------------------------------------------------ launch
+
+_p, _i, _i64, _u32, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_uint32, ctypes.c_float)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_cuda_library("midseq_attention_fwd")
+    if lib.midseq_attention_fwd.argtypes is None:
+        lib.midseq_attention_fwd.argtypes = [
+            _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _f32, _p]
+        lib.midseq_attention_fwd.restype = ctypes.c_int
+        lib.midseq_attention_fwd_error_string.argtypes = [ctypes.c_int]
+        lib.midseq_attention_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
+    b, sq, d = q.shape
+    sk = k.shape[1]
+    seed_u, threshold, keep_scale = _dropout_args(rate, seed)
+    out = torch.empty((b, sq, d), dtype=q.dtype, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.midseq_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, sq, sk, num_heads, head_size,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), int(q.dtype == torch.bfloat16),
+            seed_u, threshold, keep_scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        msg = lib.midseq_attention_fwd_error_string(rc).decode()
+        raise RuntimeError(f"midseq_attention_fwd kernel launch failed: CUDA "
+                           f"error {rc} ({msg})")
+    midseq_attention.launches += 1
+    return out
+

@@ -8,7 +8,9 @@ Tolerances: fp32 atol 2e-5 (the same fp32 math, summed in another order);
 bf16 atol/rtol 2e-2 (p and the outputs round to bf16, and the plain
 version's bf16 matmuls accumulate in another order). The backward's fp32
 gradients atol 1e-4: dp = g v^T reaches tens, summed in another order than
-cuBLAS sums it. The fp32 residual p atol 1e-6.
+cuBLAS sums it. The fp32 residual p atol 1e-6. The mid-length kernel's
+bf16 outputs atol 5e-3, rtol 1e-2: its outputs are about 0.07, so a missed
+rounding point of p would show.
 """
 import pytest
 import torch
@@ -25,6 +27,18 @@ SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.fixture(autouse=True)
+def _full_fp32():
+    """fp32 checks in full fp32: no TF32 in matmuls or cuDNN."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 def _inputs(b, sq, sk, dtype, seed=0):
@@ -262,3 +276,121 @@ def test_train_step_kernels_match_plain_versions():
     for k in scores:
         torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
                                    atol=1e-3 * gmax, msg=k)
+
+
+# ------------------------------------------------- mid-length attention
+
+MIDSEQ_SHAPES = [(577, 577), (25, 577), (602, 602), (1, 602), (120, 602)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_midseq_kernel_matches_plain(dtype, rate):
+    """The mid-length forward at the ViT, cross, joint and rank shapes of
+    mPLUG (batch 4): against the plain version with the same dropout."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
+           else dict(atol=5e-3, rtol=1e-2))
+    for sq, sk in MIDSEQ_SHAPES:
+        q, k, v, bias = _inputs(4, sq, sk, dtype, seed=sq + sk)
+        before = ma.midseq_attention.launches
+        out = ma.midseq_attention(q, k, v, bias, 12, 64, rate, -31)
+        torch.cuda.synchronize()
+        assert ma.midseq_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        ref = ma.midseq_attention_reference(q, k, v, bias, 12, 64, rate, -31)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_midseq_kernel_reads_strided_projection_slices():
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(2, 577, 3 * 768, generator=g).cuda()
+    q, k, v = qkv.chunk(3, dim=-1)
+    bias = torch.zeros(2, 577, device="cuda")
+    out = ma.midseq_attention(q, k, v, bias, 12, 64)
+    ref = ma.midseq_attention_reference(q, k, v, bias, 12, 64)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["head_size", "dtype", "inner_stride",
+                                  "smem", "grad"])
+def test_midseq_raises_on_what_it_does_not_take(case):
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    q, k, v, bias = _inputs(2, 25, 577, torch.float32)
+    heads, head_size = 12, 64
+    error = (TypeError, ValueError)
+    if case == "head_size":
+        heads, head_size = 24, 32
+    elif case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "inner_stride":
+        q = torch.stack([q, q], dim=-1)[..., 0]  # H*D stride 2
+    elif case == "smem":  # 16 probability rows of 4096 keys: 256 KB
+        k = v = torch.randn(2, 4096, 768, device="cuda")
+        bias = torch.zeros(2, 4096, device="cuda")
+    else:  # the backward comes with the training slice
+        q = q.requires_grad_()
+        error = NotImplementedError
+    before = ma.midseq_attention.launches
+    with pytest.raises(error):
+        ma.midseq_attention(q, k, v, bias, heads, head_size)
+    assert ma.midseq_attention.launches == before
+
+
+def test_mplug_encode_launch_counts_and_plain_agreement():
+    """One full-width mPLUG encode (ViT-B-16 at 384 px, 12+6+6 layers) in
+    bf16 at batch 2 on seeded weights: 18 mid-length launches (12 ViT at
+    (577,577), 5 fusion cross at (25,577), 1 stride joint at (602,602))
+    and 11 short ones (6 text encoder, 5 fusion self at (25,25)). The same
+    encode in fp32 through the kernels and through the plain versions
+    agrees within 2e-3 (fp32, 24 layers, summed in another order)."""
+    _need_card()
+    import dataclasses
+
+    from crvqa_tpu_torch.models.mplug import MPlugConfig, build_mplug
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    cfg = MPlugConfig()
+    model = build_mplug(cfg, "cpu", torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    g = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (2, 384, 384, 3), dtype=torch.uint8,
+                           generator=g).cuda()
+    ids = torch.randint(1000, 2000, (2, 25), generator=g).cuda()
+    mask = torch.ones(2, 25, device="cuda")
+    mask[1, 10:] = 0.0
+    bf16 = dataclasses.replace(
+        cfg, bert=dataclasses.replace(cfg.bert, dtype=torch.bfloat16),
+        vit=dataclasses.replace(cfg.vit, dtype=torch.bfloat16))
+    model_bf16 = build_mplug(bf16, "cuda")
+    model_bf16.load_state_dict(state)
+    before = (ma.midseq_attention.launches, fa.fused_attention.launches)
+    with torch.inference_mode():
+        states, _ = model_bf16.eval().encode(images, ids, mask)
+    assert (ma.midseq_attention.launches - before[0],
+            fa.fused_attention.launches - before[1]) == (18, 11)
+    assert states.shape == (2, 602, 768) and bool(states.isfinite().all())
+
+    model = model.cuda().eval()
+    with torch.inference_mode():
+        got, _ = model.encode(images, ids, mask)
+    saved = (layers.midseq_attention, layers.fused_attention)
+    layers.midseq_attention = (
+        lambda q, k, v, b, h, d, rate=0.0, seed=0:
+        ma.midseq_attention_reference(q, k, v, b, h, d, rate, seed))
+    layers.fused_attention = (
+        lambda q, k, v, b, h, d, rate=0.0, seed=0:
+        fa.fused_attention_reference(q, k, v, b, h, d))
+    try:
+        with torch.inference_mode():
+            want, _ = model.encode(images, ids, mask)
+    finally:
+        layers.midseq_attention, layers.fused_attention = saved
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)

@@ -38,7 +38,18 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.data.synthetic",
                      "crvqa_tpu_torch.data.prefetch",
                      "crvqa_tpu_torch.core.checkpoint",
-                     "crvqa_tpu_torch.core.convert"):
+                     "crvqa_tpu_torch.core.convert",
+                     "crvqa_tpu_torch.ops.midseq_attention",
+                     "crvqa_tpu_torch.models.mplug.vit",
+                     "crvqa_tpu_torch.models.mplug.bert",
+                     "crvqa_tpu_torch.models.mplug.mplug",
+                     "crvqa_tpu_torch.models.mplug.generator",
+                     "crvqa_tpu_torch.masking.mplug_specs",
+                     "crvqa_tpu_torch.data.augment",
+                     "crvqa_tpu_torch.data.mplug_data",
+                     "crvqa_tpu_torch.train.mplug_train",
+                     "crvqa_tpu_torch.cli.vqa_mplug",
+                     "crvqa_tpu_torch.cli.serve_mplug"):
         assert expected in mods
 
 
