@@ -9,7 +9,9 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 
 Phases (each one's seconds are logged):
   1. device   the card's name, count and power limit; TF32 off for matmuls
-              and cuDNN (fp32 comparisons are full fp32).
+              and cuDNN (fp32 comparisons are full fp32). Then the bounds,
+              from shapes alone, of the TPU kernels still to port
+              (`queued-bounds`).
   2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
               feature store, compiled from the checkout, all at once.
   3. kernel   the primal short attention kernel against its plain PyTorch
@@ -67,7 +69,31 @@ Phases (each one's seconds are logged):
               and one full-width fp32 step with dropout on through the
               kernels against the same step through the plain versions from
               the same generators.
- 11. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 11. midseq-bwd-kernel  the mid-length recompute backward against its plain
+              version at mPLUG's training shapes ((577,577) ViT, (25,577)
+              fusion cross, (602,602) stride joint, (40,602) decoder cross
+              of 5 answers x 8 tokens), batch 16, fp32 and bf16, dropout 0
+              and 0.1; dq, dk, dv of two launches bit-identical; timed at
+              rate 0.1 beside the plain version, `scaled_dot_product_
+              attention` forward + backward and the forward kernel.
+ 12. mplug-train  `crvqa_tpu_torch.cli.vqa_mplug.main` at the full width of
+              `MPlugConfig()`, bf16, `--mode mask` (zero rate 0.5 from
+              `--init_sparsity` 0.3), `--synthetic 64 --synthetic_shapes
+              25,8,5`, batch 16: 8 steps with four threshold resets, a
+              checkpoint, beam evaluation of 4 batches and the exports; a
+              resume from the checkpoint for 4 more steps;
+              `serve_mplug --ckpt` on what it wrote (32 requests); 2 steps
+              each of `--mode full` and `--distill true`. Checks finite
+              losses, the launches per step (30 mid-length forward, 29
+              backward, 11 short forward-for-grad, 11 short backward; full
+              mode 30 backward; distill 30 + 11 more forward) and per eval
+              batch (18 + 11), and the zero rate on target after each reset.
+ 13. mplug-step  3 warm-up and 10 timed mask-training steps on one batch
+              kept on the card (examples per second), device time by kernel
+              category and the idle share of two profiled steps, and one
+              fp32 step at batch 8 with dropout on through the kernels
+              against the same step through the plain attentions.
+ 14. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -126,6 +152,24 @@ TOL = {"float32": dict(atol=2e-5, rtol=0.0),
 TOL_BWD = {"float32": dict(atol=1e-4, rtol=0.0),
            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 TOL_P = 1e-6  # the fp32 residual p
+
+# mPLUG mask training at batch 16 with 5 answers of 8 tokens per question:
+# mid-length launches per step by (Sq, Sk). The forward runs all 30; the
+# backward skips the first ViT block's attention, which no trained leaf
+# precedes (the ViT's masks are on its MLPs), unless every parameter trains.
+MIDSEQ_TRAIN_SHAPES = [(577, 577), (25, 577), (602, 602), (40, 602)]
+MIDSEQ_FWD_PER_STEP = {(577, 577): 12, (25, 577): 5, (602, 602): 1,
+                       (40, 602): 12}
+MIDSEQ_BWD_PER_STEP = {**MIDSEQ_FWD_PER_STEP, (577, 577): 11}
+SHORT_PER_STEP = 11  # 6 text encoder + 5 fusion self at (25,25)
+MIDSEQ_BWD_TOL = {"float32": dict(atol=2e-5, rtol=0.0),
+                  # gradients are about 1; ds, p_t and each output round to
+                  # bf16 once, the sums run in another order
+                  "bfloat16": dict(atol=1e-2, rtol=2e-2)}
+MPLUG_TRAIN_BATCH = 16
+MPLUG_SYNTHETIC = 64           # 4 steps per epoch, 4 eval batches
+MPLUG_TRAIN_SHAPES = "25,8,5"  # q_len, answer_len, answers per question
+MPLUG_CHECK_BATCH = 8
 
 TRAIN_BATCH = 256
 TRAIN_RATES = (0.0, 0.1)
@@ -799,7 +843,8 @@ def phase_profile(torch, device, seed: int) -> None:
 
 # ---------------------------------------------------------- phases 8-9
 
-def fabricate_mplug(root: str, rehearse: bool, rng) -> dict:
+def fabricate_mplug(root: str, rehearse: bool, rng,
+                    n_requests: int = 0) -> dict:
     """What the mPLUG server reads, made from `rng`: a BERT-shaped vocab
     file (30522 lines, [PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
     103, question and answer words, fillers elsewhere, so every id the
@@ -828,7 +873,7 @@ def fabricate_mplug(root: str, rehearse: bool, rng) -> dict:
     pixels = rng.integers(0, 256, (MPLUG_IMAGES, res, res, 3), dtype=np.uint8)
     images = {f"img_{i:03d}.jpg": pixels[i] for i in range(MPLUG_IMAGES)}
     names = sorted(images)
-    n_requests = 32 if rehearse else MPLUG_REQUESTS
+    n_requests = n_requests or (32 if rehearse else MPLUG_REQUESTS)
     with open(os.path.join(root, "requests.jsonl"), "w") as f:
         for n in range(n_requests):
             q = TEMPLATES[n % len(TEMPLATES)].format(
@@ -892,8 +937,12 @@ def _profile_categories(torch, prof, wall_ms: float, calls: int) -> dict:
         return {"measured": False}
 
     def category(name: str) -> str:
+        if "midseq_bwd" in name:
+            return "midseq_attention_bwd"
         if "midseq_attention" in name:
             return "midseq_attention_fwd"
+        if "fused_attention_bwd" in name:
+            return "fused_attention_bwd"
         if "fused_attention" in name:
             return "fused_attention_fwd"
         low = name.lower()
@@ -1144,6 +1193,7 @@ def _counters() -> dict:
     from crvqa_tpu_torch.ops import midseq_attention as ma
 
     return {"midseq_attention_fwd": ma.midseq_attention,
+            "midseq_attention_bwd": ma.midseq_attention_bwd,
             "fused_attention_fwd": fa.fused_attention,
             "fused_attention_fwd_train": fa.fused_attention_fwd_train,
             "fused_attention_bwd_stored": fa.fused_attention_bwd_stored,
@@ -1211,7 +1261,7 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         check(len(losses) == steps and all(np.isfinite(losses)),
               f"train: {len(losses)} losses (want {steps}), finite: "
               f"{bool(np.all(np.isfinite(losses)))}")
-        want = {"midseq_attention_fwd": 0,
+        want = {"midseq_attention_fwd": 0, "midseq_attention_bwd": 0,
                 "fused_attention_fwd_train": per_fwd * steps,
                 "fused_attention_bwd_stored": per_bwd * steps,
                 "fused_attention_bwd_recompute": 0,
@@ -1253,7 +1303,7 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         finally:
             fa.BWD_IMPL = saved
         rsteps = N_TRAIN // TRAIN_BATCH * RECOMPUTE_EPOCHS
-        rwant = {"midseq_attention_fwd": 0,
+        rwant = {"midseq_attention_fwd": 0, "midseq_attention_bwd": 0,
                  "fused_attention_fwd_train": per_fwd * rsteps,
                  "fused_attention_bwd_stored": 0,
                  "fused_attention_bwd_recompute": per_bwd * rsteps,
@@ -1419,17 +1469,378 @@ def _profile_steps(torch, fn, steps: int = 2) -> dict:
             "idle_share": max(0.0, 1 - busy_ms / wall_ms), "top": top}
 
 
+
+# ------------------------------------------------------- phases 11-13
+
+def _midseq_bwd_bound_terms(b, sq, sk, dtype):
+    """(bytes ms, FLOPs ms) of one mid-length backward call: q, g, k, v and
+    the fp32 bias read once, dq, dk, dv written once; five products of
+    2·B·H·Sq·Sk·D FLOPs (scores, dp, dv, dq, dk)."""
+    item = 2 if dtype == "bfloat16" else 4
+    d = 12 * 64
+    nbytes = item * b * d * (3 * sq + 4 * sk) + 4 * b * sk
+    flops = 10 * b * 12 * sq * sk * 64
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+
+
+def phase_midseq_bwd_kernel(torch, device, rehearse: bool, seed: int
+                            ) -> list[dict]:
+    import torch.nn.functional as F
+
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    rows = []
+    b = 2 if rehearse else MPLUG_TRAIN_BATCH
+    for dtype in ("float32", "bfloat16"):
+        for rate in TRAIN_RATES:
+            for sq, sk in MIDSEQ_TRAIN_SHAPES:
+                q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
+                                                  device, seed + 5 * sq + sk)
+                gen = torch.Generator().manual_seed(seed + sq + sk)
+                g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
+                args = (12, 64, rate, KERNEL_SEED)
+                got = ma.midseq_attention_bwd(q, k, v, bias, g, *args)
+                again = ma.midseq_attention_bwd(q, k, v, bias, g, *args)
+                ref = ma.midseq_attention_bwd_reference(q, k, v, bias, g,
+                                                        *args)
+                if not rehearse:
+                    torch.cuda.synchronize()
+                errs = [_max_err(torch, [a], [r]) for a, r in zip(got, ref)]
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                ok = all(torch.allclose(a.float(), r.float(),
+                                        **MIDSEQ_BWD_TOL[dtype])
+                         for a, r in zip(got, ref))
+                row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq,
+                       "sk": sk, "dq_err": errs[0], "dk_err": errs[1],
+                       "dv_err": errs[2], "max_abs_err": max(errs),
+                       "grad_max_abs": max(r.float().abs().max().item()
+                                           for r in ref),
+                       "bit_identical": same, "ok": ok}
+                row["bytes_ms"], row["ops_ms"] = _midseq_bwd_bound_terms(
+                    b, sq, sk, dtype)
+                row["bound_ms"], row["bound_by"] = _bound(row["bytes_ms"],
+                                                          row["ops_ms"])
+                if rate == MAIN_RATE and not rehearse:
+                    split = lambda t: (t.view(b, t.shape[1], 12, 64)
+                                       .transpose(1, 2).detach()
+                                       .requires_grad_())
+                    qh, kh, vh = split(q), split(k), split(v)
+                    gh = g.view(b, sq, 12, 64).transpose(1, 2)
+                    mask = bias.to(q.dtype)[:, None, None, :]
+                    kw = dict(reps=4, replays=5)  # calls of milliseconds
+                    row["ms"] = _graph_ms(torch, lambda: (
+                        ma.midseq_attention_bwd(q, k, v, bias, g, *args)),
+                        **kw)
+                    row["plain_ms"] = _graph_ms(torch, lambda: (
+                        ma.midseq_attention_bwd_reference(q, k, v, bias, g,
+                                                          *args)), **kw)
+                    row["library_ms"] = _graph_ms(
+                        torch, lambda: torch.autograd.grad(
+                            F.scaled_dot_product_attention(
+                                qh, kh, vh, attn_mask=mask, dropout_p=rate),
+                            (qh, kh, vh), gh), **kw)
+                    row["fwd_ms"] = _graph_ms(torch, lambda: (
+                        ma.midseq_attention(q, k, v, bias, *args)), **kw)
+                    t_bytes, t_ops = _bound_terms(b, sq, sk, dtype)
+                    row["fwd_bound_ms"] = max(t_bytes, t_ops)
+                rows.append(row)
+                log("midseq-bwd-kernel: " + json.dumps(row))
+                check(ok, f"midseq_attention_bwd disagrees with its plain "
+                          f"version at B={b} {dtype} rate {rate} ({sq},{sk}): "
+                          f"{row} (tolerance {MIDSEQ_BWD_TOL[dtype]})")
+                check(same, f"midseq_attention_bwd: two launches differ at "
+                            f"B={b} {dtype} rate {rate} ({sq},{sk})")
+    return rows
+
+
+def _mplug_train_launches(steps, eval_batches=0, mode="mask", distill=False,
+                          on_card=True) -> dict:
+    """Launches of `steps` mPLUG train steps and `eval_batches` beam
+    batches (`MIDSEQ_FWD_PER_STEP`, `MIDSEQ_BWD_PER_STEP`, `SHORT_PER_STEP`;
+    18 mid-length and 11 short per encoded eval batch)."""
+    fwd = sum(MIDSEQ_FWD_PER_STEP.values())
+    bwd = fwd if mode == "full" else sum(MIDSEQ_BWD_PER_STEP.values())
+    twin = steps if distill else 0  # the twins' forward, eval mode
+    want = {"midseq_attention_fwd": fwd * (steps + twin) + 18 * eval_batches,
+            "midseq_attention_bwd": bwd * steps,
+            "fused_attention_fwd": SHORT_PER_STEP * (twin + eval_batches),
+            "fused_attention_fwd_train": SHORT_PER_STEP * steps,
+            "fused_attention_bwd_stored": SHORT_PER_STEP * steps,
+            "fused_attention_bwd_recompute": 0}
+    return {k: v * on_card for k, v in want.items()}
+
+
+def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import vqa_mplug
+
+    on_card = not rehearse
+    bs = MPLUG_TRAIN_BATCH
+    per_epoch = MPLUG_SYNTHETIC // bs
+    out: dict = {}
+    rng = np.random.default_rng(seed + 17)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mplug_train_") as root:
+        fab = fabricate_mplug(root, rehearse, rng, n_requests=32)
+
+        def argv(tag, epochs, *extra):
+            return ["--output_dir", os.path.join(root, tag), "--device",
+                    str(device), "--dtype", "bfloat16", "--seed", str(seed),
+                    "--zero_rate", "0.5", "--init_sparsity", "0.3",
+                    "--final_sparsity_epoch", "1", "--synthetic",
+                    str(MPLUG_SYNTHETIC), "--synthetic_shapes",
+                    MPLUG_TRAIN_SHAPES, "--train_batch_size", str(bs),
+                    "--eval_batch_size", str(bs), "--num_train_epochs",
+                    str(epochs), "--masker_update_step", "2",
+                    "--logging_steps", "2", "--save_steps", "6",
+                    *extra] + (["--tiny"] if rehearse else [])
+
+        def run(tag, epochs, *extra, **expect):
+            t0 = time.monotonic()
+            summary, launches = _run_counted(lambda: vqa_mplug.main(
+                argv(tag, epochs, *extra)))
+            wall_s = time.monotonic() - t0
+            losses = summary["losses"]
+            log(f"mplug-train {tag}: {len(losses)} steps at batch {bs} in "
+                f"{wall_s:.1f} s (set-up, resets, checkpoints and eval "
+                f"included); losses {[round(x, 4) for x in losses]}; resets "
+                f"{summary['resets']}; zero rates {summary['zero_rates']}; "
+                f"launches {launches}")
+            check(all(np.isfinite(losses)),
+                  f"mplug-train {tag}: losses {losses}")
+            want = _mplug_train_launches(on_card=on_card, **expect)
+            if rehearse:  # tiny widths: every attention is short or eager
+                want = {k: 0 for k in want}
+            check(launches == want,
+                  f"mplug-train {tag}: launches {launches} != {want}")
+            for _, target, achieved in summary["resets"]:
+                check(abs(target - achieved) <= (0.02 if rehearse else 2e-3),
+                      f"mplug-train {tag}: zero rate {achieved} after a reset "
+                      f"to {target}")
+            return dict(summary, wall_s=wall_s, launches=launches)
+
+        # the main path: mask mode, 8 steps, resets at 2 4 6 8, ckpt_6,
+        # beam evaluation of 4 batches, mask.pt, ckpt_final
+        steps = 2 * per_epoch
+        main = run("mask", 2, "--do_train", "--do_eval", steps=steps,
+                   eval_batches=per_epoch)
+        main_dir = os.path.join(root, "mask")
+        check(len(main["losses"]) == steps and main["step"] == steps,
+              f"mplug-train: {len(main['losses'])} steps, want {steps}")
+        check(len(main["resets"]) == steps // 2
+              and main["resets"][0][1] < main["resets"][-1][1] == 0.5,
+              f"mplug-train: resets {main['resets']} (want {steps // 2} on a "
+              "rising target ending at 0.5)")
+        check(abs(main["zero_rates"]["all"] - 0.5) <= (
+            0.02 if rehearse else 2e-3),
+            f"mplug-train: final zero rates {main['zero_rates']}")
+        for name in ("mask.pt", "mask_config.json", "ckpt_6", "ckpt_final",
+                     "vqa_result.json", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(main_dir, name)),
+                  f"mplug-train: {name} not written")
+        check(main["num_predictions"] == MPLUG_SYNTHETIC,
+              f"mplug-train: {main['num_predictions']} predictions")
+        with open(os.path.join(main_dir, "metrics.jsonl")) as f:
+            main["logged_ex_s"] = [x["ex_s"] for x in map(json.loads, f)
+                                   if "ex_s" in x]
+        out["main"] = main
+
+        # resume from the checkpoint: 4 more steps from step 6
+        resumed = run("resume", 1, "--do_train", "--resume_from",
+                      os.path.join(main_dir, "ckpt_6"), steps=per_epoch)
+        check(resumed["step"] == 6 + per_epoch,
+              f"mplug-train resume: ended at step {resumed['step']}")
+        out["resume"] = resumed
+
+        # serve what the resumed run wrote
+        args = _mplug_args(
+            root, device, rehearse, seed, "bfloat16", 8, "ckpt",
+            ("--ckpt", os.path.join(root, "resume", "ckpt_final"),
+             "--zero_rate", "0.5"))
+        beam = ({} if rehearse else
+                {"midseq_attention_fwd": 18, "fused_attention_fwd": 11})
+        _, served = _serve_mplug(torch, root, fab["images"], args, device,
+                                 "ckpt", beam)
+        out["served"] = served
+
+        # the other training modes, fewer steps
+        half = ("--synthetic", str(2 * bs), "--save_steps", "0")
+        out["full"] = run("full", 1, "--do_train", "--mode", "full", *half,
+                          steps=2, mode="full")
+        out["distill"] = run("distill", 1, "--do_train", "--distill", "true",
+                             *half, steps=2, distill=True)
+    return out
+
+
+def _mplug_train_setup(torch, device, rehearse, seed, dtype, batch_size):
+    """An mPLUG mask-training state at full width (the CLI's own build
+    functions and defaults) and one synthetic batch on the device."""
+    from crvqa_tpu_torch.cli import vqa_mplug
+    from crvqa_tpu_torch.data.mplug_data import synthetic_mplug_batch
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.train import mplug_train
+
+    args = vqa_mplug.build_parser().parse_args(
+        ["--output_dir", "unused", "--dtype", dtype, "--seed", str(seed)]
+        + (["--tiny"] if rehearse else []))
+    config, _, model = vqa_mplug.build_model(args)
+    masker = vqa_mplug.build_masker(args, config)
+    cfg = vqa_mplug.train_config(args, 100)
+    state = mplug_train.init_state(
+        model, vqa_mplug.initial_params(args, config), cfg, device,
+        masker=masker, seed=seed, train=True)
+    ql, al, apq = (int(x) for x in MPLUG_TRAIN_SHAPES.split(","))
+    batch = to_device(synthetic_mplug_batch(
+        batch_size=batch_size, image_res=config.vit.image_res, q_len=ql,
+        a_len=al, answers_per_question=apq, uint8_images=True,
+        vocab_size=config.bert.vocab_size, seed=seed), device)
+    return model, masker, cfg, state, batch
+
+
+def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
+    """Timed steps and two profiled steps at full width, batch 16, bf16,
+    mask mode; then one fp32 step at batch 8 with dropout on through the
+    kernels and through the plain attentions from the same generators."""
+    import numpy as np
+
+    from crvqa_tpu_torch.train import mplug_train
+
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    bs = MPLUG_TRAIN_BATCH
+    model, masker, cfg, state, batch = _mplug_train_setup(
+        torch, device, rehearse, seed, "bfloat16", bs)
+    step = mplug_train.make_train_step(model, cfg, masker)
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, batch)
+    sync()
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = []
+    (_, launches) = _run_counted(lambda: [
+        losses.append(step(state, batch)[1]) for _ in range(TIMED_STEPS)])
+    sync()
+    dt = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    out = {"batch": bs, "timed_steps": TIMED_STEPS,
+           "step_ms": 1e3 * dt / TIMED_STEPS,
+           "examples_per_s": TIMED_STEPS * bs / dt, "losses": losses,
+           "launches": launches}
+    check(all(np.isfinite(losses)), f"mplug-step: losses {losses}")
+    check(rehearse or launches == _mplug_train_launches(TIMED_STEPS),
+          f"mplug-step: launches {launches} != "
+          f"{_mplug_train_launches(TIMED_STEPS)}")
+    if not rehearse:
+        from torch.profiler import ProfilerActivity, profile
+
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        sync()
+        t1 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(state, batch)
+            sync()
+        out["profile"] = prof_out = _profile_categories(
+            torch, prof, 1e3 * (time.monotonic() - t1) / 2, 2)
+        if prof_out["measured"]:
+            log(f"mplug-step profile: one bf16 batch-{bs} mask-training "
+                f"step: host wall {prof_out['wall_ms']:.3f} ms (profiler "
+                f"on), device busy {prof_out['busy_ms']:.3f} ms, idle share "
+                f"{prof_out['idle_share']:.3f}; by category (ms) "
+                f"{json.dumps(prof_out['by_category_ms'])}, kernels "
+                f"{json.dumps(prof_out['kernels_by_category'])}")
+            for t in prof_out["top"]:
+                log(f"mplug-step profile: {t['ms']:9.4f} ms {t['calls']:5d} "
+                    f"calls  {t['name'][:90]}")
+    log("mplug-step: " + json.dumps(
+        {k: v for k, v in out.items() if k != "profile"}))
+    del model, state, batch, step
+    gc.collect()
+    if not rehearse:
+        torch.cuda.empty_cache()
+
+    # the whole-step check: kernels vs plain attentions, fp32, dropout on
+    model, masker, cfg, state, batch = _mplug_train_setup(
+        torch, device, rehearse, seed + 1, "float32", MPLUG_CHECK_BATCH)
+    fn = mplug_train.make_loss_and_grads(model, cfg, masker)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    (loss_k, grads_k), launches = _run_counted(lambda: fn(state, batch))
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+    with _PlainAttention():
+        loss_p, grads_p = fn(state, batch)
+    sync()
+    scores = [k for k in grads_k if k.startswith("scores/")]
+    gmax = max(grads_p[k].abs().max().item() for k in scores)
+    dmax = max((grads_k[k] - grads_p[k]).abs().max().item() for k in scores)
+    dloss = abs(loss_k.item() - loss_p.item())
+    check_out = {"batch": MPLUG_CHECK_BATCH, "loss_kernels": loss_k.item(),
+                 "loss_plain": loss_p.item(), "loss_abs_diff": dloss,
+                 "score_grad_max": gmax, "score_grad_max_abs_diff": dmax,
+                 "launches": launches}
+    log("mplug-step check: " + json.dumps(check_out))
+    # fp32 throughout; the kernels sum in another order than the plain
+    # versions' cuBLAS products, and the difference travels 36 layers
+    check(dloss <= 1e-4 * abs(loss_p.item()) and dmax <= 1e-3 * gmax,
+          f"one fp32 mPLUG step with dropout: kernels vs plain attentions "
+          f"differ: {check_out} (tolerances: loss 1e-4 relative, score "
+          f"gradients 1e-3 of their largest)")
+    check(rehearse or launches == _mplug_train_launches(1),
+          f"mplug-step check: launches {launches}")
+    out["check"] = check_out
+    del model, state, batch, fn, grads_k, grads_p
+    gc.collect()
+    if not rehearse:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_queued_bounds() -> list[dict]:
+    """Bounds of the TPU kernels still to port, from shapes alone (no
+    launch: there is no kernel yet), at the shape the JAX package measures
+    them at: an LXMERT projection over the visual stream at batch 256,
+    x [M, K] = [256 * 36, 768] and w [768, 768] in bf16, scores fp32, 4 of
+    12 heads kept at zero rate 0.7. Each input read once, each output
+    written once over HBM; the product's FLOPs at the bf16 peak."""
+    m, k, n, kept = TRAIN_BATCH * BOXES, 768, 768, 4 * 64
+    act, f32 = 2, 4
+    dense = 2 * m * k * n
+    points = [
+        ("masked_matmul _fwd_kernel", "crvqa_tpu/ops/masked_matmul.py:50",
+         act * (m * k + k * n + m * n) + f32 * k * n, dense),
+        ("masked_matmul _dx_kernel", "crvqa_tpu/ops/masked_matmul.py:67",
+         act * (m * n + k * n + m * k) + f32 * k * n, dense),
+        ("masked_matmul _ds_kernel", "crvqa_tpu/ops/masked_matmul.py:86",
+         act * (m * k + m * n + k * n) + f32 * k * n, dense),
+        ("head_compact_matmul_pallas _kernel",
+         "crvqa_tpu/ops/structured_matmul.py:119",
+         act * (m * k + kept * k + m * kept), 2 * m * k * kept)]
+    rows = []
+    for name, replaces, nbytes, flops in points:
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / PEAK_FLOPS["bfloat16"]
+        bound_ms, bound_by = _bound(t_bytes, t_ops)
+        rows.append({"name": name, "replaces": replaces, "m": m, "k": k,
+                     "n": n, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        log("queued-bounds: " + json.dumps(rows[-1]))
+    return rows
+
+
 # ----------------------------------------------------------------- summary
 
-def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train
-                   ) -> list[dict]:
+def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
+                   midseq_bwd_rows, mplug_train) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
     bf16 mPLUG encode at batch 8, summed over its 18 launches
     (`MIDSEQ_PER_ENCODE`). The training kernels: one bf16 train step at
     batch 256, dropout rate 0.1, summed over the step's 34 forward-for-grad
-    and 32 backward launches (`launch_mult`)."""
+    and 32 backward launches (`launch_mult`). The mid-length backward: one
+    bf16 mPLUG mask-training step at batch 16, dropout rate 0.1, summed
+    over its 29 launches (`MIDSEQ_BWD_PER_STEP`)."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
@@ -1510,6 +1921,30 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train
                                              for k, v in mult.items())
                      + f"; library_ms: {what}",
         })
+    main = [r for r in midseq_bwd_rows if r["batch"] == MPLUG_TRAIN_BATCH
+            and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
+    mult = MIDSEQ_BWD_PER_STEP
+    tot = lambda key: sum(r[key] * mult[(r["sq"], r["sk"])] for r in main)
+    bound_ms, bound_by = _bound(tot("bytes_ms"), tot("ops_ms"))
+    out.append({
+        "name": "midseq_attention_bwd", "route": "cuda",
+        "source": src + "midseq_attention_bwd.cu",
+        "replaces": "crvqa_tpu/ops/midseq_attention.py:133",
+        "launches": mplug_train["main"]["launches"]["midseq_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": tot("library_ms"),
+        "basis": f"one bf16 mPLUG mask-training step at batch "
+                 f"{MPLUG_TRAIN_BATCH}, dropout {MAIN_RATE}: "
+                 f"{sum(mult.values())} launches over (Sq,Sk) "
+                 + ", ".join(f"{k}x{v}" for k, v in mult.items())
+                 + "; library_ms: scaled_dot_product_attention forward + "
+                   "backward under autograd (no backward-only call exists); "
+                   "the forward kernel over the step's "
+                   f"{sum(MIDSEQ_FWD_PER_STEP.values())} launches takes "
+                   f"{sum(r['fwd_ms'] * MIDSEQ_FWD_PER_STEP[(r['sq'], r['sk'])] for r in main):.4f} ms",
+    })
     return out
 
 
@@ -1551,6 +1986,7 @@ def main(argv=None) -> int:
     rehearse, seed = args.rehearse, args.seed
     try:
         dev = phase("device", phase_device, torch, rehearse)
+        queued = phase("queued-bounds", phase_queued_bounds)
         if not rehearse:
             phase("build", phase_build)
         rows = phase("kernel", phase_kernel, torch, device, rehearse, seed)
@@ -1565,6 +2001,12 @@ def main(argv=None) -> int:
                       rehearse, seed)
         train = phase("train", phase_train, torch, device, rehearse, seed)
         step = phase("step", phase_step, torch, device, rehearse, seed)
+        midseq_bwd_rows = phase("midseq-bwd-kernel", phase_midseq_bwd_kernel,
+                                torch, device, rehearse, seed)
+        mplug_train = phase("mplug-train", phase_mplug_train, torch, device,
+                            rehearse, seed)
+        mplug_step = phase("mplug-step", phase_mplug_step, torch, device,
+                           rehearse, seed)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1574,7 +2016,7 @@ def main(argv=None) -> int:
         log("chip_smoke: rehearsal finished (CPU, tiny widths): no result")
         return 3
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
-                             train)
+                             train, midseq_bwd_rows, mplug_train)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -1583,6 +2025,9 @@ def main(argv=None) -> int:
                        "midseq_kernel_rows": midseq_rows,
                        "train_kernel_rows": train_rows, "serve": serve,
                        "mplug": mplug, "train": train, "step": step,
+                       "midseq_bwd_kernel_rows": midseq_bwd_rows,
+                       "mplug_train": mplug_train, "mplug_step": mplug_step,
+                       "queued_kernel_bounds": queued,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

@@ -13,8 +13,10 @@ protocol and stats line as `serve_vqa`).
   shortlist and chain-rule re-rank; `--k_test 0` scores the whole list).
 - `--mode mask` (default) serves a masker over the mPLUG specs at
   `--zero_rate`; `--mode full` the unmasked weights. Weights are seeded
-  from `--seed`: checkpoint import (`--ckpt`, `--init_ckpt`) is not yet
-  ported and raises.
+  from `--seed`; `--ckpt` lays a checkpoint written by
+  `crvqa_tpu_torch.cli.vqa_mplug` (a `ckpt_<step>` or `ckpt_final`) over
+  them: its trained parameters, scores and thresholds. `--init_ckpt`
+  (reference `.pth` or msgpack import) is not yet ported and raises.
 - Every batch is padded to `--serve_batch_size` (beam search and ranking
   are row-independent: padding cannot change a real row's answer).
 - Runs on `--device cuda` (default), where the attentions go through the
@@ -29,7 +31,6 @@ drives (`chip_smoke.py` drives it directly); `main` adds the warm-up batch
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 import time
@@ -38,8 +39,8 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
+from ..core import checkpoint as ckpt
 from ..device import resolve_device
-from ..models.mplug import build_mplug
 from ..train import mplug_train
 from . import common, vqa_mplug
 from .serve_vqa import serve_loop
@@ -49,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = vqa_mplug.build_parser()
     p.prog = "serve_mplug"
     p.add_argument("--ckpt", type=str, default=None,
-                   help="not yet ported (a training checkpoint dir)")
+                   help="a checkpoint written by crvqa_tpu_torch.cli."
+                        "vqa_mplug with the same --mode, --seed and masker "
+                        "flags")
     p.add_argument("--serve_batch_size", type=int, default=8)
     p.add_argument("--max_wait_ms", type=float, default=20.0)
     p.add_argument("--input", type=str, default="-",
@@ -62,15 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
 def build_state(args, config, model, masker, device
                 ) -> mplug_train.MPlugState:
     """Seeded fp32 weights from `--seed` (the masker's scores from them),
-    then cast to the model's dtypes on `device`."""
-    fp32 = dataclasses.replace(
-        config, bert=dataclasses.replace(config.bert, dtype=torch.float32),
-        vit=dataclasses.replace(config.vit, dtype=torch.float32))
-    params = build_mplug(fp32, "cpu",
-                         torch.Generator().manual_seed(args.seed)).state_dict()
+    cast to the model's dtypes on `device`; then `--ckpt` over them."""
     cfg = mplug_train.MPlugTrainConfig(mode=args.mode, distill=args.distill)
-    return mplug_train.init_state(model, params, cfg, device, masker=masker,
-                                  seed=args.seed)
+    state = mplug_train.init_state(
+        model, vqa_mplug.initial_params(args, config), cfg, device,
+        masker=masker, seed=args.seed)
+    if args.ckpt:
+        ckpt.load_mplug_checkpoint(args.ckpt, state)
+    return state
 
 
 def build_server(args, device: torch.device,
@@ -81,7 +83,7 @@ def build_server(args, device: torch.device,
     given, a key into it (pre-transformed [res, res, 3] arrays: uint8 with
     `--device_normalize`, else normalised fp32). `pixels` hands a batch's
     images in directly (the warm-up)."""
-    common.reject_unported(args, {**vqa_mplug.MPLUG_UNPORTED, "ckpt": None})
+    common.reject_unported(args, vqa_mplug.MPLUG_UNPORTED)
     if not args.vocab_file:
         raise ValueError("serve_mplug requires --vocab_file")
     config, tokenizer, model = vqa_mplug.build_model(args)

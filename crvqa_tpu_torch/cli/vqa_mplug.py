@@ -1,30 +1,54 @@
-"""mPLUG CLI pieces shared with `serve_mplug` (counterpart of
-`crvqa_tpu/cli/vqa_mplug.py`): the argv (the JAX CLI's, plus `--device`),
-the model, the masker and the rank function. Training (`main`) is not yet
-ported: it raises.
+"""mPLUG trainer: full-model or mask training of the generative VQA model,
+then beam or rank evaluation (counterpart of `crvqa_tpu/cli/vqa_mplug.py`;
+the reference's `mPLUG/vqa_mplug.py` main :311-459). Same argv as the JAX
+CLI, plus `--device`.
+
+`--do_train` runs the train loop on `--train_files` (or `--synthetic N`
+examples of `--synthetic_shapes`): in `--mode mask` (default) the mask
+scores and the LM head train and every `--masker_update_step` steps the
+thresholds are reset to the MaskerScheduler's target at the fractional
+epoch; `--mode full` trains every parameter; `--distill true` adds the
+momentum twins' soft labels. It logs `ex_s` every `--logging_steps`,
+writes `ckpt_<step>` every `--save_steps` (`--resume_from` restarts from
+one), and ends with a final reset, `mask.pt`, `mask_config.json` and
+`ckpt_final`. `--do_eval` / `--do_predict` answer `--test_files` by beam
+search or by ranking `--answer_list` into `vqa_result.json`, fetching each
+batch's result `--eval_pipeline_depth` batches late. `serve_mplug --ckpt`
+serves what it wrote.
+
+Weights are seeded from `--seed` (`--init_ckpt` is not yet ported). Runs on
+`--device cuda` (default; raises without a card) or `--device cpu` (the
+kernels' plain versions: the tests' path). `serve_mplug` shares the argv,
+the model, the masker and the rank function.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
-from typing import Optional
+import os
+import time
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..core import checkpoint as ckpt
+from ..core import torch_compat
+from ..device import resolve_device
 from ..masking.masker import Masker
 from ..masking.mplug_specs import mplug_mask_specs
-from ..masking.sparsity_control import ModalSparsity
-from ..models.mplug import MPlugBertConfig, MPlugConfig, ViTConfig
+from ..masking.sparsity_control import MaskerScheduler, ModalSparsity
+from ..models.mplug import (MPlugBertConfig, MPlugConfig, ViTConfig,
+                            build_mplug)
 from ..train import mplug_train
 from . import common
 
 # flags of paths this slice does not reach -> their defaults; set elsewhere
 # they raise "not yet ported"
 MPLUG_UNPORTED = {**common.COMMON_UNPORTED, "init_ckpt": None,
-                  "init_ckpt_format": "auto", "resume_from": None,
-                  "use_checkpoint": False}
+                  "init_ckpt_format": "auto", "use_checkpoint": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,7 +134,7 @@ def build_model(args) -> tuple[MPlugConfig, Optional[object], torch.nn.Module]:
         vit = ViTConfig.vit_l_14(image_res=args.image_res, dtype=dtype)
     else:
         vit = ViTConfig(image_res=args.image_res, dtype=dtype)
-    config = MPlugConfig(bert=bert, vit=vit)
+    config = MPlugConfig(bert=bert, vit=vit, distill=args.distill)
     over = common.config_overrides(args)
     if over.pop("classifier_dropout", None) is not None:
         raise SystemExit("--classifier_dropout has no mPLUG analogue "
@@ -134,8 +158,9 @@ def build_model(args) -> tuple[MPlugConfig, Optional[object], torch.nn.Module]:
 
 
 def build_masker(args, config: MPlugConfig) -> Masker:
-    """The mPLUG masker (`init_masker`, mPLUG/vqa_mplug.py:59-128); its
-    MaskerScheduler waits for the training slice."""
+    """The mPLUG masker (`init_masker`, mPLUG/vqa_mplug.py:59-128). The
+    twins live in the state under the SAME names, so the masker needs no
+    `_m` specs (they exist only at export time)."""
     c = config.bert
     specs = mplug_mask_specs(
         vit_layers=config.vit.layers,
@@ -147,6 +172,110 @@ def build_masker(args, config: MPlugConfig) -> Masker:
                          threshold=args.threshold,
                          init_scale=args.init_scale,
                          controlled_init=args.controlled_init)
+
+
+def build_scheduler(args) -> MaskerScheduler:
+    """The target-sparsity schedule the train loop polls: from
+    `--init_sparsity` (default: the zero rate, i.e. pinned) to `--zero_rate`
+    at `--final_sparsity_epoch`."""
+    return MaskerScheduler(
+        final_sparsity=args.zero_rate, num_epochs=args.num_train_epochs,
+        init_sparsity=args.init_sparsity, lambdas_lr=1.0,
+        final_epoch=args.final_sparsity_epoch)
+
+
+def initial_params(args, config: MPlugConfig) -> dict[str, torch.Tensor]:
+    """Seeded fp32 weights from `--seed`, as a state_dict on the CPU."""
+    fp32 = dataclasses.replace(
+        config, bert=dataclasses.replace(config.bert, dtype=torch.float32),
+        vit=dataclasses.replace(config.vit, dtype=torch.float32))
+    return build_mplug(fp32, "cpu",
+                       torch.Generator().manual_seed(args.seed)).state_dict()
+
+
+def train_config(args, steps_per_epoch: int) -> mplug_train.MPlugTrainConfig:
+    """The flags as an `MPlugTrainConfig` (vqa_mplug.py:423-447 of the JAX
+    package): mPLUG's own defaults where a flag was not given (weight decay
+    0.02, one epoch of warm-up), epoch-granular schedules unless
+    `--warmup_steps` opts into the step-granular ones."""
+    return mplug_train.MPlugTrainConfig(
+        mode=args.mode, lr1=args.lr1, lr2=args.lr2,
+        weight_decay=(0.02 if args.weight_decay is None
+                      else args.weight_decay),
+        warmup_steps=(steps_per_epoch if args.warmup_steps is None
+                      else args.warmup_steps),
+        total_steps=int(steps_per_epoch * args.num_train_epochs),
+        min_lr=args.min_lr, sched=args.sched, decay_rate=args.decay_rate,
+        decay_steps=args.decay_steps,
+        steps_per_epoch=(steps_per_epoch
+                         if args.sched_granularity == "epoch"
+                         and args.warmup_steps is None else 0),
+        epochs=int(args.num_train_epochs),
+        warmup_epochs=args.warmup_epochs, warmup_lr_init=args.warmup_lr,
+        decay_epochs=args.decay_epochs, opt=args.opt,
+        opt_momentum=args.opt_momentum, max_grad_norm=args.max_grad_norm,
+        use_bias_reweight=args.use_bias_reweight, distill=args.distill,
+        alpha=args.alpha,
+        alpha_warmup_steps=steps_per_epoch if args.alpha_warm_up else 0)
+
+
+def build_data(args, config: MPlugConfig, tokenizer, device: torch.device):
+    """(train_batches(epoch), eval_batches(), n_train): `--synthetic N`
+    examples of `--synthetic_shapes`, else the annotation files. Batches
+    arrive as device tensors through the prefetcher; "qid" and "valid" stay
+    numpy."""
+    from ..data.mplug_data import (iterate_batches, load_entries,
+                                   question_token_len, synthetic_mplug_batch)
+    from ..data.prefetch import prefetch_batches
+
+    def staged(batches: Iterator[dict]) -> Iterator[dict]:
+        return prefetch_batches(batches, device, args.prefetch_batches)
+
+    res = config.vit.image_res
+    if args.synthetic:
+        ql, al, apq = (int(x) for x in args.synthetic_shapes.split(","))
+
+        def make(bs: int, seed: int) -> dict:
+            return synthetic_mplug_batch(
+                batch_size=bs, image_res=res, q_len=ql, a_len=al,
+                answers_per_question=apq, uint8_images=args.device_normalize,
+                vocab_size=config.bert.vocab_size, seed=seed)
+
+        def train_iter(epoch: int) -> Iterator[dict]:
+            bs = args.train_batch_size
+            for i in range(max(args.synthetic // bs, 1)):
+                yield make(bs, epoch * 1000 + i)
+
+        def eval_iter() -> Iterator[dict]:
+            bs = args.eval_batch_size
+            for i in range(max(args.synthetic // bs, 1)):
+                yield make(bs, 90000 + i)
+
+        return (lambda epoch: staged(train_iter(epoch)),
+                lambda: staged(eval_iter()), args.synthetic)
+
+    if tokenizer is None:
+        raise ValueError("vqa_mplug on files requires --vocab_file")
+    q_len = question_token_len(args.add_ocr, args.max_input_length)
+    kw = dict(q_len=q_len, vqa_root=args.vqa_root, add_ocr=args.add_ocr,
+              add_object=args.add_object)
+    train = (load_entries(args.train_files, tokenizer, **kw)
+             if args.train_files else None)
+    test = (load_entries(args.test_files, tokenizer, **kw)
+            if args.test_files else None)
+
+    def train_batches(epoch: int) -> Iterator[dict]:
+        return staged(iterate_batches(
+            train, args.train_batch_size, res, shuffle=args.train_shuffle,
+            seed=args.seed + epoch, drop_last=True, augment=args.augment,
+            workers=args.data_workers, raw_images=args.device_normalize))
+
+    def eval_batches() -> Iterator[dict]:
+        return staged(iterate_batches(
+            test, args.eval_batch_size, res, workers=args.data_workers,
+            raw_images=args.device_normalize))
+
+    return train_batches, eval_batches, (len(train) if train else 0)
 
 
 def build_rank_fn(args, config: MPlugConfig, tokenizer, model, masker,
@@ -191,12 +320,175 @@ def build_rank_fn(args, config: MPlugConfig, tokenizer, model, masker,
     return rank_fn, answers, best_index
 
 
-def main(argv=None) -> None:
-    build_parser().parse_args(argv)
-    raise NotImplementedError(
-        "mPLUG training (vqa_mplug main) is not yet ported to "
-        "crvqa_tpu_torch (ROADMAP): serve with crvqa_tpu_torch.cli."
-        "serve_mplug")
+def main(argv=None) -> dict:
+    return run(build_parser().parse_args(argv))
+
+
+def run(args) -> dict:
+    """The run; returns a summary: final step, every step's loss, each
+    threshold reset's (step, target, achieved zero rate), the last export's
+    zero rates and the number of predictions."""
+    common.reject_unported(args, MPLUG_UNPORTED)
+    if args.do_train:
+        mplug_train.check_optimizer(args.opt)
+    device = resolve_device(args.device)
+    common.setup_logging(args.output_dir)
+    common.dump_args(args, args.output_dir)
+    log = common.RunLog(args.output_dir)
+
+    config, tokenizer, model = build_model(args)
+    train_batches, eval_batches, n_train = build_data(args, config,
+                                                      tokenizer, device)
+    steps_per_epoch = max(n_train // args.train_batch_size, 1)
+    cfg = train_config(args, steps_per_epoch)
+    masker = scheduler = None
+    if args.mode == "mask":
+        masker, scheduler = build_masker(args, config), build_scheduler(args)
+        # the mask config beside the run (mPLUG/vqa_mplug.py:506-507)
+        with open(os.path.join(args.output_dir, "mask_config.json"),
+                  "w") as f:
+            json.dump({"zero_rate": args.zero_rate,
+                       "threshold": args.threshold,
+                       "init_scale": args.init_scale,
+                       "controlled_init": args.controlled_init,
+                       "masker_update_step": args.masker_update_step}, f)
+    state = mplug_train.init_state(
+        model, initial_params(args, config), cfg, device, masker=masker,
+        seed=args.seed, train=args.do_train)
+    if args.resume_from:
+        ckpt.load_mplug_checkpoint(args.resume_from, state)
+    gen_fn = mplug_train.make_generate_step(
+        model, cfg, masker=masker, beam_size=args.beam_size,
+        max_len=args.max_answer_len, min_length=args.min_length,
+        use_cache=args.decode_cache)
+    summary: dict = {"losses": [], "resets": [], "zero_rates": None,
+                     "num_predictions": None}
+
+    if args.do_train:
+        step_fn = mplug_train.make_train_step(model, cfg, masker=masker)
+        reset_fn = (mplug_train.make_threshold_reset(masker)
+                    if masker is not None else None)
+        losses = []
+        step = state.step
+        guard = common.PreemptionGuard()
+        t_last, s_last = time.perf_counter(), step
+        for epoch in range(int(args.num_train_epochs)):
+            for batch_idx, batch in enumerate(train_batches(epoch)):
+                state, loss = step_fn(state, batch)
+                losses.append(loss)
+                prev, step = step, state.step
+                if masker is not None and common.crossed(
+                        step, prev, args.masker_update_step):
+                    # the FRACTIONAL epoch: the schedules move at 0.1-epoch
+                    # granularity (sparsity_control.py)
+                    _, target, _ = scheduler.step(
+                        epoch + batch_idx / steps_per_epoch)
+                    state = reset_fn(state, float(target))
+                    achieved = masker.sparsity_report(
+                        state.scores, state.thresholds)["all"]
+                    summary["resets"].append((step, float(target), achieved))
+                    log.step(step, sparsity=achieved, target=target)
+                if common.crossed(step, prev, args.logging_steps):
+                    loss_f = float(loss)  # device fence
+                    now = time.perf_counter()
+                    ex_s = ((step - s_last) * args.train_batch_size
+                            / max(now - t_last, 1e-9))
+                    t_last, s_last = now, step
+                    log.step(step, loss=loss_f, epoch=epoch,
+                             ex_s=round(ex_s, 1))
+                if common.crossed(step, prev, args.save_steps):
+                    ckpt.save_mplug_checkpoint(
+                        os.path.join(args.output_dir, f"ckpt_{step}"), state,
+                        metadata={"step": step})
+                    ckpt.rotate_checkpoints(args.output_dir, keep=2)
+                if guard.triggered:
+                    path = os.path.join(args.output_dir, f"ckpt_{step}")
+                    ckpt.save_mplug_checkpoint(path, state, metadata={
+                        "step": step, "preempted": True})
+                    log.step(step, preempted=True, checkpoint=path)
+                    summary.update(step=step,
+                                   losses=[float(x) for x in losses])
+                    return summary
+        if masker is not None:
+            state = reset_fn(state, None)
+            masks = masker.binary_masks(state.scores, state.thresholds)
+            specs = list(masker.specs)
+            if args.distill:
+                # mask.pt also carries the twins' masks under `_m` names,
+                # binarized from the twins' own EMA'd scores and thresholds
+                twins = masker.binary_masks(state.scores_m,
+                                            state.thresholds_m)
+                live = [s for s in masker.specs if not s.momentum_only]
+                for s, twin in zip(live, torch_compat.twin_mask_specs(live)):
+                    specs.append(twin)
+                    masks[twin.key] = twins[s.key]
+            torch_compat.export_mask_pt(
+                os.path.join(args.output_dir, "mask.pt"), masks, specs)
+            summary["zero_rates"] = masker.sparsity_report(state.scores,
+                                                           state.thresholds)
+        ckpt.save_mplug_checkpoint(
+            os.path.join(args.output_dir, "ckpt_final"), state,
+            metadata={"step": state.step})
+        summary["losses"] = [float(x) for x in losses]
+
+    if args.do_eval or args.do_predict:
+        results = evaluate(args, config, tokenizer, model, masker, cfg,
+                           state, gen_fn, eval_batches(), device, log)
+        summary["num_predictions"] = len(results)
+    summary["step"] = state.step
+    return summary
+
+
+def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
+             batches, device, log) -> list:
+    """Answer every eval batch (beam search, or ranking with
+    `--eval_method rank`) into `vqa_result.json`. Each batch's result is
+    fetched `--eval_pipeline_depth` batches after it was issued, so the
+    device works on the next batches while the host fetches and
+    detokenizes (depth 0: the serial loop)."""
+    rank_fn = answers = best_index = None
+    if args.eval_method == "rank":
+        rank_fn, answers, best_index = build_rank_fn(
+            args, config, tokenizer, model, masker, cfg, device)
+    results: list = []
+    pending: collections.deque = collections.deque()
+    depth = max(args.eval_pipeline_depth, 0)
+    t0 = time.perf_counter()
+
+    def flush_one() -> None:
+        out, qids, ok_vec = pending.popleft()
+        if rank_fn is not None:
+            rows = [answers[int(i)] for i in best_index(out)]
+        else:
+            rows = []
+            for row in out.cpu().numpy():
+                toks = [int(t) for t in row[1:]]
+                if tokenizer is not None:
+                    if config.eos_token_id in toks:
+                        toks = toks[: toks.index(config.eos_token_id)]
+                    rows.append(tokenizer.decode(toks).strip())
+                else:
+                    rows.append(" ".join(str(t) for t in toks if t != 0))
+        for answer, qid, ok in zip(rows, qids, ok_vec):
+            if ok:  # not a pad row of a ragged final batch
+                results.append({"question_id": int(qid), "answer": answer})
+
+    for batch in batches:
+        qids = np.asarray(batch["qid"])
+        ok_vec = np.asarray(batch.get("valid", np.ones(len(qids), bool)))
+        out = (rank_fn(state, batch) if rank_fn is not None
+               else gen_fn(state, batch)[0])
+        pending.append((out, qids, ok_vec))
+        while len(pending) > depth:
+            flush_one()
+    while pending:
+        flush_one()
+    with open(os.path.join(args.output_dir, "vqa_result.json"), "w") as f:
+        json.dump(results, f)
+    log.step(state.step, num_predictions=len(results),
+             eval_seconds=round(time.perf_counter() - t0, 1),
+             eval_pipeline_depth=depth)
+    return results
 
 
 if __name__ == "__main__":

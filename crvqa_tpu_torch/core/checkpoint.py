@@ -1,12 +1,16 @@
-"""Stage-2 checkpoint / resume in the port's own torch format (counterpart
-of `crvqa_tpu/core/checkpoint.py`, whose msgpack files the port does not
-read yet).
+"""Checkpoint / resume in the port's own torch format (counterpart of
+`crvqa_tpu/core/checkpoint.py`, whose msgpack files the port does not read
+yet).
 
-A checkpoint holds what training changes: the step, mask scores,
-thresholds, the classifier and LMH parameters, the optimizer state and
-both generators' states. The frozen backbone is not stored: a resumed run
-rebuilds it from the same `--stage1_ckpt` and `--seed`. Writes are atomic
-(temporary file, then rename); `<path>.meta.json` carries the metadata.
+A checkpoint holds what training changes. Stage 2 (`save_checkpoint`): the
+step, mask scores, thresholds, the classifier and LMH parameters, the
+optimizer state and both generators' states. mPLUG
+(`save_mplug_checkpoint`): the step, the trained parameters (the LM head in
+mask mode, everything in full mode), scores, thresholds, the momentum
+twins, the optimizer state and the generators. The frozen backbone is not
+stored: a resumed or serving run rebuilds it from the same checkpoint or
+`--seed`. Writes are atomic (temporary file, then rename);
+`<path>.meta.json` carries the metadata.
 """
 from __future__ import annotations
 
@@ -25,6 +29,24 @@ def _cpu(tree):
     return tree
 
 
+def _write(path: str, payload: dict, metadata: Optional[dict]) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(_cpu(payload), tmp)
+    os.replace(tmp, path)
+    if metadata is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(metadata, f)
+
+
+def _copy(path: str, dst: dict, src: dict, what: str) -> None:
+    if set(dst) != set(src):
+        raise KeyError(f"{path}: {what} keys differ from the run's "
+                       f"({sorted(set(dst) ^ set(src))[:5]})")
+    for k, t in src.items():
+        dst[k].copy_(t)
+
+
 def save_checkpoint(path: str, state, metadata: Optional[dict] = None
                     ) -> None:
     opt = state.opt_state
@@ -38,13 +60,7 @@ def save_checkpoint(path: str, state, metadata: Optional[dict] = None
         "rng": {"device": state.rng.device.get_state(),
                 "host": state.rng.host.get_state()},
     }
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(_cpu(payload), tmp)
-    os.replace(tmp, path)
-    if metadata is not None:
-        with open(path + ".meta.json", "w") as f:
-            json.dump(metadata, f)
+    _write(path, payload, metadata)
 
 
 @torch.no_grad()
@@ -53,27 +69,85 @@ def load_checkpoint(path: str, state):
     the same configuration) in place; returns it."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
 
-    def copy(dst: dict, src: dict, what: str) -> None:
-        if set(dst) != set(src):
-            raise KeyError(f"{path}: {what} keys differ from the run's "
-                           f"({sorted(set(dst) ^ set(src))[:5]})")
-        for k, t in src.items():
-            dst[k].copy_(t)
-
-    copy(state.scores, raw["scores"], "scores")
+    _copy(path, state.scores, raw["scores"], "scores")
     state.thresholds = {k: t.to(state.scores[k].device)
                         for k, t in raw["thresholds"].items()}
     for group, params in raw["train_params"].items():
-        copy(state.train_params[group], params, f"train_params/{group}")
+        _copy(path, state.train_params[group], params, f"train_params/{group}")
     opt = raw["opt_state"]
     state.opt_state.count = opt["count"]
-    copy(state.opt_state.mu, opt["mu"], "opt_state/mu")
-    copy(state.opt_state.nu, opt["nu"], "opt_state/nu")
+    _copy(path, state.opt_state.mu, opt["mu"], "opt_state/mu")
+    _copy(path, state.opt_state.nu, opt["nu"], "opt_state/nu")
     if state.opt_state.abs_grad_sum is not None:
-        copy(state.opt_state.abs_grad_sum, opt["abs_grad_sum"],
+        _copy(path, state.opt_state.abs_grad_sum, opt["abs_grad_sum"],
              "opt_state/abs_grad_sum")
     state.rng.device.set_state(raw["rng"]["device"])
     state.rng.host.set_state(raw["rng"]["host"])
+    state.step = int(raw["step"])
+    return state
+
+
+def save_mplug_checkpoint(path: str, state, metadata: Optional[dict] = None
+                          ) -> None:
+    """An `mplug_train.MPlugState` (training or serving): its trained
+    parameters are the leaves that require gradients."""
+    opt = state.opt_state
+    payload = {
+        "step": state.step,
+        "params": {k: v for k, v in state.params.items() if v.requires_grad},
+        "scores": state.scores, "thresholds": state.thresholds,
+        "params_m": state.params_m, "scores_m": state.scores_m,
+        "thresholds_m": state.thresholds_m,
+        "opt_state": (None if opt is None else
+                      {"count": opt.count, "mu": opt.mu, "nu": opt.nu}),
+        "rng": (None if state.rng is None else
+                {"device": state.rng.device.get_state(),
+                 "host": state.rng.host.get_state()}),
+    }
+    _write(path, payload, metadata)
+
+
+@torch.no_grad()
+def load_mplug_checkpoint(path: str, state):
+    """Copy an mPLUG checkpoint into `state` in place; returns it. `state`
+    is a training state built by `mplug_train.init_state(..., train=True)`
+    with the same configuration (a resume: everything is restored), or a
+    serving state (the trained parameters, scores and thresholds only, as
+    the JAX server drops the rest)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    missing = sorted(set(raw["params"]) - set(state.params))
+    if missing:
+        raise KeyError(f"{path}: parameters {missing[:5]} are not the "
+                       "model's")
+    for k, t in raw["params"].items():
+        state.params[k].copy_(t)
+    if (raw["scores"] is None) != (state.scores is None):
+        raise KeyError(f"{path}: the checkpoint's --mode differs from the "
+                       "run's")
+    for suffix in ("", "_m"):
+        dst = getattr(state, "scores" + suffix)
+        if dst is None:
+            continue
+        if raw["scores" + suffix] is None:
+            raise KeyError(f"{path}: no scores{suffix} (written without "
+                           "--distill)")
+        _copy(path, dst, raw["scores" + suffix], "scores" + suffix)
+        dev = next(iter(dst.values())).device
+        setattr(state, "thresholds" + suffix,
+                {k: t.to(dev) for k, t in raw["thresholds" + suffix].items()})
+    if state.params_m is not None:
+        if raw["params_m"] is None:
+            raise KeyError(f"{path}: no momentum twins (written without "
+                           "--distill)")
+        _copy(path, state.params_m, raw["params_m"], "params_m")
+    if state.opt_state is not None:
+        opt = raw["opt_state"]
+        state.opt_state.count = opt["count"]
+        _copy(path, state.opt_state.mu, opt["mu"], "opt_state/mu")
+        _copy(path, state.opt_state.nu, opt["nu"], "opt_state/nu")
+    if state.rng is not None:
+        state.rng.device.set_state(raw["rng"]["device"])
+        state.rng.host.set_state(raw["rng"]["host"])
     state.step = int(raw["step"])
     return state
 

@@ -17,7 +17,8 @@ the same mapping, written without flax, over a nested dict of numpy arrays
 gives the same model. mPLUG's tree needs renames beyond that rule
 (`mplug_state_dict_from_jax`). `stage2_from_jax` carries a JAX stage-2 state
 (`crvqa_tpu/train/stage2.py:Stage2State`, as numpy) across the same way,
-so both packages can start a trajectory from one state.
+and `mplug_train_state_from_jax` an mPLUG training state, so both packages
+can start a trajectory from one state.
 """
 from __future__ import annotations
 
@@ -217,8 +218,96 @@ def mask_state_from_jax(scores: Mapping[str, Any],
     port_scores = {}
     for key, arr in scores.items():
         arr = np.asarray(arr, np.float32)
-        if not by_key[key].is_embedding:
-            arr = arr.T
+        if key in by_key and not by_key[key].is_embedding:
+            arr = arr.T  # a bias mask's scores are a vector with no spec
         port_scores[key] = torch.from_numpy(np.array(arr, copy=True))
     return port_scores, {k: torch.tensor(np.asarray(v, np.float32))
                          for k, v in thresholds.items()}
+
+
+def _mplug_leaves(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`mplug_state_dict_from_jax` over a tree whose keys may be '/'-joined
+    paths and whose absent leaves are None (an optimizer group's view)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
+        for key, value in node.items():
+            here = path + tuple(key.split("/"))
+            if isinstance(value, Mapping):
+                walk(value, here)
+            elif value is not None:
+                name, arr = mplug_torch_name(here, np.asarray(value,
+                                                              np.float32))
+                out[name] = torch.from_numpy(np.array(arr, copy=True))
+
+    walk(tree, ())
+    return out
+
+
+def mplug_moments_from_jax(groups: Mapping[str, Any], mode: str, specs
+                           ) -> dict[str, torch.Tensor]:
+    """One Adam moment of the JAX two-group optimizer -> the port's flat
+    dict keyed like `mplug_train.trainable`. `groups` maps each group
+    ('body', 'visual') to that group's moment tree over the trainable tree
+    (mask mode: {"scores": {key: array}, "head": {'/'-path: array}}; full
+    mode: the param tree), with None where a leaf belongs to the other
+    group."""
+    by_key = {s.key: s for s in specs or ()}
+    out: dict[str, torch.Tensor] = {}
+    for tree in groups.values():
+        if mode == "mask":
+            for key, arr in tree["scores"].items():
+                if arr is None:
+                    continue
+                arr = np.asarray(arr, np.float32)
+                if key in by_key and not by_key[key].is_embedding:
+                    arr = arr.T  # bias-mask scores are vectors: no spec
+                out[f"scores/{key}"] = torch.from_numpy(
+                    np.array(arr, copy=True))
+            out.update({f"head/{k}": v
+                        for k, v in _mplug_leaves(tree["head"]).items()})
+        else:
+            out.update({f"params/{k}": v
+                        for k, v in _mplug_leaves(tree).items()})
+    return out
+
+
+@torch.no_grad()
+def mplug_train_state_from_jax(state, jax_state: Mapping[str, Any], mode: str,
+                               specs=None) -> None:
+    """Overwrite a port `MPlugState` (built by `mplug_train.init_state(...,
+    train=True)` with the same configuration) in place with a JAX
+    `MPlugState` handed over as numpy: `jax_state` holds "step", "params"
+    and, where the state has them, "scores", "thresholds", "params_m",
+    "scores_m", "thresholds_m", and "mu" / "nu": each Adam moment per group,
+    as `mplug_moments_from_jax` takes them. Dtypes and devices stay the
+    port state's."""
+    def copy(dst: dict, src: dict, what: str) -> None:
+        if set(dst) != set(src):
+            raise KeyError(f"{what}: keys differ "
+                           f"({sorted(set(dst) ^ set(src))[:5]})")
+        for k, t in src.items():
+            dst[k].copy_(t.reshape(dst[k].shape))
+
+    copy(state.params, mplug_state_dict_from_jax(jax_state["params"]),
+         "params")
+    for suffix in ("", "_m"):
+        if jax_state.get("scores" + suffix) is None:
+            continue
+        scores, thresholds = mask_state_from_jax(
+            jax_state["scores" + suffix], jax_state["thresholds" + suffix],
+            specs)
+        dst = getattr(state, "scores" + suffix)
+        copy(dst, scores, "scores" + suffix)
+        dev = next(iter(dst.values())).device
+        setattr(state, "thresholds" + suffix,
+                {k: t.to(dev) for k, t in thresholds.items()})
+    if jax_state.get("params_m") is not None:
+        copy(state.params_m, mplug_state_dict_from_jax(jax_state["params_m"]),
+             "params_m")
+    if jax_state.get("mu") is not None:
+        copy(state.opt_state.mu,
+             mplug_moments_from_jax(jax_state["mu"], mode, specs), "mu")
+        copy(state.opt_state.nu,
+             mplug_moments_from_jax(jax_state["nu"], mode, specs), "nu")
+    state.step = state.opt_state.count = int(jax_state["step"])

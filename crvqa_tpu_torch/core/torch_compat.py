@@ -16,6 +16,7 @@ unpickler below.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import pickle
 import types
@@ -49,6 +50,22 @@ def export_mask_pt(path: str, masks: dict[str, torch.Tensor],
     torch.save({f"{spec.torch_name}.weight":
                 masks[spec.key].detach().to("cpu", torch.bool).contiguous()
                 for spec in specs}, path)
+
+
+def twin_mask_specs(specs: Sequence[MaskSpec]) -> list[MaskSpec]:
+    """The momentum twins' names for `export_mask_pt`: every spec of a live
+    module under `<tower>_m.` (the reference's mask.pt also carries the `_m`
+    modules' masks, mPLUG/masking/maskers.py:80-84). Specs that are
+    momentum-only already name a twin and are left out."""
+    twins = []
+    for s in specs:
+        if s.momentum_only:
+            continue
+        tower, rest = s.torch_name.split(".", 1)
+        twins.append(dataclasses.replace(
+            s, path=(s.path[0] + "_m",) + s.path[1:],
+            torch_name=f"{tower}_m.{rest}"))
+    return twins
 
 
 def export_classifier_bin(path: str, classifier: dict[str, torch.Tensor]

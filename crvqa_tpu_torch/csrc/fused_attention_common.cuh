@@ -1,6 +1,7 @@
 // Device helpers shared by the fused-attention forward and backward kernels
 // (fused_attention_fwd.cu, fused_attention_bwd.cu) and the mid-length
-// attention forward (midseq_attention_fwd.cu). All include this file, so the
+// attention forward and backward (midseq_attention_fwd.cu,
+// midseq_attention_bwd.cu). All include this file, so the
 // recompute backward rebuilds exactly the probabilities the forward computed
 // and stored, and the two attention kernels share one softmax and one
 // dropout hash.
@@ -44,15 +45,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// One warp's maximum over a row of `sk` scores held in shared memory.
+__device__ __forceinline__ float row_max(const float* row, int sk, int lane) {
+  float m = -CUDART_INF_F;
+  for (int j = lane; j < sk; j += 32) m = fmaxf(m, row[j]);
+  return warp_max(m);
+}
+
 // One warp's softmax numerator over a row of `sk` scores held in shared
 // memory: the row becomes exp(s - max) in place and the clamped denominator
 // max(sum, 1e-30) is returned (crvqa_tpu/ops/fused_attention.py:203). Lane
 // l owns entries l, l + 32, ...; the sums run in that order, so every caller
 // of this function gets bit-identical probabilities for the same scores.
 __device__ __forceinline__ float row_exp_sum(float* row, int sk, int lane) {
-  float m = -CUDART_INF_F;
-  for (int j = lane; j < sk; j += 32) m = fmaxf(m, row[j]);
-  m = warp_max(m);
+  const float m = row_max(row, sk, lane);
   float sum = 0.f;
   for (int j = lane; j < sk; j += 32) {
     const float e = expf(row[j] - m);

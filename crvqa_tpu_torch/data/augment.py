@@ -1,7 +1,8 @@
 """The eval image transform of mPLUG (the port's copy of what it needs from
 `crvqa_tpu/data/augment.py`): bicubic resize, /255, CLIP normalise
 (`mPLUG/dataset/__init__.py:37-41`). PIL is imported inside
-`test_transform` only; the train-time transforms are not ported yet."""
+`test_transform` only. The train-time transforms (`--augment true`) are not
+ported yet: `mplug_data.iterate_batches` raises for them."""
 from __future__ import annotations
 
 import numpy as np

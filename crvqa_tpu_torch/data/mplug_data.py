@@ -1,14 +1,38 @@
-"""mPLUG serving data (the port's copy of what serving needs from
-`crvqa_tpu/data/mplug_data.py`): fixed-length question and answer
-tokenization, the OCR / object question splicing, the eval image loader and
-synthetic batches. The training loaders wait for the training slice."""
+"""mPLUG data (the port's copy of `crvqa_tpu/data/mplug_data.py`; the
+reference's `mPLUG/dataset/vqa_dataset.py` and its collate functions): raw
+images plus question / answer JSON records at fixed shapes. The ragged
+per-question answer lists become a fixed `answers_per_question` slot
+dimension with zero weights marking padding.
+
+Fixed-length question and answer tokenization, the OCR / object question
+splicing, annotation loading (`load_entries`), the batch iterator
+(`iterate_batches`, eval transform only: the train-time augmentations are
+not ported yet), the image loader and synthetic batches."""
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class MPlugEntries:
+    question_ids: np.ndarray  # [N] int64 (running index for eval)
+    question_tokens: np.ndarray  # [N, Lq]
+    question_mask: np.ndarray  # [N, Lq]
+    answer_tokens: np.ndarray  # [N, A, La]
+    answer_mask: np.ndarray  # [N, A, La]
+    weights: np.ndarray  # [N, A]
+    bias: np.ndarray  # [N, A]
+    image_paths: list
+
+    def __len__(self) -> int:
+        return len(self.image_paths)
 
 
 def _tokenize_fixed(tokenizer, texts: Sequence[str], max_len: int,
@@ -62,6 +86,63 @@ def augment_question(record: dict, add_ocr: bool, add_object: bool,
         question = (question + " [SEP] "
                     + " ".join(record["object_label"].split("&&")))
     return question
+
+
+def load_entries(ann_files: Sequence[str], tokenizer, q_len: int = 25,
+                 a_len: int = 12, answers_per_question: int = 10,
+                 vqa_root: str = "", add_ocr: bool = False,
+                 add_object: bool = False,
+                 max_ques_words: int = 30) -> MPlugEntries:
+    """Parse the reference's annotation JSONs (`vqa_dataset.__getitem__`,
+    mPLUG/dataset/vqa_dataset.py:82-109): training records carry answer
+    lists; each unique answer gets weight count / len(answers);
+    `train_bias` records add one bias scalar per raw answer, carried
+    through the dedup BY ANSWER (the first occurrence wins, :85-91).
+    `add_ocr` / `add_object` splice OCR and object tokens into the question
+    (:57-70)."""
+    records = []
+    for f in ann_files:
+        with open(f) as fh:
+            records.extend(json.load(fh))
+    n, a_max = len(records), answers_per_question
+    q_tokens, q_mask = _tokenize_fixed(
+        tokenizer,
+        [augment_question(r, add_ocr, add_object, max_ques_words)
+         for r in records], q_len)
+    ans_tokens = np.zeros((n, a_max, a_len), np.int32)
+    ans_mask = np.zeros((n, a_max, a_len), np.float32)
+    weights = np.zeros((n, a_max), np.float32)
+    bias = np.zeros((n, a_max), np.float32)
+    for i, r in enumerate(records):
+        answers = r.get("answer", [])
+        if isinstance(answers, str):
+            answers = [answers]
+        rb = r.get("bias")
+        rb = (np.atleast_1d(np.asarray(rb, np.float32))
+              if rb is not None else None)
+        uniq: dict[str, float] = {}
+        uniq_bias: dict[str, float] = {}
+        for j, ans in enumerate(answers):
+            uniq[ans] = uniq.get(ans, 0.0) + 1.0 / max(len(answers), 1)
+            if rb is not None and j < len(rb):
+                uniq_bias.setdefault(ans, float(rb[j]))
+        items = list(uniq.items())[:a_max]
+        if items:
+            tk, tm = _tokenize_fixed(tokenizer, [t for t, _ in items], a_len,
+                                     extra_eos=True)
+            ans_tokens[i, : len(items)] = tk
+            ans_mask[i, : len(items)] = tm
+            weights[i, : len(items)] = [w for _, w in items]
+        if rb is not None:
+            bias[i, : len(items)] = [uniq_bias.get(t, 0.0) for t, _ in items]
+    return MPlugEntries(
+        question_ids=np.asarray(
+            [r.get("question_id", i) for i, r in enumerate(records)],
+            np.int64),
+        question_tokens=q_tokens, question_mask=q_mask,
+        answer_tokens=ans_tokens, answer_mask=ans_mask,
+        weights=weights, bias=bias,
+        image_paths=[os.path.join(vqa_root, r["image"]) for r in records])
 
 
 _POOLS: dict[int, ThreadPoolExecutor] = {}
@@ -121,3 +202,42 @@ def synthetic_mplug_batch(batch_size: int = 2, image_res: int = 32,
                          answers_per_question).astype(np.float32) * 0.5,
         "qid": np.arange(batch_size, dtype=np.int64) + seed * batch_size,
     }
+
+
+def iterate_batches(entries: MPlugEntries, batch_size: int,
+                    image_res: int = 384, shuffle: bool = False,
+                    seed: int = 0, drop_last: bool = False,
+                    augment: bool = False, workers: int = 0,
+                    raw_images: bool = False) -> Iterator[dict]:
+    """Fixed-shape numpy batches in the JAX package's order (the same
+    `RandomState(seed)` shuffle). A ragged final batch is padded with its
+    last row and flagged in "valid"; consumers skip the pad rows."""
+    if augment:
+        raise NotImplementedError(
+            "--augment true (RandomResizedCrop + HFlip + RandAugment): not "
+            "yet ported to crvqa_tpu_torch (ROADMAP); pass --augment false")
+    n = len(entries)
+    order = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    for start in range(0, n, batch_size):
+        idx = order[start: start + batch_size]
+        valid = np.ones(batch_size, bool)
+        if len(idx) < batch_size:
+            if drop_last:
+                return
+            valid[len(idx):] = False
+            idx = np.concatenate([idx,
+                                  np.full(batch_size - len(idx), idx[-1])])
+        yield {
+            "valid": valid,
+            "images": load_images([entries.image_paths[i] for i in idx],
+                                  image_res, workers=workers, raw=raw_images),
+            "question_ids": entries.question_tokens[idx],
+            "question_mask": entries.question_mask[idx],
+            "answer_ids": entries.answer_tokens[idx],
+            "answer_mask": entries.answer_mask[idx],
+            "weights": entries.weights[idx],
+            "bias": entries.bias[idx],
+            "qid": entries.question_ids[idx],
+        }

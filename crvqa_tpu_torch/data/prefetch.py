@@ -7,7 +7,8 @@ optional bf16 cast release the GIL), copies each batch into pinned host
 memory and starts its copy to the device on a side stream with
 `non_blocking=True`; the consumer waits for that copy's event before it
 uses the batch. Batch order is kept: it is part of the training contract.
-Integer question ids and the `valid` flags stay numpy (host-consumed).
+Integer question ids (`question_id`, mPLUG's `qid`) and the `valid` flags
+stay numpy (host-consumed).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import numpy as np
 import torch
 
 _END = object()
-HOST_KEYS = ("question_id", "valid")
+HOST_KEYS = ("question_id", "qid", "valid")
+# token ids and label indices: int64 on the device
+LONG_KEYS = ("input_ids", "max_label", "question_ids", "answer_ids")
 # visual inputs the first matmul casts to the model dtype anyway: casting
 # them on the host first halves their transfer under a bf16 model
 CAST_KEYS = ("visual_feats", "visual_pos")
@@ -37,7 +40,7 @@ def to_device(batch: dict, device: torch.device,
             out[k] = v
             continue
         t = torch.from_numpy(np.ascontiguousarray(v))
-        if k in ("input_ids", "max_label"):
+        if k in LONG_KEYS:
             t = t.long()
         elif k in CAST_KEYS and float_dtype is not None:
             t = t.to(float_dtype)

@@ -37,6 +37,11 @@ def weight_name(spec: MaskSpec) -> str:
     return f"{spec.torch_name}.weight"
 
 
+def bias_name(spec: MaskSpec) -> str:
+    """The state_dict name of the bias beside `weight_name(spec)`."""
+    return weight_name(spec)[:-len("weight")] + "bias"
+
+
 def bias_key(spec: MaskSpec) -> str:
     """Score key of a spec's bias mask (the JAX package's key)."""
     return "/".join(spec.path[:-1] + ("bias",))
@@ -115,7 +120,7 @@ class Masker:
             # the same controlled init on each module's bias; embeddings
             # carry none (maskers_Robust.py:193-199)
             for spec in self.specs:
-                b = params.get(f"{spec.torch_name}.bias")
+                b = params.get(bias_name(spec))
                 if spec.is_embedding or b is None:
                     continue
                 scores[bias_key(spec)] = self._controlled_scores(
@@ -166,23 +171,27 @@ class Masker:
     # ------------------------------------------------------------------- apply
     def apply_masks(self, params: dict[str, torch.Tensor], scores: Scores,
                     thresholds: Thresholds,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    momentum_tree: bool = False
                     ) -> dict[str, torch.Tensor]:
         """A copy of `params` with each masked weight replaced by
         `w * binarize(s, t)` (and, with `mask_biases`, each masked bias by
         `b * binarize(s_b, t)`: the MODULE's weight threshold, as
-        maskers_Robust.py:360-367). Differentiable in the scores."""
+        maskers_Robust.py:360-367). Differentiable in the scores.
+        `momentum_tree`: `params` are the distillation twins (held under
+        the live names), so specs marked `momentum_only` apply too (mPLUG's
+        `--mask_classifier`)."""
         binarize = get_binarizer(self.binarizer_name, generator)
         out = dict(params)
         for spec in self.specs:
-            if spec.momentum_only:  # the twin's mask; no twin is held here
+            if spec.momentum_only and not momentum_tree:
                 continue
             name = weight_name(spec)
             w = params[name]
             t = thresholds[spec.key]
             out[name] = w * binarize(scores[spec.key], t).to(w.dtype)
             bk = bias_key(spec)
-            bname = f"{spec.torch_name}.bias"
+            bname = bias_name(spec)
             if self.mask_biases and bk in scores and bname in params:
                 b = params[bname]
                 out[bname] = b * binarize(scores[bk], t).to(b.dtype)

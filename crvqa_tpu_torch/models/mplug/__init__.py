@@ -8,7 +8,7 @@ import torch
 
 from ..layers import init_weights_
 from .bert import MPlugBertConfig
-from .mplug import MPlug, MPlugConfig
+from .mplug import MPlug, MPlugConfig, momentum_update_
 from .vit import ViTConfig
 
 
@@ -30,4 +30,4 @@ def build_mplug(config: MPlugConfig, device: torch.device | str = "cpu",
 
 
 __all__ = ["MPlug", "MPlugBertConfig", "MPlugConfig", "ViTConfig",
-           "build_mplug"]
+           "build_mplug", "momentum_update_"]

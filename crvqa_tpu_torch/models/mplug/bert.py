@@ -368,3 +368,17 @@ def lm_loss_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
                         )[..., 0]
     return (nll * mask).sum(dim=1)
 
+
+
+def soft_label_distill_loss(logits: torch.Tensor, soft_labels: torch.Tensor,
+                            labels: torch.Tensor, pad_id: int = 0
+                            ) -> torch.Tensor:
+    """Per-sequence soft-label distillation term (modeling_mplug.py:
+    1915-1916): -sum(log_softmax(shifted logits) * soft_labels) over the
+    VOCAB axis, summed over the non-pad target positions. The reference
+    takes its log_softmax over the sequence axis; the JAX package computes
+    the intended vocab-axis form, and so does the port."""
+    shifted = logits[:, :-1].float()
+    mask = (labels[:, 1:] != pad_id).float()
+    ld = -(torch.log_softmax(shifted, dim=-1) * soft_labels).sum(dim=-1)
+    return (ld * mask).sum(dim=1)

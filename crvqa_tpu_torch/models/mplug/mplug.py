@@ -2,10 +2,11 @@
 LM decoder (counterpart of `crvqa_tpu/models/mplug/mplug.py`; the
 reference's `mPLUG/models/model_vqa_mplug.py:MPLUG`).
 
-The serving entries are ported: `encode`, `decode_logits`,
-`decode_logits_step` and answer ranking (`rank_answers`,
-`rank_answers_topk`, `rank_answers_from_states`). The training loss,
-`answer_logits` and the momentum twins wait for the training slice.
+Serving entries: `encode`, `decode_logits`, `decode_logits_step` and answer
+ranking (`rank_answers`, `rank_answers_topk`, `rank_answers_from_states`).
+Training entries: `loss` (the JAX module's `__call__`), `answer_logits` (the
+momentum twins' soft labels) and `momentum_update`. The twins are a second
+parameter dict run through the same module, not `_m` submodules.
 
 `forward(fn, *args)` runs `fn(self, *args)`: the hook through which
 `torch.func.functional_call` runs any method, or a whole generation loop,
@@ -21,7 +22,7 @@ from torch import nn
 
 from ..layers import Dropout, LayerNorm
 from .bert import (FusionEncoder, MPlugBertConfig, TextDecoder, TextEncoder,
-                   lm_loss_per_sequence)
+                   lm_loss_per_sequence, soft_label_distill_loss)
 from .vit import ViTConfig, VisualEncoder
 
 
@@ -32,6 +33,8 @@ class MPlugConfig:
     pad_token_id: int = 0
     eos_token_id: int = 102  # '[SEP]'
     bos_token_id: int = 101  # '[CLS]'
+    distill: bool = False
+    momentum: float = 0.995
 
     @classmethod
     def tiny(cls, **kw) -> "MPlugConfig":
@@ -92,6 +95,43 @@ class MPlug(nn.Module):
         states = torch.cat([image_out, question_out], dim=1)
         state_mask = torch.cat([image_mask, question_mask.float()], dim=1)
         return states, state_mask
+
+    def answer_logits(self, images, question_ids, question_mask, answer_ids,
+                      answer_mask) -> torch.Tensor:
+        """Flat per-answer-slot decoder logits [B*A, L, V]. The A answer
+        rows of a question share its fused states: the decoder attends the
+        UNREPLICATED memory (`memory_groups=A`), so its cross-attention is
+        (A*L, 1 + P + Lq) per question."""
+        states, state_mask = self.encode(images, question_ids, question_mask)
+        b, a, length = answer_ids.shape
+        return self.text_decoder(answer_ids.reshape(b * a, length),
+                                 answer_mask.reshape(b * a, length),
+                                 states, state_mask, memory_groups=a)
+
+    def loss(self, images, question_ids, question_mask, answer_ids,
+             answer_mask, weights, bias=None, soft_labels=None,
+             alpha=0.0) -> torch.Tensor:
+        """The training loss (the JAX module's `__call__`;
+        model_vqa_mplug.py:112-116): answer_ids / answer_mask [B, A, L], A
+        answer slots per question; weights [B, A], 0 for padded slots.
+        Returns sum(weights * (1 - bias) * per-answer LM loss) / B.
+        `soft_labels` [B*A, L-1, V] (the momentum twin's softmax) mixes a
+        distillation term at weight `alpha`: (1 - alpha) * CE + alpha *
+        distill (modeling_mplug.py:1915-1917)."""
+        c = self.config
+        b, a, length = answer_ids.shape
+        logits = self.answer_logits(images, question_ids, question_mask,
+                                    answer_ids, answer_mask)
+        flat_ids = answer_ids.reshape(b * a, length)
+        per_answer = lm_loss_per_sequence(logits, flat_ids, c.pad_token_id)
+        if soft_labels is not None:
+            distill = soft_label_distill_loss(logits, soft_labels, flat_ids,
+                                              c.pad_token_id)
+            per_answer = (1.0 - alpha) * per_answer + alpha * distill
+        loss = weights.reshape(b * a) * per_answer
+        if bias is not None:
+            loss = (1.0 - bias.reshape(b * a)) * loss
+        return loss.sum() / b
 
     def decode_logits(self, answer_ids, answer_mask, states, state_mask,
                       cross_kv=None, position=None, memory_groups: int = 1):
@@ -160,3 +200,17 @@ class MPlug(nn.Module):
         rerank = torch.softmax(log_probs_sum.reshape(b, k), dim=-1)
         rerank_probs, rerank_id = top_k(rerank, k)
         return torch.gather(topk_ids, 1, rerank_id), rerank_probs
+
+
+@torch.no_grad()
+def momentum_update_(params_m: dict[str, torch.Tensor],
+                     params: dict[str, torch.Tensor],
+                     momentum: float = 0.995) -> None:
+    """EMA update of the distillation twins, in place (`_momentum_update`,
+    model_vqa_mplug.py:150-181): m <- m * momentum + p * (1 - momentum) for
+    every leaf (the JAX package's `momentum_update` returns a new tree)."""
+    keys = [k for k in params_m if params_m[k].dtype.is_floating_point]
+    ms = [params_m[k] for k in keys]
+    torch._foreach_mul_(ms, momentum)
+    torch._foreach_add_(ms, [params[k].to(params_m[k].dtype) for k in keys],
+                        alpha=1.0 - momentum)

@@ -3,20 +3,25 @@
 Counterpart of `crvqa_tpu/ops/midseq_attention.py`: the attentions out of
 the short kernel's H*S <= 1024 scope (mPLUG's 577-patch ViT self-attention,
 the fusion encoder's text->image cross-attention, the stride layer's joint
-attention, the rank decoder's grouped cross-attention). The kernel is
-`csrc/midseq_attention_fwd.cu`; see its header for what it replaces, its
-bound and its design. This module holds its ctypes binding, its plain
-PyTorch version and the wrapper that chooses between them by the tensor's
+attention, the decoder's grouped cross-attention). The kernels are
+`csrc/midseq_attention_fwd.cu` and `csrc/midseq_attention_bwd.cu` (the
+recompute backward); see their headers for what each replaces, its bound
+and its design. This module holds their ctypes bindings, their plain
+PyTorch versions and the wrappers that choose between them by the tensor's
 device:
 
-- CPU tensors take the plain version (the tests' path), differentiable by
+- CPU tensors take the plain forward (the tests' path), differentiable by
   autograd;
-- CUDA tensors launch the kernel or raise. There is no fallback.
+- CUDA tensors launch the kernels or raise. There is no fallback.
 
-`midseq_attention.launches` counts the kernel's launches and nothing else.
+`midseq_attention.launches` and `midseq_attention_bwd.launches` count the
+kernels' launches and nothing else.
 
-The forward is ported; its backward (`_bwd_kernel`, the recompute backward
-of mPLUG training) is not yet, so a CUDA call that needs a gradient raises.
+`midseq_attention` is differentiable in q, k and v: on a CUDA tensor that
+needs a gradient `MidseqAttentionFunction` launches the forward kernel,
+saves q, k, v, the bias and the seed only (`_ms_fwd` of the JAX module), and
+its backward launches the backward kernel, which rebuilds the probabilities
+and the dropout mask.
 
 Dropout uses the JAX kernel's counter-hash keep mask keyed on the ABSOLUTE
 head index and the plain key index (`fused_attention.keep_mask` with a head
@@ -30,6 +35,7 @@ enters the dispatch through the TPU's VMEM budget).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -123,15 +129,89 @@ def midseq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return midseq_attention_reference(q, k, v, bias, num_heads,
                                           head_size, rate, seed)
-    if needs_grad:
-        raise NotImplementedError(
-            "midseq backward: mPLUG training slice, not yet ported "
-            "(crvqa_tpu/ops/midseq_attention.py:_bwd_kernel)")
     _check_cuda(q, k, v, bias, head_size)
+    if needs_grad:
+        return MidseqAttentionFunction.apply(q, k, v, bias, num_heads,
+                                             head_size, rate, seed)
     return _launch(q, k, v, bias, num_heads, head_size, rate, seed)
 
 
 midseq_attention.launches = 0
+
+
+def midseq_attention_bwd_reference(q, k, v, bias, g, num_heads: int,
+                                   head_size: int, rate: float = 0.0,
+                                   seed: int = 0
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain PyTorch version of the TPU kernel's recompute backward, step
+    by step with its rounding points (`_bwd_kernel` and `_ms_bwd`,
+    crvqa_tpu/ops/midseq_attention.py:133-183, 264-280): g cast to q's dtype
+    first; p rebuilt in fp32; p * drop rounded to the activation dtype
+    before the dv product; dp and its row sum in fp32 with the dropout
+    factor inside dp; ds rounded before the dq and dk products; fp32
+    accumulation, outputs rounded once. Returns (dq, dk, dv) in q's dtype."""
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    dt = q.dtype
+    p = _probs(q, k, bias, num_heads, head_size)
+    drop = drop_factor(b, num_heads, sq, sk, rate, seed, q.device)
+    gh = _split(g.to(dt), num_heads, head_size).float()
+    qh, kh, vh = (_split(t, num_heads, head_size).float() for t in (q, k, v))
+    dv = torch.matmul((p * drop).to(dt).float().transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2)) * drop
+    rowsum = (dp * p).sum(-1, keepdim=True)
+    ds = ((dp - rowsum) * p * (1.0 / math.sqrt(head_size))).to(dt).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return _merge(dq).to(dt), _merge(dk).to(dt), _merge(dv).to(dt)
+
+
+def midseq_attention_bwd(q, k, v, bias, g, num_heads: int, head_size: int,
+                         rate: float = 0.0, seed: int = 0):
+    """(dq, dk, dv) of `midseq_attention` for the output cotangent g
+    [B, Sq, H*D], recomputed from q, k, v, the bias and the seed. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    _check_shapes(q, k, v, bias, num_heads, head_size)
+    _dropout_args(rate, seed)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"midseq_attention_bwd: g {tuple(g.shape)} on "
+                         f"{g.device} does not match q {tuple(q.shape)} on "
+                         f"{q.device}")
+    if q.device.type == "cpu":
+        return midseq_attention_bwd_reference(q, k, v, bias, g, num_heads,
+                                              head_size, rate, seed)
+    _check_cuda(q, k, v, bias, head_size)
+    return _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed)
+
+
+midseq_attention_bwd.launches = 0
+
+
+class MidseqAttentionFunction(torch.autograd.Function):
+    """Forward kernel + recompute backward kernel (`_ms_fwd` / `_ms_bwd` of
+    the JAX module): saves q, k, v and the bias; seed and rate ride as
+    non-tensor state. The bias and the seed get no gradient. Applied to CPU
+    tensors (the tests do; the wrapper leaves those to autograd) both
+    halves take their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed):
+        forward = (midseq_attention_reference if q.device.type == "cpu"
+                   else _launch)
+        out = forward(q, k, v, bias, num_heads, head_size, rate, seed)
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.args = (num_heads, head_size, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = midseq_attention_bwd(q, k, v, bias,
+                                          g.to(q.dtype).contiguous(),
+                                          *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ------------------------------------------------------------------ checks
@@ -161,6 +241,14 @@ def smem_bytes(sk: int) -> int:
     per query row."""
     return 4 * (_KEY_TILE * (KERNEL_HEAD_SIZE + 1)
                 + _ROWS * KERNEL_HEAD_SIZE + _ROWS * sk)
+
+
+def bwd_smem_bytes(sk: int) -> int:
+    """Shared memory of the backward's dq block at Sk keys: a staged tile,
+    the block's q and g rows, and two fp32 planes (p; dp, then ds) of Sk
+    per query row."""
+    return 4 * (_KEY_TILE * (KERNEL_HEAD_SIZE + 1)
+                + 2 * _ROWS * KERNEL_HEAD_SIZE + 2 * _ROWS * sk)
 
 
 def _check_cuda(q, k, v, bias, head_size):
@@ -226,3 +314,53 @@ def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
     midseq_attention.launches += 1
     return out
 
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load_cuda_library("midseq_attention_bwd")
+    if lib.midseq_attention_bwd.argtypes is None:
+        lib.midseq_attention_bwd.argtypes = [
+            _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+            _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i,
+            _u32, _u32, _f32, _p]
+        lib.midseq_attention_bwd.restype = ctypes.c_int
+        lib.midseq_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.midseq_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed):
+    b, sq, d = q.shape
+    sk = k.shape[1]
+    if g.dtype != q.dtype or g.stride(2) != 1:
+        raise TypeError("midseq_attention backward kernel: g must have q's "
+                        "dtype and a contiguous last dimension")
+    if bwd_smem_bytes(sk) > _SMEM_LIMIT:
+        raise ValueError(f"midseq_attention backward kernel: Sk = {sk} needs "
+                         f"{bwd_smem_bytes(sk)} bytes of shared memory for "
+                         f"its two planes, over the {_SMEM_LIMIT} a block "
+                         "may use")
+    seed_u, threshold, keep_scale = _dropout_args(rate, seed)
+    dq = torch.empty((b, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, d), dtype=q.dtype, device=q.device)
+    # each query row's softmax max, denominator and sum of dp * p: written
+    # by the dq kernel, read by the dk / dv kernel
+    stats = torch.empty((b, num_heads, 3, sq), dtype=torch.float32,
+                        device=q.device)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        rc = lib.midseq_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, sq, sk, num_heads, head_size,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), g.stride(0), g.stride(1),
+            int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        msg = lib.midseq_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"midseq_attention_bwd kernel launch failed: CUDA "
+                           f"error {rc} ({msg})")
+    midseq_attention_bwd.launches += 1
+    return dq, dk, dv

@@ -1,6 +1,7 @@
 """Shared training-step machinery (counterpart of `crvqa_tpu/train/common.py`):
-the reference's AdamW, clip-by-global-norm, the linear warmup schedule and
-the batch helpers.
+the reference's AdamW (stage 2), an `optax.adamw` twin over parameter groups
+(mPLUG), clip-by-global-norm, the linear warmup schedule, the generators a
+training state carries and the batch helpers.
 
 The JAX package's optimizers are pure functions over pytrees; here the
 optimizer updates parameters and moments IN PLACE (no second copy of the
@@ -138,6 +139,94 @@ class HfAdamW:
         if narrow:
             for dst, src in zip(mu + nu, m + v):
                 dst.copy_(src)
+
+
+@dataclasses.dataclass
+class TrainRNG:
+    """The generators a training state carries. `device`: dropout masks
+    (and scheme 3's bernoulli); `host` (CPU): the attention kernels'
+    per-call dropout seeds."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "TrainRNG":
+        return cls(torch.Generator(device=device).manual_seed(seed),
+                   torch.Generator().manual_seed(seed + 1))
+
+
+@dataclasses.dataclass
+class AdamWState:
+    """`count` steps taken; first and second moments keyed like the
+    parameters."""
+
+    count: int
+    mu: dict[str, torch.Tensor]
+    nu: dict[str, torch.Tensor]
+
+
+class GroupAdamW:
+    """`optax.adamw(schedule, weight_decay=wd, mask=decay)` under
+    `optax.multi_transform`, in place over a flat dict of tensors:
+
+      m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g^2
+      u = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)   (eps on the
+                                                bias-corrected moments)
+      u += weight_decay * p          (only where `decay[name]`; decoupled)
+      p += -lr_group(t - 1) * u      (the schedule at the PRE-increment
+                                      count, the bias correction at t)
+
+    `groups[name]` names each parameter's group and `schedules[group]` its
+    learning-rate schedule; every group shares one count. It is not
+    `HfAdamW`: there eps sits outside the bias correction and the decay
+    multiplies the updated parameter."""
+
+    def __init__(self, schedules: dict[str, Schedule], groups: dict[str, str],
+                 decay: dict[str, bool], b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.schedules, self.groups, self.decay = schedules, groups, decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: dict[str, torch.Tensor]) -> AdamWState:
+        return AdamWState(0, {k: torch.zeros_like(p) for k, p in params.items()},
+                          {k: torch.zeros_like(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def step(self, params: dict[str, torch.Tensor],
+             grads: dict[str, torch.Tensor], state: AdamWState) -> None:
+        """One update of `params` (in place) from `grads`; advances
+        `state` in place."""
+        keys = list(params)
+        g = [grads[k] for k in keys]
+        mu = [state.mu[k] for k in keys]
+        nu = [state.nu[k] for k in keys]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
+        lrs = {name: float(fn(state.count))
+               for name, fn in self.schedules.items()}
+        state.count += 1
+        c = state.count
+        denom = torch._foreach_div(nu, 1.0 - self.b2 ** c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(mu, 1.0 - self.b1 ** c)
+        torch._foreach_div_(u, denom)
+        del denom
+        updates = dict(zip(keys, u))
+        if self.weight_decay > 0.0:
+            decayed = [k for k in keys if self.decay[k]]
+            torch._foreach_add_([updates[k] for k in decayed],
+                                [params[k] for k in decayed],
+                                alpha=self.weight_decay)
+        for name, lr in lrs.items():
+            members = [k for k in keys if self.groups[k] == name]
+            if members:
+                torch._foreach_add_([params[k] for k in members],
+                                    [updates[k] for k in members], alpha=-lr)
 
 
 def batch_score(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,9 @@ from ..losses import dispatch_loss, learned_mixin_init
 from ..masking.binarizers import clamp_scores_sign_
 from ..masking.masker import Masker, bias_key, weight_name
 from ..models.layers import set_generators
-from .common import (HfAdamW, HfAdamWState, TrainMetrics, batch_score,
-                     linear_warmup_schedule, model_inputs,
-                     clip_by_global_norm_)
+from .common import (HfAdamW, HfAdamWState, TrainMetrics, TrainRNG,
+                     batch_score, clip_by_global_norm_,
+                     linear_warmup_schedule, model_inputs)
 
 CLASSIFIER = "classifier"
 
@@ -55,18 +55,7 @@ class Stage2Config:
     moment_dtype: str = "float32"    # storage of the Adam moments
 
 
-@dataclasses.dataclass
-class Stage2RNG:
-    """`device`: dropout masks (and scheme 3's bernoulli); `host` (CPU): the
-    fused-attention kernel's per-call dropout seeds."""
-
-    device: torch.Generator
-    host: torch.Generator
-
-    @classmethod
-    def from_seed(cls, seed: int, device) -> "Stage2RNG":
-        return cls(torch.Generator(device=device).manual_seed(seed),
-                   torch.Generator().manual_seed(seed + 1))
+Stage2RNG = TrainRNG  # device + host generators (train/common.py)
 
 
 @dataclasses.dataclass

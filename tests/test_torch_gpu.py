@@ -10,7 +10,9 @@ version's bf16 matmuls accumulate in another order). The backward's fp32
 gradients atol 1e-4: dp = g v^T reaches tens, summed in another order than
 cuBLAS sums it. The fp32 residual p atol 1e-6. The mid-length kernel's
 bf16 outputs atol 5e-3, rtol 1e-2: its outputs are about 0.07, so a missed
-rounding point of p would show.
+rounding point of p would show. The mid-length backward: fp32 atol 2e-5,
+bf16 atol 1e-2 / rtol 2e-2 (gradients about 1; ds, p_t and each output
+round to bf16 once).
 """
 import pytest
 import torch
@@ -318,7 +320,7 @@ def test_midseq_kernel_reads_strided_projection_slices():
 
 
 @pytest.mark.parametrize("case", ["head_size", "dtype", "inner_stride",
-                                  "smem", "grad"])
+                                  "smem"])
 def test_midseq_raises_on_what_it_does_not_take(case):
     _need_card()
     from crvqa_tpu_torch.ops import midseq_attention as ma
@@ -332,16 +334,100 @@ def test_midseq_raises_on_what_it_does_not_take(case):
         q, k, v = q.half(), k.half(), v.half()
     elif case == "inner_stride":
         q = torch.stack([q, q], dim=-1)[..., 0]  # H*D stride 2
-    elif case == "smem":  # 16 probability rows of 4096 keys: 256 KB
+    else:  # 16 probability rows of 4096 keys: 256 KB
         k = v = torch.randn(2, 4096, 768, device="cuda")
         bias = torch.zeros(2, 4096, device="cuda")
-    else:  # the backward comes with the training slice
-        q = q.requires_grad_()
-        error = NotImplementedError
     before = ma.midseq_attention.launches
     with pytest.raises(error):
         ma.midseq_attention(q, k, v, bias, heads, head_size)
+    with pytest.raises(error):  # needing a gradient changes nothing
+        ma.midseq_attention(q.requires_grad_(), k, v, bias, heads, head_size)
     assert ma.midseq_attention.launches == before
+
+
+# mPLUG's training shapes: ViT, fusion cross, stride joint, and the
+# decoder's grouped cross-attention (5 answers x 8 tokens over 602)
+MIDSEQ_TRAIN_SHAPES = [(577, 577), (25, 577), (602, 602), (40, 602)]
+# fp32: the same sums in another order than cuBLAS (gradients about 1);
+# bf16: ds, p_t and each output round once
+MIDSEQ_BWD_TOL = {torch.float32: dict(atol=2e-5, rtol=0),
+                  torch.bfloat16: dict(atol=1e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_midseq_backward_kernel_matches_plain(dtype, rate):
+    """The recompute backward at mPLUG's training shapes (batch 4) against
+    its plain version with the same dropout; two launches give the same
+    bits (no atomics)."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    for sq, sk in MIDSEQ_TRAIN_SHAPES:
+        q, k, v, bias = _inputs(4, sq, sk, dtype, seed=sq + sk)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            sq)).cuda().to(dtype)
+        before = ma.midseq_attention_bwd.launches
+        got = ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64, rate, -31)
+        again = ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64, rate, -31)
+        torch.cuda.synchronize()
+        assert ma.midseq_attention_bwd.launches == before + 2
+        want = ma.midseq_attention_bwd_reference(q, k, v, bias, g, 12, 64,
+                                                 rate, -31)
+        for name, a, b, c in zip("qkv", got, want, again):
+            assert a.dtype == dtype and a.shape == b.shape
+            assert torch.equal(a, c), f"d{name} differs between launches"
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **MIDSEQ_BWD_TOL[dtype],
+                                       msg=lambda m: f"d{name} {sq, sk}: {m}")
+
+
+def test_midseq_autograd_launches_both_kernels():
+    """On CUDA tensors that need a gradient the wrapper goes through
+    `MidseqAttentionFunction`: one forward and one backward launch, on
+    column slices of one fused projection, equal to autograd through the
+    plain forward (fp32, dropout 0.1)."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    gen = torch.Generator().manual_seed(2)
+    qkv = torch.randn(2, 577, 3 * 768, generator=gen).cuda().requires_grad_()
+    g = torch.randn(2, 577, 768, generator=gen).cuda()
+    bias = torch.zeros(2, 577, device="cuda")
+    bias[1, 500:] = -10000.0
+    before = (ma.midseq_attention.launches, ma.midseq_attention_bwd.launches)
+    out = ma.midseq_attention(*qkv.chunk(3, dim=-1), bias, 12, 64, 0.1, 77)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert (ma.midseq_attention.launches - before[0],
+            ma.midseq_attention_bwd.launches - before[1]) == (1, 1)
+    ref = ma.midseq_attention_reference(*qkv.chunk(3, dim=-1), bias, 12, 64,
+                                        0.1, 77)
+    (want,) = torch.autograd.grad(ref, qkv, g)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["g_dtype", "g_stride", "smem", "g_shape"])
+def test_midseq_backward_raises_on_what_it_does_not_take(case):
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    q, k, v, bias = _inputs(2, 25, 577, torch.float32)
+    g = torch.randn_like(q)
+    if case == "g_dtype":
+        g = g.bfloat16()
+    elif case == "g_stride":
+        g = torch.stack([g, g], dim=-1)[..., 0]
+    elif case == "smem":  # two planes of 16 x 2048 keys: 270 KB
+        k = v = torch.randn(2, 2048, 768, device="cuda")
+        bias = torch.zeros(2, 2048, device="cuda")
+    else:
+        g = g[:, :24]
+    before = ma.midseq_attention_bwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)
+    assert ma.midseq_attention_bwd.launches == before
 
 
 def test_mplug_encode_launch_counts_and_plain_agreement():
@@ -394,3 +480,46 @@ def test_mplug_encode_launch_counts_and_plain_agreement():
     finally:
         layers.midseq_attention, layers.fused_attention = saved
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+def test_mplug_train_step_launch_counts():
+    """One full-width mPLUG mask-training step (bf16, batch 2, 5 answers of
+    8 tokens, dropout on) on seeded weights. The forward launches the
+    mid-length kernel 30 times (12 ViT, 5 fusion cross, 1 stride joint, 12
+    decoder cross at (40,602)) and the short forward for grad 11 times (6
+    text encoder, 5 fusion self); the backward runs for all of them but the
+    first ViT block's attention, which no trained leaf precedes (the ViT's
+    masks are on its MLPs): 29 mid-length and 11 short backward launches.
+    The scores move and the loss is finite."""
+    _need_card()
+    from crvqa_tpu_torch.cli import vqa_mplug
+    from crvqa_tpu_torch.data.mplug_data import synthetic_mplug_batch
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+    from crvqa_tpu_torch.train import mplug_train
+
+    args = vqa_mplug.build_parser().parse_args(
+        ["--output_dir", "unused", "--dtype", "bfloat16", "--seed", "0"])
+    config, _, model = vqa_mplug.build_model(args)
+    masker = vqa_mplug.build_masker(args, config)
+    cfg = vqa_mplug.train_config(args, 4)
+    state = mplug_train.init_state(
+        model, vqa_mplug.initial_params(args, config), cfg, "cuda",
+        masker=masker, seed=0, train=True)
+    batch = to_device(synthetic_mplug_batch(
+        batch_size=2, image_res=384, vocab_size=30522, q_len=25, a_len=8,
+        answers_per_question=5, seed=1, uint8_images=True),
+        torch.device("cuda"))
+    counters = (ma.midseq_attention, ma.midseq_attention_bwd,
+                fa.fused_attention_fwd_train, fa.fused_attention_bwd_stored,
+                fa.fused_attention)
+    before = [c.launches for c in counters]
+    key = next(iter(state.scores))
+    old = state.scores[key].detach().clone()
+    step = mplug_train.make_train_step(model, cfg, masker)
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        30, 29, 11, 11, 0]
+    assert bool(torch.isfinite(loss)) and state.step == 1
+    assert not torch.equal(state.scores[key], old)

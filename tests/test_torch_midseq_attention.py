@@ -2,9 +2,12 @@
 vs the JAX package's Pallas kernel, run interpreted on the CPU. Inputs are
 made with numpy from a seed and fed to both.
 
-fp32 throughout: outputs within atol 1e-5 and gradients within 2e-5 (both
-sides compute scores and softmax in fp32 and differ only in summation
-order). The dropout keep mask is compared bit for bit.
+In fp32 outputs agree within atol 1e-5 and autograd's gradients within
+2e-5 (both sides compute scores and softmax in fp32 and differ only in
+summation order). The plain recompute backward is held against `jax.vjp`
+through the interpreted `_bwd_kernel`: fp32 within atol 1e-5, bf16 within
+2e-2 (one bf16 rounding of p, ds and each output on gradients of size about
+1). The dropout keep mask is compared bit for bit.
 
 The CUDA kernel itself runs only on the card: tests/test_torch_gpu.py.
 """
@@ -118,6 +121,71 @@ def test_autograd_matches_jax_recompute_backward(sq, sk, h, d, rate):
                                    atol=2e-5, err_msg=f"d{name}")
 
 
+def _jax_vjp(q, k, v, bias, g, h, d, rate, seed, dtype):
+    qj, kj, vj = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    _, vjp = jax.vjp(
+        lambda a, b, c: jma.midseq_attention_seeded(
+            a, b, c, jnp.asarray(bias), jnp.asarray([seed], jnp.int32), h, d,
+            rate, True), qj, kj, vj)
+    return [np.asarray(t.astype(jnp.float32))
+            for t in vjp(jnp.asarray(g).astype(dtype))]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk,h,d", [(37, 133, 2, 64), (25, 77, 3, 64),
+                                       (133, 131, 2, 64), (29, 77, 3, 40)])
+def test_plain_backward_matches_jax_vjp(sq, sk, h, d, rate, dtype, atol):
+    """`midseq_attention_bwd_reference` (the arithmetic the CUDA backward
+    repeats) against the interpreted TPU backward, odd Sq and Sk."""
+    q, k, v, bias = _inputs(sq, sk, h, d, seed=sq + sk)
+    g = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    seed = -1234
+    want = _jax_vjp(q, k, v, bias, g, h, d, rate, seed, dtype)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (t.to(tdt) for t in _torch(q, k, v))
+    got = tma.midseq_attention_bwd(tq, tk, tv, torch.from_numpy(bias),
+                                   torch.from_numpy(g), h, d, rate, seed)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == tdt
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=0, atol=atol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_autograd_function_on_cpu_tensors(rate):
+    """`MidseqAttentionFunction` (forward, then the recompute backward from
+    q, k, v, bias and seed only) gives autograd's gradients of the plain
+    forward, launches nothing on the CPU, and hands the bias none."""
+    q, k, v, bias = _torch(*_inputs(21, 45, 2, 64, seed=8))
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=q.shape).astype(np.float32))
+    before = (tma.midseq_attention.launches,
+              tma.midseq_attention_bwd.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tma.MidseqAttentionFunction.apply(*leaves, bias, 2, 64, rate, 11)
+    got = torch.autograd.grad(out, leaves, g)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        tma.midseq_attention(*ref, bias, 2, 64, rate, 11), ref, g)
+    assert (tma.midseq_attention.launches,
+            tma.midseq_attention_bwd.launches) == before
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    bias_leaf = bias.clone().requires_grad_()
+    out = tma.MidseqAttentionFunction.apply(*leaves, bias_leaf, 2, 64, rate,
+                                            11)
+    assert torch.autograd.grad(out.sum(), bias_leaf,
+                               allow_unused=True)[0] is None
+
+
+def test_backward_refuses_a_mismatched_cotangent():
+    q, k, v, bias = _torch(*_inputs(14, 36, 2, 64))
+    with pytest.raises(ValueError, match="does not match"):
+        tma.midseq_attention_bwd(q, k, v, bias, q[:, :13], 2, 64)
+
+
 def test_cpu_wrapper_takes_plain_version_and_launches_nothing():
     q, k, v, bias = _torch(*_inputs(25, 77, 12, 64))
     before = tma.midseq_attention.launches
@@ -142,16 +210,17 @@ def test_column_slices_of_one_projection():
 
 
 def test_non_cpu_tensor_needing_a_gradient_raises():
-    """Off the CPU the wrapper never takes the plain version: a call that
-    needs a gradient raises before anything else (the backward kernel
-    comes with the training slice); one that does not goes to the kernel
-    checks, which refuse a device other than CUDA."""
+    """Off the CPU the wrapper never takes the plain version: with or
+    without a gradient to compute, the call goes to the kernel checks,
+    which refuse a device other than CUDA; so does the backward."""
     q, k, v = (torch.empty(2, 30, 128, device="meta") for _ in range(3))
     bias = torch.empty(2, 30, device="meta")
-    with pytest.raises(NotImplementedError, match="midseq backward"):
+    with pytest.raises(ValueError, match="unsupported device"):
         tma.midseq_attention(q.requires_grad_(), k, v, bias, 2, 64)
     with pytest.raises(ValueError, match="unsupported device"):
         tma.midseq_attention(q.detach(), k, v, bias, 2, 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tma.midseq_attention_bwd(q.detach(), k, v, bias, q.detach(), 2, 64)
 
 
 def test_mismatched_shapes_raise():

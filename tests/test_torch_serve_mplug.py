@@ -3,7 +3,8 @@ the CPU at tiny widths, on the files the JAX package's mPLUG rehearsal
 fabricates (real JPEGs, a toy WordPiece vocab, an answer list): responses
 in arrival order, answers invariant to the serve batch size (padding
 cannot change a real row), an unreadable image errors only its own
-request, rank mode, and the flags this slice does not port raise.
+request, rank mode, and the flags not yet ported raise (`--ckpt` is served:
+tests/test_torch_vqa_mplug.py).
 The same checks as tests/test_serving_mplug.py makes of the JAX server."""
 import json
 
@@ -86,8 +87,7 @@ def test_serve_rank_mode(root, k_test):
     assert [o["answer"] for o in out_full] == [o["answer"] for o in out]
 
 
-@pytest.mark.parametrize("flag", [["--ckpt", "ckpt_final"],
-                                  ["--init_ckpt", "mplug_base.pth"],
+@pytest.mark.parametrize("flag", [["--init_ckpt", "mplug_base.pth"],
                                   ["--use_checkpoint", "true"]])
 def test_unported_flags_raise(root, flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
