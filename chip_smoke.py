@@ -9,9 +9,7 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 
 Phases (each one's seconds are logged):
   1. device   the card's name, count and power limit; TF32 off for matmuls
-              and cuDNN (fp32 comparisons are full fp32). Then the bounds,
-              from shapes alone, of the TPU kernels still to port
-              (`queued-bounds`).
+              and cuDNN (fp32 comparisons are full fp32).
   2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
               feature store, compiled from the checkout, all at once.
   3. kernel   the primal short attention kernel against its plain PyTorch
@@ -93,7 +91,32 @@ Phases (each one's seconds are logged):
               category and the idle share of two profiled steps, and one
               fp32 step at batch 8 with dropout on through the kernels
               against the same step through the plain attentions.
- 14. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 14. masked-matmul-kernel  the three masked-matmul kernels (forward, dx,
+              STE ds) through `masked_matmul` under autograd against their
+              plain versions at (M, K, N) = (9216, 768, 768), (4096, 768,
+              3072) and (1000, 700, 300), x and w each bf16 or fp32, scores
+              on and one step above the threshold; zero gradients for w and
+              the threshold; timed beside the plain versions and cuBLAS on
+              x @ (w * (s > t)), alone and forward + backward.
+ 15. head-compact-kernel  the head-compact kernel at x [9216, 768], 12
+              heads of 64 with 4 kept, padded with sentinels, and all
+              masked, bf16 and fp32, against its plain version; timed beside
+              the gather + cuBLAS + scatter op and cuBLAS on w * mask.
+ 16. stage1   `crvqa_tpu_torch.cli.run_vqa_stage1.main` at full LXMERT width,
+              batch 64, bf16, LMH loss, 512 synthetic examples: 8 steps, a
+              checkpoint, an eval and the .bin, the final eval; 34 forward-
+              for-grad and 32 stored-backward launches per step, 34 per eval
+              batch; timed steps; one fp32 step through the kernels against
+              the plain attentions.
+ 17. stage3   `crvqa_tpu_torch.cli.run_vqa_stage3.main` from that .bin,
+              batch 64, bf16, 4 steps and an eval each: (a) FT_trainedMask
+              with phase train's mask.pt and classifier4masker.bin (audited
+              zero rate 0.7), (b) FT_randMask over the reference scope, (c)
+              seeded head and FFN .npy masks at zero rate 0.5, compacting the
+              language layers to 6 heads (the short kernel at H = 6) and FFN
+              1536; masked weights exactly 0 after the steps; timed steps of
+              (a) and (c).
+ 18. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -103,6 +126,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1190,14 +1214,26 @@ def phase_mplug_serve(torch, device, rehearse: bool, seed: int) -> dict:
 def _counters() -> dict:
     """Each kernel's wrapper, by the name its launch counter reports."""
     from crvqa_tpu_torch.ops import fused_attention as fa
+    from crvqa_tpu_torch.ops import masked_matmul as mm
     from crvqa_tpu_torch.ops import midseq_attention as ma
+    from crvqa_tpu_torch.ops import structured_matmul as sm
 
     return {"midseq_attention_fwd": ma.midseq_attention,
             "midseq_attention_bwd": ma.midseq_attention_bwd,
             "fused_attention_fwd": fa.fused_attention,
             "fused_attention_fwd_train": fa.fused_attention_fwd_train,
             "fused_attention_bwd_stored": fa.fused_attention_bwd_stored,
-            "fused_attention_bwd_recompute": fa.fused_attention_bwd_recompute}
+            "fused_attention_bwd_recompute": fa.fused_attention_bwd_recompute,
+            "masked_matmul_fwd": mm.masked_matmul_fwd,
+            "masked_matmul_dx": mm.masked_matmul_dx,
+            "masked_matmul_ds": mm.masked_matmul_ds,
+            "head_compact_matmul": sm.head_compact_matmul_pallas}
+
+
+def _launch_counts(on_card: bool = True, **counts) -> dict:
+    """Every counter's expected launches: `counts` where given, else 0 (all
+    0 off the card, where the plain versions run)."""
+    return {name: counts.get(name, 0) * on_card for name in _counters()}
 
 
 def _run_counted(fn):
@@ -1210,7 +1246,11 @@ def _run_counted(fn):
     return result, {name: c.launches for name, c in counters.items()}
 
 
-def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
+def phase_train(torch, device, rehearse: bool, seed: int, keep_dir: str
+                ) -> dict:
+    """The stage-2 CLI at full width (module docstring, phase 9); the
+    exported mask.pt and classifier4masker.bin are kept in
+    `keep_dir`/stage2 for phase stage3."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import prune_debias_vqa
@@ -1261,12 +1301,11 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         check(len(losses) == steps and all(np.isfinite(losses)),
               f"train: {len(losses)} losses (want {steps}), finite: "
               f"{bool(np.all(np.isfinite(losses)))}")
-        want = {"midseq_attention_fwd": 0, "midseq_attention_bwd": 0,
-                "fused_attention_fwd_train": per_fwd * steps,
-                "fused_attention_bwd_stored": per_bwd * steps,
-                "fused_attention_bwd_recompute": 0,
-                "fused_attention_fwd": per_fwd * eval_batches}
-        check(launches == {k: v * on_card for k, v in want.items()},
+        want = _launch_counts(
+            on_card, fused_attention_fwd_train=per_fwd * steps,
+            fused_attention_bwd_stored=per_bwd * steps,
+            fused_attention_fwd=per_fwd * eval_batches)
+        check(launches == want,
               f"train: launches {launches} != {want} ({per_fwd} forward and "
               f"{per_bwd} backward per step x {steps} steps, {per_fwd} per "
               f"eval batch x {eval_batches})")
@@ -1279,6 +1318,10 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
                   f"train: {name} not written")
         with open(os.path.join(out, "test.json")) as f:
             check(len(json.load(f)) == N_TEST, "train: test.json incomplete")
+        kept = os.path.join(keep_dir, "stage2")
+        os.makedirs(kept)
+        for name in ("mask.pt", "classifier4masker.bin"):
+            shutil.copy(os.path.join(out, name), kept)
         with open(os.path.join(out, "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
         ex_s = [x["ex_s"] for x in logged if "ex_s" in x]
@@ -1303,23 +1346,21 @@ def phase_train(torch, device, rehearse: bool, seed: int) -> dict:
         finally:
             fa.BWD_IMPL = saved
         rsteps = N_TRAIN // TRAIN_BATCH * RECOMPUTE_EPOCHS
-        rwant = {"midseq_attention_fwd": 0, "midseq_attention_bwd": 0,
-                 "fused_attention_fwd_train": per_fwd * rsteps,
-                 "fused_attention_bwd_stored": 0,
-                 "fused_attention_bwd_recompute": per_bwd * rsteps,
-                 "fused_attention_fwd": 0}
+        rwant = _launch_counts(
+            on_card, fused_attention_fwd_train=per_fwd * rsteps,
+            fused_attention_bwd_recompute=per_bwd * rsteps)
         rlosses = rsummary["losses"]
         log(f"train: recompute backward, {len(rlosses)} steps: losses "
             f"{[round(x, 4) for x in rlosses]}; launches {rlaunches}")
         check(len(rlosses) == rsteps and all(np.isfinite(rlosses)),
               "train (recompute): losses missing or not finite")
-        check(rlaunches == {k: v * on_card for k, v in rwant.items()},
+        check(rlaunches == rwant,
               f"train (recompute): launches {rlaunches} != {rwant}")
     return {"steps": steps, "losses": losses, "launches": launches,
             "per_forward": per_fwd, "per_backward": per_bwd,
             "eval_batches": eval_batches, "zero_rates": rates,
             "best_acc": summary["best_acc"], "logged_ex_s": ex_s,
-            "wall_s": wall_s, "served": served,
+            "wall_s": wall_s, "served": served, "artifacts": kept,
             "recompute": {"steps": rsteps, "losses": rlosses,
                           "launches": rlaunches}}
 
@@ -1561,13 +1602,12 @@ def _mplug_train_launches(steps, eval_batches=0, mode="mask", distill=False,
     fwd = sum(MIDSEQ_FWD_PER_STEP.values())
     bwd = fwd if mode == "full" else sum(MIDSEQ_BWD_PER_STEP.values())
     twin = steps if distill else 0  # the twins' forward, eval mode
-    want = {"midseq_attention_fwd": fwd * (steps + twin) + 18 * eval_batches,
-            "midseq_attention_bwd": bwd * steps,
-            "fused_attention_fwd": SHORT_PER_STEP * (twin + eval_batches),
-            "fused_attention_fwd_train": SHORT_PER_STEP * steps,
-            "fused_attention_bwd_stored": SHORT_PER_STEP * steps,
-            "fused_attention_bwd_recompute": 0}
-    return {k: v * on_card for k, v in want.items()}
+    return _launch_counts(
+        on_card, midseq_attention_fwd=fwd * (steps + twin) + 18 * eval_batches,
+        midseq_attention_bwd=bwd * steps,
+        fused_attention_fwd=SHORT_PER_STEP * (twin + eval_batches),
+        fused_attention_fwd_train=SHORT_PER_STEP * steps,
+        fused_attention_bwd_stored=SHORT_PER_STEP * steps)
 
 
 def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
@@ -1796,42 +1836,567 @@ def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
     return out
 
 
-def phase_queued_bounds() -> list[dict]:
-    """Bounds of the TPU kernels still to port, from shapes alone (no
-    launch: there is no kernel yet), at the shape the JAX package measures
-    them at: an LXMERT projection over the visual stream at batch 256,
-    x [M, K] = [256 * 36, 768] and w [768, 768] in bf16, scores fp32, 4 of
-    12 heads kept at zero rate 0.7. Each input read once, each output
-    written once over HBM; the product's FLOPs at the bf16 peak."""
-    m, k, n, kept = TRAIN_BATCH * BOXES, 768, 768, 4 * 64
-    act, f32 = 2, 4
-    dense = 2 * m * k * n
-    points = [
-        ("masked_matmul _fwd_kernel", "crvqa_tpu/ops/masked_matmul.py:50",
-         act * (m * k + k * n + m * n) + f32 * k * n, dense),
-        ("masked_matmul _dx_kernel", "crvqa_tpu/ops/masked_matmul.py:67",
-         act * (m * n + k * n + m * k) + f32 * k * n, dense),
-        ("masked_matmul _ds_kernel", "crvqa_tpu/ops/masked_matmul.py:86",
-         act * (m * k + m * n + k * n) + f32 * k * n, dense),
-        ("head_compact_matmul_pallas _kernel",
-         "crvqa_tpu/ops/structured_matmul.py:119",
-         act * (m * k + kept * k + m * kept), 2 * m * k * kept)]
+# ------------------------------------------------------- phases 14-17
+
+# masked matmul points: an LXMERT projection over the visual stream at
+# batch 256 (x [256 * 36, 768], w [768, 768]), the shape the JAX module
+# measures (crvqa_tpu/ops/masked_matmul.py:19), and a ragged one
+MM_SHAPES = [(TRAIN_BATCH * BOXES, 768, 768), (4096, 768, 3072),
+             (1000, 700, 300)]
+MM_DTYPES = [("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+             ("float32", "float32"), ("float32", "bfloat16")]
+MM_THRESHOLD = 0.7
+HC_HEADS, HC_KEPT = 12, 4  # 4 of 12 heads kept: zero rate 0.67
+
+
+def _close_to(torch, got, want, bf16: bool, terms: int
+              ) -> tuple[bool, float]:
+    """(ok, max abs err) of a product whose sums run over `terms` exact
+    bf16 products in fp32: the tensor cores add 32-term steps in sequence,
+    cuBLAS in another order, so the rounding difference grows with the
+    square root of the length: 1e-5 of the largest |want| up to 768 terms,
+    sqrt(terms / 768) times that beyond; plus one bf16 step (2^-7 of
+    |want|) where the result is rounded to bf16."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = (1e-5 * max(1.0, terms / 768) ** 0.5 * want.abs().max()
+           + (2.0 ** -7 if bf16 else 0.0) * want.abs())
+    return bool((err <= tol).all()), err.max().item()
+
+
+def _mm_bound_terms(m, k, n, x_item, w_item) -> dict:
+    """kind -> (bytes ms, FLOPs ms) of one masked-matmul kernel call: each
+    input read once and each output written once over HBM (scores fp32; ds
+    reads g in fp32, as the VJP casts it, and writes fp32); 2·M·K·N FLOPs
+    at the bf16 tensor-core peak, since every product is of bf16
+    operands."""
+    f32 = 4
+    nbytes = {"fwd": x_item * (m * k + m * n) + w_item * k * n + f32 * k * n,
+              "dx": x_item * (m * n + m * k) + w_item * k * n + f32 * k * n,
+              "ds": x_item * m * k + f32 * m * n + w_item * k * n
+              + f32 * k * n}
+    ops_ms = 1e3 * 2 * m * k * n / PEAK_FLOPS["bfloat16"]
+    return {kind: (1e3 * b / HBM_BYTES_PER_S, ops_ms)
+            for kind, b in nbytes.items()}
+
+
+def _mm_inputs(torch, m, k, n, x_dtype, w_dtype, device, seed):
+    """x, w, scores, threshold, g: scores uniform in [0, 1) with every 7th
+    exactly on the threshold (masked: the compare is strict) and every 11th
+    one fp32 step above it (kept)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g)
+    w = torch.randn(k, n, generator=g) * 0.05
+    s = torch.rand(k, n, generator=g)
+    t = torch.tensor(MM_THRESHOLD)
+    s.view(-1)[::7] = t
+    s.view(-1)[3::11] = torch.nextafter(t, torch.tensor(2.0))
+    gy = torch.randn(m, n, generator=g)
+    xd, wd = getattr(torch, x_dtype), getattr(torch, w_dtype)
+    return (x.to(device, xd), w.to(device, wd), s.to(device), t.to(device),
+            gy.to(device, xd))
+
+
+def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
+                               ) -> dict:
+    """The three masked-matmul kernels through `masked_matmul` under
+    autograd (forward, dx, STE ds; zero gradients for w and the threshold)
+    against their plain versions at three shapes and four (x, w) dtype
+    pairs; timed (CUDA-graph replay) where x and w share a dtype, beside
+    the plain versions and cuBLAS on x @ (w * (s > t)). No entry point
+    reaches these kernels; `launches` counts this phase's autograd run."""
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    shapes = [(96, 80, 72), (33, 20, 17)] if rehearse else MM_SHAPES
     rows = []
-    for name, replaces, nbytes, flops in points:
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * flops / PEAK_FLOPS["bfloat16"]
-        bound_ms, bound_by = _bound(t_bytes, t_ops)
-        rows.append({"name": name, "replaces": replaces, "m": m, "k": k,
-                     "n": n, "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        log("queued-bounds: " + json.dumps(rows[-1]))
-    return rows
+    launches = _launch_counts()
+    for (m, k, n) in shapes:
+        for x_dtype, w_dtype in MM_DTYPES:
+            x, w, s, t, gy = _mm_inputs(torch, m, k, n, x_dtype, w_dtype,
+                                        device, seed + m + n)
+            leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
+
+            def autograd_run():
+                y = mm.masked_matmul(*leaves)
+                return (y,) + torch.autograd.grad(y, leaves, gy)
+
+            (y, dx, dw, ds, dt), counts = _run_counted(autograd_run)
+            launches = {n_: launches[n_] + c for n_, c in counts.items()}
+            ref_y = mm.masked_matmul_fwd_reference(x, w, s, t)
+            ref_dx = mm.masked_matmul_dx_reference(gy, w, s, t, x.dtype)
+            ref_ds = mm.masked_matmul_ds_reference(x, gy.float(), w)
+            ok_y, err_y = _close_to(torch, y, ref_y, x_dtype == "bfloat16",
+                                     k)
+            ok_dx, err_dx = _close_to(torch, dx, ref_dx,
+                                      x_dtype == "bfloat16", n)
+            ok_ds, err_ds = _close_to(torch, ds, ref_ds,
+                                      w_dtype == "bfloat16", m)
+            zero = (dw.abs().max().item() == 0.0 and dt.item() == 0.0)
+            row = {"m": m, "k": k, "n": n, "x_dtype": x_dtype,
+                   "w_dtype": w_dtype, "y_err": err_y, "dx_err": err_dx,
+                   "ds_err": err_ds, "on_threshold": int((s == t).sum()),
+                   "kept_share": float((s > t).float().mean()),
+                   "dtypes_ok": (y.dtype == x.dtype and dx.dtype == x.dtype
+                                 and ds.dtype == torch.float32)}
+            terms = _mm_bound_terms(m, k, n, x.element_size(),
+                                    w.element_size())
+            for kind, (t_bytes, t_ops) in terms.items():
+                row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (t_bytes,
+                                                                  t_ops)
+                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = _bound(
+                    t_bytes, t_ops)
+            if not rehearse and x_dtype == w_dtype:
+                row.update(_mm_times(torch, mm, x, w, s, t, gy))
+            rows.append(row)
+            log("masked-matmul-kernel: " + json.dumps(row))
+            check(ok_y and ok_dx and ok_ds and zero and row["dtypes_ok"],
+                  f"masked matmul kernels disagree with their plain versions "
+                  f"at {row} (tolerance: 1e-5 of the largest output, times "
+                  f"sqrt(terms / 768) past 768 terms, plus one bf16 step "
+                  f"where the output rounds to bf16; dw and dthreshold "
+                  f"exactly 0)")
+    want = _launch_counts(not rehearse, masked_matmul_fwd=len(rows),
+                          masked_matmul_dx=len(rows),
+                          masked_matmul_ds=len(rows))
+    check(launches == want, f"masked-matmul-kernel: launches {launches} != "
+                            f"{want}")
+    return {"rows": rows, "launches": launches}
+
+
+def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
+    """Device ms per call of each kernel, its plain version and cuBLAS on
+    the materialised masked weight; and of forward + backward under
+    autograd (the library's STE: s + ((s > t) - s).detach())."""
+    xr, sr = x.detach().requires_grad_(True), s.detach().requires_grad_(True)
+    wm = lambda: w * (s > t).to(w.dtype)
+    ste = lambda: sr + ((sr > t).float() - sr).detach()
+    out = {
+        "fwd_ms": _graph_ms(torch, lambda: mm.masked_matmul_fwd(x, w, s, t)),
+        "dx_ms": _graph_ms(torch, lambda: mm.masked_matmul_dx(
+            gy, w, s, t, x.dtype)),
+        "ds_ms": _graph_ms(torch, lambda: mm.masked_matmul_ds(
+            x, gy.float(), w)),
+        "fwd_bwd_ms": _graph_ms(torch, lambda: torch.autograd.grad(
+            mm.masked_matmul(xr, w, sr, t), (xr, sr), gy)),
+        "fwd_plain_ms": _graph_ms(torch, lambda: (
+            mm.masked_matmul_fwd_reference(x, w, s, t))),
+        "dx_plain_ms": _graph_ms(torch, lambda: (
+            mm.masked_matmul_dx_reference(gy, w, s, t, x.dtype))),
+        "ds_plain_ms": _graph_ms(torch, lambda: (
+            mm.masked_matmul_ds_reference(x, gy.float(), w))),
+        "fwd_library_ms": _graph_ms(torch, lambda: x @ wm()),
+        "dx_library_ms": _graph_ms(torch, lambda: gy @ wm().T),
+        "ds_library_ms": _graph_ms(torch, lambda: (x.T @ gy) * w),
+        "fwd_bwd_library_ms": _graph_ms(torch, lambda: torch.autograd.grad(
+            xr @ (w * ste()).to(x.dtype), (xr, sr), gy)),
+    }
+    out["fwd_bwd_plain_ms"] = (out["fwd_plain_ms"] + out["dx_plain_ms"]
+                               + out["ds_plain_ms"])
+    return out
+
+
+def phase_head_compact_kernel(torch, device, rehearse: bool, seed: int
+                              ) -> dict:
+    """The head-compact kernel at x [256 * 36, 768], 12 heads of 64 with 4
+    kept, and with that keep list padded by 2 sentinels, and with every
+    head masked (2 sentinel slots), in bf16 and fp32, against its plain
+    version; masked columns exactly zero. Timed at 4 kept beside the
+    port's `head_compact_matmul` (gather + cuBLAS + scatter) and
+    `dense_masked_matmul` (cuBLAS on w * mask). No entry point reaches the
+    kernel; `launches` counts this phase's checking run."""
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    m, k, bm, bk = (256, 128, 128, 128) if rehearse else (
+        TRAIN_BATCH * BOXES, 768, 512, 256)
+    heads, hs = HC_HEADS, 64
+    g = torch.Generator().manual_seed(seed + 5)
+    kept_heads = torch.randperm(heads, generator=g)[:HC_KEPT]
+    head_mask = torch.zeros(heads, dtype=torch.bool)
+    head_mask[kept_heads] = True
+    cases = [("kept4", head_mask, HC_KEPT), ("kept4_pad2", head_mask,
+                                             HC_KEPT + 2),
+             ("none_kept", torch.zeros(heads, dtype=torch.bool), 2)]
+    x32 = torch.randn(m, k, generator=g)
+    wt32 = torch.randn(heads * hs, k, generator=g) * 0.05
+    rows = []
+    launches = _launch_counts()
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x, wt = x32.to(device, dt), wt32.to(device, dt)
+        for tag, hm, n_keep in cases:
+            keep = sm.expand_keep_idx(hm, n_keep).to(device, torch.int32)
+            y, counts = _run_counted(lambda: sm.head_compact_matmul_pallas(
+                x, wt, keep, heads, hs, bm=bm, bk=bk))
+            launches = {n_: launches[n_] + c for n_, c in counts.items()}
+            ref = sm.head_compact_matmul_pallas_reference(x, wt, keep, heads,
+                                                          hs)
+            ok, err = _close_to(torch, y, ref, dtype == "bfloat16", k)
+            cols = hm.to(device).repeat_interleave(hs)
+            zero = not bool(y[:, ~cols].any())
+            kept = int(hm.sum())
+            item = x.element_size()
+            t_bytes = 1e3 * (item * (m * k + kept * hs * k + m * heads * hs)
+                             + 8 * n_keep) / HBM_BYTES_PER_S
+            t_ops = 1e3 * 2 * m * k * kept * hs / PEAK_FLOPS["bfloat16"]
+            row = {"case": tag, "dtype": dtype, "m": m, "k": k,
+                   "heads": heads, "kept": kept, "n_keep": n_keep,
+                   "max_abs_err": err, "masked_columns_zero": zero,
+                   "bytes_ms": t_bytes, "ops_ms": t_ops}
+            row["bound_ms"], row["bound_by"] = _bound(t_bytes, t_ops)
+            if not rehearse and tag == "kept4":
+                w = wt.T.contiguous()
+                row["ms"] = _graph_ms(torch, lambda: (
+                    sm.head_compact_matmul_pallas(x, wt, keep, heads, hs,
+                                                  bm=bm, bk=bk)))
+                row["plain_ms"] = _graph_ms(torch, lambda: (
+                    sm.head_compact_matmul_pallas_reference(x, wt, keep,
+                                                            heads, hs)))
+                row["compact_torch_ms"] = _graph_ms(torch, lambda: (
+                    sm.head_compact_matmul(x, w, keep, heads, hs)))
+                hmd = hm.to(device)
+                row["library_ms"] = _graph_ms(torch, lambda: (
+                    sm.dense_masked_matmul(x, w, hmd, hs)))
+            rows.append(row)
+            log("head-compact-kernel: " + json.dumps(row))
+            check(ok and zero and y.dtype == x.dtype,
+                  f"head-compact kernel disagrees with its plain version at "
+                  f"{row} (tolerance: 1e-5 of the largest output, plus one "
+                  f"bf16 step in bf16; masked columns exactly 0)")
+    want = _launch_counts(not rehearse, head_compact_matmul=len(rows))
+    check(launches == want, f"head-compact-kernel: launches {launches} != "
+                            f"{want}")
+    return {"rows": rows, "launches": launches}
+
+
+S1_BATCH = 64            # the reference recipe (bash_files/Stage1)
+S1_SYNTHETIC = 512       # 8 steps at batch 64, 8 eval batches
+S3_SYNTHETIC = 256       # 4 steps, 4 eval batches
+S3_ZERO_RATE = 0.5       # the structured run's head and FFN masks
+
+
+def _timed_steps(torch, step, state, batch, rehearse, tag) -> dict:
+    """WARMUP_STEPS, then TIMED_STEPS timed (host clock to a synchronise)
+    and two profiled steps of fn(state, batch) on one batch kept on the
+    card."""
+    import numpy as np
+
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, batch)
+    sync()
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = [step(state, batch)[1].loss for _ in range(TIMED_STEPS)]
+    sync()
+    dt = time.monotonic() - t0
+    bs = int(batch["labels"].shape[0])
+    out = {"batch": bs, "timed_steps": TIMED_STEPS,
+           "step_ms": 1e3 * dt / TIMED_STEPS,
+           "examples_per_s": TIMED_STEPS * bs / dt,
+           "losses": [float(x) for x in losses]}
+    check(all(np.isfinite(out["losses"])), f"{tag}: losses {out['losses']}")
+    if not rehearse:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["profile"] = _profile_steps(torch, lambda: step(state, batch))
+    log(f"{tag}: " + json.dumps({k: v for k, v in out.items()
+                                 if k != "profile"}))
+    return out
+
+
+def _stage1_setup(torch, config, device, seed, batch_size, params=None,
+                  masks=None):
+    """(model, cfg, state, tx, batch): a stage-1/3 state at `config` (LMH
+    loss; `params` or a seeded init) and one synthetic batch on the
+    device."""
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.train import stage1
+    from crvqa_tpu_torch.train.stage2 import lxmert_meta_model
+
+    if params is None:
+        params = cli_common.lxmert_initial_params(config, seed, None)
+    cfg = stage1.Stage1Config(ft_type="lmh", warmup_steps=100,
+                              total_steps=1000,
+                              hidden_size=config.hidden_size)
+    state, tx = stage1.init_state(params, cfg, seed, device, masks=masks)
+    batch = to_device(synthetic_batch(
+        batch_size=batch_size, seed=seed, vocab_size=config.vocab_size,
+        ans_num=config.ans_num, feat_dim=config.visual_feat_dim,
+        pos_dim=config.visual_pos_dim), device,
+        float_dtype=config.dtype if config.dtype == torch.bfloat16 else None)
+    return lxmert_meta_model(config), cfg, state, tx, batch
+
+
+def _free(torch, rehearse) -> None:
+    gc.collect()
+    if not rehearse:
+        torch.cuda.empty_cache()
+
+
+def phase_stage1(torch, device, rehearse: bool, seed: int, keep_dir: str
+                 ) -> dict:
+    """`run_vqa_stage1.main` at full width, batch 64, bf16, LMH loss, on
+    512 synthetic examples: 8 steps, a checkpoint, an eval and the .bin at
+    step 8, the final eval. Launches per step and per eval batch; timed
+    steps; one fp32 step with dropout on through the kernels against the
+    same step through the plain attentions."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import run_vqa_stage1
+    from crvqa_tpu_torch.models import LxmertConfig, layers
+    from crvqa_tpu_torch.train import stage1
+
+    on_card = not rehearse
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    fwd_mult, bwd_mult = launch_mult(config)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    steps = S1_SYNTHETIC // S1_BATCH
+    eval_batches = 2 * steps  # the eval at the save step, the final one
+    out_dir = os.path.join(keep_dir, "stage1")
+    argv = ["--output_dir", out_dir, "--device", str(device), "--dtype",
+            "bfloat16", "--FT_type", "lmh", "--synthetic", str(S1_SYNTHETIC),
+            "--train_batch_size", str(S1_BATCH), "--eval_batch_size",
+            str(S1_BATCH), "--num_train_epochs", "1", "--logging_steps", "4",
+            "--save_steps", str(steps), "--seed", str(seed), "--do_train",
+            "--do_eval", "--evaluate_during_training"] + (
+                ["--tiny"] if rehearse else [])
+    t0 = time.monotonic()
+    summary, launches = _run_counted(lambda: run_vqa_stage1.main(argv))
+    wall_s = time.monotonic() - t0
+    losses = summary.pop("losses")
+    del summary["state"]
+    log(f"stage1: {len(losses)} steps at batch {S1_BATCH} in {wall_s:.1f} s "
+        f"(set-up, a checkpoint, two evals and the .bin included); losses "
+        f"{[round(x, 4) for x in losses]}; eval acc {summary['eval_acc']}; "
+        f"launches {launches}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"stage1: losses {losses}")
+    want = _launch_counts(on_card, fused_attention_fwd_train=per_fwd * steps,
+                          fused_attention_bwd_stored=per_bwd * steps,
+                          fused_attention_fwd=per_fwd * eval_batches)
+    check(launches == want,
+          f"stage1: launches {launches} != {want} ({per_fwd} forward and "
+          f"{per_bwd} backward per step x {steps}, {per_fwd} per eval batch "
+          f"x {eval_batches})")
+    for name in ("run_FTlmh_only.bin", "test.json", "eval_results_vqa.txt",
+                 "best_eval_results_vqa_noMASK.txt", f"ckpt_{steps}"):
+        check(os.path.exists(os.path.join(out_dir, name)),
+              f"stage1: {name} not written")
+    os.remove(os.path.join(out_dir, f"ckpt_{steps}"))  # 2.5 GB, not needed
+    _free(torch, rehearse)
+
+    bf16 = LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse else (
+        LxmertConfig(dtype=torch.bfloat16))
+    model, cfg, state, tx, batch = _stage1_setup(torch, bf16, device, seed,
+                                                 S1_BATCH)
+    step = stage1.make_train_step(model, cfg, tx)
+    timed = _timed_steps(torch, step, state, batch, rehearse, "stage1-step")
+    del model, state, tx, batch, step
+    _free(torch, rehearse)
+
+    # the whole-step check: kernels vs plain versions, fp32, dropout on
+    model, cfg, state, tx, batch = _stage1_setup(torch, config, device,
+                                                 seed + 1, CHECK_BATCH)
+    fn = stage1.make_loss_and_grads(model, cfg)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    (loss_k, _, grads_k), check_launches = _run_counted(
+        lambda: fn(state, batch))
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.fused_attention = saved
+    gmax = max(g.abs().max().item() for g in grads_p.values())
+    dmax = max((grads_k[k] - grads_p[k]).abs().max().item() for k in grads_p)
+    dloss = abs(loss_k.item() - loss_p.item())
+    check_out = {"batch": CHECK_BATCH, "loss_kernels": loss_k.item(),
+                 "loss_plain": loss_p.item(), "loss_abs_diff": dloss,
+                 "grad_max": gmax, "grad_max_abs_diff": dmax,
+                 "launches": check_launches}
+    log("stage1 check: " + json.dumps(check_out))
+    # fp32 throughout; the kernels sum in another order than the plain
+    # versions' cuBLAS products, and the difference travels 19 layers
+    check(dloss <= 1e-4 * abs(loss_p.item()) and dmax <= 1e-3 * gmax,
+          f"one fp32 stage-1 step with dropout: kernels vs plain versions "
+          f"differ: {check_out} (tolerances: loss 1e-4 relative, gradients "
+          f"1e-3 of their largest)")
+    check(check_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd,
+        fused_attention_bwd_stored=per_bwd),
+        f"stage1 check: launches {check_launches}")
+    del model, state, tx, batch, fn, grads_k, grads_p
+    _free(torch, rehearse)
+    return {"steps": steps, "losses": losses, "launches": launches,
+            "per_forward": per_fwd, "per_backward": per_bwd,
+            "eval_batches": eval_batches, "wall_s": wall_s,
+            "summary": summary, "timed": timed, "check": check_out,
+            "bin": os.path.join(out_dir, "run_FTlmh_only.bin")}
+
+
+class _HeadsSeen:
+    """Records the head counts the forward-for-grad kernel is launched
+    with inside the block (observation only: the launch runs as it
+    would)."""
+
+    def __enter__(self):
+        from crvqa_tpu_torch.ops import fused_attention as fa
+
+        self.heads: set = set()
+        self.saved = fa._launch_fwd_train
+
+        def launch(q, k, v, bias, num_heads, *rest):
+            self.heads.add(num_heads)
+            return self.saved(q, k, v, bias, num_heads, *rest)
+
+        fa._launch_fwd_train = launch
+        return self
+
+    def __exit__(self, *exc):
+        from crvqa_tpu_torch.ops import fused_attention as fa
+
+        fa._launch_fwd_train = self.saved
+        return False
+
+
+def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
+                 stage2_dir: str, keep_dir: str) -> dict:
+    """`run_vqa_stage3.main` at full width, batch 64, bf16, LMH loss, from
+    phase stage1's .bin, three ways: (a) FT_trainedMask with phase train's
+    mask.pt and classifier4masker.bin; (b) FT_randMask --rand_scope
+    reference; (c) seeded head and FFN .npy masks at zero rate 0.5, which
+    compact the 9 language layers to 6 heads and FFN 1536. 4 steps and an
+    eval of 4 batches each. Checks launches, the masked weights exactly 0
+    after the steps, the audited zero rate, the heads the kernel ran at;
+    then timed steps of (a) and (c)."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.cli import run_vqa_stage3
+    from crvqa_tpu_torch.core import torch_compat
+    from crvqa_tpu_torch.masking import compaction
+    from crvqa_tpu_torch.models import LxmertConfig
+    from crvqa_tpu_torch.train import stage1
+
+    on_card = not rehearse
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    fwd_mult, bwd_mult = launch_mult(config)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    steps = S3_SYNTHETIC // S1_BATCH
+    rng = np.random.default_rng(seed + 31)
+    keep = lambda n, rows: np.stack([rng.permutation(
+        np.arange(n) < int(n * (1 - S3_ZERO_RATE)))
+        for _ in range(rows)]).astype(np.float32)
+    head_npy = os.path.join(keep_dir, "head_mask.npy")
+    ffn_npy = os.path.join(keep_dir, "ffn_mask.npy")
+    np.save(head_npy, keep(config.num_attention_heads, config.l_layers))
+    np.save(ffn_npy, keep(config.intermediate_size, config.l_layers))
+    runs = {
+        "trained": ["--mask_pt", os.path.join(stage2_dir, "mask.pt"),
+                    "--classifier_bin",
+                    os.path.join(stage2_dir, "classifier4masker.bin")],
+        "rand": ["--training_type", "FT_randMask", "--rand_scope",
+                 "reference"],
+        "structured": ["--head_mask_npy", head_npy, "--ffn_mask_npy",
+                       ffn_npy],
+    }
+    out: dict = {}
+    for tag, extra in runs.items():
+        argv = ["--output_dir", os.path.join(keep_dir, f"stage3_{tag}"),
+                "--device", str(device), "--dtype", "bfloat16", "--FT_type",
+                "lmh", "--stage1_ckpt", stage1_bin, "--synthetic",
+                str(S3_SYNTHETIC), "--train_batch_size", str(S1_BATCH),
+                "--eval_batch_size", str(S1_BATCH), "--num_train_epochs", "1",
+                "--logging_steps", "2", "--save_steps", "1000", "--seed",
+                str(seed), "--do_train", "--do_eval", *extra] + (
+                    ["--tiny"] if rehearse else [])
+        t0 = time.monotonic()
+        with _HeadsSeen() as seen:
+            summary, launches = _run_counted(lambda: run_vqa_stage3.main(argv))
+        wall_s = time.monotonic() - t0
+        state = summary.pop("state")
+        losses = summary.pop("losses")
+        nonzero = 0
+        if state.masks is not None:
+            nonzero = sum(int(state.params[n][m == 0].count_nonzero())
+                          for n, m in state.masks.items())
+        res = {"steps": len(losses), "losses": losses, "wall_s": wall_s,
+               "launches": launches, "zero_rate": summary["zero_rate"],
+               "lang_num_heads": summary["lang_num_heads"],
+               "lang_intermediate_size": summary["lang_intermediate_size"],
+               "eval_acc": summary["eval_acc"],
+               "masked_nonzero_after_steps": nonzero,
+               "kernel_heads": sorted(seen.heads)}
+        log(f"stage3 {tag}: " + json.dumps(res))
+        del state, summary
+        _free(torch, rehearse)
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"stage3 {tag}: losses {losses}")
+        check(launches == _launch_counts(
+            on_card, fused_attention_fwd_train=per_fwd * steps,
+            fused_attention_bwd_stored=per_bwd * steps,
+            fused_attention_fwd=per_fwd * steps),
+            f"stage3 {tag}: launches {launches}")
+        check(nonzero == 0, f"stage3 {tag}: {nonzero} masked weights moved "
+                            "off zero")
+        saved_bin = os.path.join(keep_dir, f"stage3_{tag}", "run" + (
+            "FT_randMask.bin" if tag == "rand" else "_FT_trainedMask.bin"))
+        check(os.path.exists(saved_bin), f"stage3 {tag}: {saved_bin} not "
+                                         "written")
+        out[tag] = res
+    check(abs(out["trained"]["zero_rate"] - 0.7) <= 0.01,
+          f"stage3 trained: audited zero rate {out['trained']['zero_rate']}")
+    check(0.0 < out["rand"]["zero_rate"] < 0.7,
+          f"stage3 rand: audited zero rate {out['rand']['zero_rate']}")
+    heads = config.num_attention_heads // 2
+    inter = config.intermediate_size  # half kept, padded to 128, capped
+    check(out["structured"]["lang_num_heads"] == heads
+          and out["structured"]["lang_intermediate_size"]
+          == min(-(-(inter // 2) // 128) * 128, inter),
+          f"stage3 structured: {out['structured']}")
+    check(not on_card or out["structured"]["kernel_heads"] == sorted(
+        {heads, config.num_attention_heads}),
+        f"stage3 structured: the kernel ran at heads "
+        f"{out['structured']['kernel_heads']}")
+
+    # timed steps: (a) the trained mask, (c) the compacted model
+    bf16 = LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse else (
+        LxmertConfig(dtype=torch.bfloat16))
+    params = cli_common.lxmert_initial_params(bf16, seed, stage1_bin)
+    masker = cli_common.lxmert_uniform_masker(bf16, 0.7)
+    masks = torch_compat.import_mask_pt(os.path.join(stage2_dir, "mask.pt"),
+                                        masker.specs)
+    model, cfg, state, tx, batch = _stage1_setup(
+        torch, bf16, device, seed, S1_BATCH,
+        params=masker.prune_params(params, masks), masks=masks)
+    out["trained"]["timed"] = _timed_steps(
+        torch, stage1.make_train_step(model, cfg, tx), state, batch,
+        rehearse, "stage3-step trained")
+    del model, state, tx, batch, masks
+    _free(torch, rehearse)
+    params, nh = compaction.compact_lang_heads(params, np.load(head_npy),
+                                               bf16.head_size)
+    params, ni = compaction.compact_lang_ffns(params, np.load(ffn_npy))
+    small = dataclasses.replace(bf16, lang_num_heads=nh,
+                                lang_intermediate_size=ni)
+    model, cfg, state, tx, batch = _stage1_setup(torch, small, device, seed,
+                                                 S1_BATCH, params=params)
+    out["structured"]["timed"] = _timed_steps(
+        torch, stage1.make_train_step(model, cfg, tx), state, batch,
+        rehearse, "stage3-step structured")
+    del model, state, tx, batch, params
+    _free(torch, rehearse)
+    return out
 
 
 # ----------------------------------------------------------------- summary
 
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
-                   midseq_bwd_rows, mplug_train) -> list[dict]:
+                   midseq_bwd_rows, mplug_train, masked, compact
+                   ) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -1945,6 +2510,54 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    f"{sum(MIDSEQ_FWD_PER_STEP.values())} launches takes "
                    f"{sum(r['fwd_ms'] * MIDSEQ_FWD_PER_STEP[(r['sq'], r['sk'])] for r in main):.4f} ms",
     })
+    return out + matmul_kernel_summary(masked, compact, MM_SHAPES[0])
+
+
+def matmul_kernel_summary(masked, compact, shape) -> list[dict]:
+    """The kernels line's entries of the masked-matmul kernels at x
+    `shape[:2]`, w `shape[1:]` (bf16, scores fp32) and of the head-compact
+    kernel at 4 of 12 heads kept (bf16)."""
+    src = "crvqa_tpu_torch/csrc/"
+    out = []
+    m, k, n = shape
+    row = next(r for r in masked["rows"] if (r["m"], r["k"], r["n"])
+               == (m, k, n) and r["x_dtype"] == r["w_dtype"] == "bfloat16")
+    for kind, line, err in (("fwd", 50, "y_err"), ("dx", 67, "dx_err"),
+                            ("ds", 86, "ds_err")):
+        name = f"masked_matmul_{kind}"
+        out.append({
+            "name": name, "route": "cuda", "source": src + "masked_matmul.cu",
+            "replaces": f"crvqa_tpu/ops/masked_matmul.py:{line}",
+            "launches": masked["launches"][name], "max_abs_err": row[err],
+            "ms": row[f"{kind}_ms"], "plain_ms": row[f"{kind}_plain_ms"],
+            "bound_ms": row[f"{kind}_bound_ms"],
+            "bound_by": row[f"{kind}_bound_by"],
+            "library_ms": row[f"{kind}_library_ms"],
+            "basis": f"one call at x [{m}, {k}] bf16, w [{k}, {n}] bf16, "
+                     "scores fp32; no entry point reaches the kernel: "
+                     "launches are phase masked-matmul-kernel's autograd "
+                     "run; library_ms: cuBLAS on the materialised masked "
+                     "weight; forward + backward under autograd "
+                     f"{row['fwd_bwd_ms']:.4f} ms (cuBLAS "
+                     f"{row['fwd_bwd_library_ms']:.4f})",
+        })
+    row = next(r for r in compact["rows"] if r["case"] == "kept4"
+               and r["dtype"] == "bfloat16")
+    out.append({
+        "name": "head_compact_matmul", "route": "cuda",
+        "source": src + "head_compact_matmul.cu",
+        "replaces": "crvqa_tpu/ops/structured_matmul.py:119",
+        "launches": compact["launches"]["head_compact_matmul"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "basis": f"one call at x [{row['m']}, {row['k']}] bf16, "
+                 f"{row['heads']} heads of 64 with {row['kept']} kept; no "
+                 "entry point reaches the kernel: launches are phase "
+                 "head-compact-kernel's checking run; library_ms: cuBLAS "
+                 "on w * mask (dense_masked_matmul); the port's gather + "
+                 f"cuBLAS + scatter {row['compact_torch_ms']:.4f} ms",
+    })
     return out
 
 
@@ -1984,9 +2597,10 @@ def main(argv=None) -> int:
         return result
 
     rehearse, seed = args.rehearse, args.seed
+    # artifacts one phase hands to a later one (stage-2 exports, stage-1 .bin)
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_keep_")
     try:
         dev = phase("device", phase_device, torch, rehearse)
-        queued = phase("queued-bounds", phase_queued_bounds)
         if not rehearse:
             phase("build", phase_build)
         rows = phase("kernel", phase_kernel, torch, device, rehearse, seed)
@@ -1999,7 +2613,8 @@ def main(argv=None) -> int:
             phase("profile", phase_profile, torch, device, seed)
         mplug = phase("mplug-serve", phase_mplug_serve, torch, device,
                       rehearse, seed)
-        train = phase("train", phase_train, torch, device, rehearse, seed)
+        train = phase("train", phase_train, torch, device, rehearse, seed,
+                      keep.name)
         step = phase("step", phase_step, torch, device, rehearse, seed)
         midseq_bwd_rows = phase("midseq-bwd-kernel", phase_midseq_bwd_kernel,
                                 torch, device, rehearse, seed)
@@ -2007,16 +2622,27 @@ def main(argv=None) -> int:
                             rehearse, seed)
         mplug_step = phase("mplug-step", phase_mplug_step, torch, device,
                            rehearse, seed)
+        masked = phase("masked-matmul-kernel", phase_masked_matmul_kernel,
+                       torch, device, rehearse, seed)
+        compact = phase("head-compact-kernel", phase_head_compact_kernel,
+                        torch, device, rehearse, seed)
+        stage1 = phase("stage1", phase_stage1, torch, device, rehearse, seed,
+                       keep.name)
+        stage3 = phase("stage3", phase_stage3, torch, device, rehearse, seed,
+                       stage1["bin"], train["artifacts"], keep.name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        keep.cleanup()
     log(f"chip_smoke: all phases in {time.monotonic() - t0:.1f} s "
         f"({json.dumps({k: round(v, 1) for k, v in phase_s.items()})})")
     if rehearse:
         log("chip_smoke: rehearsal finished (CPU, tiny widths): no result")
         return 3
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
-                             train, midseq_bwd_rows, mplug_train)
+                             train, midseq_bwd_rows, mplug_train, masked,
+                             compact)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -2027,7 +2653,8 @@ def main(argv=None) -> int:
                        "mplug": mplug, "train": train, "step": step,
                        "midseq_bwd_kernel_rows": midseq_bwd_rows,
                        "mplug_train": mplug_train, "mplug_step": mplug_step,
-                       "queued_kernel_bounds": queued,
+                       "masked_matmul": masked, "head_compact": compact,
+                       "stage1": stage1, "stage3": stage3,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

@@ -64,6 +64,19 @@ def add_kernel_flags(p: argparse.ArgumentParser) -> None:
                         "runs its mid-length attention kernel")
 
 
+def add_moment_dtype_flag(p: argparse.ArgumentParser) -> None:
+    """Storage dtype of the Adam moments (every LXMERT trainer); each
+    step's math stays fp32."""
+    p.add_argument("--moment_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+
+
+def add_dense_train_flags(p: argparse.ArgumentParser) -> None:
+    """Flags of the dense (stage-1/3) train step, shared by both drivers."""
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    add_moment_dtype_flag(p)
+
+
 def add_common_args(p: argparse.ArgumentParser) -> None:
     """The JAX package's training flags (crvqa_tpu/cli/common.py:125-237)
     plus `--device`."""
@@ -311,6 +324,34 @@ def build_data(args, config, device: torch.device):
                                             args.eval_batch_size))
 
     return train_batches, eval_batches, label2ans, len(train)
+
+
+def lxmert_initial_params(config, seed: int, path: Optional[str]
+                          ) -> dict[str, torch.Tensor]:
+    """fp32 LXMERT params on the CPU: a seeded init from `seed`, overlaid
+    by the checkpoint at `path` (the stage-1 loading switch,
+    prune_debias_VQA.py:767-818)."""
+    import dataclasses
+
+    from ..models import build_lxmert
+
+    fp32 = dataclasses.replace(config, dtype=torch.float32)
+    state = build_lxmert(fp32, "cpu",
+                         torch.Generator().manual_seed(seed)).state_dict()
+    return load_params_any(path, state)
+
+
+def lxmert_uniform_masker(config, zero_rate: float):
+    """The uniform-rate LXMERT masker whose specs key `mask.pt` (the
+    stage-2 artifact contract: stage 3 and serving build the same one)."""
+    from ..masking.masker import Masker
+    from ..masking.sparsity_control import ModalSparsity
+    from ..masking.spec import lxmert_mask_specs
+
+    specs = lxmert_mask_specs(config.l_layers, config.r_layers,
+                              config.x_layers)
+    return Masker.create(specs, ModalSparsity.uniform(
+        zero_rate, ("Lang", "Vis", "Fus", "P")))
 
 
 def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]

@@ -24,7 +24,6 @@ msgpack `--stage1_ckpt` directories.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import time
 
@@ -37,7 +36,7 @@ from ..device import resolve_device
 from ..masking.masker import Masker
 from ..masking.sparsity_control import ModalSparsity
 from ..masking.spec import lxmert_mask_specs
-from ..models import LxmertConfig, build_lxmert
+from ..models import LxmertConfig
 from ..train import stage2
 from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from . import common
@@ -72,8 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_scale", type=float, default=2e-2)
     p.add_argument("--global_prune", type=common.str2bool, default=False)
     p.add_argument("--name_of_masker", type=str, default="MaskedLinear1")
-    p.add_argument("--moment_dtype", type=str, default="float32",
-                   choices=["float32", "bfloat16"])
+    common.add_moment_dtype_flag(p)
     p.add_argument("--mask_biases", type=common.str2bool, default=False)
     p.add_argument("--training_type", type=str, default="Masker")
     p.add_argument("--masking_scheduler_conf", type=str,
@@ -104,10 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
 def initial_params(args, config: LxmertConfig) -> dict[str, torch.Tensor]:
     """fp32 params: a seeded init from --seed, overlaid by --stage1_ckpt
     (the `FTmodel_type` loading switch, prune_debias_VQA.py:767-818)."""
-    fp32 = dataclasses.replace(config, dtype=torch.float32)
-    state = build_lxmert(fp32, "cpu",
-                         torch.Generator().manual_seed(args.seed)).state_dict()
-    return common.load_params_any(args.stage1_ckpt, state)
+    return common.lxmert_initial_params(config, args.seed, args.stage1_ckpt)
 
 
 def main(argv=None) -> dict:

@@ -4,7 +4,9 @@ yet).
 
 A checkpoint holds what training changes. Stage 2 (`save_checkpoint`): the
 step, mask scores, thresholds, the classifier and LMH parameters, the
-optimizer state and both generators' states. mPLUG
+optimizer state and both generators' states. Stages 1 and 3
+(`save_stage1_checkpoint`): the step, every parameter, the LMH parameters,
+the optimizer state and the generators. mPLUG
 (`save_mplug_checkpoint`): the step, the trained parameters (the LM head in
 mask mode, everything in full mode), scores, thresholds, the momentum
 twins, the optimizer state and the generators. The frozen backbone is not
@@ -148,6 +150,41 @@ def load_mplug_checkpoint(path: str, state):
     if state.rng is not None:
         state.rng.device.set_state(raw["rng"]["device"])
         state.rng.host.set_state(raw["rng"]["host"])
+    state.step = int(raw["step"])
+    return state
+
+
+def save_stage1_checkpoint(path: str, state,
+                           metadata: Optional[dict] = None) -> None:
+    """A `stage1.Stage1State` (stage 1 or 3): the step, every parameter,
+    the LMH parameters, the optimizer state and the generators. Stage 3's
+    constant masks are rebuilt from the run's arguments."""
+    opt = state.opt_state
+    payload = {
+        "step": state.step, "params": state.params,
+        "lmh_params": state.lmh_params,
+        "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+        "rng": {"device": state.rng.device.get_state(),
+                "host": state.rng.host.get_state()},
+    }
+    _write(path, payload, metadata)
+
+
+@torch.no_grad()
+def load_stage1_checkpoint(path: str, state):
+    """Copy a stage-1/3 checkpoint into `state` (built by
+    `stage1.init_state` with the same configuration) in place; returns
+    it."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    _copy(path, state.params, raw["params"], "params")
+    if state.lmh_params is not None:
+        _copy(path, state.lmh_params, raw["lmh_params"], "lmh_params")
+    opt = raw["opt_state"]
+    state.opt_state.count = opt["count"]
+    _copy(path, state.opt_state.mu, opt["mu"], "opt_state/mu")
+    _copy(path, state.opt_state.nu, opt["nu"], "opt_state/nu")
+    state.rng.device.set_state(raw["rng"]["device"])
+    state.rng.host.set_state(raw["rng"]["host"])
     state.step = int(raw["step"])
     return state
 

@@ -17,8 +17,9 @@ the same mapping, written without flax, over a nested dict of numpy arrays
 gives the same model. mPLUG's tree needs renames beyond that rule
 (`mplug_state_dict_from_jax`). `stage2_from_jax` carries a JAX stage-2 state
 (`crvqa_tpu/train/stage2.py:Stage2State`, as numpy) across the same way,
-and `mplug_train_state_from_jax` an mPLUG training state, so both packages
-can start a trajectory from one state.
+and `mplug_train_state_from_jax` an mPLUG training state and
+`carry_into_stage1_state` a stage-1/3 one, so both packages can start a
+trajectory from one state.
 """
 from __future__ import annotations
 
@@ -98,15 +99,33 @@ def stage2_from_jax(frozen_params: Mapping[str, Any],
     out = {"params": params, "scores": port_scores,
            "thresholds": port_thresholds}
     if "lmh" in train_params:
-        lmh = train_params["lmh"]
-        out["lmh"] = {
-            "bias_lin.weight": torch.from_numpy(np.array(
-                np.asarray(lmh["bias_lin"]["kernel"], np.float32).T)),
-            "bias_lin.bias": torch.from_numpy(
-                np.asarray(lmh["bias_lin"]["bias"], np.float32).copy()),
-            "smooth_param": torch.from_numpy(
-                np.asarray(lmh["smooth_param"], np.float32).copy())}
+        out["lmh"] = lmh_from_jax(train_params["lmh"])
     return out
+
+
+def lmh_from_jax(lmh: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """LearnedMixin's JAX parameters -> the port's: `bias_lin.weight`
+    [1, hidden] (the flax kernel [hidden, 1] transposed), `bias_lin.bias`,
+    `smooth_param`."""
+    return {
+        "bias_lin.weight": torch.from_numpy(np.array(
+            np.asarray(lmh["bias_lin"]["kernel"], np.float32).T)),
+        "bias_lin.bias": torch.from_numpy(
+            np.asarray(lmh["bias_lin"]["bias"], np.float32).copy()),
+        "smooth_param": torch.from_numpy(
+            np.asarray(lmh["smooth_param"], np.float32).copy())}
+
+
+@torch.no_grad()
+def carry_into_stage1_state(state, params: Mapping[str, Any],
+                            lmh: Mapping[str, Any] | None) -> None:
+    """Overwrite a port `Stage1State`'s parameters and LMH parameters in
+    place with a JAX stage-1 state's (`params`, `lmh_params`, as numpy)."""
+    for name, t in state_dict_from_jax(params).items():
+        state.params[name].copy_(t)
+    if lmh is not None:
+        for name, t in lmh_from_jax(lmh).items():
+            state.lmh_params[name].copy_(t)
 
 
 @torch.no_grad()

@@ -7,7 +7,7 @@ The reference's API is its files:
   - `classifier4masker.bin`: the classifier module or its state_dict
     (`mask_trainer_Robust_VQA.py:734-740`), keys `main.0.*` / `main.3.*`;
   - stage-1/3 checkpoints: `torch.save(model)` whole-module pickles or
-    state_dicts.
+    state_dicts (the port writes state_dicts, `save_torch_state_dict`).
 
 The port's parameter names ARE the reference names, so everything here
 loads straight into state_dicts: no transposes, no renames. Whole-module
@@ -121,6 +121,14 @@ def load_torch_params(path: str, template: dict[str, torch.Tensor]
     `classifier4masker.bin` over a `main.*`-keyed classifier template) laid
     over `template`, a state_dict."""
     return fill_state_dict(load_state_dict_file(path), template)
+
+
+def save_torch_state_dict(path: str, state: dict[str, torch.Tensor]) -> None:
+    """torch.save a state_dict in the reference names (the stage-1 -> stage
+    2/3 interop artifact, `<label4save>_FT*.bin`; `save_torch_state_dict`
+    of the JAX package), tensors on the CPU as they are held (fp32)."""
+    torch.save({k: v.detach().to("cpu").contiguous()
+                for k, v in state.items()}, path)
 
 
 # ----------------------------------------- stub-class whole-module unpickling

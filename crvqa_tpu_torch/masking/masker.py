@@ -21,6 +21,7 @@ import torch
 
 from ..ops.kthvalue import kth_smallest, sparsity_threshold
 from .binarizers import get_binarizer
+from .prune import prune_state_dict
 from .spec import MaskSpec
 
 Scores = dict[str, torch.Tensor]
@@ -241,6 +242,15 @@ class Masker:
                 elems[m] = elems.get(m, 0) + n
         return {m: float(zeros[m]) / elems[m] for m in zeros}
 
+    def prune_params(self, params: dict[str, torch.Tensor],
+                     masks: dict[str, torch.Tensor]
+                     ) -> dict[str, torch.Tensor]:
+        """Permanently zero the masked weights (stage 3's
+        `pruning_model_with_mask`, run_vqa_stage3.py:227-324): `w * mask`
+        for every spec, masks keyed by weight name as `mask.pt` keys them."""
+        return prune_state_dict(params, {weight_name(s): masks[weight_name(s)]
+                                         for s in self.specs})
+
     @torch.no_grad()
     def mask_drift(self, scores: Scores, thresholds: Thresholds,
                    ref_masks: dict[str, torch.Tensor]) -> float:
@@ -253,3 +263,50 @@ class Masker:
             changed = changed + (cur != ref_masks[s.key]).sum()
             total += cur.numel()
         return float(changed) / total
+
+
+@torch.no_grad()
+def magnitude_masks(params: dict[str, torch.Tensor], specs: Sequence[MaskSpec],
+                    zerorate: dict[str, float]) -> dict[str, torch.Tensor]:
+    """Per-matrix magnitude pruning over every masked weight at its
+    modality's rate: keep |w| above its k-th smallest, k = max(int(n *
+    rate), 1) (`magnitude_masks`, crvqa_tpu/masking/masker.py:397; the
+    stage-3 `--rand_scope all` baseline). Bool masks by weight name."""
+    masks = {}
+    for spec in specs:
+        w = params[weight_name(spec)].abs()
+        kth = kth_smallest(w, max(int(w.numel() * zerorate[spec.modality]),
+                                  1))
+        masks[weight_name(spec)] = w > kth
+    return masks
+
+
+# substrings of spec.torch_name covered by the reference's mag_pruning
+# module list (run_vqa_stage3.py:209-226): the 9 language layers, the
+# pooler and the word embeddings; r_layers, x_layers and visn_fc are never
+# magnitude-pruned by it
+_REFERENCE_RAND_SCOPE = (".encoder.layer.", ".pooler.dense",
+                         ".embeddings.word_embeddings")
+
+
+@torch.no_grad()
+def reference_rand_masks(params: dict[str, torch.Tensor],
+                         specs: Sequence[MaskSpec], zero_rate: float
+                         ) -> dict[str, torch.Tensor]:
+    """The stage-3 `FT_randMask` baseline as the reference ships it
+    (`mag_pruning`, run_vqa_stage3.py:209-226; `reference_rand_masks`,
+    crvqa_tpu/masking/masker.py:425): l1 pruning of round(zero_rate * n)
+    entries of each language-layer, pooler and word-embedding weight, kept
+    strictly above the k-th |w| (the JAX package's tie rule); every other
+    masked weight gets an all-ones mask. Bool masks by weight name."""
+    masks = {}
+    for spec in specs:
+        w = params[weight_name(spec)].abs()
+        k = int(round(zero_rate * w.numel()))
+        if k <= 0 or not any(s in spec.torch_name
+                             for s in _REFERENCE_RAND_SCOPE):
+            masks[weight_name(spec)] = torch.ones(w.shape, dtype=torch.bool,
+                                                  device=w.device)
+            continue
+        masks[weight_name(spec)] = w > kth_smallest(w, k)
+    return masks

@@ -262,12 +262,16 @@ class MultiHeadAttention(nn.Module):
 
 
 class AttentionOutput(nn.Module):
-    """dense -> dropout -> residual add -> LayerNorm (`LxmertAttentionOutput`)."""
+    """dense -> dropout -> residual add -> LayerNorm (`LxmertAttentionOutput`).
+    `in_size` is the attention's width, heads x head size: the hidden size
+    unless the heads were compacted (`masking/compaction.py`)."""
 
     def __init__(self, hidden_size: int, dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 in_size: Optional[int] = None):
         super().__init__()
-        self.dense = nn.Linear(hidden_size, hidden_size, dtype=dtype)
+        self.dense = nn.Linear(in_size or hidden_size, hidden_size,
+                               dtype=dtype)
         self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
 
@@ -284,7 +288,8 @@ class SelfAttentionLayer(nn.Module):
         super().__init__()
         self.self = MultiHeadAttention(hidden_size, num_heads, head_size,
                                        attn_dropout, dtype)
-        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype)
+        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype,
+                                      num_heads * head_size)
 
     def forward(self, x, attention_bias=None):
         return self.output(self.self(x, x, attention_bias), x)
@@ -299,7 +304,8 @@ class CrossAttentionLayer(nn.Module):
         super().__init__()
         self.att = MultiHeadAttention(hidden_size, num_heads, head_size,
                                       attn_dropout, dtype)
-        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype)
+        self.output = AttentionOutput(hidden_size, hidden_dropout, dtype,
+                                      num_heads * head_size)
 
     def forward(self, x, context, ctx_attention_bias=None):
         return self.output(self.att(x, context, ctx_attention_bias), x)

@@ -40,6 +40,12 @@ class LxmertConfig:
     ans_num: int = 2274  # VQA-CP v2 answer vocabulary
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.float32
+    # A structurally compacted language branch (`masking/compaction.py`;
+    # the reference's stage-3 prune_heads / prune_ffns): the 9 language
+    # layers' head count and FFN width. None = num_attention_heads /
+    # intermediate_size.
+    lang_num_heads: Optional[int] = None
+    lang_intermediate_size: Optional[int] = None
 
     @property
     def head_size(self) -> int:
@@ -147,8 +153,13 @@ class LxmertEncoder(nn.Module):
         super().__init__()
         kw = dict(c.layer_kwargs(), intermediate_size=c.intermediate_size,
                   act=c.hidden_act)
+        lang_kw = dict(kw)
+        if c.lang_num_heads is not None:
+            lang_kw["num_heads"] = c.lang_num_heads
+        if c.lang_intermediate_size is not None:
+            lang_kw["intermediate_size"] = c.lang_intermediate_size
         self.visn_fc = LxmertVisualFeatureEncoder(c)
-        self.layer = nn.ModuleList(TransformerLayer(**kw)
+        self.layer = nn.ModuleList(TransformerLayer(**lang_kw)
                                    for _ in range(c.l_layers))
         self.r_layers = nn.ModuleList(TransformerLayer(**kw)
                                       for _ in range(c.r_layers))

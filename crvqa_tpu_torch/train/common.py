@@ -1,7 +1,7 @@
 """Shared training-step machinery (counterpart of `crvqa_tpu/train/common.py`):
 the reference's AdamW (stage 2), an `optax.adamw` twin over parameter groups
-(mPLUG), clip-by-global-norm, the linear warmup schedule, the generators a
-training state carries and the batch helpers.
+(mPLUG), the stage-1/3 Adam, clip-by-global-norm, the linear warmup
+schedule, the generators a training state carries and the batch helpers.
 
 The JAX package's optimizers are pure functions over pytrees; here the
 optimizer updates parameters and moments IN PLACE (no second copy of the
@@ -227,6 +227,87 @@ class GroupAdamW:
             if members:
                 torch._foreach_add_([params[k] for k in members],
                                     [updates[k] for k in members], alpha=-lr)
+
+
+class Adam:
+    """The stage-1/3 optimizer, `make_adam` of the JAX package
+    (crvqa_tpu/train/common.py:214; `torch.optim.Adam` + linear warmup,
+    `run_vqa_stage1.py:341-362`), in place over a flat dict of tensors:
+    every gradient is first clipped by the global norm (`max_grad_norm`),
+    then
+
+      m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g^2
+      p -= lr(t - 1) * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
+
+    with the schedule at the PRE-increment count and no weight decay
+    (`optax.adam`). With `moment_dtype` (e.g. torch.bfloat16) m and v are
+    stored narrower while each step's math stays fp32, in `torch_adam`'s
+    arrangement (:163): p -= lr / (1 - b1^t) * m / (sqrt(v) /
+    sqrt(1 - b2^t) + eps)."""
+
+    def __init__(self, learning_rate: Union[float, Schedule],
+                 max_grad_norm: Optional[float] = 1.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 moment_dtype: Optional[torch.dtype] = None):
+        self.schedule = (learning_rate if callable(learning_rate)
+                         else (lambda _: learning_rate))
+        self.max_grad_norm = max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.moment_dtype = moment_dtype
+
+    def init(self, params: dict[str, torch.Tensor]) -> AdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype
+                                           or p.dtype)
+        return AdamWState(0, {k: zeros(p) for k, p in params.items()},
+                          {k: zeros(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def step(self, params: dict[str, torch.Tensor],
+             grads: dict[str, torch.Tensor], state: AdamWState) -> None:
+        """Clip `grads` (in place), then update `params` and `state` in
+        place."""
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        if self.max_grad_norm is not None:
+            clip_by_global_norm_(g, self.max_grad_norm)
+        narrow = self.moment_dtype is not None
+        mu = [state.mu[k] for k in keys]
+        nu = [state.nu[k] for k in keys]
+        m = [x.float() for x in mu] if narrow else mu
+        v = [x.float() for x in nu] if narrow else nu
+        torch._foreach_mul_(m, self.b1)
+        torch._foreach_add_(m, g, alpha=1 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - self.b2)
+        lr = float(self.schedule(state.count))
+        state.count += 1
+        c = state.count
+        if narrow:
+            denom = torch._foreach_sqrt(v)
+            torch._foreach_div_(denom, math.sqrt(1.0 - self.b2 ** c))
+            torch._foreach_add_(denom, self.eps)
+            u = torch._foreach_div(m, denom)
+            torch._foreach_add_(p, u, alpha=-lr / (1.0 - self.b1 ** c))
+            for dst, src in zip(mu + nu, m + v):
+                dst.copy_(src)
+            return
+        denom = torch._foreach_div(v, 1.0 - self.b2 ** c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(m, 1.0 - self.b1 ** c)
+        torch._foreach_div_(u, denom)
+        torch._foreach_add_(p, u, alpha=-lr)
+
+
+def make_adam(lr: float, warmup_steps: int, total_steps: int,
+              max_grad_norm: float = 1.0, eps: float = 1e-8,
+              moment_dtype: Optional[torch.dtype] = None) -> Adam:
+    """The stage-1/3 optimizer with the linear warmup schedule
+    (`make_adam`, crvqa_tpu/train/common.py:214)."""
+    return Adam(linear_warmup_schedule(lr, warmup_steps, total_steps),
+                max_grad_norm=max_grad_norm, eps=eps,
+                moment_dtype=moment_dtype)
 
 
 def batch_score(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ cuBLAS sums it. The fp32 residual p atol 1e-6. The mid-length kernel's
 bf16 outputs atol 5e-3, rtol 1e-2: its outputs are about 0.07, so a missed
 rounding point of p would show. The mid-length backward: fp32 atol 2e-5,
 bf16 atol 1e-2 / rtol 2e-2 (gradients about 1; ds, p_t and each output
-round to bf16 once).
+round to bf16 once). The masked and head-compact matmuls: 1e-5 of the
+largest output for sums of up to 768 terms, growing with the square root
+of the length, plus one bf16 step where the output is bf16 (see
+`_close_to`).
 """
 import pytest
 import torch
@@ -523,3 +526,161 @@ def test_mplug_train_step_launch_counts():
         30, 29, 11, 11, 0]
     assert bool(torch.isfinite(loss)) and state.step == 1
     assert not torch.equal(state.scores[key], old)
+
+
+# ------------------------------------------- masked and head-compact matmul
+#
+# Both sides round the operands to bf16 and sum exact products in fp32, the
+# tensor cores in 32-term steps in sequence, cuBLAS in another order: fp32
+# results within 1e-5 of the largest output for sums of up to 768 terms,
+# sqrt(terms / 768) times that beyond; bf16 results one bf16 step (2^-7
+# relative) more.
+
+def _close_to(got, want, bf16, terms):
+    got, want = got.float(), want.float()
+    tol = (1e-5 * max(1.0, terms / 768) ** 0.5 * want.abs().max()
+           + (2.0 ** -7 if bf16 else 0.0) * want.abs())
+    assert bool(((got - want).abs() <= tol).all()), (
+        (got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("m,k,n", [(9216, 768, 768), (1000, 700, 300)])
+def test_masked_matmul_kernels_match_plain(m, k, n, x_dtype, w_dtype):
+    """Forward, dx and the STE ds under autograd; zero gradients for w and
+    the threshold; scores on the threshold are masked."""
+    _need_card()
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    g = torch.Generator().manual_seed(m + n)
+    x = torch.randn(m, k, generator=g).cuda().to(x_dtype)
+    w = (torch.randn(k, n, generator=g) * 0.05).cuda().to(w_dtype)
+    s = torch.rand(k, n, generator=g)
+    s.view(-1)[::7] = 0.7
+    s = s.cuda()
+    t = torch.tensor(0.7, device="cuda")
+    gy = torch.randn(m, n, generator=g).cuda().to(x_dtype)
+    leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
+    before = (mm.masked_matmul_fwd.launches, mm.masked_matmul_dx.launches,
+              mm.masked_matmul_ds.launches)
+    y = mm.masked_matmul(*leaves)
+    dx, dw, ds, dt = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert (mm.masked_matmul_fwd.launches, mm.masked_matmul_dx.launches,
+            mm.masked_matmul_ds.launches) == tuple(b + 1 for b in before)
+    assert y.dtype == dx.dtype == x_dtype and ds.dtype == torch.float32
+    bf = x_dtype == torch.bfloat16
+    _close_to(y, mm.masked_matmul_fwd_reference(x, w, s, t), bf, k)
+    _close_to(dx, mm.masked_matmul_dx_reference(gy, w, s, t, x_dtype), bf,
+              n)
+    _close_to(ds, mm.masked_matmul_ds_reference(x, gy.float(), w),
+              w_dtype == torch.bfloat16, m)
+    assert not dw.any() and float(dt) == 0.0
+
+
+def test_masked_matmul_kernels_read_transposed_operands():
+    """x as a transposed view and g as a column slice: read in place
+    through their strides."""
+    _need_card()
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(384, 512, generator=g).cuda().T  # [512, 384], strided
+    w = torch.randn(384, 256, generator=g).cuda()
+    s = torch.rand(384, 256, generator=g).cuda()
+    gy = torch.randn(512, 512, generator=g).cuda()[:, :256]
+    _close_to(mm.masked_matmul_fwd(x, w, s, 0.5),
+              mm.masked_matmul_fwd_reference(x, w, s, 0.5), False, 384)
+    _close_to(mm.masked_matmul_dx(gy, w, s, 0.5, x.dtype),
+              mm.masked_matmul_dx_reference(gy, w, s, 0.5, x.dtype), False,
+              256)
+    _close_to(mm.masked_matmul_ds(x, gy, w),
+              mm.masked_matmul_ds_reference(x, gy, w), False, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["kept4", "pad2", "none"])
+def test_head_compact_kernel_matches_plain(case, dtype):
+    _need_card()
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(9216, 768, generator=g).cuda().to(dtype)
+    wt = (torch.randn(768, 768, generator=g) * 0.05).cuda().to(dtype)
+    hm = torch.zeros(12, dtype=torch.bool)
+    if case != "none":
+        hm[torch.tensor([1, 4, 5, 10])] = True
+    n_keep = {"kept4": 4, "pad2": 6, "none": 2}[case]
+    keep = sm.expand_keep_idx(hm, n_keep).cuda()
+    before = sm.head_compact_matmul_pallas.launches
+    y = sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
+    torch.cuda.synchronize()
+    assert sm.head_compact_matmul_pallas.launches == before + 1
+    assert y.dtype == dtype
+    _close_to(y, sm.head_compact_matmul_pallas_reference(x, wt, keep, 12,
+                                                         64),
+              dtype == torch.bfloat16, 768)
+    assert not y[:, ~hm.cuda().repeat_interleave(64)].any()
+
+
+def test_stage3_structured_step_at_six_heads_keeps_masks_zero():
+    """A full-width stage-3 step on the compacted model (6 language heads,
+    FFN 1536) with a constant mask on the rest: the short kernels run at
+    H = 6 and H = 12, 34 forward-for-grad and 32 backward launches, and
+    the masked weights stay exactly 0."""
+    _need_card()
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.masking import compaction
+    from crvqa_tpu_torch.masking.masker import magnitude_masks
+    from crvqa_tpu_torch.train import stage1
+    from crvqa_tpu_torch.train.stage2 import lxmert_meta_model
+
+    config = LxmertConfig(dtype=torch.bfloat16)
+    params = cli_common.lxmert_initial_params(config, 0, None)
+    rng = np.random.default_rng(0)
+    head = np.stack([rng.permutation(np.arange(12) < 6) for _ in range(9)])
+    ffn = np.stack([rng.permutation(np.arange(3072) < 1536)
+                    for _ in range(9)])
+    params, nh = compaction.compact_lang_heads(params, head, 64)
+    params, ni = compaction.compact_lang_ffns(params, ffn)
+    small = LxmertConfig(dtype=torch.bfloat16, lang_num_heads=nh,
+                         lang_intermediate_size=ni)
+    assert (nh, ni) == (6, 1536)
+    masker = cli_common.lxmert_uniform_masker(config, 0.7)
+    specs = [s for s in masker.specs if ".encoder.layer." not in s.torch_name]
+    masks = magnitude_masks(params, specs, masker.zerorate_dict)
+    params = {k: v * masks[k] if k in masks else v for k, v in params.items()}
+    cfg = stage1.Stage1Config(ft_type="lmh", warmup_steps=0,
+                              hidden_size=768)
+    state, tx = stage1.init_state(params, cfg, 0, "cuda", masks=masks)
+    batch = to_device(synthetic_batch(batch_size=64, seed=0),
+                      torch.device("cuda"), float_dtype=torch.bfloat16)
+    step = stage1.make_train_step(lxmert_meta_model(small), cfg, tx)
+    heads_seen = set()
+    launch = fa._launch_fwd_train
+
+    def spy(q, k, v, bias, num_heads, *rest):
+        heads_seen.add(num_heads)
+        return launch(q, k, v, bias, num_heads, *rest)
+
+    fa._launch_fwd_train = spy
+    try:
+        before = (fa.fused_attention_fwd_train.launches,
+                  fa.fused_attention_bwd_stored.launches)
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_fwd_train = launch
+    assert heads_seen == {6, 12}
+    assert (fa.fused_attention_fwd_train.launches - before[0],
+            fa.fused_attention_bwd_stored.launches - before[1]) == (68, 64)
+    assert torch.isfinite(metrics.loss)
+    for name, m in masks.items():
+        assert not state.params[name][~m.cuda()].any(), name

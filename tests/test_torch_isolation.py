@@ -49,7 +49,13 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.data.mplug_data",
                      "crvqa_tpu_torch.train.mplug_train",
                      "crvqa_tpu_torch.cli.vqa_mplug",
-                     "crvqa_tpu_torch.cli.serve_mplug"):
+                     "crvqa_tpu_torch.cli.serve_mplug",
+                     "crvqa_tpu_torch.ops.masked_matmul",
+                     "crvqa_tpu_torch.ops.structured_matmul",
+                     "crvqa_tpu_torch.masking.compaction",
+                     "crvqa_tpu_torch.train.stage1",
+                     "crvqa_tpu_torch.cli.run_vqa_stage1",
+                     "crvqa_tpu_torch.cli.run_vqa_stage3"):
         assert expected in mods
 
 
