@@ -26,9 +26,10 @@ Phases (each one's seconds are logged):
               `scaled_dot_product_attention` with a float mask.
   5. train-kernels  the forward-for-grad and both backward kernels (stored,
               recompute) against their plain versions at batch 256, the four
-              (Sq, Sk), fp32 and bf16, dropout rates 0 and 0.1; timed beside
-              the plain versions and `scaled_dot_product_attention` forward
-              and forward + backward under autograd.
+              (Sq, Sk), fp32 and bf16, dropout rates 0 and 0.1, and at batch
+              64 (stages 1 and 3), bf16, rate 0.1; timed beside the plain
+              versions and `scaled_dot_product_attention` forward and
+              forward + backward under autograd.
   6. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
               (768 hidden, 12x64 heads, 9/5/5 layers, 2274 answers) on
               seeded weights and fabricated data: 512 requests at batch 32 in
@@ -73,7 +74,8 @@ Phases (each one's seconds are logged):
               of 5 answers x 8 tokens), batch 16, fp32 and bf16, dropout 0
               and 0.1; dq, dk, dv of two launches bit-identical; timed at
               rate 0.1 beside the plain version, `scaled_dot_product_
-              attention` forward + backward and the forward kernel.
+              attention` forward + backward, the forward kernel and
+              `scaled_dot_product_attention` forward under autograd.
  12. mplug-train  `crvqa_tpu_torch.cli.vqa_mplug.main` at the full width of
               `MPlugConfig()`, bf16, `--mode mask` (zero rate 0.5 from
               `--init_sparsity` 0.3), `--synthetic 64 --synthetic_shapes
@@ -473,78 +475,81 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
     from crvqa_tpu_torch.ops import fused_attention as fa
 
     rows = []
-    b = 2 if rehearse else TRAIN_BATCH
-    for dtype in ("float32", "bfloat16"):
-        for rate in TRAIN_RATES:
-            for sq, sk in SERVE_SHAPES:
-                q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
-                                                  device, seed + 7 * sq + sk)
-                gen = torch.Generator().manual_seed(seed + sq * sk)
-                g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
-                args = (12, 64, rate, KERNEL_SEED)
-                out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
-                ref_out, ref_p = fa.fused_attention_train_reference(
-                    q, k, v, bias, *args)
-                stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
-                recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g,
-                                                          *args)
-                ref_s = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
-                ref_r = fa.fused_attention_bwd_reference(q, k, v, ref_p, g,
-                                                         *args)
-                if not rehearse:
-                    torch.cuda.synchronize()
-                row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq,
-                       "sk": sk,
-                       "fwd_err": _max_err(torch, [out], [ref_out]),
-                       "p_err": _max_err(torch, [p], [ref_p]),
-                       "bwd_stored_err": _max_err(torch, stored, ref_s),
-                       "bwd_recompute_err": _max_err(torch, recomp, ref_r),
-                       "stored_vs_recompute": _max_err(torch, stored, recomp)}
-                ok = (torch.allclose(out.float(), ref_out.float(), **TOL[dtype])
-                      and torch.allclose(p, ref_p, atol=TOL_P, rtol=0)
-                      and all(torch.allclose(x.float(), y.float(),
-                                             **TOL_BWD[dtype])
-                              for x, y in zip(stored + recomp, ref_s + ref_r)))
-                for kind in ("fwd", "stored", "recompute"):
-                    t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind)
-                    row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (t_bytes,
-                                                                      t_ops)
-                if not rehearse:
-                    split = lambda t: (t.view(b, t.shape[1], 12, 64)
-                                       .transpose(1, 2).detach()
-                                       .requires_grad_())
-                    qh, kh, vh = split(q), split(k), split(v)
-                    gh = g.view(b, sq, 12, 64).transpose(1, 2)
-                    mask = bias.to(q.dtype)[:, None, None, :]
-                    sdpa = lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask)
-                    row["fwd_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_fwd_train(q, k, v, bias, *args)))
-                    row["fwd_plain_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_train_reference(q, k, v, bias,
-                                                           *args)))
-                    row["stored_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_bwd_stored(q, k, v, p, g, *args)))
-                    row["stored_plain_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_bwd_reference(q, k, v, p, g,
-                                                         *args)))
-                    row["recompute_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_bwd_recompute(q, k, v, bias, g,
-                                                         *args)))
-                    row["recompute_plain_ms"] = _graph_ms(torch, lambda: (
-                        fa.fused_attention_bwd_reference(
-                            q, k, v, fa.probs_residual(q, k, bias, 12, 64), g,
-                            *args)))
-                    row["library_fwd_ms"] = _graph_ms(torch, sdpa)
-                    row["library_fwd_bwd_ms"] = _graph_ms(
-                        torch, lambda: torch.autograd.grad(
-                            sdpa(), (qh, kh, vh), gh))
-                rows.append(row)
-                log("train-kernels: " + json.dumps(row))
-                check(ok, f"training attention kernels disagree with their "
-                          f"plain versions at B={b} {dtype} rate {rate} "
-                          f"({sq},{sk}): {row} (tolerances {TOL[dtype]}, "
-                          f"p {TOL_P}, backward {TOL_BWD[dtype]})")
+    # stage 2's batch, both dtypes and rates; stages 1 and 3's, bf16 at
+    # the main path's rate
+    points = [(2 if rehearse else TRAIN_BATCH, dtype, rate)
+              for dtype in ("float32", "bfloat16") for rate in TRAIN_RATES]
+    points.append((2 if rehearse else S1_BATCH, "bfloat16", MAIN_RATE))
+    for b, dtype, rate in points:
+        for sq, sk in SERVE_SHAPES:
+            q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
+                                              device, seed + 7 * sq + sk)
+            gen = torch.Generator().manual_seed(seed + sq * sk)
+            g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
+            args = (12, 64, rate, KERNEL_SEED)
+            out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+            ref_out, ref_p = fa.fused_attention_train_reference(
+                q, k, v, bias, *args)
+            stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+            recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g,
+                                                      *args)
+            ref_s = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+            ref_r = fa.fused_attention_bwd_reference(q, k, v, ref_p, g,
+                                                     *args)
+            if not rehearse:
+                torch.cuda.synchronize()
+            row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq,
+                   "sk": sk,
+                   "fwd_err": _max_err(torch, [out], [ref_out]),
+                   "p_err": _max_err(torch, [p], [ref_p]),
+                   "bwd_stored_err": _max_err(torch, stored, ref_s),
+                   "bwd_recompute_err": _max_err(torch, recomp, ref_r),
+                   "stored_vs_recompute": _max_err(torch, stored, recomp)}
+            ok = (torch.allclose(out.float(), ref_out.float(), **TOL[dtype])
+                  and torch.allclose(p, ref_p, atol=TOL_P, rtol=0)
+                  and all(torch.allclose(x.float(), y.float(),
+                                         **TOL_BWD[dtype])
+                          for x, y in zip(stored + recomp, ref_s + ref_r)))
+            for kind in ("fwd", "stored", "recompute"):
+                t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind)
+                row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (t_bytes,
+                                                                  t_ops)
+            if not rehearse:
+                split = lambda t: (t.view(b, t.shape[1], 12, 64)
+                                   .transpose(1, 2).detach()
+                                   .requires_grad_())
+                qh, kh, vh = split(q), split(k), split(v)
+                gh = g.view(b, sq, 12, 64).transpose(1, 2)
+                mask = bias.to(q.dtype)[:, None, None, :]
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask)
+                row["fwd_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_fwd_train(q, k, v, bias, *args)))
+                row["fwd_plain_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_train_reference(q, k, v, bias,
+                                                       *args)))
+                row["stored_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_bwd_stored(q, k, v, p, g, *args)))
+                row["stored_plain_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_bwd_reference(q, k, v, p, g,
+                                                     *args)))
+                row["recompute_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_bwd_recompute(q, k, v, bias, g,
+                                                     *args)))
+                row["recompute_plain_ms"] = _graph_ms(torch, lambda: (
+                    fa.fused_attention_bwd_reference(
+                        q, k, v, fa.probs_residual(q, k, bias, 12, 64), g,
+                        *args)))
+                row["library_fwd_ms"] = _graph_ms(torch, sdpa)
+                row["library_fwd_bwd_ms"] = _graph_ms(
+                    torch, lambda: torch.autograd.grad(
+                        sdpa(), (qh, kh, vh), gh))
+            rows.append(row)
+            log("train-kernels: " + json.dumps(row))
+            check(ok, f"training attention kernels disagree with their "
+                      f"plain versions at B={b} {dtype} rate {rate} "
+                      f"({sq},{sk}): {row} (tolerances {TOL[dtype]}, "
+                      f"p {TOL_P}, backward {TOL_BWD[dtype]})")
     return rows
 
 
@@ -963,7 +968,7 @@ def _profile_categories(torch, prof, wall_ms: float, calls: int) -> dict:
     def category(name: str) -> str:
         if "midseq_bwd" in name:
             return "midseq_attention_bwd"
-        if "midseq_attention" in name:
+        if "midseq_attention" in name or "midseq_fwd" in name:
             return "midseq_attention_fwd"
         if "fused_attention_bwd" in name:
             return "fused_attention_bwd"
@@ -1582,6 +1587,10 @@ def phase_midseq_bwd_kernel(torch, device, rehearse: bool, seed: int
                             (qh, kh, vh), gh), **kw)
                     row["fwd_ms"] = _graph_ms(torch, lambda: (
                         ma.midseq_attention(q, k, v, bias, *args)), **kw)
+                    row["fwd_library_ms"] = _graph_ms(torch, lambda: (
+                        F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=mask, dropout_p=rate)),
+                        **kw)
                     t_bytes, t_ops = _bound_terms(b, sq, sk, dtype)
                     row["fwd_bound_ms"] = max(t_bytes, t_ops)
                 rows.append(row)
@@ -2490,6 +2499,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
             and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
     mult = MIDSEQ_BWD_PER_STEP
     tot = lambda key: sum(r[key] * mult[(r["sq"], r["sk"])] for r in main)
+    fwd_step = lambda key: sum(r[key] * MIDSEQ_FWD_PER_STEP[(r["sq"],
+                                                             r["sk"])]
+                               for r in main)
     bound_ms, bound_by = _bound(tot("bytes_ms"), tot("ops_ms"))
     out.append({
         "name": "midseq_attention_bwd", "route": "cuda",
@@ -2508,7 +2520,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    "backward under autograd (no backward-only call exists); "
                    "the forward kernel over the step's "
                    f"{sum(MIDSEQ_FWD_PER_STEP.values())} launches takes "
-                   f"{sum(r['fwd_ms'] * MIDSEQ_FWD_PER_STEP[(r['sq'], r['sk'])] for r in main):.4f} ms",
+                   f"{fwd_step('fwd_ms'):.4f} ms, scaled_dot_product_"
+                   f"attention's forward {fwd_step('fwd_library_ms'):.4f} "
+                   f"ms, their bound {fwd_step('fwd_bound_ms'):.4f} ms",
     })
     return out + matmul_kernel_summary(masked, compact, MM_SHAPES[0])
 

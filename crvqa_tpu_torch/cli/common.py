@@ -166,6 +166,26 @@ COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
                    "profile_dir": None, "dataset": "vqacp"}
 
 
+MODEL_TYPE_HELP = ("lxmert. The JAX package parses this flag, never reads "
+                   "it and builds LXMERT; the port refuses visualbert "
+                   "rather than train LXMERT under it (VisualBERT stage 2 "
+                   "is prune_debias_vqa_visualbert, not yet ported)")
+
+
+def reject_model_type(args: argparse.Namespace, cli: str) -> None:
+    """The LXMERT stage CLIs' `--model_type`: the JAX package's `cli`
+    parses it and never reads it, so it builds LXMERT whatever the flag
+    says. The port refuses anything but lxmert instead of running LXMERT
+    under a VisualBERT flag."""
+    if args.model_type != "lxmert":
+        raise NotImplementedError(
+            f"--model_type {args.model_type}: the JAX package's {cli} parses "
+            f"this flag and never reads it, so it builds LXMERT here; the "
+            f"port refuses it rather than train LXMERT under it. VisualBERT "
+            f"stage 2 is prune_debias_vqa_visualbert, not yet ported to "
+            f"crvqa_tpu_torch (ROADMAP)")
+
+
 def reject_unported(args: argparse.Namespace, defaults: dict) -> None:
     for name, default in defaults.items():
         value = getattr(args, name)

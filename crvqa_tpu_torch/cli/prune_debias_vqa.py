@@ -18,8 +18,9 @@ without one); `--device cpu` runs the kernels' plain versions.
 Not yet ported (raise when set away from their defaults): `--scan_layers`,
 `--structured_masking`, `--steps_per_dispatch` > 1, `--zero_opt`,
 `--mesh_*`, `--multihost`, `--profile_dir`, `--tensorboard_dir`,
-`--wandb_project`, `--dataset vqavs`, `--model_type` other than lxmert,
-msgpack `--stage1_ckpt` directories.
+`--wandb_project`, `--dataset vqavs`, msgpack `--stage1_ckpt` directories.
+`--model_type` other than lxmert raises too: the JAX CLI parses it and
+never reads it, building LXMERT whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -41,15 +42,16 @@ from ..train import stage2
 from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from . import common
 
-UNPORTED = dict(common.COMMON_UNPORTED, model_type="lxmert",
-                scan_layers=False, steps_per_dispatch=1, zero_opt=False,
+UNPORTED = dict(common.COMMON_UNPORTED, scan_layers=False,
+                steps_per_dispatch=1, zero_opt=False,
                 structured_masking="none")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("prune_debias_vqa")
     common.add_common_args(p)
-    p.add_argument("--model_type", type=str, default="lxmert")
+    p.add_argument("--model_type", type=str, default="lxmert",
+                   help=common.MODEL_TYPE_HELP)
     p.add_argument("--masker_level", type=str, default="modal",
                    choices=["modal"])
     p.add_argument("--Lang_comp", type=float, default=0.3)
@@ -112,6 +114,7 @@ def main(argv=None) -> dict:
 def run(args) -> dict:
     """The stage-2 run; returns a summary: final step, every step's loss,
     best eval accuracy and the zero rates of the last export."""
+    common.reject_model_type(args, "prune_debias_vqa")
     common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)

@@ -19,10 +19,11 @@ there, writing `test.json` and the parameters as
 Runs on the card (`--device cuda`, the default, raising without one);
 `--device cpu` runs the kernels' plain versions.
 
-Not yet ported (raise when set away from their defaults): `--model_type`
-other than lxmert, `--mesh_*`, `--multihost`, `--profile_dir`,
-`--tensorboard_dir`, `--wandb_project`, `--dataset vqavs`, msgpack
-checkpoint directories.
+Not yet ported (raise when set away from their defaults): `--mesh_*`,
+`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`,
+`--dataset vqavs`, msgpack checkpoint directories. `--model_type` other
+than lxmert raises too: the JAX CLI parses it and never reads it, building
+LXMERT whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from ..train.stage2 import lxmert_meta_model
 from . import common
 
-UNPORTED = dict(common.COMMON_UNPORTED, model_type="lxmert")
+UNPORTED = common.COMMON_UNPORTED
 
 _SUFFIX = {"normal": "_FTonly.bin", "lmh": "_FTlmh_only.bin",
            "lpf": "_FTlpf_only.bin", "rubi": "_FTrubi_only.bin"}
@@ -51,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("run_vqa_stage1")
     common.add_common_args(p)
     p.add_argument("--model_type", type=str, default="lxmert",
-                   help="lxmert (visualbert: not yet ported)")
+                   help=common.MODEL_TYPE_HELP)
     p.add_argument("--FT_type", type=str, default="normal",
                    choices=["normal", "lmh", "lpf", "rubi"])
     p.add_argument("--training_type", type=str, default="FTonly")
@@ -89,6 +90,7 @@ def run(args) -> dict:
     """The stage-1 run; returns a summary: final step, every step's loss,
     best and final eval accuracy, the saved parameters' path (`bin`) and
     the final training state (`state`)."""
+    common.reject_model_type(args, "run_vqa_stage1")
     common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)

@@ -29,10 +29,11 @@ The parameters go to `<label4save>_FT_trainedMask.bin` (or
 state_dict; the JAX CLI writes that name as a `.msgpack`, the port the
 torch file only.
 
-Not yet ported (raise when set away from their defaults): `--model_type`
-other than lxmert, `--mesh_*`, `--multihost`, `--profile_dir`,
-`--tensorboard_dir`, `--wandb_project`, `--dataset vqavs`, msgpack
-checkpoint directories.
+Not yet ported (raise when set away from their defaults): `--mesh_*`,
+`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`,
+`--dataset vqavs`, msgpack checkpoint directories. `--model_type` other
+than lxmert raises too: the JAX CLI parses it and never reads it, building
+LXMERT whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("run_vqa_stage3")
     common.add_common_args(p)
     p.add_argument("--model_type", type=str, default="lxmert",
-                   help="lxmert (visualbert: not yet ported)")
+                   help=common.MODEL_TYPE_HELP)
     p.add_argument("--FT_type", type=str, default="normal",
                    choices=["normal", "lmh", "lpf", "rubi"])
     p.add_argument("--training_type", type=str, default="FT_trainedMask",
@@ -101,6 +102,7 @@ def run(args) -> dict:
     """The stage-3 run; returns the stage-1 loop's summary plus the zero
     rate (`zero_rate`, with a mask) and the language branch's head count
     and FFN width."""
+    common.reject_model_type(args, "run_vqa_stage3")
     common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)

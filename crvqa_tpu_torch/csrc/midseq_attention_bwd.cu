@@ -1,6 +1,5 @@
 // Mid-length multi-head attention, recompute backward, for NVIDIA Hopper
-// (compiled for sm_90a; plain CUDA C++, scalar fp32 FMAs, no tensor-core
-// instructions).
+// (sm_90a): bf16 on the tensor cores (mma.sync), fp32 on scalar FMAs.
 //
 // Replaces the TPU kernel `crvqa_tpu/ops/midseq_attention.py:_bwd_kernel`
 // (`_ms_bwd` -> `_call` -> `pallas_call`): the backward of the attentions
@@ -24,40 +23,61 @@
 //   dk[j]    = sum_i ds[i, j] * q[i]                               (fp32 acc)
 //
 // with dq, dk, dv rounded to T once at the end: the TPU kernel's rounding
-// points. p is rebuilt with the forward's own code (the same FMA order over
-// D, `fa::row_exp_sum`, the same division), so it equals the forward's
-// probabilities bit for bit, and the keep bit is the forward's
-// (`fa::keep_key(seed, b, h)`, plain key index j). The TPU wrapper pads Sq
-// to 16 and Sk to 128 with a -1e30 bias; here every loop is bounded by Sq
-// and Sk instead. q, k, v, g are read in place through their batch and row
-// strides (last dimension contiguous); dq, dk, dv are contiguous. D is 64.
+// points. rowsum is the fp32 sum of dp * p as `_bwd_kernel` forms it, not
+// the shortcut g . out, which would read a bf16-rounded output. The keep
+// bit is the forward's (`fa::keep_key(seed, b, h)`, plain key index j).
+// The TPU wrapper pads Sq to 16 and Sk to 128 with a -1e30 bias; here
+// every loop is bounded by Sq and Sk instead. q, k, v, g are read in place
+// through their batch and row strides (last dimension contiguous); dq, dk,
+// dv are contiguous. D is 64.
 //
-// What bounds it on this card: arithmetic, as the forward (five products of
-// 2*Sq*Sk*D FLOPs per head against q, k, v, g read and dq, dk, dv written
-// once). This first version does them as scalar fp32 FMAs out of shared
-// memory; tensor cores are later work.
+// What bounds it on this card: arithmetic. Five products of 2*B*H*Sq*Sk*D
+// FLOPs (scores, dp, dv, dq, dk) against q, k, v, g read and dq, dk, dv
+// written once: at (577, 577), batch 16, bf16, 20.5 GFLOP, 20.7 us at 989
+// TFLOP/s against 18.5 us at 3.35 TB/s (chip_smoke.py
+// `_midseq_bwd_bound_terms`).
 //
-// Design. The TPU kernel holds four fp32 [Sq, Sk] planes per head in VMEM
-// (5.5 MB at 602); a Hopper block has 227 KB. dq sums over keys and is owned
-// by query rows; dk and dv sum over query rows and are owned by keys. No
-// float atomics (results repeat bit for bit across runs), so two kernels in
-// one stream order:
+// Structure (both dtypes). dq sums over keys and is owned by query rows;
+// dk and dv sum over query rows and are owned by keys. No float atomics
+// (results repeat bit for bit across runs), so two kernels in one stream
+// order: a dq kernel over query tiles that also writes each row's max,
+// softmax denominator and rowsum to an fp32 scratch [B, H, 3, Sq], then a
+// dk / dv kernel over key tiles that rebuilds p and ds from that scratch.
 //
-// 1. `dq_kernel`, one block per (16 query rows, head, batch row), 8 warps x
-//    2 rows, shaped like the forward: K tiles -> the rows' scores and
-//    probabilities in shared memory (16 x Sk fp32); V tiles -> dp beside
-//    them (a second 16 x Sk plane) and rowsum; then ds in place and K tiles
-//    again for dq. It also writes each row's max, softmax denominator and
-//    rowsum to an fp32 scratch [B, H, 3, Sq]. 16 x 602 x 2 planes take
-//    77 KB; the 227 KB limit bounds Sk at about 1700 (the wrapper checks).
-// 2. `dkv_kernel`, one block per (16 keys, head, batch row), 8 warps x 2
-//    keys: its K and V rows stay in shared memory, q and g stream through in
-//    tiles of 32 rows (one row per lane, pitch D + 1), each lane rebuilds
-//    p and ds for its row from the scratch statistics, the warp exchanges
-//    them through shared memory, and each lane accumulates columns lane and
-//    lane + 32 of dk and dv of the warp's two keys.
+// bf16 design (midseq_mma_common.cuh; every product a bf16 mma.m16n8k16
+// with fp32 accumulation, scores in registers in the accumulator layout):
+//
+// 1. `midseq_bwd_dq_mma_kernel`, one block per (64 query rows, head, batch
+//    row), 4 warps x 16 rows (one-warp blocks when there are under two
+//    blocks per SM), q and g rows held as A operands in registers. Three
+//    passes over K (and V) tiles of 64 keys, staged by cp.async into a
+//    two-stage ring: (1) S = Q K^T and each row's max and denominator with
+//    the forward's own `ms::RowStats`, so p is the forward's bit for bit;
+//    (2) S again, p, dP = G V^T, rowsum += dp * p; (3) S, p, dP again, ds
+//    rounded to bf16 into A operands, dQ += dS K (K through
+//    `ldmatrix.trans`). Its scratch holds each row's max, reciprocal
+//    denominator and rowsum (the fp32 kernels' holds the denominator).
+// 2. `midseq_bwd_dkv_mma_kernel`, one block per (64 keys, head, batch
+//    row), 4 warps x 16 keys, k and v rows held as A operands. Q and G
+//    tiles of 64 query rows and their scratch statistics stream through a
+//    two-stage cp.async ring. Per 32 query rows: S^T = K Q^T (the same
+//    products, summed over D in the same order as the forward's Q K^T, so
+//    the same s and p), dP^T = V G^T, then p * drop and ds rounded to
+//    bf16 into A operands, dV += P~^T G and dK += dS^T Q (G and Q through
+//    `ldmatrix.trans`).
+//
+// fp32 stays on the scalar kernels below: fp32 on the tensor cores is
+// TF32, about three decimal digits, and the fp32 path is held to the plain
+// version at 2e-5. Their design: `midseq_bwd_dq_kernel`, one block per (16
+// query rows, head, batch row), 8 warps x 2 rows, K tiles -> scores and
+// probabilities in shared memory (16 x Sk fp32), V tiles -> dp beside them
+// (a second plane) and rowsum, then ds in place and K tiles again for dq
+// (two 16 x 602 planes take 77 KB; the 227 KB limit bounds Sk at about
+// 1700, the wrapper checks); `midseq_bwd_dkv_kernel`, one block per (16
+// keys, head, batch row), q and g streamed in tiles of 32 rows, one lane
+// per query row rebuilding p and ds from the scratch statistics.
 
-#include "fused_attention_common.cuh"
+#include "midseq_mma_common.cuh"
 
 namespace {
 
@@ -414,6 +434,307 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+
+// ------------------------------------------------------- bf16, tensor cores
+
+template <int kBlockWarps>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+    midseq_bwd_dq_mma_kernel(const ms::bf16* __restrict__ q,
+                             const ms::bf16* __restrict__ k,
+                             const ms::bf16* __restrict__ v,
+                             const float* __restrict__ bias,
+                             const ms::bf16* __restrict__ g,
+                             ms::bf16* __restrict__ dq,
+                             float* __restrict__ stats, int sq, int sk,
+                             int heads, int64_t q_sb, int64_t q_ss,
+                             int64_t k_sb, int64_t k_ss, int64_t v_sb,
+                             int64_t v_ss, int64_t g_sb, int64_t g_ss,
+                             float scale, uint32_t seed, uint32_t threshold,
+                             float keep_scale) {
+  __shared__ __align__(128) ms::bf16 ks[2][ms::kTileElems];
+  __shared__ __align__(128) ms::bf16 vs[2][ms::kTileElems];
+  __shared__ __align__(16) float bs[2][ms::kTileRows];  // the keys' bias
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * kBlockWarps + warp) * 16;  // warp rows
+  const bool live = row0 < sq;  // warp-uniform
+  const ms::bf16* kb = k + b * k_sb + h * ms::kD;
+  const ms::bf16* vb = v + b * v_sb + h * ms::kD;
+  const float* bias_b = bias + (int64_t)b * sk;
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const int gq = lane >> 2, c = lane & 3;
+
+  uint32_t qa[4][4], ga[4][4];
+  ms::load_a_rows(qa, q + b * q_sb + h * ms::kD, q_ss, row0, sq, lane);
+  ms::load_a_rows(ga, g + b * g_sb + h * ms::kD, g_ss, row0, sq, lane);
+
+  // steps [0, nt): K tiles (statistics); [nt, 2 nt): K and V (rowsum);
+  // [2 nt, 3 nt): K and V (dq)
+  const int nt = (sk + ms::kTileRows - 1) / ms::kTileRows;
+  auto prefetch = [&](int step) {
+    if (step < 3 * nt) {
+      const int t = step % nt;
+      ms::stage_tile(ks[step & 1], kb, k_ss, t * ms::kTileRows, sk,
+                     threadIdx.x, kBlockWarps * 32);
+      ms::stage_bias(bs[step & 1], bias_b, t * ms::kTileRows, sk,
+                     threadIdx.x, kBlockWarps * 32);
+      if (step >= nt)
+        ms::stage_tile(vs[step & 1], vb, v_ss, t * ms::kTileRows, sk,
+                       threadIdx.x, kBlockWarps * 32);
+    }
+    ms::cp_async_commit();
+  };
+
+  ms::RowStats st;
+  st.init();
+  float rs[2] = {0.f, 0.f};  // partial rowsums, then each row's rowsum
+  float acc[8][4];  // dq
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  prefetch(0);
+  for (int step = 0; step < 3 * nt; ++step) {
+    prefetch(step + 1);
+    ms::cp_async_wait<1>();
+    __syncthreads();
+    const int pass = step / nt, t = step - pass * nt;
+    if (live) {
+#pragma unroll
+      for (int ch = 0; ch < ms::kTileRows / ms::kChunk; ++ch) {
+        const int j0 = t * ms::kTileRows + ch * ms::kChunk;
+        if (j0 < sk) {
+          float s[4][4];
+          ms::mma_abt(s, qa, ks[step & 1], ch * ms::kChunk, lane);
+          ms::finish_scores(s, bs[step & 1], ch * ms::kChunk, j0, sk,
+                            scale, lane);
+          if (pass == 0) {
+            st.update(s);
+          } else {
+            float dp[4][4];
+            ms::mma_abt(dp, ga, vs[step & 1], ch * ms::kChunk, lane);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                const float p = ms::prob(s[n][e], st.m[r], st.l[r]);
+                const float d = __fmul_rn(
+                    dp[n][e],
+                    ms::drop_at(key, (uint32_t)(row0 + gq + 8 * r),
+                                (uint32_t)(j0 + n * 8 + 2 * c + (e & 1)),
+                                threshold, keep_scale));
+                if (pass == 1)
+                  rs[r] = __fadd_rn(rs[r], __fmul_rn(d, p));
+                else  // ds, rounded to bf16 by pack_a
+                  s[n][e] = __fmul_rn(__fmul_rn(__fsub_rn(d, rs[r]), p),
+                                      scale);
+              }
+            }
+            if (pass == 2) {
+              uint32_t da[2][4];
+              ms::pack_a(da, s);
+              ms::mma_ab(acc, da, ks[step & 1], ch * ms::kChunk, lane);
+            }
+          }
+        }
+      }
+      if (step == nt - 1) st.finish();
+      if (step == 2 * nt - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rs[r] = ms::quad_sum(rs[r]);
+          const int row = row0 + gq + 8 * r;
+          if (c == 0 && row < sq) {
+            float* sb = stats + ((int64_t)b * heads + h) * 3 * sq;
+            sb[row] = st.m[r];
+            sb[sq + row] = st.l[r];
+            sb[2 * sq + row] = rs[r];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next prefetch
+  }
+  if (live)
+    ms::store_rows(dq + (int64_t)b * sq * heads * ms::kD + h * ms::kD,
+                   (int64_t)heads * ms::kD, row0, sq, acc, lane);
+}
+
+template <int kBlockWarps>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+    midseq_bwd_dkv_mma_kernel(const ms::bf16* __restrict__ q,
+                              const ms::bf16* __restrict__ k,
+                              const ms::bf16* __restrict__ v,
+                              const float* __restrict__ bias,
+                              const ms::bf16* __restrict__ g,
+                              const float* __restrict__ stats,
+                              ms::bf16* __restrict__ dk,
+                              ms::bf16* __restrict__ dv, int sq, int sk,
+                              int heads, int64_t q_sb, int64_t q_ss,
+                              int64_t k_sb, int64_t k_ss, int64_t v_sb,
+                              int64_t v_ss, int64_t g_sb, int64_t g_ss,
+                              float scale, uint32_t seed, uint32_t threshold,
+                              float keep_scale) {
+  __shared__ __align__(128) ms::bf16 qs[2][ms::kTileElems];
+  __shared__ __align__(128) ms::bf16 gs[2][ms::kTileElems];
+  __shared__ float sts[2][3 * ms::kTileRows];  // max, denominator, rowsum
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key0 = (blockIdx.x * kBlockWarps + warp) * 16;  // warp keys
+  const bool live = key0 < sk;  // warp-uniform
+  const ms::bf16* qb = q + b * q_sb + h * ms::kD;
+  const ms::bf16* gb = g + b * g_sb + h * ms::kD;
+  const float* stats_bh = stats + ((int64_t)b * heads + h) * 3 * sq;
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const int gk = lane >> 2, c = lane & 3;
+
+  uint32_t ka[4][4], va[4][4];
+  ms::load_a_rows(ka, k + b * k_sb + h * ms::kD, k_ss, key0, sk, lane);
+  ms::load_a_rows(va, v + b * v_sb + h * ms::kD, v_ss, key0, sk, lane);
+  float bj[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + gk + 8 * r;
+    bj[r] = j < sk ? __ldg(bias + (int64_t)b * sk + j) : 0.f;
+  }
+
+  const int mt = (sq + ms::kTileRows - 1) / ms::kTileRows;
+  auto prefetch = [&](int step) {
+    if (step < mt) {
+      const int i0 = step * ms::kTileRows;
+      ms::stage_tile(qs[step & 1], qb, q_ss, i0, sq, threadIdx.x,
+                     kBlockWarps * 32);
+      ms::stage_tile(gs[step & 1], gb, g_ss, i0, sq, threadIdx.x,
+                     kBlockWarps * 32);
+      for (int x = threadIdx.x; x < 3 * ms::kTileRows; x += kBlockWarps * 32) {
+        const int which = x / ms::kTileRows, row = i0 + x % ms::kTileRows;
+        const bool in = row < sq;
+        ms::cp_async_4(&sts[step & 1][x],
+                       stats_bh + (int64_t)which * sq + (in ? row : 0),
+                       in ? 4 : 0);
+      }
+    }
+    ms::cp_async_commit();
+  };
+
+  float dka[8][4], dva[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  prefetch(0);
+  for (int step = 0; step < mt; ++step) {
+    prefetch(step + 1);
+    ms::cp_async_wait<1>();
+    __syncthreads();
+    const float* tile_st = sts[step & 1];
+    if (live) {
+#pragma unroll
+      for (int ch = 0; ch < ms::kTileRows / ms::kChunk; ++ch) {
+        const int i0 = step * ms::kTileRows + ch * ms::kChunk;
+        if (i0 < sq) {
+          float s[4][4], dp[4][4];  // transposed: rows keys, columns queries
+          ms::mma_abt(s, ka, qs[step & 1], ch * ms::kChunk, lane);
+          ms::mma_abt(dp, va, gs[step & 1], ch * ms::kChunk, lane);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int col = ch * ms::kChunk + n * 8 + 2 * c + (e & 1);
+              const int i = step * ms::kTileRows + col;
+              float pt = 0.f, ds = 0.f;
+              if (i < sq) {
+                const float p = ms::prob(ms::score(s[n][e], scale, bj[r]),
+                                         tile_st[col],
+                                         tile_st[ms::kTileRows + col]);
+                const float drop = ms::drop_at(
+                    key, (uint32_t)i, (uint32_t)(key0 + gk + 8 * r),
+                    threshold, keep_scale);
+                pt = __fmul_rn(p, drop);
+                ds = __fmul_rn(
+                    __fmul_rn(__fsub_rn(__fmul_rn(dp[n][e], drop),
+                                        tile_st[2 * ms::kTileRows + col]),
+                              p),
+                    scale);
+              }
+              s[n][e] = pt;
+              dp[n][e] = ds;
+            }
+          }
+          uint32_t pa[2][4], da[2][4];
+          ms::pack_a(pa, s);
+          ms::pack_a(da, dp);
+          ms::mma_ab(dva, pa, gs[step & 1], ch * ms::kChunk, lane);
+          ms::mma_ab(dka, da, qs[step & 1], ch * ms::kChunk, lane);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next prefetch
+  }
+  if (live) {
+    const int64_t ld = (int64_t)heads * ms::kD;
+    const int64_t o = (int64_t)b * sk * ld + h * ms::kD;
+    ms::store_rows(dk + o, ld, key0, sk, dka, lane);
+    ms::store_rows(dv + o, ld, key0, sk, dva, lane);
+  }
+}
+
+int launch_bf16(const void* q, const void* k, const void* v,
+                const float* bias, const void* g, void* dq, void* dk,
+                void* dv, float* stats, int batch, int sq, int sk, int heads,
+                int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                int64_t v_sb, int64_t v_ss, int64_t g_sb, int64_t g_ss,
+                uint32_t seed, uint32_t threshold, float keep_scale,
+                cudaStream_t stream) {
+  if (!ms::aligned16(q, q_sb, q_ss) || !ms::aligned16(k, k_sb, k_ss) ||
+      !ms::aligned16(v, v_sb, v_ss) || !ms::aligned16(g, g_sb, g_ss))
+    return (int)cudaErrorMisalignedAddress;
+  const float scale = 1.0f / sqrtf((float)ms::kD);
+  const auto* qp = static_cast<const ms::bf16*>(q);
+  const auto* kp = static_cast<const ms::bf16*>(k);
+  const auto* vp = static_cast<const ms::bf16*>(v);
+  const auto* gp = static_cast<const ms::bf16*>(g);
+  auto* dqp = static_cast<ms::bf16*>(dq);
+  auto* dkp = static_cast<ms::bf16*>(dk);
+  auto* dvp = static_cast<ms::bf16*>(dv);
+  cudaError_t err = ms::launch_by_width(
+      sq, heads, batch,
+      [&](dim3 grid) {
+        midseq_bwd_dq_mma_kernel<4><<<grid, 128, 0, stream>>>(
+            qp, kp, vp, bias, gp, dqp, stats, sq, sk, heads, q_sb, q_ss,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            keep_scale);
+      },
+      [&](dim3 grid) {
+        midseq_bwd_dq_mma_kernel<1><<<grid, 32, 0, stream>>>(
+            qp, kp, vp, bias, gp, dqp, stats, sq, sk, heads, q_sb, q_ss,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            keep_scale);
+      });
+  if (err != cudaSuccess) return (int)err;
+  err = ms::launch_by_width(
+      sk, heads, batch,
+      [&](dim3 grid) {
+        midseq_bwd_dkv_mma_kernel<4><<<grid, 128, 0, stream>>>(
+            qp, kp, vp, bias, gp, stats, dkp, dvp, sq, sk, heads, q_sb, q_ss,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            keep_scale);
+      },
+      [&](dim3 grid) {
+        midseq_bwd_dkv_mma_kernel<1><<<grid, 32, 0, stream>>>(
+            qp, kp, vp, bias, gp, stats, dkp, dvp, sq, sk, heads, q_sb, q_ss,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            keep_scale);
+      });
+  return (int)err;
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            const void* g, void* dq, void* dk, void* dv, float* stats,
@@ -473,10 +794,9 @@ int midseq_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, stats, batch,
-                                 sq, sk, heads, q_sb, q_ss, k_sb, k_ss, v_sb,
-                                 v_ss, g_sb, g_ss, seed, threshold,
-                                 keep_scale, s);
+    return launch_bf16(q, k, v, bias, g, dq, dk, dv, stats, batch, sq, sk,
+                       heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss,
+                       seed, threshold, keep_scale, s);
   return launch<float>(q, k, v, bias, g, dq, dk, dv, stats, batch, sq, sk,
                        heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss,
                        seed, threshold, keep_scale, s);

@@ -17,6 +17,12 @@ device:
 `midseq_attention.launches` and `midseq_attention_bwd.launches` count the
 kernels' launches and nothing else.
 
+bf16 runs on the tensor cores (`csrc/midseq_mma_common.cuh`): no Sk bound,
+but q, k, v (and g) must start 16-byte aligned with row and batch strides
+that are multiples of 8 elements, since K, V, Q and G tiles are staged 16
+bytes a thread. fp32 runs on the scalar kernels, whose shared-memory rows
+of Sk probabilities bound Sk (`smem_bytes`, `bwd_smem_bytes`).
+
 `midseq_attention` is differentiable in q, k and v: on a CUDA tensor that
 needs a gradient `MidseqAttentionFunction` launches the forward kernel,
 saves q, k, v, the bias and the seed only (`_ms_fwd` of the JAX module), and
@@ -45,7 +51,7 @@ from .fused_attention import (KERNEL_HEAD_SIZE, _dropout_args, _merge,
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-_ROWS, _KEY_TILE = 16, 32  # the kernel's query rows per block, staged keys
+_ROWS, _KEY_TILE = 16, 32  # the fp32 kernel's rows per block, keys per tile
 
 # The JAX module's per-program VMEM budget (bytes): its dispatch predicate.
 _VMEM_BUDGET = 12 * 1024 * 1024
@@ -182,7 +188,7 @@ def midseq_attention_bwd(q, k, v, bias, g, num_heads: int, head_size: int,
     if q.device.type == "cpu":
         return midseq_attention_bwd_reference(q, k, v, bias, g, num_heads,
                                               head_size, rate, seed)
-    _check_cuda(q, k, v, bias, head_size)
+    _check_cuda(q, k, v, bias, head_size, g)
     return _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed)
 
 
@@ -236,26 +242,39 @@ def _check_shapes(q, k, v, bias, num_heads, head_size):
 
 
 def smem_bytes(sk: int) -> int:
-    """Shared memory the kernel's block needs at Sk keys: a staged key tile
-    (pitch D + 1), the block's q rows and one fp32 probability row of Sk
-    per query row."""
+    """Shared memory the fp32 kernel's block needs at Sk keys: a staged key
+    tile (pitch D + 1), the block's q rows and one fp32 probability row of
+    Sk per query row. The bf16 kernel's is fixed (two stages of K and V
+    tiles) and does not grow with Sk."""
     return 4 * (_KEY_TILE * (KERNEL_HEAD_SIZE + 1)
                 + _ROWS * KERNEL_HEAD_SIZE + _ROWS * sk)
 
 
 def bwd_smem_bytes(sk: int) -> int:
-    """Shared memory of the backward's dq block at Sk keys: a staged tile,
-    the block's q and g rows, and two fp32 planes (p; dp, then ds) of Sk
-    per query row."""
+    """Shared memory of the fp32 backward's dq block at Sk keys: a staged
+    tile, the block's q and g rows, and two fp32 planes (p; dp, then ds) of
+    Sk per query row. The bf16 backward's does not grow with Sk."""
     return 4 * (_KEY_TILE * (KERNEL_HEAD_SIZE + 1)
                 + 2 * _ROWS * KERNEL_HEAD_SIZE + 2 * _ROWS * sk)
 
 
-def _check_cuda(q, k, v, bias, head_size):
-    """What the kernel takes; raises on anything else."""
-    if q.device.type != "cuda":
-        raise ValueError(f"midseq_attention: unsupported device {q.device}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+def _strides(t: torch.Tensor) -> tuple[int, int]:
+    """Batch and row strides as the kernels take them: 0 for a dimension of
+    size 1, whose stride is never used and may be anything."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in (0, 1))
+
+
+def _tiles_aligned(t: torch.Tensor) -> bool:
+    """What the bf16 kernels' 16-byte cp.async staging needs: a 16-byte
+    aligned start and batch and row strides of whole 16-byte units."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides(t))
+
+
+def _check_kernel_args(q, k, v, bias, head_size, g=None):
+    """What the kernels take, on any device; raises on anything else. With
+    `g`, the backward's cotangent and limits too."""
+    if (q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"midseq_attention kernel: q/k/v must share fp32 or "
                         f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if bias.dtype != torch.float32 or not bias.is_contiguous():
@@ -264,15 +283,37 @@ def _check_cuda(q, k, v, bias, head_size):
     if head_size != KERNEL_HEAD_SIZE:
         raise ValueError(f"midseq_attention kernel: head_size {head_size} "
                          f"(the kernel takes {KERNEL_HEAD_SIZE})")
-    if any(t.stride(2) != 1 for t in (q, k, v)):
+    operands = (q, k, v) if g is None else (q, k, v, g)
+    if g is not None and (g.dtype != q.dtype or g.stride(2) != 1):
+        raise TypeError("midseq_attention backward kernel: g must have q's "
+                        "dtype and a contiguous last dimension")
+    if any(t.stride(2) != 1 for t in operands):
         raise ValueError("midseq_attention kernel: the H*D dimension of "
                          "q/k/v must be contiguous")
     sk = k.shape[1]
-    if smem_bytes(sk) > _SMEM_LIMIT:
+    if q.dtype == torch.bfloat16:
+        if not all(_tiles_aligned(t) for t in operands):
+            raise ValueError("midseq_attention bf16 kernel: q/k/v/g must "
+                             "start 16-byte aligned with batch and row "
+                             "strides that are multiples of 8 elements")
+    elif g is None and smem_bytes(sk) > _SMEM_LIMIT:
         raise ValueError(f"midseq_attention kernel: Sk = {sk} needs "
                          f"{smem_bytes(sk)} bytes of shared memory for its "
-                         f"probability rows, over the {_SMEM_LIMIT} a block "
-                         "may use")
+                         f"fp32 probability rows, over the {_SMEM_LIMIT} a "
+                         "block may use")
+    elif g is not None and bwd_smem_bytes(sk) > _SMEM_LIMIT:
+        raise ValueError(f"midseq_attention backward kernel: Sk = {sk} needs "
+                         f"{bwd_smem_bytes(sk)} bytes of shared memory for "
+                         f"its two fp32 planes, over the {_SMEM_LIMIT} a "
+                         "block may use")
+
+
+def _check_cuda(q, k, v, bias, head_size, g=None):
+    """CUDA tensors the kernels take (with `g`, the backward's); raises on
+    anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"midseq_attention: unsupported device {q.device}")
+    _check_kernel_args(q, k, v, bias, head_size, g)
 
 
 # ------------------------------------------------------------------ launch
@@ -303,8 +344,8 @@ def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
         rc = lib.midseq_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, sq, sk, num_heads, head_size,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), int(q.dtype == torch.bfloat16),
+            *_strides(q), *_strides(k), *_strides(v),
+            int(q.dtype == torch.bfloat16),
             seed_u, threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -313,7 +354,6 @@ def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
                            f"error {rc} ({msg})")
     midseq_attention.launches += 1
     return out
-
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -332,20 +372,12 @@ def _bwd_library() -> ctypes.CDLL:
 def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed):
     b, sq, d = q.shape
     sk = k.shape[1]
-    if g.dtype != q.dtype or g.stride(2) != 1:
-        raise TypeError("midseq_attention backward kernel: g must have q's "
-                        "dtype and a contiguous last dimension")
-    if bwd_smem_bytes(sk) > _SMEM_LIMIT:
-        raise ValueError(f"midseq_attention backward kernel: Sk = {sk} needs "
-                         f"{bwd_smem_bytes(sk)} bytes of shared memory for "
-                         f"its two planes, over the {_SMEM_LIMIT} a block "
-                         "may use")
     seed_u, threshold, keep_scale = _dropout_args(rate, seed)
     dq = torch.empty((b, sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, d), dtype=q.dtype, device=q.device)
-    # each query row's softmax max, denominator and sum of dp * p: written
-    # by the dq kernel, read by the dk / dv kernel
+    # each query row's softmax max, denominator (bf16: its reciprocal) and
+    # sum of dp * p: written by the dq kernel, read by the dk / dv kernel
     stats = torch.empty((b, num_heads, 3, sq), dtype=torch.float32,
                         device=q.device)
     lib = _bwd_library()
@@ -354,8 +386,7 @@ def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats.data_ptr(), b, sq, sk, num_heads, head_size,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), g.stride(0), g.stride(1),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(g),
             int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

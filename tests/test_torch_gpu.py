@@ -433,6 +433,116 @@ def test_midseq_backward_raises_on_what_it_does_not_take(case):
     assert ma.midseq_attention_bwd.launches == before
 
 
+# The bf16 tensor-core kernels at ragged shapes: query counts of one warp,
+# of one-warp blocks and of four-warp blocks; key counts of 577 and 602
+# (ragged last tiles) and 70 (a tile and 6 keys: a whole 32-key chunk past
+# Sk). At batch 3 the (577 / 602)-row launches take four-warp blocks and
+# the others one-warp blocks.
+RAGGED_SQ = (1, 25, 40, 577, 602)
+RAGGED_SK = (577, 602, 70)
+
+
+def _strided_inputs(b, sq, sk, seed):
+    """q, k, v as column slices of fused projections (row strides 2304 and
+    1536), bf16, with -10000 pads on alternate rows."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, 2 * 768, generator=g).cuda().bfloat16()[..., 768:]
+    kv = torch.randn(b, sk, 3 * 768, generator=g).cuda().bfloat16()
+    k, v = kv[..., 768:1536], kv[..., 2 * 768:]
+    bias = torch.zeros(b, sk)
+    bias[1::2, sk // 2:] = -10000.0
+    return q, k, v, bias.cuda()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_midseq_bf16_kernels_at_ragged_shapes(rate):
+    """Forward and backward of the bf16 kernels against their plain
+    versions on strided projection slices, at every (Sq, Sk) of
+    RAGGED_SQ x RAGGED_SK; two launches of each give the same bits."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    for sq in RAGGED_SQ:
+        for sk in RAGGED_SK:
+            q, k, v, bias = _strided_inputs(3, sq, sk, seed=sq * 1000 + sk)
+            assert q.stride(0) == sq * 2 * 768 and k.stride(1) == 3 * 768
+            assert q.storage_offset() == 768 and not k.is_contiguous()
+            g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+                sq)).cuda().bfloat16()
+            args = (12, 64, rate, -31)
+            out = ma.midseq_attention(q, k, v, bias, *args)
+            again = ma.midseq_attention(q, k, v, bias, *args)
+            grads = ma.midseq_attention_bwd(q, k, v, bias, g, *args)
+            grads2 = ma.midseq_attention_bwd(q, k, v, bias, g, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again), (sq, sk)
+            torch.testing.assert_close(
+                out.float(), ma.midseq_attention_reference(
+                    q, k, v, bias, *args).float(), atol=5e-3, rtol=1e-2,
+                msg=lambda m: f"out {sq, sk}: {m}")
+            want = ma.midseq_attention_bwd_reference(q, k, v, bias, g, *args)
+            for name, a, b, c in zip("qkv", grads, want, grads2):
+                assert torch.equal(a, c), f"d{name} {sq, sk} differs"
+                torch.testing.assert_close(
+                    a.float(), b.float(), **MIDSEQ_BWD_TOL[torch.bfloat16],
+                    msg=lambda m: f"d{name} {sq, sk}: {m}")
+
+
+def test_midseq_routes_bf16_to_tensor_cores_and_fp32_to_scalar_kernels():
+    """The profiler names what ran: bf16 the mma kernels, fp32 the scalar
+    ones, forward and backward."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    ran = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias = _inputs(3, 577, 577, dtype)
+        g = torch.randn_like(q)
+        ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)  # builds, loads
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ma.midseq_attention(q, k, v, bias, 12, 64)
+            ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)
+            torch.cuda.synchronize()
+        ran[dtype] = " ".join(e.key for e in prof.key_averages())
+    for name in ("midseq_fwd_mma_kernel", "midseq_bwd_dq_mma_kernel",
+                 "midseq_bwd_dkv_mma_kernel"):
+        assert name in ran[torch.bfloat16] and name not in ran[torch.float32]
+    for name in ("midseq_attention_fwd_kernel", "midseq_bwd_dq_kernel",
+                 "midseq_bwd_dkv_kernel"):
+        assert name in ran[torch.float32] and name not in ran[torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", ["offset", "row_stride"])
+def test_midseq_bf16_refuses_unaligned_tiles(case):
+    """The bf16 kernels stage 16 bytes a thread: a start or a row stride
+    off the 16-byte grid raises before any launch; the same Sk as 4096
+    keys, over the fp32 kernels' shared-memory bound, runs."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    q, k, v, bias = _inputs(2, 25, 577, torch.bfloat16)
+    if case == "offset":  # starts 2 bytes past the grid
+        k = torch.randn(2, 577, 769, device="cuda").bfloat16()[..., 1:]
+    else:  # rows of 772 elements
+        k = torch.randn(2, 577, 772, device="cuda").bfloat16()[..., :768]
+    before = (ma.midseq_attention.launches, ma.midseq_attention_bwd.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        ma.midseq_attention(q, k, v, bias, 12, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ma.midseq_attention_bwd(q, k, v, bias, q, 12, 64)
+    assert (ma.midseq_attention.launches,
+            ma.midseq_attention_bwd.launches) == before
+    q, k, v, bias = _inputs(2, 25, 4096, torch.bfloat16)
+    out = ma.midseq_attention(q, k, v, bias, 12, 64)
+    torch.testing.assert_close(
+        out.float(), ma.midseq_attention_reference(q, k, v, bias, 12,
+                                                   64).float(),
+        atol=5e-3, rtol=1e-2)
+
+
 def test_mplug_encode_launch_counts_and_plain_agreement():
     """One full-width mPLUG encode (ViT-B-16 at 384 px, 12+6+6 layers) in
     bf16 at batch 2 on seeded weights: 18 mid-length launches (12 ViT at

@@ -229,3 +229,66 @@ def test_mismatched_shapes_raise():
         tma.midseq_attention(q, k, v, bias[:, :14], 2, 64)
     with pytest.raises(ValueError, match="dropout"):
         tma.midseq_attention(q, k, v, bias, 2, 64, rate=1.0)
+
+
+def _bf16(shape, cols=None):
+    """A bf16 CPU tensor [B, S, 768], or column slice [..., cols] of a wider
+    one."""
+    if cols is None:
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    return torch.zeros(*shape[:2], cols.stop + 8,
+                       dtype=torch.bfloat16)[..., cols]
+
+
+# (case, dtype, q, k, g or None, accepted): what the kernels' argument
+# checks accept and refuse. bf16 stages 16 bytes a thread and has no Sk
+# bound; fp32 reads elements and keeps a shared-memory row of Sk floats.
+CHECK_CASES = [
+    ("vit_qkv_slices", torch.bfloat16, slice(0, 768), slice(768, 1536),
+     False, True),
+    ("bf16_4096_keys", torch.bfloat16, None, "4096", False, True),
+    ("bf16_bwd_4096_keys", torch.bfloat16, None, "4096", True, True),
+    ("bf16_start_off_grid", torch.bfloat16, slice(1, 769), None, False,
+     False),
+    ("bf16_g_start_off_grid", torch.bfloat16, None, None, "off", False),
+    ("bf16_row_stride", torch.bfloat16, None, "stride", False, False),
+    ("fp32_start_off_grid", torch.float32, slice(1, 769), None, False, True),
+    ("fp32_4096_keys", torch.float32, None, "4096", False, False),
+    ("fp32_bwd_2048_keys", torch.float32, None, "2048", True, False),
+]
+
+
+@pytest.mark.parametrize("case,dtype,qcols,kcase,gcase,accepted",
+                         CHECK_CASES, ids=[c[0] for c in CHECK_CASES])
+def test_kernel_checks_by_dtype(case, dtype, qcols, kcase, gcase, accepted):
+    """`_check_kernel_args`, which the CUDA wrappers call before a launch,
+    on CPU tensors of the shapes the card would get."""
+    sk = {"4096": 4096, "2048": 2048}.get(kcase, 577)
+    q = _bf16((2, 25, 768), qcols).to(dtype)
+    if kcase == "stride":  # rows of 772 elements
+        k = torch.zeros(2, sk, 772, dtype=dtype)[..., :768]
+    elif isinstance(kcase, slice):
+        k = _bf16((2, sk, 768), kcase).to(dtype)
+    else:
+        k = torch.zeros(2, sk, 768, dtype=dtype)
+    bias = torch.zeros(2, sk)
+    g = None
+    if gcase:
+        g = (_bf16((2, 25, 768), slice(1, 769)).to(dtype) if gcase == "off"
+             else torch.zeros_like(q))
+    if accepted:
+        tma._check_kernel_args(q, k, k, bias, 64, g)
+    else:
+        with pytest.raises(ValueError, match="16-byte|shared memory"):
+            tma._check_kernel_args(q, k, k, bias, 64, g)
+
+
+def test_unused_strides_of_size_one_dimensions_are_zero():
+    """A batch or row of one is never stepped over: the kernels get stride
+    0 there, so an odd stride there does not refuse the bf16 kernels."""
+    q = torch.zeros(1, 1, 777, dtype=torch.bfloat16)[..., :768]
+    assert tma._strides(q) == (0, 0)
+    assert tma._tiles_aligned(q)
+    k = torch.zeros(1, 5, 776, dtype=torch.bfloat16)[..., :768]
+    assert tma._strides(k) == (0, 776) and tma._tiles_aligned(k)
+    tma._check_kernel_args(q, k, k, torch.zeros(1, 5), 64)

@@ -475,6 +475,8 @@ def test_four_step_trajectory_with_a_reset(sides, mode, distill):
         np.testing.assert_allclose(float(got), float(want), rtol=0,
                                    atol=1e-5, err_msg=f"step {i}")
         if i == 1 and mode == "mask":
+            # at 0.4 the fp32 (JAX) and float64 (port) k agree on these
+            # matrices; test_torch_vqa_mplug.py pins a target where not
             jstate = side.jreset(jstate, 0.4)
             tstate = side.treset(tstate, 0.4)
             report = side.tmasker.sparsity_report(tstate.scores,

@@ -9,7 +9,8 @@ Checked: the artifacts and their names (the JAX CLIs' names, less the
 JAX package's loader; stage 3 keeps its pruned weights exactly zero and
 reports the mask's zero rate; the structured run compacts the language
 branch; `--resume_from` continues the step count; unported flags raise;
-without a card the CLIs raise unless given `--device cpu`.
+`--model_type visualbert`, which the JAX CLIs parse and never read, is
+refused; without a card the CLIs raise unless given `--device cpu`.
 """
 import inspect
 import json
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from crvqa_tpu.cli import common as jcommon
+from crvqa_tpu.cli import prune_debias_vqa as jstage2_cli
 from crvqa_tpu.cli import run_vqa_stage1 as jstage1_cli
 from crvqa_tpu.cli import run_vqa_stage3 as jstage3_cli
 from crvqa_tpu.models import LxmertConfig as JaxConfig
@@ -186,6 +188,30 @@ def test_unported_flags_raise(tmp_path, cli, flag, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--output_dir", str(tmp_path), "--tiny", "--device", "cpu",
                   "--synthetic", "8", flag, value])
+
+
+@pytest.mark.parametrize("cli,jax_cli", [
+    (run_vqa_stage1, jstage1_cli), (run_vqa_stage3, jstage3_cli),
+    (prune_debias_vqa, jstage2_cli)], ids=["stage1", "stage3", "stage2"])
+def test_model_type_visualbert_diverges_from_the_jax_cli(tmp_path, cli,
+                                                         jax_cli):
+    """The divergence, named: the JAX CLI accepts `--model_type visualbert`
+    and never reads it (its source names the flag only where it parses it),
+    so it would train LXMERT; the port refuses the flag and says so."""
+    args = jax_cli.build_parser().parse_args(
+        ["--output_dir", str(tmp_path), "--model_type", "visualbert"])
+    assert args.model_type == "visualbert"
+    source = inspect.getsource(jax_cli)
+    assert source.count("model_type") == source.count(
+        'add_argument("--model_type"') + source.count("FTmodel_type")
+    assert "LxmertForVQA" in source
+    name = jax_cli.__name__.rsplit(".", 1)[1]
+    with pytest.raises(NotImplementedError,
+                       match=f"JAX package's {name} parses this flag and "
+                             "never reads it, so it builds LXMERT"):
+        cli.main(["--output_dir", str(tmp_path), "--tiny", "--device", "cpu",
+                  "--synthetic", "8", "--model_type", "visualbert"])
+    assert "prune_debias_vqa_visualbert" in cli.build_parser().format_help()
 
 
 def test_stage3_trained_mask_needs_a_mask(tmp_path):

@@ -4,15 +4,19 @@ resets on a moving target, checkpoints, resume, final reset, exports, beam
 and rank evaluation) and on the files the JAX package's mPLUG rehearsal
 fabricates (annotation JSONs, JPEGs, a toy vocab), whose loaders are held
 against the JAX package's; `mask.pt` carries the JAX CLI's keys; `serve_mplug
---ckpt` serves what the trainer wrote; the flags not yet ported raise.
+--ckpt` serves what the trainer wrote; the flags not yet ported raise;
+the reset's k against the JAX package's, where the two differ by one.
 """
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from crvqa_tpu.ops import kthvalue as jkthvalue
 from crvqa_tpu_torch.cli import serve_mplug, vqa_mplug
+from crvqa_tpu_torch.ops import kthvalue
 from crvqa_tpu_torch.core import checkpoint as ckpt
 from tests.test_dress_rehearsal_mplug import ANSWERS, _fabricate
 
@@ -66,6 +70,30 @@ def test_thresholds_follow_the_moving_target(trained):
     for t, a in zip(targets, achieved):
         assert abs(t - a) < 2e-3
     assert abs(summary["zero_rates"]["all"] - 0.5) < 2e-3
+
+
+# The reset's k = int(n * target): the port forms n * target in float64 (a
+# Python float, as the reference's int(numel * sparsity)); the JAX trainer
+# passes the target as an fp32 scalar (crvqa_tpu/train/mplug_train.py:554),
+# so JAX forms it in fp32 and, on some targets, masks one weight more. The
+# trajectory tests above and in test_torch_mplug_train.py hold thresholds
+# at targets where the two agree; the test below pins one where they do
+# not.
+MOVED_TARGET = 0.4499062323188823
+FFN_N = 768 * 3072
+
+
+def test_reset_k_is_float64_and_one_below_jax_at_this_target():
+    """On scores 0, 1, ..., n - 1 the k-th smallest is k - 1: the port
+    keeps k = int(n * target) in float64 (1061461); JAX's
+    `sparsity_threshold` on the fp32 target gives 1061462."""
+    scores = np.arange(FFN_N, dtype=np.float32)
+    port_k = int(kthvalue.sparsity_threshold(torch.from_numpy(scores),
+                                             MOVED_TARGET)) + 1
+    jax_k = int(jkthvalue.sparsity_threshold(
+        jnp.asarray(scores), jnp.asarray(MOVED_TARGET, jnp.float32))) + 1
+    assert port_k == int(FFN_N * MOVED_TARGET) == 1061461
+    assert jax_k == 1061462 == port_k + 1
 
 
 def test_resume_carries_on_from_the_checkpoint(trained, tmp_path):
