@@ -11,11 +11,16 @@ Phases (each one's seconds are logged):
   1. device   the card's name, count and power limit; TF32 off for matmuls
               and cuDNN (fp32 comparisons are full fp32).
   2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
-              feature store, compiled from the checkout, all at once.
+              feature store, compiled from the checkout, all at once; each
+              kernel instantiation's registers, shared memory and spills
+              (`-Xptxas -v`) and its tensor-core instructions (HMMA, from
+              `cuobjdump -sass`).
   3. kernel   the primal short attention kernel against its plain PyTorch
               version at the LXMERT serving shapes (batch 32 and 256; every
               (Sq, Sk) LXMERT gives it) and at mPLUG's (25,25) and (1,1)
-              (batch 8), fp32 and bf16, then timed: the kernel, the plain
+              (batch 8), fp32 and bf16; bf16 also at (1,1) and (85,85)
+              (batch 32) and at stage 3's 6 compacted heads (the LXMERT
+              shapes, batch 64); then timed: the kernel, the plain
               version and one PyTorch library call computing the same
               function (a yardstick the port never calls).
   4. midseq-kernel  the mid-length attention kernel against its plain
@@ -27,9 +32,11 @@ Phases (each one's seconds are logged):
   5. train-kernels  the forward-for-grad and both backward kernels (stored,
               recompute) against their plain versions at batch 256, the four
               (Sq, Sk), fp32 and bf16, dropout rates 0 and 0.1, and at batch
-              64 (stages 1 and 3), bf16, rate 0.1; timed beside the plain
-              versions and `scaled_dot_product_attention` forward and
-              forward + backward under autograd.
+              64 (stages 1 and 3), bf16, rate 0.1, at the four (Sq, Sk),
+              (1,1) and (85,85), and at 6 heads; bf16 stored and recompute
+              gradients bit-identical; timed beside the plain versions and
+              `scaled_dot_product_attention` forward and forward + backward
+              under autograd.
   6. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
               (768 hidden, 12x64 heads, 9/5/5 layers, 2274 answers) on
               seeded weights and fabricated data: 512 requests at batch 32 in
@@ -147,6 +154,11 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # tensor cores
               "float32": 67e12}     # outside the tensor cores (no TF32)
 
 SERVE_SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
+# the bf16 short kernels' edge points beside the main path's: one query and
+# one key, the longest rows at 12 heads (85 x 12 = 1020 <= 1024), and
+# stage 3's head compaction to 6 heads at the LXMERT shapes, at its batch
+SHORT_EDGE_SHAPES = [(1, 1), (85, 85)]
+COMPACT_HEADS = 6
 MPLUG_SHORT_SHAPES = [(25, 25), (1, 1)]  # text towers; the rank bos pass
 MPLUG_SHORT_BATCH = 8
 # mPLUG's mid-length attentions: the ViT (577,577), the fusion cross
@@ -264,19 +276,70 @@ def phase_build() -> dict:
     seconds = time.monotonic() - t0
     log(f"build: {len(jobs)} libraries in {seconds:.1f} s "
         f"({', '.join(jobs)})")
+    kernels = {}
     for name in sources:
-        with open(os.path.join(_build.BUILD_DIR, f"lib{name}.so.log")) as f:
-            for line in f.read().splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
-                    log(f"build: {name}: {line.strip()}")
-    return {"seconds": seconds, "sources": sources}
+        for kernel, info in _build_report(_build.BUILD_DIR, name).items():
+            kernels[kernel] = info
+            log(f"build: {name}: {kernel}: " + ", ".join(
+                f"{v} {k}" for k, v in info.items()))
+    return {"seconds": seconds, "sources": sources, "kernels": kernels}
+
+
+def _demangle(names: list[str]) -> dict:
+    """Mangled kernel names -> `fused_attention_bwd_mma_kernel<true, 6>`
+    (c++filt, where the toolchain has it; else left mangled)."""
+    import re
+
+    out = {n: n for n in names}
+    if shutil.which("c++filt") and names:
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for n, d in zip(names, plain):
+            m = re.search(r"(\w+(<[^()]*>)?)\(", d)
+            out[n] = m.group(1) if m else d
+    return out
+
+
+def _build_report(build_dir: str, name: str) -> dict:
+    """Per kernel of lib<name>.so: registers, shared memory and spills from
+    the build's `-Xptxas -v` log, and the tensor-core instructions (HMMA)
+    in its SASS from `cuobjdump -sass`, where the toolkit has it."""
+    import re
+
+    report, kernel = {}, None
+    with open(os.path.join(build_dir, f"lib{name}.so.log")) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+                report[kernel] = {}
+            elif kernel is not None and "Used" in line:
+                for key in ("registers", "bytes smem"):
+                    n = re.search(r"(\d+) " + key, line)
+                    if n:
+                        report[kernel][key] = int(n.group(1))
+            elif kernel is not None and "spill" in line:
+                n = re.search(r"(\d+) bytes spill stores", line)
+                report[kernel]["bytes spilled"] = int(n.group(1)) if n else 0
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", os.path.join(build_dir, f"lib{name}.so")],
+            capture_output=True, text=True, timeout=120).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            fn = chunk.split(None, 1)[0]
+            if fn in report:
+                report[fn]["HMMA"] = chunk.count("HMMA")
+    names = _demangle(list(report))
+    return {names[k]: v for k, v in report.items()}
 
 
 # ----------------------------------------------------------------- phase 3
 
-def _attention_inputs(torch, b, sq, sk, dtype, device, seed):
+def _attention_inputs(torch, b, sq, sk, dtype, device, seed, heads=12):
     g = torch.Generator().manual_seed(seed)
-    d = 12 * 64
+    d = heads * 64
     q = torch.randn(b, sq, d, generator=g)
     k = torch.randn(b, sk, d, generator=g)
     v = torch.randn(b, sk, d, generator=g)
@@ -329,16 +392,16 @@ def _eager_ms(torch, fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_terms(b, sq, sk, dtype):
+def _bound_terms(b, sq, sk, dtype, heads=12):
     """(ms to move the bytes, ms to do the FLOPs) of one forward call of
     either attention kernel (the short primal and the mid-length forward
     read and write the same tensors) on an H100: q, k, v and the fp32 bias
     read once and the output written once, over HBM; the two products'
     FLOPs over the peak rate of the inputs' type."""
     item = 2 if dtype == "bfloat16" else 4
-    d = 12 * 64
+    d = heads * 64
     nbytes = item * b * d * (2 * sq + 2 * sk) + 4 * b * sk
-    flops = 4 * b * 12 * sq * sk * 64
+    flops = 4 * b * heads * sq * sk * 64
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
 
 
@@ -349,7 +412,8 @@ def _bound(t_bytes, t_ops):
 
 
 def _kernel_point(torch, name, kernel, plain, b, sq, sk, dtype, device,
-                  seed, tol, rehearse, rate=0.0, timed=True) -> dict:
+                  seed, tol, rehearse, rate=0.0, timed=True, heads=12
+                  ) -> dict:
     """One (batch, Sq, Sk, dtype, rate) point of a forward attention
     kernel: its output against its plain version on the same inputs
     (`tol`), its bound, and (`timed`, on the card) its device time beside
@@ -357,21 +421,22 @@ def _kernel_point(torch, name, kernel, plain, b, sq, sk, dtype, device,
     as a float mask (a yardstick the port never calls)."""
     import torch.nn.functional as F
 
-    q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype, device, seed)
-    args = (q, k, v, bias, 12, 64, rate, KERNEL_SEED)
+    q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype, device, seed,
+                                      heads)
+    args = (q, k, v, bias, heads, 64, rate, KERNEL_SEED)
     out = kernel(*args)
     ref = plain(*args)
     if not rehearse:
         torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     ok = bool(torch.allclose(out.float(), ref.float(), **tol))
-    row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq, "sk": sk,
-           "max_abs_err": err, "ok": ok}
-    row["bytes_ms"], row["ops_ms"] = _bound_terms(b, sq, sk, dtype)
+    row = {"batch": b, "dtype": dtype, "rate": rate, "heads": heads,
+           "sq": sq, "sk": sk, "max_abs_err": err, "ok": ok}
+    row["bytes_ms"], row["ops_ms"] = _bound_terms(b, sq, sk, dtype, heads)
     row["bound_ms"], row["bound_by"] = _bound(row["bytes_ms"], row["ops_ms"])
     if timed and not rehearse:
         mask = bias.to(q.dtype)[:, None, None, :]
-        split = lambda t: t.view(b, t.shape[1], 12, 64).transpose(1, 2)
+        split = lambda t: t.view(b, t.shape[1], heads, 64).transpose(1, 2)
         qh, kh, vh = split(q), split(k), split(v)
         row["ms"] = _graph_ms(torch, lambda: kernel(*args))
         row["plain_ms"] = _graph_ms(torch, lambda: plain(*args))
@@ -380,8 +445,8 @@ def _kernel_point(torch, name, kernel, plain, b, sq, sk, dtype, device,
         row["call_ms"] = _eager_ms(torch, lambda: kernel(*args))
     log(f"{name}: " + json.dumps(row))
     check(ok, f"{name} disagrees with its plain version at B={b} {dtype} "
-              f"rate {rate} ({sq},{sk}): max abs err {err} (tolerance "
-              f"{tol})")
+              f"rate {rate} H={heads} ({sq},{sk}): max abs err {err} "
+              f"(tolerance {tol})")
     return row
 
 
@@ -399,15 +464,26 @@ def _fused_primal_plain(q, k, v, bias, num_heads, head_size, rate, seed):
 
 def phase_kernel(torch, device, rehearse: bool, seed: int) -> list[dict]:
     """The primal short kernel at LXMERT's serving shapes (batch 32, 256)
-    and mPLUG's text-tower and rank shapes (batch 8)."""
+    and mPLUG's text-tower and rank shapes (batch 8), fp32 and bf16; then
+    bf16 at the edge shapes (1,1) and (85,85) (batch 32) and at stage 3's
+    6 compacted heads (the LXMERT shapes, batch 64)."""
     points = [(b, sq, sk) for b in ((2,) if rehearse else (SERVE_BATCH, 256))
               for sq, sk in SERVE_SHAPES]
     points += [(2 if rehearse else MPLUG_SHORT_BATCH, sq, sk)
                for sq, sk in MPLUG_SHORT_SHAPES]
-    return [_kernel_point(torch, "fused_attention_fwd", _fused_primal,
+    rows = [_kernel_point(torch, "fused_attention_fwd", _fused_primal,
                           _fused_primal_plain, b, sq, sk, dtype, device,
                           seed + sq + sk, TOL[dtype], rehearse)
             for b, sq, sk in points for dtype in ("float32", "bfloat16")]
+    edge = [(2 if rehearse else SERVE_BATCH, 12, sq, sk)
+            for sq, sk in SHORT_EDGE_SHAPES]
+    edge += [(2 if rehearse else S1_BATCH, COMPACT_HEADS, sq, sk)
+             for sq, sk in SERVE_SHAPES]
+    return rows + [_kernel_point(torch, "fused_attention_fwd", _fused_primal,
+                                 _fused_primal_plain, b, sq, sk, "bfloat16",
+                                 device, seed + sq + sk + h, TOL["bfloat16"],
+                                 rehearse, heads=h)
+                   for b, h, sq, sk in edge]
 
 
 def phase_midseq_kernel(torch, device, rehearse: bool, seed: int
@@ -444,14 +520,14 @@ def launch_mult(config) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def _train_bound_terms(b, sq, sk, dtype, kind):
+def _train_bound_terms(b, sq, sk, dtype, kind, heads=12):
     """(bytes ms, FLOPs ms) of one training-kernel call, each input read
     once and each output written once: the forward for grad reads q, k, v
     and the bias and writes out and the fp32 residual; the stored backward
     reads q, g, k, v and the residual and writes dq, dk, dv; the recompute
     backward reads the bias instead of the residual."""
     item = 2 if dtype == "bfloat16" else 4
-    d, h = 12 * 64, 12
+    d, h = heads * 64, heads
     resid = 4 * b * sq * h * sk
     if kind == "fwd":
         nbytes = item * b * d * (2 * sq + 2 * sk) + 4 * b * sk + resid
@@ -476,80 +552,90 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
 
     rows = []
     # stage 2's batch, both dtypes and rates; stages 1 and 3's, bf16 at
-    # the main path's rate
-    points = [(2 if rehearse else TRAIN_BATCH, dtype, rate)
-              for dtype in ("float32", "bfloat16") for rate in TRAIN_RATES]
-    points.append((2 if rehearse else S1_BATCH, "bfloat16", MAIN_RATE))
-    for b, dtype, rate in points:
-        for sq, sk in SERVE_SHAPES:
-            q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
-                                              device, seed + 7 * sq + sk)
-            gen = torch.Generator().manual_seed(seed + sq * sk)
-            g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
-            args = (12, 64, rate, KERNEL_SEED)
-            out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
-            ref_out, ref_p = fa.fused_attention_train_reference(
-                q, k, v, bias, *args)
-            stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
-            recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g,
-                                                      *args)
-            ref_s = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
-            ref_r = fa.fused_attention_bwd_reference(q, k, v, ref_p, g,
-                                                     *args)
-            if not rehearse:
-                torch.cuda.synchronize()
-            row = {"batch": b, "dtype": dtype, "rate": rate, "sq": sq,
-                   "sk": sk,
-                   "fwd_err": _max_err(torch, [out], [ref_out]),
-                   "p_err": _max_err(torch, [p], [ref_p]),
-                   "bwd_stored_err": _max_err(torch, stored, ref_s),
-                   "bwd_recompute_err": _max_err(torch, recomp, ref_r),
-                   "stored_vs_recompute": _max_err(torch, stored, recomp)}
-            ok = (torch.allclose(out.float(), ref_out.float(), **TOL[dtype])
-                  and torch.allclose(p, ref_p, atol=TOL_P, rtol=0)
-                  and all(torch.allclose(x.float(), y.float(),
-                                         **TOL_BWD[dtype])
-                          for x, y in zip(stored + recomp, ref_s + ref_r)))
-            for kind in ("fwd", "stored", "recompute"):
-                t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind)
-                row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (t_bytes,
-                                                                  t_ops)
-            if not rehearse:
-                split = lambda t: (t.view(b, t.shape[1], 12, 64)
-                                   .transpose(1, 2).detach()
-                                   .requires_grad_())
-                qh, kh, vh = split(q), split(k), split(v)
-                gh = g.view(b, sq, 12, 64).transpose(1, 2)
-                mask = bias.to(q.dtype)[:, None, None, :]
-                sdpa = lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask)
-                row["fwd_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_fwd_train(q, k, v, bias, *args)))
-                row["fwd_plain_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_train_reference(q, k, v, bias,
-                                                       *args)))
-                row["stored_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_bwd_stored(q, k, v, p, g, *args)))
-                row["stored_plain_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_bwd_reference(q, k, v, p, g,
-                                                     *args)))
-                row["recompute_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_bwd_recompute(q, k, v, bias, g,
-                                                     *args)))
-                row["recompute_plain_ms"] = _graph_ms(torch, lambda: (
-                    fa.fused_attention_bwd_reference(
-                        q, k, v, fa.probs_residual(q, k, bias, 12, 64), g,
-                        *args)))
-                row["library_fwd_ms"] = _graph_ms(torch, sdpa)
-                row["library_fwd_bwd_ms"] = _graph_ms(
-                    torch, lambda: torch.autograd.grad(
-                        sdpa(), (qh, kh, vh), gh))
-            rows.append(row)
-            log("train-kernels: " + json.dumps(row))
-            check(ok, f"training attention kernels disagree with their "
-                      f"plain versions at B={b} {dtype} rate {rate} "
-                      f"({sq},{sk}): {row} (tolerances {TOL[dtype]}, "
-                      f"p {TOL_P}, backward {TOL_BWD[dtype]})")
+    # the main path's rate, with the edge shapes and stage 3's 6 heads
+    points = [(2 if rehearse else TRAIN_BATCH, dtype, rate, 12, sq, sk)
+              for dtype in ("float32", "bfloat16") for rate in TRAIN_RATES
+              for sq, sk in SERVE_SHAPES]
+    b64 = 2 if rehearse else S1_BATCH
+    points += [(b64, "bfloat16", MAIN_RATE, 12, sq, sk)
+               for sq, sk in SERVE_SHAPES + SHORT_EDGE_SHAPES]
+    points += [(b64, "bfloat16", MAIN_RATE, COMPACT_HEADS, sq, sk)
+               for sq, sk in SERVE_SHAPES]
+    for b, dtype, rate, heads, sq, sk in points:
+        q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
+                                          device, seed + 7 * sq + sk,
+                                          heads)
+        gen = torch.Generator().manual_seed(seed + sq * sk)
+        g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
+        args = (heads, 64, rate, KERNEL_SEED)
+        out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+        ref_out, ref_p = fa.fused_attention_train_reference(
+            q, k, v, bias, *args)
+        stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+        recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g,
+                                                  *args)
+        ref_s = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+        ref_r = fa.fused_attention_bwd_reference(q, k, v, ref_p, g,
+                                                 *args)
+        if not rehearse:
+            torch.cuda.synchronize()
+        row = {"batch": b, "dtype": dtype, "rate": rate, "heads": heads,
+               "sq": sq, "sk": sk,
+               "fwd_err": _max_err(torch, [out], [ref_out]),
+               "p_err": _max_err(torch, [p], [ref_p]),
+               "bwd_stored_err": _max_err(torch, stored, ref_s),
+               "bwd_recompute_err": _max_err(torch, recomp, ref_r),
+               "stored_vs_recompute": _max_err(torch, stored, recomp)}
+        ok = (torch.allclose(out.float(), ref_out.float(), **TOL[dtype])
+              and torch.allclose(p, ref_p, atol=TOL_P, rtol=0)
+              and all(torch.allclose(x.float(), y.float(),
+                                     **TOL_BWD[dtype])
+                      for x, y in zip(stored + recomp, ref_s + ref_r))
+              # the bf16 backward rebuilds the forward's p bit for bit
+              and (dtype != "bfloat16"
+                   or row["stored_vs_recompute"] == 0.0))
+        for kind in ("fwd", "stored", "recompute"):
+            t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind,
+                                                heads)
+            row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (t_bytes,
+                                                              t_ops)
+        if not rehearse:
+            split = lambda t: (t.view(b, t.shape[1], heads, 64)
+                               .transpose(1, 2).detach()
+                               .requires_grad_())
+            qh, kh, vh = split(q), split(k), split(v)
+            gh = g.view(b, sq, heads, 64).transpose(1, 2)
+            mask = bias.to(q.dtype)[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)
+            row["fwd_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_fwd_train(q, k, v, bias, *args)))
+            row["fwd_plain_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_train_reference(q, k, v, bias,
+                                                   *args)))
+            row["stored_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_bwd_stored(q, k, v, p, g, *args)))
+            row["stored_plain_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_bwd_reference(q, k, v, p, g,
+                                                 *args)))
+            row["recompute_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_bwd_recompute(q, k, v, bias, g,
+                                                 *args)))
+            row["recompute_plain_ms"] = _graph_ms(torch, lambda: (
+                fa.fused_attention_bwd_reference(
+                    q, k, v, fa.probs_residual(q, k, bias, heads, 64),
+                    g, *args)))
+            row["library_fwd_ms"] = _graph_ms(torch, sdpa)
+            row["library_fwd_bwd_ms"] = _graph_ms(
+                torch, lambda: torch.autograd.grad(
+                    sdpa(), (qh, kh, vh), gh))
+        rows.append(row)
+        log("train-kernels: " + json.dumps(row))
+        check(ok, f"training attention kernels disagree with their "
+                  f"plain versions at B={b} {dtype} rate {rate} H="
+                  f"{heads} ({sq},{sk}): {row} (tolerances "
+                  f"{TOL[dtype]}, p {TOL_P}, backward {TOL_BWD[dtype]}; "
+                  "bf16 stored and recompute bit-identical)")
     return rows
 
 
@@ -2419,7 +2505,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
     main = [r for r in rows if r["batch"] == SERVE_BATCH
-            and r["dtype"] == "bfloat16"]
+            and r["dtype"] == "bfloat16" and r["heads"] == 12
+            and (r["sq"], r["sk"]) in fwd_mult]
     total = lambda key: sum(r[key] * fwd_mult[(r["sq"], r["sk"])]
                             for r in main)
     bound_ms, bound_by = _bound(total("bytes_ms"), total("ops_ms"))
@@ -2460,7 +2547,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    "bias as a float mask",
     })
     main = [r for r in train_rows if r["batch"] == TRAIN_BATCH
-            and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
+            and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE
+            and r["heads"] == 12]
     for name, kind, replaces, mult, launches, err_keys, library in (
             ("fused_attention_fwd_train", "fwd",
              "crvqa_tpu/ops/fused_attention.py:153", fwd_mult,
@@ -2615,8 +2703,7 @@ def main(argv=None) -> int:
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_keep_")
     try:
         dev = phase("device", phase_device, torch, rehearse)
-        if not rehearse:
-            phase("build", phase_build)
+        build = None if rehearse else phase("build", phase_build)
         rows = phase("kernel", phase_kernel, torch, device, rehearse, seed)
         midseq_rows = phase("midseq-kernel", phase_midseq_kernel, torch,
                             device, rehearse, seed)
@@ -2661,7 +2748,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"device": dev, "phase_s": phase_s, "kernel_rows": rows,
+            json.dump({"device": dev, "phase_s": phase_s, "build": build,
+                       "kernel_rows": rows,
                        "midseq_kernel_rows": midseq_rows,
                        "train_kernel_rows": train_rows, "serve": serve,
                        "mplug": mplug, "train": train, "step": step,

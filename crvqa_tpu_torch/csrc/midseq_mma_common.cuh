@@ -6,119 +6,46 @@
 // dk / dv kernel share, so all three form s and p with the same arithmetic
 // in the same order.
 //
-// Fragment layout (PTX ISA, mma.m16n8k16 with .bf16): lane l is in group
-// g = l / 4 and quad position c = l % 4. An fp32 accumulator tile [16 x 8]
-// holds (row g, cols 2c, 2c + 1) in elements 0, 1 and (row g + 8, the same
-// cols) in elements 2, 3. An A operand [16 x 16] holds, as bf16 pairs,
-// (g, 2c..2c+1), (g + 8, 2c..2c+1), (g, 2c+8..2c+9), (g + 8, 2c+8..2c+9):
-// two neighbouring accumulator tiles, rounded and packed, are one A
-// operand, so probabilities never leave registers between the two products.
-//
-// Every sum that must repeat bit for bit (row max, denominator, the quad
-// exchange) uses __fadd_rn / __fmul_rn, which the compiler never contracts
-// into an FMA: the same inputs give the same bits in every kernel that
-// includes this file, and the four lanes of a quad end with equal values.
+// The PTX wrappers, the fragment layout and the score / exp / prob code
+// live in fused_attention_common.cuh, shared with the short kernels.
 #pragma once
 
 #include "fused_attention_common.cuh"
 
 namespace ms {
 
-using bf16 = __nv_bfloat16;
+using fa::bf16;
 
-constexpr int kD = fa::kHeadDim;  // 64
-constexpr int kTileRows = 64;     // staged keys (or query rows) per tile
-constexpr int kPitch = kD + 8;    // staged row pitch in bf16: 144 bytes, so
-                                  // the 8 rows of an ldmatrix hit 32 banks
-constexpr int kChunk = 32;        // keys (or query rows) per warp product
+constexpr int kD = fa::kHeadDim;       // 64
+constexpr int kTileRows = 64;          // staged keys (or query rows) a tile
+constexpr int kPitch = fa::kMmaPitch;  // staged row pitch: 144 bytes
+constexpr int kChunk = 32;             // keys (or query rows) a warp product
 constexpr int kTileElems = kTileRows * kPitch;
 
-// ------------------------------------------------------------------- PTX
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; `bytes` 0 writes zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// 4 bytes global -> shared; `bytes` 0 writes zeros.
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-
-// acc[16 x 8] += a[16 x 16] * b[16 x 8], bf16 operands, fp32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&acc)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) -> one register of two bf16, round to nearest even; lo is the
-// element of the smaller column.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using fa::aligned16;
+using fa::cp_async_16;
+using fa::cp_async_4;
+using fa::cp_async_commit;
+using fa::cp_async_wait;
+using fa::drop_at;
+using fa::exp_sfu;
+using fa::ldmatrix_x4;
+using fa::ldmatrix_x4_trans;
+using fa::mma_bf16;
+using fa::pack_bf16;
+using fa::prob;
+using fa::quad_sum;
+using fa::score;
 
 // ---------------------------------------------------------------- staging
 
-// Rows [r0, r0 + 64) of one head's [S, D] slice (row stride `stride`
-// elements, 16-byte aligned rows) -> tile[64][kPitch], 16 bytes a thread
-// with cp.async; rows at and past `rows` are zero-filled. The caller
+// Rows [r0, r0 + 64) of one head's [S, D] slice -> tile[64][kPitch]
+// (`fa::stage_rows`); rows at and past `rows` are zero-filled. The caller
 // commits the group.
 __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src,
                                            int64_t stride, int r0, int rows,
                                            int tid, int nthreads) {
-  for (int i = tid; i < kTileRows * (kD / 8); i += nthreads) {
-    const int r = i >> 3, ch = i & 7;
-    const bool live = r0 + r < rows;
-    const bf16* from = src + (int64_t)(live ? r0 + r : 0) * stride + ch * 8;
-    cp_async_16(tile + r * kPitch + ch * 8, from, live ? 16 : 0);
-  }
+  fa::stage_rows(tile, src, stride, r0, kTileRows, rows, tid, nthreads);
 }
 
 // One warp's 16 rows [r0, r0 + 16) of a head's [S, D] slice as the A
@@ -170,65 +97,19 @@ __device__ __forceinline__ void mma_ab(float (&acc)[8][4],
                                        const uint32_t (&a)[2][4],
                                        const bf16* tile, int r0, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b0, b1, b2, b3;
-      const bf16* p = tile +
-                      (r0 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                          kPitch +
-                      (np * 2 + (lane >> 4)) * 8;
-      ldmatrix_x4_trans(b0, b1, b2, b3, p);
-      mma_bf16(acc[2 * np], a[ks], b0, b1);
-      mma_bf16(acc[2 * np + 1], a[ks], b2, b3);
-    }
-  }
+  for (int ks = 0; ks < 2; ++ks)
+    fa::mma_ab16(acc, a[ks], tile, r0 + 16 * ks, lane);
 }
 
 // Accumulator tiles [16 x 32] (four n-tiles) -> two A operands [16 x 16]
 // over the 32 columns, rounded to bf16.
 __device__ __forceinline__ void pack_a(uint32_t (&a)[2][4],
                                        const float (&x)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    a[ks][0] = pack_bf16(x[2 * ks][0], x[2 * ks][1]);
-    a[ks][1] = pack_bf16(x[2 * ks][2], x[2 * ks][3]);
-    a[ks][2] = pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]);
-    a[ks][3] = pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3]);
-  }
+  fa::pack_a(a[0], x[0], x[1]);
+  fa::pack_a(a[1], x[2], x[3]);
 }
 
 // ----------------------------------------------- scores and probabilities
-
-// s = (q . k) / sqrt(D) + bias[j]: the TPU kernel's `s * scale + bias`,
-// two roundings.
-__device__ __forceinline__ float score(float dot, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(dot, scale), bias);
-}
-
-// exp(x) as 2^(x log2 e) on the special-function unit (`ex2.approx`, about
-// 2 ulp): the softmax's exponentials are most of the kernels' non-tensor
-// work, and the full-accuracy expf costs several times as many
-// instructions. p is normalised before any rounding to bf16 all the same.
-__device__ __forceinline__ float exp_sfu(float x) {
-  return exp2f(__fmul_rn(x, 1.4426950408889634f));
-}
-
-// p = exp(s - max) / denominator, the division as a product with the
-// row's reciprocal denominator (one division per row, not per score).
-__device__ __forceinline__ float prob(float s, float row_max,
-                                      float inv_denom) {
-  return __fmul_rn(exp_sfu(__fsub_rn(s, row_max)), inv_denom);
-}
-
-// The dropout factor at (i, j): 1 / (1 - rate) where the keep bit is set,
-// else 0; rate 0 is threshold 0 with keep_scale 1, every bit kept.
-__device__ __forceinline__ float drop_at(uint32_t key, uint32_t i, uint32_t j,
-                                         uint32_t threshold,
-                                         float keep_scale) {
-  if (threshold == 0u) return 1.f;
-  return fa::keep_bit(key, i, j, threshold) ? keep_scale : 0.f;
-}
 
 // Query-major scores of one chunk: acc from `mma_abt` (rows are query rows,
 // columns keys j0 + 8n + 2c + {0, 1}) -> s in place; keys at and past sk
@@ -323,13 +204,6 @@ struct RowStats {
   }
 };
 
-// Sum over a quad's four lanes (each query row's rowsum), symmetric: the
-// four lanes end with the same bits.
-__device__ __forceinline__ float quad_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
 // The 16 x 64 fp32 accumulator of one warp -> rows [r0, r0 + 16) of a
 // bf16 output with row stride `ld` (`out` points at the head's first
 // column), rows < `rows` only.
@@ -362,14 +236,6 @@ cudaError_t launch_by_width(int rows, int heads, int batch, Wide wide,
   else
     narrow(dim3((rows + 15) / 16, heads, batch));
   return cudaGetLastError();
-}
-
-// 16-byte aligned pointer and row strides that keep every row 16-byte
-// aligned: what cp.async and the 32-bit fragment loads need.
-__host__ __forceinline__ bool aligned16(const void* p, int64_t s0,
-                                        int64_t s1) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 8 == 0 &&
-         s1 % 8 == 0;
 }
 
 }  // namespace ms

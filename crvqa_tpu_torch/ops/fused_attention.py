@@ -2,8 +2,9 @@
 
 Counterpart of `crvqa_tpu/ops/fused_attention.py`. The kernels are
 `csrc/fused_attention_fwd.cu` (the primal and the forward for grad) and
-`csrc/fused_attention_bwd.cu` (the stored and the recompute backward); see
-their headers for what each replaces, its bound and its design. This module
+`csrc/fused_attention_bwd.cu` (the stored and the recompute backward):
+bf16 on the tensor cores (`mma.sync`), fp32 on scalar FMAs; see their
+headers for what each replaces, its bound and its design. This module
 holds their ctypes bindings, their plain PyTorch versions, and the wrappers
 that choose between them by the tensor's device:
 
@@ -25,7 +26,11 @@ it and the port's masks equal the JAX package's bit for bit.
 
 Scope: H*Sq <= 1024 and H*Sk <= 1024 (the JAX short-seq predicate,
 models/layers.py:275), and on the card head_size 64 with fp32 or bf16
-activations.
+activations; bf16 q, k, v and g start 16-byte aligned with batch and row
+strides of whole 16-byte units (the kernels stage them 16 bytes a thread).
+The backward also needs its block's shared memory to fit
+(`bwd_smem_bytes`): every shape at H >= 12, and every shape the fp32
+kernel takes in bf16.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ MAX_HEADS_TIMES_SEQ = 1024
 KERNEL_HEAD_SIZE = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _BWD_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+_MMA_PITCH = KERNEL_HEAD_SIZE + 8  # a staged bf16 row: 144 bytes
+_MMA_MAX_WARPS = 8
 
 # Backward implementation, read when the forward runs: "stored" (the
 # forward writes the pre-dropout probabilities as a residual) or
@@ -321,9 +328,49 @@ def _check_rate(rate: float) -> None:
         raise ValueError(f"fused_attention: dropout rate {rate} not in [0, 1)")
 
 
-def _check_cuda(q, k, v, bias, head_size):
+def bwd_smem_bytes(sq: int, sk: int, dtype: torch.dtype, stored: bool
+                   ) -> int:
+    """Shared memory of the backward kernel's block at (Sq, Sk).
+
+    fp32 (scalar): q, g, k, v at a pitch of D + 1 floats and three fp32
+    [Sq, Sk] planes. bf16 (tensor cores; `BwdPlan` in the source): q, g
+    and k as bf16 rows of 144 bytes padded to whole 16-row tiles, the ds
+    and p_t planes [Sq, Sk + 8] bf16, then V and the stored p plane (or the
+    recompute bias), which the product phase reuses as one 2304-byte output
+    slot per warp."""
+    if dtype != torch.bfloat16:
+        return 4 * ((2 * sq + 2 * sk) * (KERNEL_HEAD_SIZE + 1) + 3 * sq * sk)
+    sqp, skp = 16 * -(-sq // 16), 16 * -(-sk // 16)
+    row, plane = 2 * _MMA_PITCH, 2 * sqp * (skp + 8)
+    warps = min(max(sqp, skp) // 16, _MMA_MAX_WARPS)
+    tail = row * skp + (2 * plane if stored else 4 * skp)
+    return row * (2 * sqp + skp) + 2 * plane + max(tail, 16 * row * warps)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int]:
+    """Batch and row strides as the kernels take them: 0 for a dimension of
+    size 1, whose stride is never used and may be anything."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in (0, 1))
+
+
+def _tiles_aligned(t: torch.Tensor) -> bool:
+    """What the bf16 kernels' 16-byte cp.async staging needs: a 16-byte
+    aligned start and batch and row strides of whole 16-byte units."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides(t))
+
+
+def _check_aligned(*operands):
+    if operands[0].dtype == torch.bfloat16 and not all(
+            _tiles_aligned(t) for t in operands):
+        raise ValueError("fused_attention bf16 kernel: q/k/v/g must start "
+                         "16-byte aligned with batch and row strides that "
+                         "are multiples of 8 elements")
+
+
+def _check_cuda(q, k, v, bias, head_size, g=None):
     """What the kernels take (bias None: the stored backward, which reads
-    none); raises on anything else."""
+    none; with `g`, the backward's cotangent too); raises on anything
+    else."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -336,9 +383,14 @@ def _check_cuda(q, k, v, bias, head_size):
     if head_size != KERNEL_HEAD_SIZE:
         raise ValueError(f"fused_attention kernel: head_size {head_size} "
                          f"(the kernel takes {KERNEL_HEAD_SIZE})")
-    if any(t.stride(2) != 1 for t in (q, k, v)):
+    if g is not None and (g.shape != q.shape or g.dtype != q.dtype):
+        raise TypeError("fused_attention backward kernel: g must match q's "
+                        "shape and dtype")
+    operands = (q, k, v) if g is None else (q, k, v, g)
+    if any(t.stride(2) != 1 for t in operands):
         raise ValueError("fused_attention kernel: the H*D dimension of "
-                         "q/k/v must be contiguous")
+                         "q/k/v/g must be contiguous")
+    _check_aligned(*operands)
 
 
 # ---------------------------------------------------------------- launches
@@ -398,8 +450,8 @@ def _launch_primal(q, k, v, bias, num_heads, head_size):
         rc = lib.fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, sq, sk, num_heads, head_size,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), int(q.dtype == torch.bfloat16),
+            *_strides(q), *_strides(k), *_strides(v),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_fwd")
     fused_attention.launches += 1
@@ -420,9 +472,8 @@ def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), None if p is None else p.data_ptr(),
             b, sq, sk, num_heads, head_size,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), int(q.dtype == torch.bfloat16),
-            seed_u, threshold, keep_scale,
+            *_strides(q), *_strides(k), *_strides(v),
+            int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_fwd")
     fused_attention_fwd_train.launches += 1
@@ -432,16 +483,13 @@ def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
 def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed):
     """The backward kernel, stored (p given) or recompute (bias given)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
-    _check_cuda(q, k, v, bias, head_size)
+    _check_cuda(q, k, v, bias, head_size, g)
     b, sq, d = q.shape
     sk = k.shape[1]
-    if g.shape != q.shape or g.dtype != q.dtype or g.stride(2) != 1:
-        raise TypeError("fused_attention backward kernel: g must match q's "
-                        "shape and dtype with a contiguous last dimension")
     if p is not None and p.shape != (b, sq, num_heads * sk):
         raise ValueError(f"fused_attention backward kernel: residual shape "
                          f"{tuple(p.shape)} != {(b, sq, num_heads * sk)}")
-    smem = 4 * ((2 * sq + 2 * sk) * (KERNEL_HEAD_SIZE + 1) + 3 * sq * sk)
+    smem = bwd_smem_bytes(sq, sk, q.dtype, p is not None)
     if smem > _BWD_SMEM_LIMIT:
         raise ValueError(f"fused_attention backward kernel: (Sq, Sk) = "
                          f"({sq}, {sk}) needs {smem} bytes of shared memory, "
@@ -458,8 +506,7 @@ def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed):
             None if bias is None else bias.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, num_heads, head_size,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), g.stride(0), g.stride(1),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(g),
             int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_bwd")

@@ -283,6 +283,142 @@ def test_train_step_kernels_match_plain_versions():
                                    atol=1e-3 * gmax, msg=k)
 
 
+# --------------------------------------- short attention, bf16 on tensor cores
+
+# (heads, Sq, Sk): ragged and edge shapes of the short scope, LXMERT's 12
+# heads and stage 3's compacted 6. At (170, 170) only the recompute
+# backward's block fits 227 KB.
+SHORT_EDGE = [(12, 1, 1), (12, 14, 36), (12, 36, 14), (12, 25, 25),
+              (12, 85, 85), (6, 36, 36), (6, 170, 170)]
+SHORT_COUNTERS = ("fused_attention", "fused_attention_fwd_train",
+                  "fused_attention_bwd_stored", "fused_attention_bwd_recompute")
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _launches():
+    return [getattr(fa, name).launches for name in SHORT_COUNTERS]
+
+
+def _short_inputs(b, sq, sk, heads, seed):
+    g = torch.Generator().manual_seed(seed)
+    d = heads * 64
+    q, k, v, gq = (torch.randn(b, s, d, generator=g) for s in (sq, sk, sk, sq))
+    bias = torch.zeros(b, sk)
+    bias[1::2, sk // 2:] = -10000.0
+    return [t.cuda().bfloat16() for t in (q, k, v, gq)] + [bias.cuda()]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("heads,sq,sk", SHORT_EDGE)
+def test_short_bf16_kernels_at_edge_shapes(heads, sq, sk, rate):
+    """The bf16 primal, forward for grad (output and fp32 residual p) and
+    both backwards against their plain versions; stored and recompute
+    gradients bit-identical, and two launches of each the same bits."""
+    _need_card()
+    q, k, v, g, bias = _short_inputs(4, sq, sk, heads, seed=sq * 100 + sk)
+    args = (heads, 64, rate, -7)
+    out = fa.fused_attention(q, k, v, bias, heads, 64, rate, -7)
+    out_t, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+    torch.cuda.synchronize()
+    ref, pref = fa.fused_attention_train_reference(q, k, v, bias, *args)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    assert torch.equal(out, out_t)
+    torch.testing.assert_close(p, pref, atol=1e-6, rtol=0)
+    want = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+    recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g, *args)
+    again = fa.fused_attention_bwd_recompute(q, k, v, bias, g, *args)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip("qkv", recomp, want, again):
+        assert torch.equal(a, c), f"d{name} differs between launches"
+        torch.testing.assert_close(a.float(), b.float(), **BF16_TOL,
+                                   msg=lambda m: f"d{name}: {m}")
+    if fa.bwd_smem_bytes(sq, sk, torch.bfloat16, True) > 232448:
+        before = _launches()
+        with pytest.raises(ValueError, match="shared memory"):
+            fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+        assert _launches() == before
+        return
+    stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", stored, recomp):
+        assert torch.equal(a, b), f"stored and recompute d{name} differ"
+
+
+def test_short_bf16_kernels_read_strided_projection_slices():
+    """bf16 q/k/v as column slices of one fused [B, S, 3*H*D] projection:
+    forward and backward read them in place through their row strides."""
+    _need_card()
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(8, 36, 3 * 768, generator=g).cuda().bfloat16()
+    q, k, v = qkv[..., :768], qkv[..., 768:1536], qkv[..., 1536:]
+    assert not q.is_contiguous() and k.storage_offset() == 768
+    gq = torch.randn(8, 36, 768, generator=g).cuda().bfloat16()
+    bias = torch.zeros(8, 36, device="cuda")
+    bias[::3, 30:] = -10000.0
+    args = (12, 64, 0.1, 5)
+    out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+    grads = fa.fused_attention_bwd_stored(q, k, v, p, gq, *args)
+    dense = [t.contiguous() for t in (q, k, v)]
+    ref, pref = fa.fused_attention_train_reference(*dense, bias, *args)
+    want = fa.fused_attention_bwd_reference(*dense, p, gq, *args)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(p, pref, atol=1e-6, rtol=0)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a.float(), b.float(), **BF16_TOL)
+
+
+def test_short_routes_bf16_to_tensor_cores_and_fp32_to_scalar_kernels():
+    """The profiler names what ran: bf16 the mma kernels, fp32 the scalar
+    ones, forward and backward."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias = _inputs(4, 36, 36, dtype)
+        g = torch.randn_like(q)
+        _, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.1, 3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.fused_attention(q, k, v, bias, 12, 64)
+            fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.1, 3)
+            fa.fused_attention_bwd_stored(q, k, v, p, g, 12, 64, 0.1, 3)
+            fa.fused_attention_bwd_recompute(q, k, v, bias, g, 12, 64, 0.1,
+                                             3)
+            torch.cuda.synchronize()
+        ran[dtype] = " ".join(e.key for e in prof.key_averages())
+    for name in ("fused_attention_fwd_mma_kernel",
+                 "fused_attention_bwd_mma_kernel"):
+        assert name in ran[torch.bfloat16] and name not in ran[torch.float32]
+    for name in ("fused_attention_fwd_kernel", "fused_attention_bwd_kernel"):
+        assert name in ran[torch.float32] and name not in ran[torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", ["offset", "row_stride"])
+def test_short_bf16_refuses_unaligned_tiles(case):
+    """The bf16 kernels stage 16 bytes a thread: a start or a row stride
+    off the 16-byte grid raises before any launch, every counter unmoved."""
+    _need_card()
+    q, k, v, bias = _inputs(2, 14, 36, torch.bfloat16)
+    if case == "offset":  # starts 2 bytes past the grid
+        k = torch.randn(2, 36, 769, device="cuda").bfloat16()[..., 1:]
+    else:  # rows of 772 elements
+        k = torch.randn(2, 36, 772, device="cuda").bfloat16()[..., :768]
+    p = torch.zeros(2, 14, 12 * 36, device="cuda")
+    before = _launches()
+    calls = [lambda: fa.fused_attention(q, k, v, bias, 12, 64),
+             lambda: fa.fused_attention_fwd_train(q, k, v, bias, 12, 64,
+                                                  0.1, 1),
+             lambda: fa.fused_attention_bwd_stored(q, k, v, p, q, 12, 64,
+                                                   0.1, 1),
+             lambda: fa.fused_attention_bwd_recompute(q, k, v, bias, q, 12,
+                                                      64, 0.1, 1)]
+    for call in calls:
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    assert _launches() == before
+
+
 # ------------------------------------------------- mid-length attention
 
 MIDSEQ_SHAPES = [(577, 577), (25, 577), (602, 602), (1, 602), (120, 602)]

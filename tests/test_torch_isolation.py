@@ -1,5 +1,6 @@
-"""The port stands alone: `crvqa_tpu_torch` and `chip_smoke.py` import
-neither JAX (jax, flax, optax) nor anything of the JAX package."""
+"""The port stands alone: `crvqa_tpu_torch`, `chip_smoke.py` and
+`chip_times.py` import neither JAX (jax, flax, optax) nor anything of the
+JAX package."""
 import ast
 import pathlib
 import pkgutil
@@ -82,7 +83,7 @@ def _imported_roots(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py", REPO / "chip_times.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
