@@ -13,8 +13,9 @@ Phases (each one's seconds are logged):
   2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
               feature store, compiled from the checkout, all at once; each
               kernel instantiation's registers, shared memory and spills
-              (`-Xptxas -v`) and its tensor-core instructions (HMMA, from
-              `cuobjdump -sass`).
+              (`-Xptxas -v`), its tensor-core instructions (HMMA, and
+              HGMMA for `wgmma`) and TMA loads (UTMALDG), from `cuobjdump
+              -sass`; every `wgmma_gemm_kernel` has HGMMA and UTMALDG.
   3. kernel   the primal short attention kernel against its plain PyTorch
               version at the LXMERT serving shapes (batch 32 and 256; every
               (Sq, Sk) LXMERT gives it) and at mPLUG's (25,25) and (1,1)
@@ -101,12 +102,18 @@ Phases (each one's seconds are logged):
               fp32 step at batch 8 with dropout on through the kernels
               against the same step through the plain attentions.
  14. masked-matmul-kernel  the three masked-matmul kernels (forward, dx,
-              STE ds) through `masked_matmul` under autograd against their
-              plain versions at (M, K, N) = (9216, 768, 768), (4096, 768,
-              3072) and (1000, 700, 300), x and w each bf16 or fp32, scores
-              on and one step above the threshold; zero gradients for w and
-              the threshold; timed beside the plain versions and cuBLAS on
-              x @ (w * (s > t)), alone and forward + backward.
+              STE ds: the operand pass, then the TMA + wgmma product)
+              through `masked_matmul` under autograd against their plain
+              versions at (M, K, N) = (9216, 768, 768), (4096, 768, 3072)
+              and (1000, 700, 300) and at three edge shapes around the
+              tiles, x and w each bf16 or fp32, scores on and one step above
+              the threshold; zero gradients for w and the threshold; ds
+              bit-identical across two calls and with a bf16 or an fp32
+              cotangent; the operand pass bit-equal to its plain version;
+              the profiler's kernel names and counts of one autograd run;
+              timed beside the plain versions and cuBLAS on x @ (w * (s >
+              t)), alone and forward + backward, ds with an fp32 and a bf16
+              cotangent.
  15. head-compact-kernel  the head-compact kernel at x [9216, 768], 12
               heads of 64 with 4 kept, padded with sentinels, and all
               masked, bf16 and fp32, against its plain version; timed beside
@@ -282,6 +289,14 @@ def phase_build() -> dict:
             kernels[kernel] = info
             log(f"build: {name}: {kernel}: " + ", ".join(
                 f"{v} {k}" for k, v in info.items()))
+    product = {k: v for k, v in kernels.items()
+               if "wgmma_gemm_kernel" in k}
+    check(len(product) == 3, f"build: the three wgmma_gemm_kernel "
+                             f"instantiations, found {list(product)}")
+    for kernel, info in product.items():
+        check(info.get("HGMMA", 1) > 0 and info.get("UTMALDG", 1) > 0,
+              f"build: {kernel} has no wgmma (HGMMA) or TMA load (UTMALDG) "
+              f"in its SASS: {info}")
     return {"seconds": seconds, "sources": sources, "kernels": kernels}
 
 
@@ -303,8 +318,9 @@ def _demangle(names: list[str]) -> dict:
 
 def _build_report(build_dir: str, name: str) -> dict:
     """Per kernel of lib<name>.so: registers, shared memory and spills from
-    the build's `-Xptxas -v` log, and the tensor-core instructions (HMMA)
-    in its SASS from `cuobjdump -sass`, where the toolkit has it."""
+    the build's `-Xptxas -v` log, and in its SASS from `cuobjdump -sass`,
+    where the toolkit has it, the tensor-core instructions (HMMA, and
+    HGMMA for `wgmma`) and the TMA loads (UTMALDG)."""
     import re
 
     report, kernel = {}, None
@@ -330,7 +346,8 @@ def _build_report(build_dir: str, name: str) -> dict:
         for chunk in sass.split("Function : ")[1:]:
             fn = chunk.split(None, 1)[0]
             if fn in report:
-                report[fn]["HMMA"] = chunk.count("HMMA")
+                for op in ("HMMA", "HGMMA", "UTMALDG"):
+                    report[fn][op] = chunk.count(op)
     names = _demangle(list(report))
     return {names[k]: v for k, v in report.items()}
 
@@ -1318,6 +1335,7 @@ def _counters() -> dict:
             "masked_matmul_fwd": mm.masked_matmul_fwd,
             "masked_matmul_dx": mm.masked_matmul_dx,
             "masked_matmul_ds": mm.masked_matmul_ds,
+            "masked_matmul_operand_pass": mm.operand_pass,
             "head_compact_matmul": sm.head_compact_matmul_pallas}
 
 
@@ -1938,6 +1956,9 @@ def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
 # measures (crvqa_tpu/ops/masked_matmul.py:19), and a ragged one
 MM_SHAPES = [(TRAIN_BATCH * BOXES, 768, 768), (4096, 768, 3072),
              (1000, 700, 300)]
+# around the product kernel's 128 x 128 x 64 tiles: a single element,
+# ragged rows, columns and reduction, a one-column output
+MM_EDGE_SHAPES = [(1, 1, 1), (65, 127, 129), (129, 200, 1)]
 MM_DTYPES = [("bfloat16", "bfloat16"), ("bfloat16", "float32"),
              ("float32", "float32"), ("float32", "bfloat16")]
 MM_THRESHOLD = 0.7
@@ -1959,20 +1980,25 @@ def _close_to(torch, got, want, bf16: bool, terms: int
     return bool((err <= tol).all()), err.max().item()
 
 
-def _mm_bound_terms(m, k, n, x_item, w_item) -> dict:
+def _mm_bound_terms(m, k, n, x_item, w_item, g_item=4) -> dict:
     """kind -> (bytes ms, FLOPs ms) of one masked-matmul kernel call: each
     input read once and each output written once over HBM (scores fp32; ds
-    reads g in fp32, as the VJP casts it, and writes fp32); 2·M·K·N FLOPs
-    at the bf16 tensor-core peak, since every product is of bf16
-    operands."""
+    reads g in `g_item` bytes, fp32 as the VJP cast it before, and writes
+    fp32; "ds_bf16g" with a bf16 g); 2·M·K·N FLOPs at the bf16
+    tensor-core peak, since every product is of bf16 operands. "pass": the
+    operand pass's mask mode, w and the scores read, bf16(w ⊙ m) written."""
     f32 = 4
     nbytes = {"fwd": x_item * (m * k + m * n) + w_item * k * n + f32 * k * n,
               "dx": x_item * (m * n + m * k) + w_item * k * n + f32 * k * n,
-              "ds": x_item * m * k + f32 * m * n + w_item * k * n
+              "ds": x_item * m * k + g_item * m * n + w_item * k * n
+              + f32 * k * n,
+              "ds_bf16g": x_item * m * k + 2 * m * n + w_item * k * n
               + f32 * k * n}
     ops_ms = 1e3 * 2 * m * k * n / PEAK_FLOPS["bfloat16"]
-    return {kind: (1e3 * b / HBM_BYTES_PER_S, ops_ms)
-            for kind, b in nbytes.items()}
+    out = {kind: (1e3 * b / HBM_BYTES_PER_S, ops_ms)
+           for kind, b in nbytes.items()}
+    out["pass"] = (1e3 * (w_item + f32 + 2) * k * n / HBM_BYTES_PER_S, 0.0)
+    return out
 
 
 def _mm_inputs(torch, m, k, n, x_dtype, w_dtype, device, seed):
@@ -1992,19 +2018,39 @@ def _mm_inputs(torch, m, k, n, x_dtype, w_dtype, device, seed):
             gy.to(device, xd))
 
 
+def _mm_pass_launches(torch, mm, x, gy) -> int:
+    """Operand passes of one autograd run: bf16(w ⊙ m) for the forward and
+    for dx, and a copy of each of x (forward, ds) and g (dx, ds) that TMA
+    cannot read in place (the VJP hands ds a bf16 g as it is, else g in
+    fp32)."""
+    g_ds = gy if gy.dtype == torch.bfloat16 else gy.float()
+    return 2 + sum(not mm._tma_ready(t) for t in (x, gy, x, g_ds))
+
+
 def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
                                ) -> dict:
     """The three masked-matmul kernels through `masked_matmul` under
     autograd (forward, dx, STE ds; zero gradients for w and the threshold)
-    against their plain versions at three shapes and four (x, w) dtype
-    pairs; timed (CUDA-graph replay) where x and w share a dtype, beside
-    the plain versions and cuBLAS on x @ (w * (s > t)). No entry point
-    reaches these kernels; `launches` counts this phase's autograd run."""
+    against their plain versions at three shapes, three edge shapes and
+    four (x, w) dtype pairs; ds bit-identical across two calls and between
+    a bf16 and an fp32 cotangent; the operand pass bit-equal to its plain
+    version; timed (CUDA-graph replay) at the three shapes where x and w
+    share a dtype, beside the plain versions and cuBLAS on x @ (w * (s >
+    t)). No entry point reaches these kernels; `launches` counts this
+    phase's autograd runs."""
     from crvqa_tpu_torch.ops import masked_matmul as mm
 
-    shapes = [(96, 80, 72), (33, 20, 17)] if rehearse else MM_SHAPES
+    shapes = ([(96, 80, 72), (33, 20, 17)] if rehearse
+              else MM_SHAPES + MM_EDGE_SHAPES)
     rows = []
     launches = _launch_counts()
+    n_pass = 0
+    if not rehearse:
+        occupancy = mm.blocks_per_sm()
+        check(set(occupancy.values()) == {mm.BLOCKS_PER_SM},
+              f"masked-matmul-kernel: the product kernels hold "
+              f"{occupancy} blocks an SM; ds_plan assumes "
+              f"{mm.BLOCKS_PER_SM}")
     for (m, k, n) in shapes:
         for x_dtype, w_dtype in MM_DTYPES:
             x, w, s, t, gy = _mm_inputs(torch, m, k, n, x_dtype, w_dtype,
@@ -2017,6 +2063,7 @@ def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
 
             (y, dx, dw, ds, dt), counts = _run_counted(autograd_run)
             launches = {n_: launches[n_] + c for n_, c in counts.items()}
+            n_pass += _mm_pass_launches(torch, mm, x, gy)
             ref_y = mm.masked_matmul_fwd_reference(x, w, s, t)
             ref_dx = mm.masked_matmul_dx_reference(gy, w, s, t, x.dtype)
             ref_ds = mm.masked_matmul_ds_reference(x, gy.float(), w)
@@ -2027,9 +2074,23 @@ def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
             ok_ds, err_ds = _close_to(torch, ds, ref_ds,
                                       w_dtype == "bfloat16", m)
             zero = (dw.abs().max().item() == 0.0 and dt.item() == 0.0)
+            # determinism: the same bits again, and from an fp32 cotangent
+            ds_again = mm.masked_matmul_ds(x, gy, w)
+            same = (torch.equal(ds, ds_again) and torch.equal(
+                ds, mm.masked_matmul_ds(x, gy.float(), w)))
+            packed = mm.operand_pass(w, s, t)
+            packed_ref = mm.operand_pass_reference(w, s, t)
+            pass_exact = torch.equal(packed.view(torch.int16),
+                                     packed_ref.view(torch.int16))
             row = {"m": m, "k": k, "n": n, "x_dtype": x_dtype,
                    "w_dtype": w_dtype, "y_err": err_y, "dx_err": err_dx,
-                   "ds_err": err_ds, "on_threshold": int((s == t).sum()),
+                   "ds_err": err_ds, "ds_bit_identical": same,
+                   "pass_bit_equal": pass_exact,
+                   "pass_err": (packed.float() - packed_ref.float()).abs()
+                   .max().item(),
+                   "ds_plan": str(mm.ds_plan(m, k, n, _sm_count(torch,
+                                                                device))),
+                   "on_threshold": int((s == t).sum()),
                    "kept_share": float((s > t).float().mean()),
                    "dtypes_ok": (y.dtype == x.dtype and dx.dtype == x.dtype
                                  and ds.dtype == torch.float32)}
@@ -2040,7 +2101,7 @@ def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
                                                                   t_ops)
                 row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = _bound(
                     t_bytes, t_ops)
-            if not rehearse and x_dtype == w_dtype:
+            if not rehearse and x_dtype == w_dtype and (m, k, n) in MM_SHAPES:
                 row.update(_mm_times(torch, mm, x, w, s, t, gy))
             rows.append(row)
             log("masked-matmul-kernel: " + json.dumps(row))
@@ -2050,18 +2111,87 @@ def phase_masked_matmul_kernel(torch, device, rehearse: bool, seed: int
                   f"sqrt(terms / 768) past 768 terms, plus one bf16 step "
                   f"where the output rounds to bf16; dw and dthreshold "
                   f"exactly 0)")
+            check(same and pass_exact,
+                  f"masked-matmul-kernel: ds not bit-identical across calls "
+                  f"or cotangent dtypes, or the operand pass not bit-equal "
+                  f"to its plain version, at {row}")
     want = _launch_counts(not rehearse, masked_matmul_fwd=len(rows),
                           masked_matmul_dx=len(rows),
-                          masked_matmul_ds=len(rows))
+                          masked_matmul_ds=len(rows),
+                          masked_matmul_operand_pass=n_pass)
     check(launches == want, f"masked-matmul-kernel: launches {launches} != "
                             f"{want}")
-    return {"rows": rows, "launches": launches}
+    out = {"rows": rows, "launches": launches}
+    if not rehearse:
+        out["profile"] = _mm_profile(torch, mm, device, seed)
+    return out
+
+
+def _sm_count(torch, device) -> int:
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else 132)
+
+
+def _mm_profile(torch, mm, device, seed) -> dict:
+    """Kernel names and counts of one bf16 autograd run at MM_SHAPES[0]:
+    the operand pass twice, the wgmma product three times, ds's split
+    reduction once (where its plan splits), and no `tile_gemm_kernel`.
+    Profiled in a fresh process: a profiler session this late in a long
+    process on the card came back without the kernels' events."""
+    code = ("import json, sys, chip_smoke as s; "
+            "print('MM_PROFILE', json.dumps(s.mm_profile_counts(int("
+            "sys.argv[1]))))")
+    proc = subprocess.run([sys.executable, "-c", code, str(seed)], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith("MM_PROFILE ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"masked-matmul-kernel: the profiling process failed (exit "
+          f"{proc.returncode}): {proc.stderr[-2000:]}")
+    got = json.loads(lines[0].split(" ", 1)[1])
+    log(f"masked-matmul-kernel: profile of one bf16 autograd run: {got}")
+    m, k, n = MM_SHAPES[0]
+    splits = mm.ds_plan(m, k, n, _sm_count(torch, device)).splits
+    check(got == {"masked_operand_pass_kernel": 2, "wgmma_gemm_kernel": 3,
+                  "ds_split_reduce_kernel": int(splits > 1),
+                  "tile_gemm_kernel": 0},
+          f"masked-matmul-kernel: the profiler saw {got}")
+    return got
+
+
+def mm_profile_counts(seed: int) -> dict:
+    """Launches by kernel name (the masked-matmul kernels and
+    `tile_gemm_kernel`) in a profile of one bf16 autograd run of
+    `masked_matmul` at MM_SHAPES[0] on the card, after one run unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    device = torch.device("cuda")
+    m, k, n = MM_SHAPES[0]
+    x, w, s, t, gy = _mm_inputs(torch, m, k, n, "bfloat16", "bfloat16",
+                                device, seed)
+    leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
+    torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {name: sum(c for key, c in calls.items() if name in key)
+            for name in ("masked_operand_pass_kernel", "wgmma_gemm_kernel",
+                         "ds_split_reduce_kernel", "tile_gemm_kernel")}
 
 
 def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
     """Device ms per call of each kernel, its plain version and cuBLAS on
     the materialised masked weight; and of forward + backward under
-    autograd (the library's STE: s + ((s > t) - s).detach())."""
+    autograd (the library's STE: s + ((s > t) - s).detach()). ds is timed
+    with g cast to fp32 inside the call (`ds_ms`, the call timed before
+    the VJP handed ds a bf16 g) and with g in x's dtype (`ds_bf16g_ms`
+    where that is bf16; `ds_library_ms` is (xᵀ g) * w with that g)."""
     xr, sr = x.detach().requires_grad_(True), s.detach().requires_grad_(True)
     wm = lambda: w * (s > t).to(w.dtype)
     ste = lambda: sr + ((sr > t).float() - sr).detach()
@@ -2071,6 +2201,7 @@ def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
             gy, w, s, t, x.dtype)),
         "ds_ms": _graph_ms(torch, lambda: mm.masked_matmul_ds(
             x, gy.float(), w)),
+        "pass_ms": _graph_ms(torch, lambda: mm.operand_pass(w, s, t)),
         "fwd_bwd_ms": _graph_ms(torch, lambda: torch.autograd.grad(
             mm.masked_matmul(xr, w, sr, t), (xr, sr), gy)),
         "fwd_plain_ms": _graph_ms(torch, lambda: (
@@ -2079,12 +2210,19 @@ def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
             mm.masked_matmul_dx_reference(gy, w, s, t, x.dtype))),
         "ds_plain_ms": _graph_ms(torch, lambda: (
             mm.masked_matmul_ds_reference(x, gy.float(), w))),
+        "pass_plain_ms": _graph_ms(torch, lambda: (
+            mm.operand_pass_reference(w, s, t))),
         "fwd_library_ms": _graph_ms(torch, lambda: x @ wm()),
         "dx_library_ms": _graph_ms(torch, lambda: gy @ wm().T),
         "ds_library_ms": _graph_ms(torch, lambda: (x.T @ gy) * w),
         "fwd_bwd_library_ms": _graph_ms(torch, lambda: torch.autograd.grad(
             xr @ (w * ste()).to(x.dtype), (xr, sr), gy)),
     }
+    if gy.dtype == torch.bfloat16:
+        out["ds_bf16g_ms"] = _graph_ms(torch, lambda: mm.masked_matmul_ds(
+            x, gy, w))
+        out["ds_bf16g_plain_ms"] = _graph_ms(torch, lambda: (
+            mm.masked_matmul_ds_reference(x, gy, w)))
     out["fwd_bwd_plain_ms"] = (out["fwd_plain_ms"] + out["dx_plain_ms"]
                                + out["ds_plain_ms"])
     return out
@@ -2617,32 +2755,53 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
 
 def matmul_kernel_summary(masked, compact, shape) -> list[dict]:
     """The kernels line's entries of the masked-matmul kernels at x
-    `shape[:2]`, w `shape[1:]` (bf16, scores fp32) and of the head-compact
-    kernel at 4 of 12 heads kept (bf16)."""
+    `shape[:2]`, w `shape[1:]` (bf16, scores fp32; ds with the bf16
+    cotangent the VJP hands it) and of the head-compact kernel at 4 of 12
+    heads kept (bf16)."""
     src = "crvqa_tpu_torch/csrc/"
     out = []
     m, k, n = shape
     row = next(r for r in masked["rows"] if (r["m"], r["k"], r["n"])
                == (m, k, n) and r["x_dtype"] == r["w_dtype"] == "bfloat16")
-    for kind, line, err in (("fwd", 50, "y_err"), ("dx", 67, "dx_err"),
-                            ("ds", 86, "ds_err")):
+    common = ("no entry point reaches the kernel: launches are phase "
+              "masked-matmul-kernel's autograd runs")
+    for kind, key, line, err, lib in (
+            ("fwd", "fwd", 50, "y_err", "cuBLAS on the materialised masked "
+             "weight"),
+            ("dx", "dx", 67, "dx_err", "cuBLAS on the materialised masked "
+             "weight"),
+            ("ds", "ds_bf16g", 86, "ds_err", "(xᵀ g) * w with the same "
+             "bf16 g")):
         name = f"masked_matmul_{kind}"
         out.append({
             "name": name, "route": "cuda", "source": src + "masked_matmul.cu",
             "replaces": f"crvqa_tpu/ops/masked_matmul.py:{line}",
             "launches": masked["launches"][name], "max_abs_err": row[err],
-            "ms": row[f"{kind}_ms"], "plain_ms": row[f"{kind}_plain_ms"],
-            "bound_ms": row[f"{kind}_bound_ms"],
-            "bound_by": row[f"{kind}_bound_by"],
+            "ms": row[f"{key}_ms"], "plain_ms": row[f"{key}_plain_ms"],
+            "bound_ms": row[f"{key}_bound_ms"],
+            "bound_by": row[f"{key}_bound_by"],
             "library_ms": row[f"{kind}_library_ms"],
             "basis": f"one call at x [{m}, {k}] bf16, w [{k}, {n}] bf16, "
-                     "scores fp32; no entry point reaches the kernel: "
-                     "launches are phase masked-matmul-kernel's autograd "
-                     "run; library_ms: cuBLAS on the materialised masked "
-                     "weight; forward + backward under autograd "
-                     f"{row['fwd_bwd_ms']:.4f} ms (cuBLAS "
+                     f"scores fp32 (operand pass and the TMA + wgmma "
+                     f"product of csrc/wgmma_gemm_common.cuh); {common}; "
+                     f"library_ms: {lib}; ds with g cast to fp32 in the "
+                     f"call {row['ds_ms']:.4f} ms; forward + backward "
+                     f"under autograd {row['fwd_bwd_ms']:.4f} ms (cuBLAS "
                      f"{row['fwd_bwd_library_ms']:.4f})",
         })
+    out.append({
+        "name": "masked_matmul_operand_pass", "route": "cuda",
+        "source": src + "masked_matmul.cu",
+        "replaces": "crvqa_tpu/ops/masked_matmul.py:57",
+        "launches": masked["launches"]["masked_matmul_operand_pass"],
+        "max_abs_err": row["pass_err"], "ms": row["pass_ms"],
+        "plain_ms": row["pass_plain_ms"], "bound_ms": row["pass_bound_ms"],
+        "bound_by": row["pass_bound_by"], "library_ms": None,
+        "basis": f"mask mode at w [{k}, {n}] bf16, scores fp32 (the "
+                 f"binarize of `_fwd_kernel` :57-58 and `_dx_kernel` "
+                 f":74-75, once a call); copy mode rounds fp32 or "
+                 f"misaligned x and g; {common}",
+    })
     row = next(r for r in compact["rows"] if r["case"] == "kept4"
                and r["dtype"] == "bfloat16")
     out.append({

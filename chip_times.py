@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Times the short attention kernels of the checkout this file sits in,
-through `chip_smoke.py`'s own kernel phases (`phase_kernel`,
-`phase_train_kernels`: every point checked against its plain version,
-then timed under CUDA-graph replay), and sums them per LXMERT forward and
+"""Times the short attention kernels and the masked-matmul kernels of the
+checkout this file sits in, through `chip_smoke.py`'s own kernel phases
+(`phase_kernel`, `phase_train_kernels`, `phase_masked_matmul_kernel`:
+every point checked against its plain version, then timed under
+CUDA-graph replay), and sums the attention kernels per LXMERT forward and
 train step.
 
-    python3 chip_times.py OUT.json [--build]
+    python3 chip_times.py OUT.json [--build] [--masked-only]
 
 prints one line `SUMMARY <checkout> {...}` (bf16; the primal per forward
 at batch 32; the forward for grad, both backwards and
 `scaled_dot_product_attention` per train step at batch 256 and 64, dropout
-0.1) and writes every row to OUT.json. `--build` rebuilds the kernels
-first (chip_smoke's `build` phase, with its per-kernel report).
+0.1; the masked-matmul forward, dx and ds per call at x [9216, 768], w
+[768, 768], beside cuBLAS) and writes every row to OUT.json. `--build`
+rebuilds the kernels first (chip_smoke's `build` phase, with its
+per-kernel report); `--masked-only` times the masked-matmul kernels alone.
 
 To compare two commits on one card, unpack the other one beside this
 checkout (`git archive <commit> | tar -x -C <dir>`), copy this script
@@ -44,6 +47,19 @@ def main(argv: list[str]) -> int:
     smoke.phase_device(torch, False)
     if "--build" in argv:
         smoke.phase_build()
+    masked = smoke.phase_masked_matmul_kernel(torch, dev, False, 0)
+    row = next(r for r in masked["rows"]
+               if (r["m"], r["k"], r["n"]) == tuple(smoke.MM_SHAPES[0])
+               and r["x_dtype"] == r["w_dtype"] == "bfloat16")
+    summary = {"masked_b9216": {key: row.get(key) for key in (
+        "fwd_ms", "dx_ms", "ds_ms", "ds_bf16g_ms", "fwd_library_ms",
+        "dx_library_ms", "ds_library_ms", "fwd_bwd_ms",
+        "fwd_bwd_library_ms")}}
+    if "--masked-only" in argv:
+        print("SUMMARY", here, json.dumps(summary), flush=True)
+        with open(argv[0], "w") as f:
+            json.dump({"masked": masked, "summary": summary}, f, indent=1)
+        return 0
     rows = smoke.phase_kernel(torch, dev, False, 0)
     train = smoke.phase_train_kernels(torch, dev, False, 0)
     fwd_mult, bwd_mult = smoke.launch_mult(LxmertConfig())
@@ -58,8 +74,8 @@ def main(argv: list[str]) -> int:
         return sum(r[key] * mult[(r["sq"], r["sk"])] for r in rs)
 
     primal = pick(rows, smoke.SERVE_BATCH)
-    summary = {"primal_b32": {key: total(primal, key, fwd_mult)
-                              for key in ("ms", "plain_ms", "library_ms")}}
+    summary["primal_b32"] = {key: total(primal, key, fwd_mult)
+                             for key in ("ms", "plain_ms", "library_ms")}
     for batch in (smoke.TRAIN_BATCH, smoke.S1_BATCH):
         rs = pick(train, batch, smoke.MAIN_RATE)
         summary[f"b{batch}"] = {
@@ -70,8 +86,8 @@ def main(argv: list[str]) -> int:
             "sdpa_fwd_bwd": total(rs, "library_fwd_bwd_ms", bwd_mult)}
     print("SUMMARY", here, json.dumps(summary), flush=True)
     with open(argv[0], "w") as f:
-        json.dump({"rows": rows, "train": train, "summary": summary}, f,
-                  indent=1)
+        json.dump({"rows": rows, "train": train, "masked": masked,
+                   "summary": summary}, f, indent=1)
     return 0
 
 

@@ -14,7 +14,7 @@
 // fetch clamps them to H - 1 and computes a block that is then dropped,
 // :157). Every head that is not kept gets zero columns.
 //
-// Design: the shared tile product of tile_gemm_common.cuh with its column
+// Design: the tile product of tile_gemm_common.cuh with its column
 // tile equal to one 64-wide head, so the block of column tile h computes
 // head h if keep holds it and otherwise only writes zeros; wt is read in
 // place transposed (B(kk, j) = wt[j, kk]). One launch writes the whole
@@ -33,7 +33,7 @@ using bf16 = __nv_bfloat16;
 
 template <typename TX, typename TW>
 int compact(const tg::GemmArgs& p, void* stream) {
-  return tg::launch<TX, TW, float, TX, TX, false, false, true>(p, stream);
+  return tg::launch<TX, TW, TX>(p, stream);
 }
 
 }  // namespace

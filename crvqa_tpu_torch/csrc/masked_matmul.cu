@@ -1,121 +1,225 @@
 // Masked matrix product y = x @ (w ⊙ [s > t]) and its straight-through
-// backward, for NVIDIA Hopper (compiled for sm_90a; bf16 tensor-core
-// fragments through nvcuda::wmma, fp32 accumulators).
+// backward, for NVIDIA Hopper (sm_90a): an operand pass, then the TMA +
+// `wgmma` product of wgmma_gemm_common.cuh.
 //
 // Replaces the three TPU kernels of crvqa_tpu/ops/masked_matmul.py:
 //
 // - `_fwd_kernel` (:50, pallas_call :115) -> masked_matmul_fwd:
 //     y[M, N] = bf16(x) @ bf16(w ⊙ m),  m = [scores > t]   (out: x's dtype)
 // - `_dx_kernel` (:67, pallas_call :147) -> masked_matmul_dx:
-//     dx[M, K] = bf16(g) @ bf16(w ⊙ m)ᵀ, the mask recomputed in the tile
-//                                                           (out: x's dtype)
+//     dx[M, K] = bf16(g) @ bf16(w ⊙ m)ᵀ                     (out: x's dtype)
 // - `_ds_kernel` (:86, pallas_call :176) -> masked_matmul_ds:
 //     ds[K, N] = (bf16(x)ᵀ @ bf16(g)) ⊙ w, rounded to w's dtype, written
 //     fp32 (the scores' dtype)
 //
-// The threshold is compared against the fp32 scores in fp32, never in w's
-// dtype (masked_matmul.py:112-114); it is read from device memory, so a
-// call needs no host synchronisation and can be captured in a CUDA graph.
-// x, g and w are fp32 or bf16; every operand is rounded to bf16 as it is
-// staged, as the TPU kernels round them (tile_gemm_common.cuh).
+// The operand pass (`masked_operand_pass_kernel`) writes bf16 buffers with
+// rows on 16-byte boundaries, which TMA reads:
+// - mask mode: bf16(w ⊙ [s > t]) [K, N], once a call; the forward reads
+//   it MN-major and dx K-major (wgmma's transpose bit), so one layout
+//   serves both. The threshold is read from device memory and compared
+//   against the fp32 scores in fp32 (masked_matmul.py:112-114), so a call
+//   needs no host synchronisation and can be captured in a CUDA graph.
+// - copy mode: bf16(x) or bf16(g) for an operand that TMA cannot read in
+//   place (fp32, an inner stride other than 1, a row pitch or a start off
+//   the 16-byte grid).
+// Eight columns a thread: 16-byte loads where the source allows them.
 //
-// What bounds it: at the shapes the JAX package measures ([9216, 768] x
-// [768, 768], bf16 activations, fp32 scores) a call does 10.9 GFLOP on
-// 31.9 MB: 11.0 us at the bf16 tensor-core peak against 9.5 us of HBM
-// time, so operations bound it, narrowly. The TPU kernel's point was that the
-// masked weight w ⊙ m is never written to device memory; here the mask is
-// applied while the w tile is staged into shared memory, and for ds the
-// STE factor w multiplies each sum in the epilogue, so (xᵀ g) never
-// reaches device memory either. Each block re-reads its w and score tiles
-// once per 64 rows of x (the TPU kernel re-streamed them per 256 rows);
-// they stay in the 50 MB L2 at these sizes.
+// Why the mask is applied once, not in every tile: the TPU kernel fuses
+// it into each tile and re-streams the fp32 weight and score tiles per row
+// tile, which its module measured as 2x slower than materialising w ⊙ m
+// (masked_matmul.py:19-31). At x [9216, 768] the packed weight costs one
+// 3.5 MB read and a 1.2 MB write; the product then re-reads 1.2 MB per row
+// tile from L2.
 //
-// Any M, K, N: the ragged edges are zero-filled in shared memory (the JAX
-// version pads to 256-tiles instead).
+// What bounds it: at x [9216, 768] bf16, w [768, 768], fp32 scores a call
+// does 10.9 GFLOP on 31.9 MB: 11.0 us at the bf16 tensor-core peak against
+// 9.5 us of HBM time, so operations bound it, narrowly.
+//
+// ds sums over the M rows of x and g: its K x N output has few tiles (36
+// at 768 x 768), so the wrapper splits the rows into `splits` ranges of
+// `chunk` 64-row steps (its `ds_plan`) to fill the SMs. Each split writes
+// fp32 partial sums, and `ds_split_reduce_kernel` adds them in split order
+// and applies the STE factor: no atomics, the same bits on every call.
+// (Adding the splits of a tile through distributed shared memory in a
+// thread block cluster instead was slower on an H100: the card cannot
+// hold the 36 clusters of 7 blocks at once, and smaller clusters leave
+// SMs idle.)
 
-#include "tile_gemm_common.cuh"
+#include <cstdio>
+
+#include "wgmma_gemm_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// y and dx: A in the activation dtype TX, the masked B in w's dtype TW
-template <typename TX, typename TW>
-int masked(const tg::GemmArgs& p, void* stream) {
-  return tg::launch<TX, TW, float, TX, TX, true, false, false>(p, stream);
+__device__ __forceinline__ float load_f32(const void* p, int64_t i,
+                                          int is_bf16) {
+  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
 }
 
-template <typename TX, typename TG, typename TW>
-int ds(const tg::GemmArgs& p, void* stream) {
-  return tg::launch<TX, TG, TW, TW, float, false, true, false>(p, stream);
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// dst[r, c] (bf16, row pitch ldd, a multiple of 8) = bf16(src(r, c) ⊙
+// [s(r, c) > *t]) (mask mode, s != nullptr; s shares src's strides) or
+// bf16(src(r, c)); zeros in the columns [cols, ldd). One thread per 8
+// columns of a row; consecutive threads on src's contiguous dimension.
+__global__ void masked_operand_pass_kernel(const void* src, int64_t rs,
+                                           int64_t cs, int src_bf16,
+                                           const float* s, const float* t,
+                                           bf16* dst, int64_t ldd, int rows,
+                                           int cols) {
+  const float thr = s ? *t : 0.f;
+  const int64_t chunks = ldd / 8;
+  const int64_t total = rows * chunks;
+  const bool row_fast = cs != 1;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = row_fast ? idx % rows : idx / chunks;
+    const int c0 = static_cast<int>(8 * (row_fast ? idx / rows : idx % chunks));
+    const int64_t off = r * rs + c0 * cs;
+    float v[8], sv[8];
+    const char* sp = static_cast<const char*>(src) + off * (src_bf16 ? 2 : 4);
+    const bool vec = cs == 1 && c0 + 8 <= cols && aligned16(sp) &&
+                     (!s || aligned16(s + off));
+    if (vec) {
+      if (src_bf16) {
+        const uint4 u = *reinterpret_cast<const uint4*>(sp);
+        const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(h[q]);
+      } else {
+        const float4 f0 = reinterpret_cast<const float4*>(sp)[0];
+        const float4 f1 = reinterpret_cast<const float4*>(sp)[1];
+        v[0] = f0.x, v[1] = f0.y, v[2] = f0.z, v[3] = f0.w;
+        v[4] = f1.x, v[5] = f1.y, v[6] = f1.z, v[7] = f1.w;
+      }
+      if (s) {
+        const float4 s0 = reinterpret_cast<const float4*>(s + off)[0];
+        const float4 s1 = reinterpret_cast<const float4*>(s + off)[1];
+        sv[0] = s0.x, sv[1] = s0.y, sv[2] = s0.z, sv[3] = s0.w;
+        sv[4] = s1.x, sv[5] = s1.y, sv[6] = s1.z, sv[7] = s1.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const bool in = c0 + q < cols;
+        v[q] = in ? load_f32(src, off + q * cs, src_bf16) : 0.f;
+        sv[q] = in && s ? s[off + q * cs] : 0.f;
+      }
+    }
+    uint4 out;
+    bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      // the mask in w's dtype times w, as (w * mask).astype(bf16): the
+      // product is exact, so one rounding of the fp32 product
+      const float x = s ? v[q] * (sv[q] > thr ? 1.f : 0.f) : v[q];
+      o[q] = c0 + q < cols ? __float2bfloat16(x) : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ldd + c0) = out;
+  }
+}
+
+// out[i] = round_e(sum_z part[z][i] * e[i]) over the m·n outputs, the
+// splits added in order z = 0, 1, ...
+__global__ void ds_split_reduce_kernel(const float* part, int splits,
+                                       int64_t mn, const void* e, int e_bf16,
+                                       float* out) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < mn; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v = part[i];
+    for (int z = 1; z < splits; ++z) v += part[z * mn + i];
+    v *= load_f32(e, i, e_bf16);
+    out[i] = e_bf16 ? wg::bf16_round(v) : v;
+  }
+}
+
+int grid_for(int64_t work, int threads) {
+  const int64_t blocks = (work + threads - 1) / threads;
+  return static_cast<int>(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
 }
 
 }  // namespace
 
 extern "C" {
 
-// y[M, N] (contiguous, x's dtype) = x[M, K] @ (w[K, N] ⊙ [s > *t]).
-// x(i, kk) at x[i * x_rs + kk * x_cs]; w and s share the strides (w_rs,
-// w_cs); t points to one fp32 value. `x_bf16` / `w_bf16` select bf16 (1) or
-// fp32 (0). Returns cudaGetLastError() after the launch.
-int masked_matmul_fwd(const void* x, int64_t x_rs, int64_t x_cs,
-                      const void* w, const float* s, int64_t w_rs,
-                      int64_t w_cs, const float* t, void* y, int m, int k,
-                      int n, int x_bf16, int w_bf16, void* stream) {
-  tg::GemmArgs p{};
-  p.a = x, p.a_rs = x_rs, p.a_cs = x_cs;
-  p.b = w, p.b_rs = w_rs, p.b_cs = w_cs, p.s = s, p.t = t;
-  p.c = y, p.ldc = n, p.m = m, p.n = n, p.k = k;
-  if (x_bf16)
-    return w_bf16 ? masked<bf16, bf16>(p, stream)
-                  : masked<bf16, float>(p, stream);
-  return w_bf16 ? masked<float, bf16>(p, stream)
-                : masked<float, float>(p, stream);
+// The operand pass: dst [rows, ldd] bf16 (ldd a multiple of 8, dst 16-byte
+// aligned) from src(r, c) at src[r * rs + c * cs] (bf16 if src_bf16, else
+// fp32), masked by [s > *t] when s is not null (s with src's strides, t
+// one fp32 value). Returns cudaGetLastError() after the launch.
+int masked_matmul_operand_pass(const void* src, int64_t rs, int64_t cs,
+                               int src_bf16, const float* s, const float* t,
+                               void* dst, int64_t ldd, int rows, int cols,
+                               void* stream) {
+  if (rows < 1 || cols < 1 || ldd < cols || ldd % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  masked_operand_pass_kernel<<<grid_for(rows * (ldd / 8), 256), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      src, rs, cs, src_bf16, s, t, static_cast<bf16*>(dst), ldd, rows, cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// dx[M, K] (contiguous, g's dtype, which is x's) = g[M, N] @ (w ⊙ [s > *t])ᵀ.
-int masked_matmul_dx(const void* g, int64_t g_rs, int64_t g_cs,
-                     const void* w, const float* s, int64_t w_rs,
-                     int64_t w_cs, const float* t, void* dx_out, int m,
-                     int k, int n, int g_bf16, int w_bf16, void* stream) {
-  tg::GemmArgs p{};
-  p.a = g, p.a_rs = g_rs, p.a_cs = g_cs;
-  // B(kk = n, j = k) = w[k, n]: w read transposed in place
-  p.b = w, p.b_rs = w_cs, p.b_cs = w_rs, p.s = s, p.t = t;
-  p.c = dx_out, p.ldc = k, p.m = m, p.n = k, p.k = n;
-  if (g_bf16)
-    return w_bf16 ? masked<bf16, bf16>(p, stream)
-                  : masked<bf16, float>(p, stream);
-  return w_bf16 ? masked<float, bf16>(p, stream)
-                : masked<float, float>(p, stream);
-}
-
-// ds[K, N] (contiguous fp32) = round_w((x[M, K]ᵀ @ g[M, N]) ⊙ w[K, N]).
-int masked_matmul_ds(const void* x, int64_t x_rs, int64_t x_cs,
-                     const void* g, int64_t g_rs, int64_t g_cs,
-                     const void* w, int64_t w_rs, int64_t w_cs, float* ds_out,
-                     int m, int k, int n, int x_bf16, int g_bf16, int w_bf16,
-                     void* stream) {
-  tg::GemmArgs p{};
-  // A(i = k, kk = m) = x[m, k]: x read transposed in place
-  p.a = x, p.a_rs = x_cs, p.a_cs = x_rs;
-  p.b = g, p.b_rs = g_rs, p.b_cs = g_cs;
-  p.e = w, p.e_rs = w_rs, p.e_cs = w_cs;
-  p.c = ds_out, p.ldc = n, p.m = k, p.n = n, p.k = m;
-  const int code = (x_bf16 << 2) | (g_bf16 << 1) | w_bf16;
-  switch (code) {
-    case 0: return ds<float, float, float>(p, stream);
-    case 1: return ds<float, float, bf16>(p, stream);
-    case 2: return ds<float, bf16, float>(p, stream);
-    case 3: return ds<float, bf16, bf16>(p, stream);
-    case 4: return ds<bf16, float, float>(p, stream);
-    case 5: return ds<bf16, float, bf16>(p, stream);
-    case 6: return ds<bf16, bf16, float>(p, stream);
-    default: return ds<bf16, bf16, bf16>(p, stream);
+// C[m, n] = A B over k with the TMA + wgmma product, both operands bf16
+// with 16-byte aligned rows (pitches in elements). kind 0, the forward:
+// A = x [m, k], B = w ⊙ m [k, n]; 1, dx: A = g [m, k], B stored [n, k]
+// (w ⊙ m as it is); 2, ds: A stored [k, m] (x), B = g [k, n]. mode
+// (wg::Mode): 0 C in bf16 (c_bf16) or fp32; 1 C fp32 = round_e(sum · e),
+// e [m, n] with row pitch lde; 2 fp32 partial sums of split z at
+// c + z·m·ldc. The reduction runs in `splits` ranges of `chunk` 64-deep
+// steps. Returns 0 or an error code (masked_matmul_error_string).
+int masked_matmul_product(int kind, const void* a, int64_t a_pitch,
+                          const void* b, int64_t b_pitch, int m, int n, int k,
+                          void* c, int64_t ldc, int mode, int c_bf16,
+                          const void* e, int64_t lde, int e_bf16, int splits,
+                          int chunk, void* stream) {
+  wg::Epi p{};
+  p.c = c, p.ldc = ldc, p.e = e, p.lde = lde;
+  p.m = m, p.n = n, p.k = k;
+  p.mode = mode, p.c_bf16 = c_bf16, p.e_bf16 = e_bf16, p.chunk = chunk;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case 0: return wg::launch<false, true>(a, a_pitch, b, b_pitch, p, splits, st);
+    case 1: return wg::launch<false, false>(a, a_pitch, b, b_pitch, p, splits, st);
+    case 2: return wg::launch<true, true>(a, a_pitch, b, b_pitch, p, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// Blocks of the product kernel of `kind` one SM holds (-1 on an error).
+int masked_matmul_blocks_per_sm(int kind) {
+  switch (kind) {
+    case 0: return wg::blocks_per_sm<false, true>();
+    case 1: return wg::blocks_per_sm<false, false>();
+    case 2: return wg::blocks_per_sm<true, true>();
+    default: return -1;
+  }
+}
+
+// ds[m·n] (fp32) = round_e(sum of `splits` partials [splits, m·n] · e), e
+// contiguous, bf16 if e_bf16 else fp32.
+int masked_matmul_ds_reduce(const float* part, int splits, int64_t mn,
+                            const void* e, int e_bf16, float* out,
+                            void* stream) {
+  if (splits < 1 || mn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ds_split_reduce_kernel<<<grid_for(mn, 256), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      part, splits, mn, e, e_bf16, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 const char* masked_matmul_error_string(int code) {
+  static thread_local char buf[96];
+  if (code >= wg::kEncodeError) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - wg::kEncodeError);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,27 +1,20 @@
 // A tiled matrix product with bf16 tensor-core fragments and fp32
-// accumulators, shared by the masked matmul kernels (masked_matmul.cu) and
-// the head-compact matmul kernel (head_compact_matmul.cu).
+// accumulators, for the head-compact matmul kernel (head_compact_matmul.cu).
 //
-//   C[i, j] = epilogue( sum_kk bf16(A[i, kk]) * bf16(B[kk, j]) )     (fp32)
+//   C[i, j] = sum_kk bf16(A[i, kk]) * bf16(B[kk, j])                (fp32)
 //
 // Operands are read in place through element strides, A(i, kk) at
 // a[i * a_rs + kk * a_cs] and B(kk, j) at b[kk * b_rs + j * b_cs], so a
-// transposed operand (dx's (w ⊙ m)ᵀ, ds's xᵀ, the head-compact kernel's
-// wt) is never copied. Each element is rounded to bf16 as it is staged
-// into shared memory: the TPU kernels round every operand to bf16 before
-// the MXU product (crvqa_tpu/ops/masked_matmul.py:58-59, 75-77, 94-95;
-// structured_matmul.py:129), so bf16 products with fp32 sums are their
-// definition, and a product of two bf16 values is exact in fp32.
+// transposed operand (the head-compact kernel's wt) is never copied. Each
+// element is rounded to bf16 as it is staged into shared memory: the TPU
+// kernel rounds every operand to bf16 before the MXU product
+// (crvqa_tpu/ops/structured_matmul.py:129), so bf16 products with fp32
+// sums are its definition, and a product of two bf16 values is exact in
+// fp32.
 //
-// Options, fixed at compile time:
-// - kMask: B(kk, j) is multiplied by [s(kk, j) > *t] while it is staged
-//   (s fp32 with B's strides, t one fp32 value in device memory), so the
-//   masked weight never reaches device memory;
-// - kEpi: each sum is multiplied by the fp32 value of E(i, j) (ds's STE
-//   factor w), rounded to TR, and written as TC;
-// - kHeads: the head-compact mode. BN is the head width (64); the block of
-//   column tile h computes only if h is one of keep[0..n_keep), and
-//   otherwise writes zeros (the dropped columns of the dense output).
+// The head-compact mode: BN is the head width (64); the block of column
+// tile h computes only if h is one of keep[0..n_keep), and otherwise
+// writes zeros (the dropped columns of the dense output).
 //
 // Design: one block of 128 threads (4 warps) per 64 x 64 tile of C; each
 // warp owns a 32 x 32 quarter (2 x 2 `nvcuda::wmma` 16x16x16 bf16
@@ -30,7 +23,8 @@
 // taken without padding), consecutive threads on the operand's contiguous
 // dimension. The sums go through shared memory to the epilogue, which
 // writes C row by row. Scalar loads and no overlap of loads with products:
-// the simple first version; `wgmma` and TMA are later work.
+// the simple first version; the masked matmul's TMA + `wgmma` product
+// (wgmma_gemm_common.cuh) is what this moves onto next.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,11 +39,6 @@ constexpr int kThreads = 128;
 constexpr int kPitchAB = BK + 8;  // bf16 row pitch of the A tile
 constexpr int kPitchB = BN + 8;   // bf16 row pitch of the B tile
 constexpr int kPitchC = BN + 4;   // fp32 row pitch of the C tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -71,15 +60,11 @@ struct GemmArgs {
   const void* a;
   int64_t a_rs, a_cs;  // A(i, kk)
   const void* b;
-  int64_t b_rs, b_cs;  // B(kk, j); s shares these strides
-  const float* s;      // kMask: scores
-  const float* t;      // kMask: the threshold, one fp32 value
-  const void* e;
-  int64_t e_rs, e_cs;  // kEpi: E(i, j)
+  int64_t b_rs, b_cs;  // B(kk, j)
   void* c;
   int64_t ldc;         // C(i, j) at c[i * ldc + j]
   int m, n, k;         // C is m x n; the sums run over k
-  const int* keep;     // kHeads: kept head indices (pads >= n / BN)
+  const int* keep;     // kept head indices (pads >= n / BN)
   int n_keep;
 };
 
@@ -87,11 +72,10 @@ struct GemmArgs {
 // tile of pitch `pitch`, zero outside [0, rmax) x [0, cmax). Consecutive
 // threads take consecutive columns when the operand is contiguous along
 // its columns (cs == 1), else consecutive rows.
-template <int R, int C, typename T, bool kMask>
+template <int R, int C, typename T>
 __device__ __forceinline__ void stage(__nv_bfloat16* tile, int pitch,
                                       const T* src, int64_t rs, int64_t cs,
-                                      int r0, int c0, int rmax, int cmax,
-                                      const float* s, float t) {
+                                      int r0, int c0, int rmax, int cmax) {
   const bool col_fast = cs == 1;
   for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
     const int r = col_fast ? idx / C : idx % R;
@@ -101,14 +85,12 @@ __device__ __forceinline__ void stage(__nv_bfloat16* tile, int pitch,
     if (gr < rmax && gc < cmax) {
       const int64_t off = (int64_t)gr * rs + (int64_t)gc * cs;
       v = to_bf16(src[off]);
-      if (kMask && !(s[off] > t)) v = __float2bfloat16(0.f);
     }
     tile[r * pitch + c] = v;
   }
 }
 
-template <typename TA, typename TB, typename TE, typename TR, typename TC,
-          bool kMask, bool kEpi, bool kHeads>
+template <typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(kThreads)
     tile_gemm_kernel(GemmArgs p) {
   using namespace nvcuda;
@@ -117,11 +99,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(32) float Cs[BM * kPitchC];
 
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  bool live = true;
-  if (kHeads) {
-    live = false;
-    for (int h = 0; h < p.n_keep; ++h) live |= p.keep[h] == (int)blockIdx.x;
-  }
+  bool live = false;
+  for (int h = 0; h < p.n_keep; ++h) live |= p.keep[h] == (int)blockIdx.x;
   if (!live) {  // a dropped head: its columns of C are zero
     TC* c = static_cast<TC*>(p.c);
     for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
@@ -132,7 +111,6 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  const float t = kMask ? *p.t : 0.f;
   const int warp = threadIdx.x / 32;
   const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -140,10 +118,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int y = 0; y < 2; ++y) wmma::fill_fragment(acc[x][y], 0.f);
 
   for (int k0 = 0; k0 < p.k; k0 += BK) {
-    stage<BM, BK, TA, false>(As, kPitchAB, static_cast<const TA*>(p.a),
-                             p.a_rs, p.a_cs, i0, k0, p.m, p.k, nullptr, 0.f);
-    stage<BK, BN, TB, kMask>(Bs, kPitchB, static_cast<const TB*>(p.b),
-                             p.b_rs, p.b_cs, k0, j0, p.k, p.n, p.s, t);
+    stage<BM, BK, TA>(As, kPitchAB, static_cast<const TA*>(p.a), p.a_rs,
+                      p.a_cs, i0, k0, p.m, p.k);
+    stage<BK, BN, TB>(Bs, kPitchB, static_cast<const TB*>(p.b), p.b_rs,
+                      p.b_cs, k0, j0, p.k, p.n);
     __syncthreads();
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
@@ -175,24 +153,19 @@ __global__ void __launch_bounds__(kThreads)
     const int r = idx / BN, col = idx % BN;
     const int gi = i0 + r, gj = j0 + col;
     if (gi >= p.m || gj >= p.n) continue;
-    float v = Cs[r * kPitchC + col];
-    if (kEpi)
-      v *= to_f32(static_cast<const TE*>(p.e)[(int64_t)gi * p.e_rs +
-                                              (int64_t)gj * p.e_cs]);
-    c[(int64_t)gi * p.ldc + gj] = from_f32<TC>(to_f32(from_f32<TR>(v)));
+    c[(int64_t)gi * p.ldc + gj] = from_f32<TC>(Cs[r * kPitchC + col]);
   }
 }
 
 // Launches the kernel over ceil(m / BM) x ceil(n / BN) tiles on `stream`;
 // returns cudaGetLastError().
-template <typename TA, typename TB, typename TE, typename TR, typename TC,
-          bool kMask, bool kEpi, bool kHeads>
+template <typename TA, typename TB, typename TC>
 int launch(const GemmArgs& p, void* stream) {
   const int64_t row_tiles = (p.m + BM - 1) / BM;
   if (p.m < 1 || p.n < 1 || p.k < 1 || row_tiles > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.n + BN - 1) / BN, (unsigned)row_tiles);
-  tile_gemm_kernel<TA, TB, TE, TR, TC, kMask, kEpi, kHeads>
+  tile_gemm_kernel<TA, TB, TC>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -638,7 +638,11 @@ def test_midseq_routes_bf16_to_tensor_cores_and_fp32_to_scalar_kernels():
         g = torch.randn_like(q)
         ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)  # builds, loads
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # CPU activity too: a CUDA-only session that follows another
+        # profiler session in the same process can come back without the
+        # kernels (seen on the H100 after the short-kernel test above)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             ma.midseq_attention(q, k, v, bias, 12, 64)
             ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)
             torch.cuda.synchronize()
@@ -844,6 +848,124 @@ def test_masked_matmul_kernels_read_transposed_operands():
               256)
     _close_to(mm.masked_matmul_ds(x, gy, w),
               mm.masked_matmul_ds_reference(x, gy, w), False, 512)
+
+
+MM_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+             (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _mm_inputs(m, k, n, x_dtype, w_dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).cuda().to(x_dtype)
+    w = (torch.randn(k, n, generator=g) * 0.05).cuda().to(w_dtype)
+    s = torch.rand(k, n, generator=g)
+    s.view(-1)[::7] = 0.7
+    gy = torch.randn(m, n, generator=g).cuda().to(x_dtype)
+    return x, w, s.cuda(), torch.tensor(0.7, device="cuda"), gy
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1, 1), (8, 63, 65), (64, 64, 64), (65, 127, 129), (127, 129, 200),
+    (200, 8, 63), (129, 200, 1), (63, 65, 8)])
+def test_masked_matmul_kernels_at_edge_shapes(m, k, n):
+    """Forward, dx and ds under autograd around the 128 x 128 x 64 tiles
+    (ragged rows, columns and reduction), every dtype pair, against the
+    plain versions with `_close_to`'s tolerance."""
+    _need_card()
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    for x_dtype, w_dtype in MM_DTYPES:
+        x, w, s, t, gy = _mm_inputs(m, k, n, x_dtype, w_dtype, m + k + n)
+        leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
+        y = mm.masked_matmul(*leaves)
+        dx, dw, ds, dt = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        bf = x_dtype == torch.bfloat16
+        _close_to(y, mm.masked_matmul_fwd_reference(x, w, s, t), bf, k)
+        _close_to(dx, mm.masked_matmul_dx_reference(gy, w, s, t, x_dtype),
+                  bf, n)
+        _close_to(ds, mm.masked_matmul_ds_reference(x, gy.float(), w),
+                  w_dtype == torch.bfloat16, m)
+        assert not dw.any() and float(dt) == 0.0
+
+
+@pytest.mark.parametrize("m,k,n", [(9216, 768, 768), (4096, 768, 3072),
+                                   (1000, 700, 300)])
+def test_masked_matmul_ds_is_deterministic(m, k, n):
+    """ds splits its sum over M and adds the splits in order: two calls
+    give the same bits, and a bf16 cotangent the bits of its fp32 copy."""
+    _need_card()
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    for x_dtype, w_dtype in MM_DTYPES:
+        x, w, _, _, gy = _mm_inputs(m, k, n, x_dtype, w_dtype, 11)
+        a = mm.masked_matmul_ds(x, gy, w)
+        b = mm.masked_matmul_ds(x, gy, w)
+        c = mm.masked_matmul_ds(x, gy.float(), w)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_masked_matmul_runs_on_the_wgmma_product_kernel():
+    """The profiler names what ran: every dtype pair goes through the
+    operand pass and the three TMA + wgmma product instantiations
+    (forward, dx, ds) and ds's split reduction, and no masked-matmul call
+    runs the old `tile_gemm_kernel`. (Names, not counts: a profiler
+    session in a long process can drop a kernel event; chip_smoke.py
+    checks the counts of one run.)"""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    for x_dtype, w_dtype in MM_DTYPES:
+        x, w, s, t, gy = _mm_inputs(9216, 768, 768, x_dtype, w_dtype, 2)
+        leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
+        torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
+            torch.cuda.synchronize()
+        ran = " ".join(e.key for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        for name in ("wgmma_gemm_kernel<false, true>",
+                     "wgmma_gemm_kernel<false, false>",
+                     "wgmma_gemm_kernel<true, true>",
+                     "masked_operand_pass_kernel", "ds_split_reduce_kernel"):
+            assert name in ran, (x_dtype, w_dtype, name, ran)
+        assert "tile_gemm_kernel" not in ran
+
+
+@pytest.mark.parametrize("case", ["x_dtype", "scores_dtype", "device",
+                                  "shape"])
+def test_masked_matmul_raises_before_any_launch(case):
+    """What the kernels do not take raises before any launch, every
+    counter unmoved."""
+    _need_card()
+    from crvqa_tpu_torch.ops import masked_matmul as mm
+
+    x, w, s, t, gy = _mm_inputs(64, 32, 48, torch.bfloat16, torch.bfloat16, 3)
+    if case == "x_dtype":
+        x, gy = x.half(), gy.half()
+    elif case == "scores_dtype":
+        s = s.double()
+    elif case == "shape":  # x and w do not chain; g and w differ in N
+        w, s, gy = w[:-1], s[:-1], gy[:, :-1]
+    else:
+        w = w.cpu()
+    counters = (mm.masked_matmul_fwd, mm.masked_matmul_dx,
+                mm.masked_matmul_ds, mm.operand_pass)
+    before = [c.launches for c in counters]
+    calls = [lambda: mm.masked_matmul_fwd(x, w, s, t),
+             lambda: mm.masked_matmul_dx(gy, w, s, t, x.dtype)]
+    if case != "scores_dtype":
+        calls.append(lambda: mm.masked_matmul_ds(x, gy, w))
+    for call in calls:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

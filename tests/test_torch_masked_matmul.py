@@ -128,8 +128,123 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
     w = torch.empty(8, 16, device="meta")
     for call in (lambda: tmm.masked_matmul_fwd(x, w, w, 0.5),
                  lambda: tmm.masked_matmul_dx(x @ w, w, w, 0.5, x.dtype),
-                 lambda: tmm.masked_matmul_ds(x, x @ w, w)):
+                 lambda: tmm.masked_matmul_ds(x, x @ w, w),
+                 lambda: tmm.operand_pass(w, w, 0.5)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert (tmm.masked_matmul_fwd.launches, tmm.masked_matmul_dx.launches,
-            tmm.masked_matmul_ds.launches) == (0, 0, 0)
+            tmm.masked_matmul_ds.launches, tmm.operand_pass.launches) == (
+                0, 0, 0, 0)
+
+
+# ------------------------------------------- the operand pass and routes
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_operand_pass_plain_version_at_the_threshold_edges(w_dtype):
+    """The operand pass's plain version is the TPU kernel's `(w * mask)
+    .astype(bf16)` (`_fwd_kernel` :57-58) bit for bit: a score equal to
+    the threshold is masked, one fp32 step above it kept, and a masked
+    negative weight keeps its sign (-0.0)."""
+    rng = np.random.default_rng(4)
+    thr = np.float32(0.3)
+    w = rng.normal(size=(24, 40)).astype(np.float32)
+    s = rng.random((24, 40)).astype(np.float32)
+    s[::3, ::2] = thr
+    s[1::3, ::2] = np.nextafter(thr, np.float32(1))
+    s[2::3, ::2] = np.nextafter(thr, np.float32(0))
+    jw = jnp.asarray(w).astype(getattr(jnp, w_dtype))
+    mask = (jnp.asarray(s) > jnp.float32(thr)).astype(jw.dtype)
+    want = np.asarray((jw * mask).astype(jnp.bfloat16)).view(np.int16)
+    tw = torch.from_numpy(w).to(getattr(torch, w_dtype))
+    for got in (tmm.operand_pass_reference(tw, torch.from_numpy(s), thr),
+                tmm.operand_pass(tw, torch.from_numpy(s), float(thr))):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want)
+    at = torch.from_numpy(s) == float(thr)
+    got = tmm.operand_pass_reference(tw, torch.from_numpy(s), thr)
+    assert not got[at].any()
+    assert torch.equal(got[1::3, ::2], tw[1::3, ::2].bfloat16())
+    assert (got[at & (tw < 0)].view(torch.int16) == -32768).all()  # -0.0
+    # copy mode: bf16(t), whatever t's strides
+    assert torch.equal(tmm.operand_pass(tw.T), tw.T.bfloat16())
+
+
+def _route_case(case):
+    base = torch.zeros(64, 776, dtype=torch.bfloat16)[:, :768]
+    return {
+        "bf16": base,
+        "fp32": torch.zeros(64, 768),
+        "fp16": torch.zeros(64, 768, dtype=torch.float16),
+        "transposed": torch.zeros(768, 64, dtype=torch.bfloat16).T,
+        "column_slice": base[:, 128:256],
+        "offset_2_bytes": base[:, 1:],
+        "offset_16_bytes": base[:, 8:],
+        "row_offset": base[3:],
+        "rows_1400_bytes": torch.zeros(1000, 700, dtype=torch.bfloat16),
+        "one_row_1400_bytes": torch.zeros(1, 700, dtype=torch.bfloat16),
+        "inner_stride_2": base[:, ::2],
+        "three_dims": torch.zeros(2, 8, 64, dtype=torch.bfloat16),
+    }[case]
+
+
+@pytest.mark.parametrize("case,ready", [
+    ("bf16", True), ("fp32", False), ("fp16", False), ("transposed", False),
+    ("column_slice", True), ("offset_2_bytes", False),
+    ("offset_16_bytes", True), ("row_offset", True),
+    ("rows_1400_bytes", False), ("one_row_1400_bytes", True),
+    ("inner_stride_2", False), ("three_dims", False)])
+def test_route_takes_only_what_tma_reads_in_place(case, ready):
+    """`_tma_ready` decides from dtype, strides, shape and address alone:
+    bf16 rows with unit inner stride, a row pitch and a start on the
+    16-byte grid; anything else goes through the operand pass, whose copy
+    always is ready."""
+    t = _route_case(case)
+    assert tmm._tma_ready(t) is ready
+    if t.dim() == 2:
+        copy = tmm.operand_pass(t) if t.dtype != torch.float16 else None
+        if ready:
+            assert tmm._pitch(t) % 8 == 0 and tmm._pitch(t) >= t.shape[1]
+        if copy is not None:
+            assert copy.dtype == torch.bfloat16 and copy.shape == t.shape
+
+
+@pytest.mark.parametrize("m,k,n", [(9216, 768, 768), (4096, 768, 3072),
+                                   (1000, 700, 300), (1, 1, 1),
+                                   (65, 127, 129)])
+def test_ds_launch_plan_covers_the_rows_once_within_a_wave(m, k, n):
+    """ds's plan: the splits cover the M rows exactly once, in order, each
+    non-empty and starting on a reduction step; tiles x splits stay within
+    one wave of resident blocks (132 SMs, as the H100 has)."""
+    sms = 132
+    plan = tmm.ds_plan(m, k, n, sms)
+    ranges = plan.row_ranges(m)
+    assert len(ranges) == plan.splits <= tmm.MAX_SPLITS
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    assert all(a < b and a % tmm.TILE[2] == 0 for a, b in ranges)
+    assert plan.tiles == -(-k // tmm.TILE[0]) * -(-n // tmm.TILE[1])
+    assert plan.tiles * plan.splits <= max(plan.tiles,
+                                           sms * tmm.BLOCKS_PER_SM)
+    if (m, k, n) == (9216, 768, 768):  # 36 tiles: 7 splits of 21 steps
+        assert (plan.tiles, plan.splits, plan.chunk) == (36, 7, 21)
+
+
+@pytest.mark.parametrize("w_dtype", ["bfloat16", "float32"])
+def test_vjp_hands_ds_a_bf16_cotangent_as_it_is(w_dtype):
+    """The VJP's bf16-g route gives the fp32-g route's ds bit for bit
+    (bf16 -> fp32 -> bf16 is exact), within the file's tolerance of the
+    JAX `_mm_bwd`."""
+    (jx, jw, js, jg), (tx, tw, ts, tg) = _inputs(96, 72, 80, "bfloat16",
+                                                 w_dtype, seed=5)
+    assert tg.dtype == torch.bfloat16
+    s = ts.clone().requires_grad_(True)
+    y = tmm.masked_matmul(tx, tw, s, THRESHOLD)
+    (ds,) = torch.autograd.grad(y, (s,), tg)
+    old = tmm.masked_matmul_ds(tx, tg.float(), tw)
+    assert torch.equal(ds, old)
+    assert torch.equal(tmm.masked_matmul_ds(tx, tg, tw), old)
+    t = jnp.float32(THRESHOLD)
+    _, vjp = jax.vjp(lambda x, w, s, t: jmm.masked_matmul(x, w, s, t, True),
+                     jx, jw, js, t)
+    _close(ds, vjp(jg)[2], w_dtype == "bfloat16", "dscores")
