@@ -15,7 +15,8 @@ Phases (each one's seconds are logged):
               kernel instantiation's registers, shared memory and spills
               (`-Xptxas -v`), its tensor-core instructions (HMMA, and
               HGMMA for `wgmma`) and TMA loads (UTMALDG), from `cuobjdump
-              -sass`; every `wgmma_gemm_kernel` has HGMMA and UTMALDG.
+              -sass`; every `wgmma_gemm_kernel` and the
+              `head_compact_kernel` have HGMMA and UTMALDG.
   3. kernel   the primal short attention kernel against its plain PyTorch
               version at the LXMERT serving shapes (batch 32 and 256; every
               (Sq, Sk) LXMERT gives it) and at mPLUG's (25,25) and (1,1)
@@ -114,10 +115,16 @@ Phases (each one's seconds are logged):
               timed beside the plain versions and cuBLAS on x @ (w * (s >
               t)), alone and forward + backward, ds with an fp32 and a bf16
               cotangent.
- 15. head-compact-kernel  the head-compact kernel at x [9216, 768], 12
-              heads of 64 with 4 kept, padded with sentinels, and all
-              masked, bf16 and fp32, against its plain version; timed beside
-              the gather + cuBLAS + scatter op and cuBLAS on w * mask.
+ 15. head-compact-kernel  the head-compact kernel (the TMA + wgmma
+              product in head mode, its zero blocks, and for fp32 operands
+              the operand pass) at x [9216, 768], 12 heads of 64 with 4
+              kept, padded with sentinels, and all masked, bf16 and fp32,
+              and with 1, 6 and 12 kept in bf16, against its plain
+              version; masked columns exactly 0, the bits repeated by a
+              second call; timed (bf16 at 1, 4, 6, 12 kept, fp32 at 4)
+              beside the gather + cuBLAS + scatter op and cuBLAS on w *
+              mask; the profiler's kernel names of one bf16 and one fp32
+              call.
  16. stage1   `crvqa_tpu_torch.cli.run_vqa_stage1.main` at full LXMERT width,
               batch 64, bf16, LMH loss, 512 synthetic examples: 8 steps, a
               checkpoint, an eval and the .bin, the final eval; 34 forward-
@@ -293,6 +300,9 @@ def phase_build() -> dict:
                if "wgmma_gemm_kernel" in k}
     check(len(product) == 3, f"build: the three wgmma_gemm_kernel "
                              f"instantiations, found {list(product)}")
+    check("head_compact_kernel" in kernels,
+          f"build: no head_compact_kernel in {list(kernels)}")
+    product["head_compact_kernel"] = kernels["head_compact_kernel"]
     for kernel, info in product.items():
         check(info.get("HGMMA", 1) > 0 and info.get("UTMALDG", 1) > 0,
               f"build: {kernel} has no wgmma (HGMMA) or TMA load (UTMALDG) "
@@ -1336,7 +1346,8 @@ def _counters() -> dict:
             "masked_matmul_dx": mm.masked_matmul_dx,
             "masked_matmul_ds": mm.masked_matmul_ds,
             "masked_matmul_operand_pass": mm.operand_pass,
-            "head_compact_matmul": sm.head_compact_matmul_pallas}
+            "head_compact_matmul": sm.head_compact_matmul_pallas,
+            "head_compact_operand_pass": sm.operand_pass}
 
 
 def _launch_counts(on_card: bool = True, **counts) -> dict:
@@ -1963,6 +1974,7 @@ MM_DTYPES = [("bfloat16", "bfloat16"), ("bfloat16", "float32"),
              ("float32", "float32"), ("float32", "bfloat16")]
 MM_THRESHOLD = 0.7
 HC_HEADS, HC_KEPT = 12, 4  # 4 of 12 heads kept: zero rate 0.67
+HC_TIMED_KEPT = (1, 4, 6, 12)  # the bf16 rows timed
 
 
 def _close_to(torch, got, want, bf16: bool, terms: int
@@ -2138,17 +2150,7 @@ def _mm_profile(torch, mm, device, seed) -> dict:
     reduction once (where its plan splits), and no `tile_gemm_kernel`.
     Profiled in a fresh process: a profiler session this late in a long
     process on the card came back without the kernels' events."""
-    code = ("import json, sys, chip_smoke as s; "
-            "print('MM_PROFILE', json.dumps(s.mm_profile_counts(int("
-            "sys.argv[1]))))")
-    proc = subprocess.run([sys.executable, "-c", code, str(seed)], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
-    lines = [l for l in proc.stdout.splitlines()
-             if l.startswith("MM_PROFILE ")]
-    check(proc.returncode == 0 and len(lines) == 1,
-          f"masked-matmul-kernel: the profiling process failed (exit "
-          f"{proc.returncode}): {proc.stderr[-2000:]}")
-    got = json.loads(lines[0].split(" ", 1)[1])
+    got = _fresh_process("mm_profile_counts", seed, "masked-matmul-kernel")
     log(f"masked-matmul-kernel: profile of one bf16 autograd run: {got}")
     m, k, n = MM_SHAPES[0]
     splits = mm.ds_plan(m, k, n, _sm_count(torch, device)).splits
@@ -2157,6 +2159,28 @@ def _mm_profile(torch, mm, device, seed) -> dict:
                   "tile_gemm_kernel": 0},
           f"masked-matmul-kernel: the profiler saw {got}")
     return got
+
+
+def _fresh_process(fn: str, seed: int, tag: str):
+    """chip_smoke.<fn>(seed) in a fresh Python process on the card; its
+    JSON result."""
+    code = ("import json, sys, chip_smoke as s; "
+            f"print('RESULT', json.dumps(s.{fn}(int(sys.argv[1]))))")
+    proc = subprocess.run([sys.executable, "-c", code, str(seed)], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"{tag}: the profiling process failed (exit {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def _device_calls(torch, prof, names) -> dict:
+    """Launches by kernel name (substring) among a profile's CUDA events."""
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {name: sum(c for key, c in calls.items() if name in key)
+            for name in names}
 
 
 def mm_profile_counts(seed: int) -> dict:
@@ -2178,11 +2202,9 @@ def mm_profile_counts(seed: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
         torch.cuda.synchronize()
-    calls = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
-    return {name: sum(c for key, c in calls.items() if name in key)
-            for name in ("masked_operand_pass_kernel", "wgmma_gemm_kernel",
-                         "ds_split_reduce_kernel", "tile_gemm_kernel")}
+    return _device_calls(torch, prof, (
+        "masked_operand_pass_kernel", "wgmma_gemm_kernel",
+        "ds_split_reduce_kernel", "tile_gemm_kernel"))
 
 
 def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
@@ -2228,77 +2250,179 @@ def _mm_times(torch, mm, x, w, s, t, gy) -> dict:
     return out
 
 
+def _hc_inputs(torch, m, k, seed):
+    """x [m, k], wt [HC_HEADS * 64, k] (fp32, on the CPU) and the head
+    order that kept-head masks take their heads from."""
+    g = torch.Generator().manual_seed(seed + 5)
+    order = torch.randperm(HC_HEADS, generator=g)
+    x = torch.randn(m, k, generator=g)
+    wt = torch.randn(HC_HEADS * 64, k, generator=g) * 0.05
+    return x, wt, order
+
+
+def _hc_mask(torch, order, kept: int):
+    hm = torch.zeros(HC_HEADS, dtype=torch.bool)
+    hm[order[:kept]] = True
+    return hm
+
+
 def phase_head_compact_kernel(torch, device, rehearse: bool, seed: int
                               ) -> dict:
-    """The head-compact kernel at x [256 * 36, 768], 12 heads of 64 with 4
-    kept, and with that keep list padded by 2 sentinels, and with every
-    head masked (2 sentinel slots), in bf16 and fp32, against its plain
-    version; masked columns exactly zero. Timed at 4 kept beside the
-    port's `head_compact_matmul` (gather + cuBLAS + scatter) and
-    `dense_masked_matmul` (cuBLAS on w * mask). No entry point reaches the
-    kernel; `launches` counts this phase's checking run."""
+    """The head-compact kernel at x [256 * 36, 768], 12 heads of 64, in
+    bf16 and fp32, against its plain version: 4 kept, the same padded by 2
+    sentinels, and every head masked (2 sentinel slots); in bf16 also 1, 6
+    and 12 kept. Masked columns exactly zero, a second call bit-identical.
+    Timed (bf16 at HC_TIMED_KEPT, fp32 at 4 kept) beside the port's
+    `head_compact_matmul` (gather + cuBLAS + scatter) and
+    `dense_masked_matmul` (cuBLAS on w * mask); the operand pass timed on
+    fp32 x; then one bf16 and one fp32 call profiled in a fresh process. No
+    entry point reaches the kernel; `launches` counts this phase's
+    checking run."""
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
     m, k, bm, bk = (256, 128, 128, 128) if rehearse else (
         TRAIN_BATCH * BOXES, 768, 512, 256)
     heads, hs = HC_HEADS, 64
-    g = torch.Generator().manual_seed(seed + 5)
-    kept_heads = torch.randperm(heads, generator=g)[:HC_KEPT]
-    head_mask = torch.zeros(heads, dtype=torch.bool)
-    head_mask[kept_heads] = True
-    cases = [("kept4", head_mask, HC_KEPT), ("kept4_pad2", head_mask,
-                                             HC_KEPT + 2),
-             ("none_kept", torch.zeros(heads, dtype=torch.bool), 2)]
-    x32 = torch.randn(m, k, generator=g)
-    wt32 = torch.randn(heads * hs, k, generator=g) * 0.05
+    x32, wt32, order = _hc_inputs(torch, m, k, seed)
+    cases = [("kept4", HC_KEPT, HC_KEPT), ("kept4_pad2", HC_KEPT, HC_KEPT + 2),
+             ("none_kept", 0, 2)]
+    # bf16 only: the other timed counts, and each of 4 kept heads paired
+    # with a pad (one head a product block: the cost of that tiling)
+    more = [(f"kept{n}", n, n) for n in HC_TIMED_KEPT if n != HC_KEPT] + [
+        ("kept4_split_pairs", HC_KEPT, 2 * HC_KEPT)]
     rows = []
     launches = _launch_counts()
+    n_pass = 0
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         x, wt = x32.to(device, dt), wt32.to(device, dt)
-        for tag, hm, n_keep in cases:
-            keep = sm.expand_keep_idx(hm, n_keep).to(device, torch.int32)
-            y, counts = _run_counted(lambda: sm.head_compact_matmul_pallas(
-                x, wt, keep, heads, hs, bm=bm, bk=bk))
+        timed = ({f"kept{n}" for n in HC_TIMED_KEPT} | {
+            "kept4_split_pairs", "none_kept"} if dtype == "bfloat16"
+                 else {f"kept{HC_KEPT}"})
+        for tag, kept, n_keep in cases + (more if dtype == "bfloat16"
+                                          else []):
+            hm = _hc_mask(torch, order, kept)
+            if tag.endswith("split_pairs"):  # kept, pad, kept, pad, ...
+                keep = sm.expand_keep_idx(hm, kept)
+                keep = torch.stack([keep, torch.full_like(keep, heads)], 1)
+            else:
+                keep = sm.expand_keep_idx(hm, n_keep)
+            keep = keep.reshape(-1).to(device, torch.int32)
+            call = lambda: sm.head_compact_matmul_pallas(x, wt, keep, heads,
+                                                         hs, bm=bm, bk=bk)
+            y, counts = _run_counted(call)
             launches = {n_: launches[n_] + c for n_, c in counts.items()}
+            n_pass += sum(sm.rounded_operands(x, wt))
             ref = sm.head_compact_matmul_pallas_reference(x, wt, keep, heads,
                                                           hs)
             ok, err = _close_to(torch, y, ref, dtype == "bfloat16", k)
             cols = hm.to(device).repeat_interleave(hs)
             zero = not bool(y[:, ~cols].any())
-            kept = int(hm.sum())
+            same = torch.equal(y, call())
             item = x.element_size()
             t_bytes = 1e3 * (item * (m * k + kept * hs * k + m * heads * hs)
-                             + 8 * n_keep) / HBM_BYTES_PER_S
+                             + 4 * n_keep) / HBM_BYTES_PER_S
             t_ops = 1e3 * 2 * m * k * kept * hs / PEAK_FLOPS["bfloat16"]
             row = {"case": tag, "dtype": dtype, "m": m, "k": k,
                    "heads": heads, "kept": kept, "n_keep": n_keep,
                    "max_abs_err": err, "masked_columns_zero": zero,
-                   "bytes_ms": t_bytes, "ops_ms": t_ops}
+                   "bit_identical": same, "bytes_ms": t_bytes,
+                   "ops_ms": t_ops}
             row["bound_ms"], row["bound_by"] = _bound(t_bytes, t_ops)
-            if not rehearse and tag == "kept4":
-                w = wt.T.contiguous()
-                row["ms"] = _graph_ms(torch, lambda: (
-                    sm.head_compact_matmul_pallas(x, wt, keep, heads, hs,
-                                                  bm=bm, bk=bk)))
-                row["plain_ms"] = _graph_ms(torch, lambda: (
-                    sm.head_compact_matmul_pallas_reference(x, wt, keep,
-                                                            heads, hs)))
-                row["compact_torch_ms"] = _graph_ms(torch, lambda: (
-                    sm.head_compact_matmul(x, w, keep, heads, hs)))
-                hmd = hm.to(device)
-                row["library_ms"] = _graph_ms(torch, lambda: (
-                    sm.dense_masked_matmul(x, w, hmd, hs)))
+            if not rehearse and tag in timed:
+                row.update(_hc_times(torch, sm, x, wt, keep, hm, bm, bk))
             rows.append(row)
             log("head-compact-kernel: " + json.dumps(row))
-            check(ok and zero and y.dtype == x.dtype,
+            check(ok and zero and same and y.dtype == x.dtype,
                   f"head-compact kernel disagrees with its plain version at "
                   f"{row} (tolerance: 1e-5 of the largest output, plus one "
-                  f"bf16 step in bf16; masked columns exactly 0)")
-    want = _launch_counts(not rehearse, head_compact_matmul=len(rows))
+                  f"bf16 step in bf16; masked columns exactly 0; a second "
+                  f"call bit-identical)")
+    want = _launch_counts(not rehearse, head_compact_matmul=len(rows),
+                          head_compact_operand_pass=n_pass)
     check(launches == want, f"head-compact-kernel: launches {launches} != "
                             f"{want}")
-    return {"rows": rows, "launches": launches}
+    x = x32.to(device)
+    packed = sm.operand_pass(x)
+    plain = sm.operand_pass_reference(x)
+    out = {"rows": rows, "launches": launches,
+           "pass": {"m": m, "k": k, "bit_equal": torch.equal(
+               packed.view(torch.int16), plain.view(torch.int16)),
+               "max_abs_err": (packed.float() - plain.float()).abs().max()
+               .item(),
+               "bytes_ms": 1e3 * 6 * m * k / HBM_BYTES_PER_S}}
+    check(out["pass"]["bit_equal"], "head-compact-kernel: the operand pass "
+                                    "is not bit-equal to its plain version")
+    if not rehearse:
+        out["pass"]["ms"] = _graph_ms(torch, lambda: sm.operand_pass(x))
+        # the plain version is itself the one PyTorch call for the function
+        out["pass"]["plain_ms"] = _graph_ms(torch, lambda: (
+            sm.operand_pass_reference(x)))
+        out["profile"] = _fresh_process("hc_profile_counts", seed,
+                                        "head-compact-kernel")
+        log(f"head-compact-kernel: profiles of one call: {out['profile']}")
+        check(out["profile"] == HC_PROFILE_WANT,
+              f"head-compact-kernel: the profiler saw {out['profile']}, "
+              f"not {HC_PROFILE_WANT}")
+    log("head-compact-kernel: operand pass " + json.dumps(out["pass"]))
+    return out
+
+
+# kernels by name in a profile of one call at x [9216, 768], by dtype: the
+# head-compact kernel once, the operand pass for each fp32 operand
+HC_PROFILE_WANT = {
+    "bfloat16": {"head_compact_kernel": 1,
+                 "head_compact_operand_pass_kernel": 0,
+                 "tile_gemm_kernel": 0},
+    "float32": {"head_compact_kernel": 1,
+                "head_compact_operand_pass_kernel": 2,
+                "tile_gemm_kernel": 0}}
+
+
+def hc_profile_counts(seed: int) -> dict:
+    """Launches by kernel name in a profile of one head-compact call at x
+    [256 * 36, 768], 4 of 12 heads kept, in bf16 and in fp32 on the card,
+    each after one call unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    device = torch.device("cuda")
+    x32, wt32, order = _hc_inputs(torch, TRAIN_BATCH * BOXES, 768, seed)
+    keep = sm.expand_keep_idx(_hc_mask(torch, order, HC_KEPT), HC_KEPT).to(
+        device, torch.int32)
+    out = {}
+    for dtype in HC_PROFILE_WANT:
+        x, wt = (t.to(device, getattr(torch, dtype)) for t in (x32, wt32))
+        sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
+            torch.cuda.synchronize()
+        out[dtype] = _device_calls(torch, prof, HC_PROFILE_WANT[dtype])
+    return out
+
+
+def _hc_times(torch, sm, x, wt, keep, hm, bm, bk) -> dict:
+    """Device ms per call of the kernel (its operand passes included), its
+    plain version, the port's gather + cuBLAS + scatter op and cuBLAS on w
+    * mask; and the eager ms per kernel call."""
+    heads, hs = HC_HEADS, 64
+    w = wt.T.contiguous()
+    hmd = hm.to(x.device)
+    call = lambda: sm.head_compact_matmul_pallas(x, wt, keep, heads, hs,
+                                                 bm=bm, bk=bk)
+    return {
+        "ms": _graph_ms(torch, call),
+        "plain_ms": _graph_ms(torch, lambda: (
+            sm.head_compact_matmul_pallas_reference(x, wt, keep, heads, hs))),
+        "compact_torch_ms": _graph_ms(torch, lambda: (
+            sm.head_compact_matmul(x, w, keep, heads, hs))),
+        "library_ms": _graph_ms(torch, lambda: (
+            sm.dense_masked_matmul(x, w, hmd, hs))),
+        "call_ms": _eager_ms(torch, call),
+    }
 
 
 S1_BATCH = 64            # the reference recipe (bash_files/Stage1)
@@ -2802,8 +2926,15 @@ def matmul_kernel_summary(masked, compact, shape) -> list[dict]:
                  f":74-75, once a call); copy mode rounds fp32 or "
                  f"misaligned x and g; {common}",
     })
-    row = next(r for r in compact["rows"] if r["case"] == "kept4"
+    row = next(r for r in compact["rows"] if r["case"] == f"kept{HC_KEPT}"
                and r["dtype"] == "bfloat16")
+    others = ", ".join(
+        f"{r['case']} {r['dtype']} {r['ms']:.4f} ms (gather + cuBLAS + "
+        f"scatter {r['compact_torch_ms']:.4f}, cuBLAS on w * mask "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
+        for r in compact["rows"] if "ms" in r and r is not row)
+    common = ("no entry point reaches the kernel: launches are phase "
+              "head-compact-kernel's checking run")
     out.append({
         "name": "head_compact_matmul", "route": "cuda",
         "source": src + "head_compact_matmul.cu",
@@ -2813,11 +2944,27 @@ def matmul_kernel_summary(masked, compact, shape) -> list[dict]:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "basis": f"one call at x [{row['m']}, {row['k']}] bf16, "
-                 f"{row['heads']} heads of 64 with {row['kept']} kept; no "
-                 "entry point reaches the kernel: launches are phase "
-                 "head-compact-kernel's checking run; library_ms: cuBLAS "
-                 "on w * mask (dense_masked_matmul); the port's gather + "
-                 f"cuBLAS + scatter {row['compact_torch_ms']:.4f} ms",
+                 f"{row['heads']} heads of 64 with {row['kept']} kept (TMA "
+                 f"+ wgmma product of csrc/wgmma_gemm_common.cuh in head "
+                 f"mode, zero blocks for dropped heads); {common}; "
+                 "library_ms: cuBLAS on w * mask (dense_masked_matmul); "
+                 "the port's gather + cuBLAS + scatter "
+                 f"{row['compact_torch_ms']:.4f} ms; other rows: {others}",
+    })
+    p = compact["pass"]
+    out.append({
+        "name": "head_compact_operand_pass", "route": "cuda",
+        "source": src + "head_compact_matmul.cu",
+        "replaces": "crvqa_tpu/ops/structured_matmul.py:129",
+        "launches": compact["launches"]["head_compact_operand_pass"],
+        "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+        "plain_ms": p["plain_ms"], "bound_ms": p["bytes_ms"],
+        "bound_by": "bytes", "library_ms": p["plain_ms"],
+        "basis": f"bf16(x) of an fp32 x [{p['m']}, {p['k']}] (the TPU "
+                 f"kernel's .astype(bfloat16) of each operand, for an "
+                 f"operand TMA cannot read in place); {common} (x and wt "
+                 f"of each fp32 call); plain_ms and library_ms: the one "
+                 f"PyTorch call x.to(torch.bfloat16), timed once",
     })
     return out
 

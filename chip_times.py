@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Times the short attention kernels and the masked-matmul kernels of the
-checkout this file sits in, through `chip_smoke.py`'s own kernel phases
-(`phase_kernel`, `phase_train_kernels`, `phase_masked_matmul_kernel`:
-every point checked against its plain version, then timed under
-CUDA-graph replay), and sums the attention kernels per LXMERT forward and
-train step.
+"""Times the short attention kernels, the masked-matmul kernels and the
+head-compact kernel of the checkout this file sits in, through
+`chip_smoke.py`'s own kernel phases (`phase_kernel`,
+`phase_train_kernels`, `phase_masked_matmul_kernel`,
+`phase_head_compact_kernel`: every point checked against its plain
+version, then timed under CUDA-graph replay), and sums the attention
+kernels per LXMERT forward and train step.
 
-    python3 chip_times.py OUT.json [--build] [--masked-only]
+    python3 chip_times.py OUT.json [--build] [--masked-only | --compact-only]
 
 prints one line `SUMMARY <checkout> {...}` (bf16; the primal per forward
 at batch 32; the forward for grad, both backwards and
@@ -14,7 +15,10 @@ at batch 32; the forward for grad, both backwards and
 0.1; the masked-matmul forward, dx and ds per call at x [9216, 768], w
 [768, 768], beside cuBLAS) and writes every row to OUT.json. `--build`
 rebuilds the kernels first (chip_smoke's `build` phase, with its
-per-kernel report); `--masked-only` times the masked-matmul kernels alone.
+per-kernel report); `--masked-only` times the masked-matmul kernels alone;
+`--compact-only` the masked-matmul kernels and the head-compact kernel (at
+x [9216, 768], 4 of 12 heads kept, bf16 and fp32, beside cuBLAS on w *
+mask and the gather + cuBLAS + scatter op).
 
 To compare two commits on one card, unpack the other one beside this
 checkout (`git archive <commit> | tar -x -C <dir>`), copy this script
@@ -55,10 +59,20 @@ def main(argv: list[str]) -> int:
         "fwd_ms", "dx_ms", "ds_ms", "ds_bf16g_ms", "fwd_library_ms",
         "dx_library_ms", "ds_library_ms", "fwd_bwd_ms",
         "fwd_bwd_library_ms")}}
-    if "--masked-only" in argv:
+    if "--masked-only" in argv or "--compact-only" in argv:
+        out = {"masked": masked}
+        if "--compact-only" in argv:
+            out["compact"] = smoke.phase_head_compact_kernel(torch, dev,
+                                                             False, 0)
+            for r in out["compact"]["rows"]:
+                if r["case"] == "kept4" and "ms" in r:
+                    summary[f"compact_{r['dtype']}"] = {key: r[key] for key in (
+                        "ms", "plain_ms", "library_ms", "compact_torch_ms",
+                        "bound_ms")}
+        out["summary"] = summary
         print("SUMMARY", here, json.dumps(summary), flush=True)
         with open(argv[0], "w") as f:
-            json.dump({"masked": masked, "summary": summary}, f, indent=1)
+            json.dump(out, f, indent=1)
         return 0
     rows = smoke.phase_kernel(torch, dev, False, 0)
     train = smoke.phase_train_kernels(torch, dev, False, 0)

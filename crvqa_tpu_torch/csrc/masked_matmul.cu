@@ -53,76 +53,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float load_f32(const void* p, int64_t i,
-                                          int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// dst[r, c] (bf16, row pitch ldd, a multiple of 8) = bf16(src(r, c) ⊙
-// [s(r, c) > *t]) (mask mode, s != nullptr; s shares src's strides) or
-// bf16(src(r, c)); zeros in the columns [cols, ldd). One thread per 8
-// columns of a row; consecutive threads on src's contiguous dimension.
+// The operand pass (wg::operand_pass): mask mode when s is not null.
 __global__ void masked_operand_pass_kernel(const void* src, int64_t rs,
                                            int64_t cs, int src_bf16,
                                            const float* s, const float* t,
                                            bf16* dst, int64_t ldd, int rows,
                                            int cols) {
-  const float thr = s ? *t : 0.f;
-  const int64_t chunks = ldd / 8;
-  const int64_t total = rows * chunks;
-  const bool row_fast = cs != 1;
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                     threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = row_fast ? idx % rows : idx / chunks;
-    const int c0 = static_cast<int>(8 * (row_fast ? idx / rows : idx % chunks));
-    const int64_t off = r * rs + c0 * cs;
-    float v[8], sv[8];
-    const char* sp = static_cast<const char*>(src) + off * (src_bf16 ? 2 : 4);
-    const bool vec = cs == 1 && c0 + 8 <= cols && aligned16(sp) &&
-                     (!s || aligned16(s + off));
-    if (vec) {
-      if (src_bf16) {
-        const uint4 u = *reinterpret_cast<const uint4*>(sp);
-        const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(h[q]);
-      } else {
-        const float4 f0 = reinterpret_cast<const float4*>(sp)[0];
-        const float4 f1 = reinterpret_cast<const float4*>(sp)[1];
-        v[0] = f0.x, v[1] = f0.y, v[2] = f0.z, v[3] = f0.w;
-        v[4] = f1.x, v[5] = f1.y, v[6] = f1.z, v[7] = f1.w;
-      }
-      if (s) {
-        const float4 s0 = reinterpret_cast<const float4*>(s + off)[0];
-        const float4 s1 = reinterpret_cast<const float4*>(s + off)[1];
-        sv[0] = s0.x, sv[1] = s0.y, sv[2] = s0.z, sv[3] = s0.w;
-        sv[4] = s1.x, sv[5] = s1.y, sv[6] = s1.z, sv[7] = s1.w;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const bool in = c0 + q < cols;
-        v[q] = in ? load_f32(src, off + q * cs, src_bf16) : 0.f;
-        sv[q] = in && s ? s[off + q * cs] : 0.f;
-      }
-    }
-    uint4 out;
-    bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      // the mask in w's dtype times w, as (w * mask).astype(bf16): the
-      // product is exact, so one rounding of the fp32 product
-      const float x = s ? v[q] * (sv[q] > thr ? 1.f : 0.f) : v[q];
-      o[q] = c0 + q < cols ? __float2bfloat16(x) : __float2bfloat16(0.f);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ldd + c0) = out;
-  }
+  wg::operand_pass(src, rs, cs, src_bf16, s, t, dst, ldd, rows, cols);
 }
 
 // out[i] = round_e(sum_z part[z][i] * e[i]) over the m·n outputs, the
@@ -135,14 +72,9 @@ __global__ void ds_split_reduce_kernel(const float* part, int splits,
        i < mn; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float v = part[i];
     for (int z = 1; z < splits; ++z) v += part[z * mn + i];
-    v *= load_f32(e, i, e_bf16);
+    v *= wg::load_f32(e, i, e_bf16);
     out[i] = e_bf16 ? wg::bf16_round(v) : v;
   }
-}
-
-int grid_for(int64_t work, int threads) {
-  const int64_t blocks = (work + threads - 1) / threads;
-  return static_cast<int>(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
 }
 
 }  // namespace
@@ -159,7 +91,7 @@ int masked_matmul_operand_pass(const void* src, int64_t rs, int64_t cs,
                                void* stream) {
   if (rows < 1 || cols < 1 || ldd < cols || ldd % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  masked_operand_pass_kernel<<<grid_for(rows * (ldd / 8), 256), 256, 0,
+  masked_operand_pass_kernel<<<wg::grid_for(rows * (ldd / 8), 256), 256, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       src, rs, cs, src_bf16, s, t, static_cast<bf16*>(dst), ldd, rows, cols);
   return static_cast<int>(cudaGetLastError());
@@ -207,7 +139,7 @@ int masked_matmul_ds_reduce(const float* part, int splits, int64_t mn,
                             const void* e, int e_bf16, float* out,
                             void* stream) {
   if (splits < 1 || mn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  ds_split_reduce_kernel<<<grid_for(mn, 256), 256, 0,
+  ds_split_reduce_kernel<<<wg::grid_for(mn, 256), 256, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       part, splits, mn, e, e_bf16, out);
   return static_cast<int>(cudaGetLastError());

@@ -1,10 +1,12 @@
 // A matrix product on Hopper's TMA and `wgmma`, with bf16 operands and fp32
-// sums, shared by the masked matmul kernels (masked_matmul.cu):
+// sums, shared by the masked matmul kernels (masked_matmul.cu) and the
+// head-compact matmul (head_compact_matmul.cu):
 //
 //   C[i, j] = epilogue( sum_kk A[i, kk] * B[kk, j] )        (fp32 sums)
 //
 // Operands are bf16 in device memory, rows 16-byte aligned, read by TMA
-// (whatever is not, the caller first rounds into such a buffer). Each
+// (whatever is not, the caller first rounds into such a buffer with
+// `operand_pass`, below, from its own kernel). Each
 // operand is either K-major (its rows run along the reduction: A = x [M, K],
 // or B stored as Bᵀ [N, K]) or MN-major (A stored as Aᵀ [K, M], B as
 // [K, N]); `wgmma`'s transpose bits read either layout from shared memory,
@@ -39,6 +41,11 @@
 // - Tried on an H100 at that shape and left out: 128 x 256 tiles (one
 //   block an SM), and clusters of two blocks sharing the B tile through
 //   TMA multicast; neither was faster.
+// - Head mode (`kHeads`, the head-compact matmul): B is K-major and its
+//   two 64-row atoms come from rows n0 and n1 of B, two 64 x 64 TMA boxes
+//   a stage; the tile's column halves go to columns n0 and n1 of C. A
+//   negative n0 or n1 loads and writes nothing for that half, and the
+//   stage's barrier expects only the bytes requested.
 //
 // Tensor maps are encoded on the host for every launch (so a captured
 // CUDA graph holds the maps of its own buffers) through the driver's
@@ -49,6 +56,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace wg {
@@ -255,32 +263,166 @@ __device__ __forceinline__ void write_piece(const Epi& p, int i, int j,
   }
 }
 
+// C's column of the tile's column j: n0 + j, or in head mode that of the
+// half's head (from n0 for j < 64, else n1); a half with a negative start
+// maps past every column, so nothing of it is written.
+template <bool kHeads>
+__device__ __forceinline__ int column(int n0, int n1, int j) {
+  if constexpr (kHeads) {
+    const int base = j < 64 ? n0 : n1;
+    return base < 0 ? INT_MAX : base + (j & 63);
+  } else {
+    return n0 + j;
+  }
+}
+
+// ------------------------------------------------------- operand pass
+
+__device__ __forceinline__ float load_f32(const void* p, int64_t i,
+                                          int is_bf16) {
+  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The body of an operand pass kernel: dst[r, c] (bf16, row pitch ldd, a
+// multiple of 8) = bf16(src(r, c) ⊙ [s(r, c) > *t]) (mask mode, s !=
+// nullptr; s shares src's strides) or bf16(src(r, c)) (copy mode), src(r,
+// c) at src[r * rs + c * cs], bf16 if src_bf16 else fp32; zeros in the
+// columns [cols, ldd). One thread per 8 columns of a row, over a grid
+// stride loop; consecutive threads on src's contiguous dimension; 16-byte
+// loads where the source allows them. Each library wraps it in its own
+// kernel, so its launches are its own.
+__device__ __forceinline__ void operand_pass(const void* src, int64_t rs,
+                                             int64_t cs, int src_bf16,
+                                             const float* s, const float* t,
+                                             __nv_bfloat16* dst, int64_t ldd,
+                                             int rows, int cols) {
+  const float thr = s ? *t : 0.f;
+  const int64_t chunks = ldd / 8;
+  const int64_t total = rows * chunks;
+  const bool row_fast = cs != 1;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = row_fast ? idx % rows : idx / chunks;
+    const int c0 = static_cast<int>(8 * (row_fast ? idx / rows : idx % chunks));
+    const int64_t off = r * rs + c0 * cs;
+    float v[8], sv[8];
+    const char* sp = static_cast<const char*>(src) + off * (src_bf16 ? 2 : 4);
+    const bool vec = cs == 1 && c0 + 8 <= cols && aligned16(sp) &&
+                     (!s || aligned16(s + off));
+    if (vec) {
+      if (src_bf16) {
+        const uint4 u = *reinterpret_cast<const uint4*>(sp);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(h[q]);
+      } else {
+        const float4 f0 = reinterpret_cast<const float4*>(sp)[0];
+        const float4 f1 = reinterpret_cast<const float4*>(sp)[1];
+        v[0] = f0.x, v[1] = f0.y, v[2] = f0.z, v[3] = f0.w;
+        v[4] = f1.x, v[5] = f1.y, v[6] = f1.z, v[7] = f1.w;
+      }
+      if (s) {
+        const float4 s0 = reinterpret_cast<const float4*>(s + off)[0];
+        const float4 s1 = reinterpret_cast<const float4*>(s + off)[1];
+        sv[0] = s0.x, sv[1] = s0.y, sv[2] = s0.z, sv[3] = s0.w;
+        sv[4] = s1.x, sv[5] = s1.y, sv[6] = s1.z, sv[7] = s1.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const bool in = c0 + q < cols;
+        v[q] = in ? load_f32(src, off + q * cs, src_bf16) : 0.f;
+        sv[q] = in && s ? s[off + q * cs] : 0.f;
+      }
+    }
+    uint4 out;
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      // the mask in w's dtype times w, as (w * mask).astype(bf16): the
+      // product is exact, so one rounding of the fp32 product
+      const float x = s ? v[q] * (sv[q] > thr ? 1.f : 0.f) : v[q];
+      o[q] = c0 + q < cols ? __float2bfloat16(x) : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ldd + c0) = out;
+  }
+}
+
+// Blocks of `threads` for a grid stride loop over `work` items (at most
+// 8192 blocks).
+inline int grid_for(int64_t work, int threads) {
+  const int64_t blocks = (work + threads - 1) / threads;
+  return static_cast<int>(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
+}
+
 // ------------------------------------------------------------- kernel
 
+// The ring in dynamic shared memory and its barriers.
+struct Ring {
+  uint8_t* ptr;          // generic address (the epilogue stages sums here)
+  uint32_t a, b;         // shared addresses of stage 0's A and B tiles
+  uint32_t full, empty;  // stage s's barriers at full + 8 s, empty + 8 s
+};
+
+// Lays the ring out in `smem_raw` and initialises its barriers; every
+// thread of the block calls it.
+__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw) {
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  Ring r;
+  r.ptr = smem_raw + (base - smem_u32(smem_raw));
+  r.a = base;
+  r.b = base + kStages * kTileBytes;
+  r.full = base + 2 * kStages * kTileBytes;
+  r.empty = r.full + 8 * kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
 // The producer warp's lane 0: keeps the ring full for `steps` steps from
-// step `first`.
-template <bool kTransA, bool kTransB>
+// step `first`. kHeads: B's atoms from rows n0 and n1 (header note).
+template <bool kTransA, bool kTransB, bool kHeads>
 __device__ __forceinline__ void produce(const CUtensorMap* map_a,
                                         const CUtensorMap* map_b,
-                                        uint32_t tiles_a, uint32_t tiles_b,
-                                        uint32_t full, uint32_t empty, int m0,
-                                        int n0, int first, int steps) {
+                                        const Ring& ring, int m0, int n0,
+                                        int n1, int first, int steps) {
+  static_assert(!kHeads || !kTransB, "head atoms are K-major rows of B");
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < steps; ++it) {
-    mbar_wait(empty + 8 * stage, phase ^ 1);
-    const uint32_t bar = full + 8 * stage;
-    mbar_expect_tx(bar, 2 * kTileBytes);
+    mbar_wait(ring.empty + 8 * stage, phase ^ 1);
+    const uint32_t bar = ring.full + 8 * stage;
+    if constexpr (kHeads) {
+      mbar_expect_tx(bar, kTileBytes + kAtom * ((n0 >= 0) + (n1 >= 0)));
+    } else {
+      mbar_expect_tx(bar, 2 * kTileBytes);
+    }
     const int k0 = (first + it) * BK;
-    const uint32_t a = tiles_a + stage * kTileBytes;
-    const uint32_t b = tiles_b + stage * kTileBytes;
+    const uint32_t a = ring.a + stage * kTileBytes;
+    const uint32_t b = ring.b + stage * kTileBytes;
     if (kTransA) {
       tma_load(a, map_a, bar, m0, k0);
       tma_load(a + kAtom, map_a, bar, m0 + 64, k0);
     } else {
       tma_load(a, map_a, bar, k0, m0);
     }
-    if (kTransB) {
+    if constexpr (kHeads) {
+      if (n0 >= 0) tma_load(b, map_b, bar, k0, n0);
+      if (n1 >= 0) tma_load(b + kAtom, map_b, bar, k0, n1);
+    } else if (kTransB) {
       tma_load(b, map_b, bar, n0, k0);
       tma_load(b + kAtom, map_b, bar, n0 + 64, k0);
     } else {
@@ -291,12 +433,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* map_a,
 }
 
 // The two consumer warpgroups: the products, the sums staged in the ring,
-// and C written out.
-template <bool kTransA, bool kTransB>
-__device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
-                                        uint32_t tiles_a, uint32_t tiles_b,
-                                        uint32_t full, uint32_t empty, int m0,
-                                        int n0, int steps) {
+// and C written out (kHeads: the column halves to columns n0 and n1).
+template <bool kTransA, bool kTransB, bool kHeads>
+__device__ __forceinline__ void consume(const Epi& p, const Ring& ring,
+                                        int m0, int n0, int n1, int steps) {
   const int warp = threadIdx.x / 32;
   // consumers: warpgroup `grp` owns rows [64 grp, 64 grp + 64) of the tile
   const int grp = warp / 4;
@@ -306,9 +446,9 @@ __device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
   int stage = 0, prev = 0;
   uint32_t phase = 0;
   for (int it = 0; it < steps; ++it) {
-    mbar_wait(full + 8 * stage, phase);
-    const uint32_t a = tiles_a + stage * kTileBytes + grp * kAtom;
-    const uint32_t b = tiles_b + stage * kTileBytes;
+    mbar_wait(ring.full + 8 * stage, phase);
+    const uint32_t a = ring.a + stage * kTileBytes + grp * kAtom;
+    const uint32_t b = ring.b + stage * kTileBytes;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
@@ -325,7 +465,7 @@ __device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
     wgmma_commit();
     wgmma_wait<1>();  // the step before is done: release its stage
     fence_acc(acc);
-    if (it > 0 && threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * prev);
+    if (it > 0 && threadIdx.x % 128 == 0) mbar_arrive(ring.empty + 8 * prev);
     prev = stage;
     if (++stage == kStages) stage = 0, phase ^= 1;
   }
@@ -342,7 +482,7 @@ __device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
   const bool stage16 = p.mode == kStore && p.c_bf16;
   if (stage16) {
     __nv_bfloat16* st =
-        reinterpret_cast<__nv_bfloat16*>(ring) + grp * 64 * kPitch16;
+        reinterpret_cast<__nv_bfloat16*>(ring.ptr) + grp * 64 * kPitch16;
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
       const int col = q * 8 + (lane % 4) * 2;
@@ -352,7 +492,7 @@ __device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
           __floats2bfloat162_rn(acc[4 * q + 2], acc[4 * q + 3]);
     }
   } else {
-    float* st = reinterpret_cast<float*>(ring) + grp * 64 * kPitch32;
+    float* st = reinterpret_cast<float*>(ring.ptr) + grp * 64 * kPitch32;
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
       const int col = q * 8 + (lane % 4) * 2;
@@ -369,30 +509,51 @@ __device__ __forceinline__ void consume(const Epi& p, uint8_t* ring,
   const int t = threadIdx.x % 128;
   const int row0 = m0 + grp * 64;
   if (stage16) {
-    const __nv_bfloat16* st =
-        reinterpret_cast<const __nv_bfloat16*>(ring) + grp * 64 * kPitch16;
+    const __nv_bfloat16* st = reinterpret_cast<const __nv_bfloat16*>(ring.ptr) +
+                              grp * 64 * kPitch16;
     constexpr int kPieces = BN / 8;
     for (int idx = t; idx < 64 * kPieces; idx += 128) {
       const int r = idx / kPieces, j = (idx % kPieces) * 8;
-      if (row0 + r >= p.m || n0 + j >= p.n) continue;
+      const int col = column<kHeads>(n0, n1, j);
+      if (row0 + r >= p.m || col >= p.n) continue;
       const uint4 u =
           *reinterpret_cast<const uint4*>(st + r * kPitch16 + j);
       const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
       float v[8];
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(h[q]);
-      write_piece(p, row0 + r, n0 + j, v, 8);  // exact: v is bf16 already
+      write_piece(p, row0 + r, col, v, 8);  // exact: v is bf16 already
     }
   } else {
-    const float* st = reinterpret_cast<const float*>(ring) + grp * 64 * kPitch32;
+    const float* st =
+        reinterpret_cast<const float*>(ring.ptr) + grp * 64 * kPitch32;
     constexpr int kPieces = BN / 4;
     for (int idx = t; idx < 64 * kPieces; idx += 128) {
       const int r = idx / kPieces, j = (idx % kPieces) * 4;
-      if (row0 + r >= p.m || n0 + j >= p.n) continue;
+      const int col = column<kHeads>(n0, n1, j);
+      if (row0 + r >= p.m || col >= p.n) continue;
       const float4 f = *reinterpret_cast<const float4*>(st + r * kPitch32 + j);
       const float v[8] = {f.x, f.y, f.z, f.w, 0.f, 0.f, 0.f, 0.f};
-      write_piece(p, row0 + r, n0 + j, v, 4);
+      write_piece(p, row0 + r, col, v, 4);
     }
+  }
+}
+
+// The producer warp and the two consumer warpgroups of one tile: C's rows
+// [m0, m0 + BM) and columns [n0, n0 + BN) (kHeads: the halves at n0 and
+// n1), summed over reduction steps [first, first + steps).
+template <bool kTransA, bool kTransB, bool kHeads>
+__device__ __forceinline__ void run_tile(const CUtensorMap* map_a,
+                                         const CUtensorMap* map_b,
+                                         const Epi& p, const Ring& ring,
+                                         int m0, int n0, int n1, int first,
+                                         int steps) {
+  if (threadIdx.x / 32 == kConsumerWarps) {
+    if (threadIdx.x % 32 == 0)
+      produce<kTransA, kTransB, kHeads>(map_a, map_b, ring, m0, n0, n1,
+                                        first, steps);
+  } else {
+    consume<kTransA, kTransB, kHeads>(p, ring, m0, n0, n1, steps);
   }
 }
 
@@ -407,34 +568,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                       const __grid_constant__ CUtensorMap map_b,
                       const Epi p) {
   extern __shared__ uint8_t smem_raw[];
-  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  uint8_t* const ring = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t tiles_a = base;
-  const uint32_t tiles_b = base + kStages * kTileBytes;
-  const uint32_t full = base + 2 * kStages * kTileBytes;
-  const uint32_t empty = full + 8 * kStages;
-
+  const Ring ring = make_ring(smem_raw);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int first = blockIdx.z * p.chunk;
   const int steps = min((p.k + BK - 1) / BK - first, p.chunk);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x / 32 == kConsumerWarps) {
-    if (threadIdx.x % 32 == 0)
-      produce<kTransA, kTransB>(&map_a, &map_b, tiles_a, tiles_b, full,
-                                empty, m0, n0, first, steps);
-  } else {
-    consume<kTransA, kTransB>(p, ring, tiles_a, tiles_b, full, empty, m0, n0,
-                              steps);
-  }
+  run_tile<kTransA, kTransB, false>(&map_a, &map_b, p, ring, m0, n0, 0, first,
+                                    steps);
 }
 
 // --------------------------------------------------------------- host

@@ -10,10 +10,15 @@ columns exactly zero:
   kept head blocks of w, one `torch.matmul`, scatter into zeros; its
   backward is the dense masked one (`HeadCompactFunction`);
 - `head_compact_matmul_pallas`: the kernel `csrc/head_compact_matmul.cu`
-  (the TPU kernel's counterpart; w given transposed as wt [N, K]; forward
+  (the TPU kernel's counterpart, on the TMA + `wgmma` product of
+  `csrc/wgmma_gemm_common.cuh`; w given transposed as wt [N, K]; forward
   only, as in the JAX package). A CPU tensor takes its plain version, a
-  CUDA tensor launches it or raises; `head_compact_matmul_pallas.launches`
-  counts the launches;
+  CUDA tensor launches it or raises. An operand the kernel's TMA cannot
+  read in place (`_tma_ready`: anything but bf16 rows on the 16-byte grid)
+  is first rounded into a bf16 buffer by `operand_pass`, which is exact:
+  the kernel rounds both operands to bf16 anyway.
+  `head_compact_matmul_pallas.launches` and `operand_pass.launches` count
+  the launches;
 - `dense_masked_matmul`: the baseline, x @ (w ⊙ expand(head_mask)).
 
 Like the JAX package's, none is reached by an entry point: stage 3 compacts
@@ -30,6 +35,7 @@ import ctypes
 import torch
 
 from . import _build
+from .masked_matmul import _pitch, _tma_ready
 
 KERNEL_HEAD_SIZE = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -130,6 +136,43 @@ def head_compact_matmul_pallas_reference(x, wt, keep_idx, num_heads: int,
     return _scatter_heads(yc.to(x.dtype), keep_idx, m, num_heads, head_size)
 
 
+def operand_pass_reference(t: torch.Tensor) -> torch.Tensor:
+    """Plain version of the operand pass: bf16(t), as the TPU kernel's
+    `.astype(jnp.bfloat16)` of each operand (:129)."""
+    return t.to(torch.bfloat16)
+
+
+def operand_pass(t: torch.Tensor) -> torch.Tensor:
+    """bf16(t) as a [R, C] view of a [R, ceil(C / 8) * 8] buffer, so its rows
+    start on the 16-byte grid (plain version on CPU tensors)."""
+    if t.device.type == "cpu":
+        return operand_pass_reference(t)
+    if t.dtype not in _KERNEL_DTYPES or t.dim() != 2:
+        raise TypeError(f"head_compact_matmul operand pass: a 2-D fp32 or "
+                        f"bf16 matrix, got {t.dtype} {tuple(t.shape)}")
+    rows, cols = t.shape
+    ldd = -(-cols // 8) * 8
+    out = torch.empty((rows, ldd), dtype=torch.bfloat16, device=t.device)
+    lib = _library()
+    with torch.cuda.device(t.device):
+        rc = lib.head_compact_operand_pass(
+            t.data_ptr(), t.stride(0), t.stride(1),
+            int(t.dtype == torch.bfloat16), out.data_ptr(), ldd, rows, cols,
+            torch.cuda.current_stream(t.device).cuda_stream)
+    _raise_on(rc, lib)
+    operand_pass.launches += 1
+    return out[:, :cols]
+
+
+operand_pass.launches = 0
+
+
+def rounded_operands(x: torch.Tensor, wt: torch.Tensor) -> tuple[bool, bool]:
+    """Whether the wrapper rounds x and wt through `operand_pass` before the
+    product (the kernel's TMA reads the others in place)."""
+    return not _tma_ready(x), not _tma_ready(wt)
+
+
 def head_compact_matmul_pallas(x: torch.Tensor, wt: torch.Tensor,
                                keep_idx: torch.Tensor, num_heads: int,
                                head_size: int, bm: int = 512, bk: int = 256
@@ -137,7 +180,8 @@ def head_compact_matmul_pallas(x: torch.Tensor, wt: torch.Tensor,
     """y = x @ (w ⊙ head_mask) with w given transposed, wt [N, K]: only the
     kept heads' rows of wt are read (`head_compact_matmul_pallas` :137;
     forward only). `bm` / `bk` are the JAX function's tiles, kept for its
-    preconditions M % bm == 0 and K % bk == 0 (:150-151)."""
+    preconditions M % bm == 0 and K % bk == 0 (:150-151); the kernel itself
+    takes any M and K. keep_idx entries outside [0, H) write nothing."""
     m, k = x.shape
     n = wt.shape[0]
     if n != num_heads * head_size or wt.shape[1] != k:
@@ -146,7 +190,7 @@ def head_compact_matmul_pallas(x: torch.Tensor, wt: torch.Tensor,
     if m % bm or k % bk:
         raise ValueError(f"head_compact_matmul: M={m}, K={k} are not "
                          f"multiples of bm={bm}, bk={bk}")
-    if x.device.type == "cpu":
+    if x.device.type == wt.device.type == "cpu":
         return head_compact_matmul_pallas_reference(x, wt, keep_idx,
                                                     num_heads, head_size)
     if x.device.type != "cuda" or wt.device != x.device:
@@ -159,19 +203,18 @@ def head_compact_matmul_pallas(x: torch.Tensor, wt: torch.Tensor,
         raise ValueError(f"head_compact_matmul kernel: head_size {head_size} "
                          f"(the kernel takes {KERNEL_HEAD_SIZE})")
     keep = keep_idx.to(x.device, torch.int32).contiguous()
+    round_x, round_wt = rounded_operands(x, wt)
+    xa = operand_pass(x) if round_x else x
+    wa = operand_pass(wt) if round_wt else wt
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.head_compact_matmul(
-            x.data_ptr(), x.stride(0), x.stride(1), wt.data_ptr(),
-            wt.stride(0), wt.stride(1), keep.data_ptr(), keep.numel(),
-            y.data_ptr(), m, k, num_heads, int(x.dtype == torch.bfloat16),
-            int(wt.dtype == torch.bfloat16),
+            xa.data_ptr(), _pitch(xa), wa.data_ptr(), _pitch(wa),
+            keep.data_ptr(), keep.numel(), y.data_ptr(), m, k, num_heads,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        msg = lib.head_compact_matmul_error_string(rc).decode()
-        raise RuntimeError(f"head_compact_matmul kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
+    _raise_on(rc, lib)
     head_compact_matmul_pallas.launches += 1
     return y
 
@@ -183,9 +226,19 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_cuda_library("head_compact_matmul")
     if lib.head_compact_matmul.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.head_compact_operand_pass.argtypes = [
+            p, i64, i64, i, p, i64, i, i, p]
         lib.head_compact_matmul.argtypes = [
-            p, i64, i64, p, i64, i64, p, i, p, i, i, i, i, i, p]
-        lib.head_compact_matmul.restype = ctypes.c_int
+            p, i64, p, i64, p, i, p, i, i, i, i, p]
+        for fn in (lib.head_compact_operand_pass, lib.head_compact_matmul):
+            fn.restype = ctypes.c_int
         lib.head_compact_matmul_error_string.argtypes = [ctypes.c_int]
         lib.head_compact_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(rc: int, lib) -> None:
+    if rc != 0:
+        msg = lib.head_compact_matmul_error_string(rc).decode()
+        raise RuntimeError(f"head_compact_matmul kernel launch failed: CUDA "
+                           f"error {rc} ({msg})")

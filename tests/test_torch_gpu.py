@@ -968,29 +968,197 @@ def test_masked_matmul_raises_before_any_launch(case):
     assert [c.launches for c in counters] == before
 
 
+def _hc_inputs(m, k, x_dtype, w_dtype, seed, heads=12):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).cuda().to(x_dtype)
+    wt = (torch.randn(heads * 64, k, generator=g) * 0.05).cuda().to(w_dtype)
+    return x, wt
+
+
+def _hc_keep(kept, pads, heads=12, seed=0):
+    """The heads `kept` in a seeded shuffled order, then `pads` sentinels."""
+    g = torch.Generator().manual_seed(seed)
+    order = torch.tensor(kept, dtype=torch.int64)[
+        torch.randperm(len(kept), generator=g)]
+    return torch.cat([order, torch.full((pads,), heads)]).cuda()
+
+
+def _hc_check(x, wt, keep, heads=12):
+    """One kernel call: one launch, and one operand pass for each operand
+    TMA cannot read in place; y in x's dtype within `_close_to` of the
+    plain version; the dropped heads' columns exactly 0; the same bits
+    from a second call."""
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    counters = (sm.head_compact_matmul_pallas, sm.operand_pass)
+    before = [c.launches for c in counters]
+    y = sm.head_compact_matmul_pallas(x, wt, keep, heads, 64, bm=1, bk=1)
+    torch.cuda.synchronize()
+    passes = sum(sm.rounded_operands(x, wt))
+    assert [c.launches for c in counters] == [before[0] + 1,
+                                              before[1] + passes]
+    assert y.dtype == x.dtype and y.shape == (x.shape[0], heads * 64)
+    _close_to(y, sm.head_compact_matmul_pallas_reference(x, wt, keep, heads,
+                                                         64),
+              x.dtype == torch.bfloat16, x.shape[1])
+    kept = torch.zeros(heads, dtype=torch.bool)
+    kept[keep[keep < heads].cpu()] = True
+    assert not y[:, ~kept.cuda().repeat_interleave(64)].any()
+    assert torch.equal(y, sm.head_compact_matmul_pallas(x, wt, keep, heads,
+                                                        64, bm=1, bk=1))
+    return y
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", ["kept4", "pad2", "none"])
 def test_head_compact_kernel_matches_plain(case, dtype):
+    """At the smoke's shape, x [9216, 768], 12 heads: 4 kept, the same
+    padded by 2 sentinels, and none kept (2 sentinels)."""
     _need_card()
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
-    g = torch.Generator().manual_seed(7)
-    x = torch.randn(9216, 768, generator=g).cuda().to(dtype)
-    wt = (torch.randn(768, 768, generator=g) * 0.05).cuda().to(dtype)
+    x, wt = _hc_inputs(9216, 768, dtype, dtype, 7)
     hm = torch.zeros(12, dtype=torch.bool)
     if case != "none":
         hm[torch.tensor([1, 4, 5, 10])] = True
     n_keep = {"kept4": 4, "pad2": 6, "none": 2}[case]
-    keep = sm.expand_keep_idx(hm, n_keep).cuda()
-    before = sm.head_compact_matmul_pallas.launches
-    y = sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
+    _hc_check(x, wt, sm.expand_keep_idx(hm, n_keep).cuda())
+
+
+@pytest.mark.parametrize("n_kept", range(13))
+def test_head_compact_kernel_at_every_kept_count(n_kept):
+    """0 to 12 of 12 heads kept, in shuffled order with a pad slot after
+    them, so odd counts leave half a slot pair to a pad and even ones a
+    whole pair of pads."""
+    _need_card()
+    x, wt = _hc_inputs(256, 768, torch.bfloat16, torch.bfloat16, n_kept)
+    g = torch.Generator().manual_seed(n_kept)
+    kept = torch.randperm(12, generator=g)[:n_kept].tolist()
+    _hc_check(x, wt, _hc_keep(kept, 1 + n_kept % 2, seed=n_kept))
+
+
+@pytest.mark.parametrize("m", [1, 8, 63, 64, 65, 127, 129, 200])
+def test_head_compact_kernel_at_edge_shapes(m):
+    """Rows around the 128-row tile and reductions around the 64-deep step
+    (K in {64, 72, 200, 768}), every (x, wt) dtype pair, 5 of 12 heads
+    kept out of order with a pad between them."""
+    _need_card()
+    for k in (64, 72, 200, 768):
+        for x_dtype, w_dtype in MM_DTYPES:
+            x, wt = _hc_inputs(m, k, x_dtype, w_dtype, m + k)
+            keep = torch.tensor([9, 2, 12, 7, 0, 11]).cuda()
+            _hc_check(x, wt, keep)
+
+
+def _hc_unaligned(rows, cols, dtype, offset):
+    """A [rows, cols] matrix starting `offset` elements past a 16-byte
+    boundary (rows `cols` apart)."""
+    buf = torch.randn(rows * cols + offset).cuda().to(dtype)
+    return buf[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("case", [
+    "x_transposed", "x_row_slice", "x_misaligned", "x_pitch_not_8",
+    "wt_transposed", "wt_row_slice", "wt_misaligned", "wt_fp32_column_slice"])
+def test_head_compact_kernel_reads_any_layout(case):
+    """Transposed views, column slices of wider rows, starts off the
+    16-byte grid and pitches TMA cannot take go through the operand pass;
+    bf16 row slices on the grid are read in place (`_hc_check` counts the
+    passes)."""
+    _need_card()
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    m, k = 200, 200
+    x, wt = _hc_inputs(m, k, torch.bfloat16, torch.bfloat16, 5)
+    wide = lambda rows, dt: torch.randn(rows, k + 56).cuda().to(dt)[:, :k]
+    x = {"x_transposed": torch.randn(k, m).cuda().bfloat16().T,
+         "x_row_slice": wide(m, torch.bfloat16),
+         "x_misaligned": _hc_unaligned(m, k, torch.bfloat16, 3),
+         "x_pitch_not_8": torch.randn(m, k + 3).cuda().bfloat16()[:, :k]
+         }.get(case, x)
+    wt = {"wt_transposed": torch.randn(k, 768).cuda().bfloat16().T,
+          "wt_row_slice": wide(768, torch.bfloat16),
+          "wt_misaligned": _hc_unaligned(768, k, torch.bfloat16, 1),
+          "wt_fp32_column_slice": wide(768, torch.float32)}.get(case, wt)
+    rounded = sm.rounded_operands(x, wt)
+    assert sum(rounded) == (0 if case.endswith("row_slice") else 1), rounded
+    _hc_check(x, wt, _hc_keep([3, 8, 1], 1))
+
+
+def test_head_compact_kernel_reads_keep_on_the_device():
+    """A call captured in a CUDA graph follows a new keep list written into
+    the same device buffer: nothing about keep is read on the host."""
+    _need_card()
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    x, wt = _hc_inputs(512, 768, torch.bfloat16, torch.bfloat16, 9)
+    keep = torch.tensor([2, 5, 12, 12], dtype=torch.int32).cuda()
+    call = lambda: sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = call()
+    for new in ([2, 5, 12, 12], [11, 0, 7, 4], [12, 12, 12, 12]):
+        keep.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, sm.head_compact_matmul_pallas(x, wt, keep, 12,
+                                                            64)), new
+
+
+def test_head_compact_runs_on_the_wgmma_kernel():
+    """The profiler names what ran: the head-compact TMA + wgmma kernel,
+    its operand pass for fp32 operands, and no `tile_gemm_kernel`."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    keep = _hc_keep([1, 4, 5, 10], 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, wt = _hc_inputs(9216, 768, dtype, dtype, 2)
+        sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
+            torch.cuda.synchronize()
+        ran = " ".join(e.key for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert "head_compact_kernel" in ran, (dtype, ran)
+        assert ("head_compact_operand_pass_kernel" in ran) == (
+            dtype == torch.float32), (dtype, ran)
+        assert "tile_gemm_kernel" not in ran
+
+
+@pytest.mark.parametrize("case", ["dtype", "device", "shape", "head_size"])
+def test_head_compact_kernel_raises_before_any_launch(case):
+    """What the kernel does not take raises before any launch, both
+    counters unmoved."""
+    _need_card()
+    from crvqa_tpu_torch.ops import structured_matmul as sm
+
+    x, wt = _hc_inputs(64, 64, torch.float32, torch.float32, 3)
+    heads, hs = 12, 64
+    if case == "dtype":
+        x = x.half()
+    elif case == "device":
+        wt = wt.cpu()
+    elif case == "shape":
+        wt = wt[:, :-8]
+    else:
+        heads, hs = 24, 32
+    counters = (sm.head_compact_matmul_pallas, sm.operand_pass)
+    before = [c.launches for c in counters]
+    with pytest.raises((TypeError, ValueError)):
+        sm.head_compact_matmul_pallas(x, wt, _hc_keep([1], 1), heads, hs,
+                                      bm=1, bk=1)
     torch.cuda.synchronize()
-    assert sm.head_compact_matmul_pallas.launches == before + 1
-    assert y.dtype == dtype
-    _close_to(y, sm.head_compact_matmul_pallas_reference(x, wt, keep, 12,
-                                                         64),
-              dtype == torch.bfloat16, 768)
-    assert not y[:, ~hm.cuda().repeat_interleave(64)].any()
+    assert [c.launches for c in counters] == before
 
 
 def test_stage3_structured_step_at_six_heads_keeps_masks_zero():
