@@ -19,7 +19,8 @@ Phases (each one's seconds are logged):
               `head_compact_kernel` have HGMMA and UTMALDG.
   3. kernel   the primal short attention kernel against its plain PyTorch
               version at the LXMERT serving shapes (batch 32 and 256; every
-              (Sq, Sk) LXMERT gives it) and at mPLUG's (25,25) and (1,1)
+              (Sq, Sk) LXMERT gives it), at VisualBERT's single stream
+              (50,50) (batch 32) and at mPLUG's (25,25) and (1,1)
               (batch 8), fp32 and bf16; bf16 also at (1,1) and (85,85)
               (batch 32) and at stage 3's 6 compacted heads (the LXMERT
               shapes, batch 64); then timed: the kernel, the plain
@@ -33,7 +34,11 @@ Phases (each one's seconds are logged):
               `scaled_dot_product_attention` with a float mask.
   5. train-kernels  the forward-for-grad and both backward kernels (stored,
               recompute) against their plain versions at batch 256, the four
-              (Sq, Sk), fp32 and bf16, dropout rates 0 and 0.1, and at batch
+              (Sq, Sk) and VisualBERT's (50,50), fp32 and bf16, dropout
+              rates 0 and 0.1 (at (50,50) also the keep mask each kernel
+              applies, read out through one-hot v and g, bit-exact, and the
+              p the recompute backward rebuilds in 48-key chunks bit-equal
+              to the forward's residual in bf16), and at batch
               64 (stages 1 and 3), bf16, rate 0.1, at the four (Sq, Sk),
               (1,1) and (85,85), and at 6 heads; bf16 stored and recompute
               gradients bit-identical; timed beside the plain versions and
@@ -139,7 +144,26 @@ Phases (each one's seconds are logged):
               language layers to 6 heads (the short kernel at H = 6) and FFN
               1536; masked weights exactly 0 after the steps; timed steps of
               (a) and (c).
- 18. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 18. visualbert-train  `crvqa_tpu_torch.cli.prune_debias_vqa_visualbert.main`
+              at the full width of `VisualBertConfig()` (768 hidden, 12
+              layers of 12x64 heads, FFN 3072, 2048-d visual features, 2274
+              answers), batch 256, bf16, LMH loss, uniform zero rate 0.7,
+              magnitude init, on phase serve's fabricated files: 8 steps
+              with two threshold resets, a checkpoint, an eval and the
+              export. Checks finite losses, 12 forward-for-grad and 12
+              stored-backward launches per step and 12 primal per eval
+              batch, the zero rate after the reset; then 3 warm-up and 10
+              timed steps on one batch kept on the card (examples per
+              second, device time of two profiled steps), and one fp32
+              step with dropout on through the kernels against the plain
+              versions (`_close_to`).
+ 19. visualbert-serve  `serve_vqa --model_type visualbert` at that width:
+              512 requests at batch 32 over phase serve's store, through
+              phase visualbert-train's mask.pt and classifier4masker.bin,
+              bf16 and fp32; zero error responses, 12 primal launches per
+              forward, fp32 answers identical to the plain attention's;
+              device time by kernel of one bf16 forward at batch 32.
+ 20. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -172,6 +196,9 @@ SERVE_SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
 # one key, the longest rows at 12 heads (85 x 12 = 1020 <= 1024), and
 # stage 3's head compaction to 6 heads at the LXMERT shapes, at its batch
 SHORT_EDGE_SHAPES = [(1, 1), (85, 85)]
+# VisualBERT's single stream: 14 text tokens and 36 boxes, 12 heads; rows
+# over the 48 keys the bf16 backward takes in one chunk
+VISUALBERT_SHAPE = (50, 50)
 COMPACT_HEADS = 6
 MPLUG_SHORT_SHAPES = [(25, 25), (1, 1)]  # text towers; the rank bos pass
 MPLUG_SHORT_BATCH = 8
@@ -490,12 +517,14 @@ def _fused_primal_plain(q, k, v, bias, num_heads, head_size, rate, seed):
 
 
 def phase_kernel(torch, device, rehearse: bool, seed: int) -> list[dict]:
-    """The primal short kernel at LXMERT's serving shapes (batch 32, 256)
-    and mPLUG's text-tower and rank shapes (batch 8), fp32 and bf16; then
-    bf16 at the edge shapes (1,1) and (85,85) (batch 32) and at stage 3's
-    6 compacted heads (the LXMERT shapes, batch 64)."""
+    """The primal short kernel at LXMERT's serving shapes (batch 32, 256),
+    VisualBERT's (50,50) (batch 32) and mPLUG's text-tower and rank shapes
+    (batch 8), fp32 and bf16; then bf16 at the edge shapes (1,1) and
+    (85,85) (batch 32) and at stage 3's 6 compacted heads (the LXMERT
+    shapes, batch 64)."""
     points = [(b, sq, sk) for b in ((2,) if rehearse else (SERVE_BATCH, 256))
               for sq, sk in SERVE_SHAPES]
+    points.append((2 if rehearse else SERVE_BATCH,) + VISUALBERT_SHAPE)
     points += [(2 if rehearse else MPLUG_SHORT_BATCH, sq, sk)
                for sq, sk in MPLUG_SHORT_SHAPES]
     rows = [_kernel_point(torch, "fused_attention_fwd", _fused_primal,
@@ -578,11 +607,12 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
     from crvqa_tpu_torch.ops import fused_attention as fa
 
     rows = []
-    # stage 2's batch, both dtypes and rates; stages 1 and 3's, bf16 at
-    # the main path's rate, with the edge shapes and stage 3's 6 heads
+    # stage 2's batch, both dtypes and rates, at LXMERT's and VisualBERT's
+    # shapes; stages 1 and 3's, bf16 at the main path's rate, with the edge
+    # shapes and stage 3's 6 heads
     points = [(2 if rehearse else TRAIN_BATCH, dtype, rate, 12, sq, sk)
               for dtype in ("float32", "bfloat16") for rate in TRAIN_RATES
-              for sq, sk in SERVE_SHAPES]
+              for sq, sk in SERVE_SHAPES + [VISUALBERT_SHAPE]]
     b64 = 2 if rehearse else S1_BATCH
     points += [(b64, "bfloat16", MAIN_RATE, 12, sq, sk)
                for sq, sk in SERVE_SHAPES + SHORT_EDGE_SHAPES]
@@ -621,6 +651,12 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
               # the bf16 backward rebuilds the forward's p bit for bit
               and (dtype != "bfloat16"
                    or row["stored_vs_recompute"] == 0.0))
+        if (sq, sk) == VISUALBERT_SHAPE and rate == MAIN_RATE:
+            probe = _keep_and_p_probe(torch, fa, b, sq, sk, dtype, device,
+                                      seed + 11)
+            row.update(probe)
+            ok = ok and probe["keep_exact"] and (dtype != "bfloat16"
+                                                  or probe["p_bit_equal"])
         for kind in ("fwd", "stored", "recompute"):
             t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind,
                                                 heads)
@@ -662,8 +698,59 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
                   f"plain versions at B={b} {dtype} rate {rate} H="
                   f"{heads} ({sq},{sk}): {row} (tolerances "
                   f"{TOL[dtype]}, p {TOL_P}, backward {TOL_BWD[dtype]}; "
-                  "bf16 stored and recompute bit-identical)")
+                  "bf16 stored and recompute bit-identical; at "
+                  f"{VISUALBERT_SHAPE} the keep masks exact and bf16 p "
+                  "bit-equal)")
     return rows
+
+
+def _keep_and_p_probe(torch, fa, b, sq, sk, dtype, device, seed, heads=12
+                      ) -> dict:
+    """The keep mask each training kernel applies, and the p the recompute
+    backward rebuilds, read out of the kernels themselves (Sq, Sk <= 64):
+
+    - v one-hot (v[b, k, h*64 + j] = [j == k]) makes the forward's output
+      column h*64 + k the dropped probability p_t[b, h, i, k], and g
+      one-hot (g[b, i, h*64 + j] = [j == i]) makes dv's column h*64 + i
+      p_t[b, h, i, k] in both backwards; with the bias 0 every p > 0, so
+      each nonzero is a kept bit, held to `keep_mask` bit for bit;
+    - at rate 0, the recompute backward's dv with that g is the p it
+      rebuilt (exactly in fp32; rounded to bf16 once in bf16), held to the
+      forward's fp32 residual bit for bit (bf16: to its bf16 rounding).
+      The bf16 forward keeps a 50-key row in registers, the backward
+      rebuilds it in chunks of 48 keys."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed)
+    d = heads * 64
+    q = torch.randn(b, sq, d, generator=g).to(device, dt)
+    k = torch.randn(b, sk, d, generator=g).to(device, dt)
+    bias = torch.zeros(b, sk, device=device)
+    one_hot = lambda n: (torch.eye(n, 64).repeat(1, heads).expand(b, n, d)
+                         .contiguous().to(device, dt))
+    v, go = one_hot(sk), one_hot(sq)
+    # [b, sk, h, 64] -> [b, i, h, k]
+    by_row = lambda dv: dv.view(b, sk, heads, 64)[..., :sq].permute(0, 3, 2, 1)
+    want = fa.keep_mask(torch.arange(b, device=device), sq, heads * sk,
+                        MAIN_RATE, KERNEL_SEED).view(b, sq, heads, sk)
+    args = (heads, 64, MAIN_RATE, KERNEL_SEED)
+    out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+    keep = {"fwd": out.view(b, sq, heads, 64)[..., :sk] != 0,
+            "stored": by_row(fa.fused_attention_bwd_stored(
+                q, k, v, p, go, *args)[2]) != 0,
+            "recompute": by_row(fa.fused_attention_bwd_recompute(
+                q, k, v, bias, go, *args)[2]) != 0}
+    _, p0 = fa.fused_attention_fwd_train(q, k, v, bias, heads, 64, 0.0, 0)
+    rebuilt = by_row(fa.fused_attention_bwd_recompute(
+        q, k, v, bias, go, heads, 64, 0.0, 0)[2])
+    stored_p = p0.view(b, sq, heads, sk).to(dt)
+    out = {f"keep_{name}_mismatches": int((m != want).sum())
+           for name, m in keep.items()}
+    out["keep_exact"] = not any(out.values())
+    out["p_bit_equal"] = bool(torch.equal(rebuilt, stored_p))
+    out["p_rebuilt_max_abs_diff"] = (rebuilt.float()
+                                     - stored_p.float()).abs().max().item()
+    out["kept_share"] = want.float().mean().item()
+    return out
 
 
 WORDS = ("what color is the how many are there on a this man woman dog cat "
@@ -756,9 +843,11 @@ def fabricate(root: str, config, rng, torch, seed: int) -> dict:
     return {"label2ans": label2ans, "n_masks": len(masks)}
 
 
-def _serve(root, dtype, store, device, tiny, seed, tag, artifacts=None):
+def _serve(root, dtype, store, device, tiny, seed, tag, artifacts=None,
+           extra=()):
     """serve_vqa over the requests; `artifacts` is the directory of the
-    mask.pt and classifier4masker.bin to serve (default: `root`)."""
+    mask.pt and classifier4masker.bin to serve (default: `root`), `extra`
+    more argv (`--model_type visualbert`)."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import serve_vqa
@@ -773,7 +862,7 @@ def _serve(root, dtype, store, device, tiny, seed, tag, artifacts=None):
             "--dtype", dtype, "--seed", str(seed),
             "--serve_batch_size", str(SERVE_BATCH), "--max_wait_ms", "5",
             "--input", os.path.join(root, "requests.jsonl"),
-            "--output", out, "--device", str(device)]
+            "--output", out, "--device", str(device), *extra]
     if tiny:
         argv.append("--tiny")
     t0 = time.monotonic()
@@ -854,7 +943,10 @@ def _plain_attention(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
                                               head_size, rate, seed)[0]
 
 
-def phase_serve(torch, device, rehearse: bool, seed: int) -> dict:
+def phase_serve(torch, device, rehearse: bool, seed: int, keep_dir: str
+                ) -> dict:
+    """Full-width LXMERT serving (module docstring, phase 6); the
+    fabricated files stay in `keep_dir`/serve for the VisualBERT phases."""
     import numpy as np
 
     from crvqa_tpu_torch.models import LxmertConfig, layers
@@ -865,82 +957,82 @@ def phase_serve(torch, device, rehearse: bool, seed: int) -> dict:
     forwards = 1 + SERVE_REQUESTS // SERVE_BATCH  # warm-up + full batches
     expected = 0 if rehearse else per_forward * forwards
     rng = np.random.default_rng(seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        t0 = time.monotonic()
-        fab = fabricate(root, config, rng, torch, seed)
-        log(f"serve: fabricated {IMAGES} images x {BOXES} boxes x "
-            f"{config.visual_feat_dim}-d features (pickle and .bin), "
-            f"{len(fab['label2ans'])} answers, mask.pt over {fab['n_masks']}"
-            f" weights at zero-rate 0.7, {SERVE_REQUESTS} requests in "
-            f"{time.monotonic() - t0:.1f} s")
+    root = os.path.join(keep_dir, "serve")
+    os.makedirs(root)
+    t0 = time.monotonic()
+    fab = fabricate(root, config, rng, torch, seed)
+    log(f"serve: fabricated {IMAGES} images x {BOXES} boxes x "
+        f"{config.visual_feat_dim}-d features (pickle and .bin), "
+        f"{len(fab['label2ans'])} answers, mask.pt over {fab['n_masks']}"
+        f" weights at zero-rate 0.7, {SERVE_REQUESTS} requests in "
+        f"{time.monotonic() - t0:.1f} s")
 
-        # the main path: bf16 (the server's default), .bin store
-        fused_attention.launches = 0
-        bf16, s_bf16 = _serve(root, "bfloat16", "features.bin", device,
-                              rehearse, seed, "bf16_kernel")
-        launches = fused_attention.launches
-        log("serve: " + json.dumps(s_bf16))
-        check(launches == expected,
-              f"serve bf16: fused_attention launches {launches} != "
-              f"{per_forward} per forward x {forwards} forwards")
-        log(f"serve: bf16 run launched the attention kernel {launches} "
-            f"times = {per_forward} x {forwards} forwards (warm-up included)")
+    # the main path: bf16 (the server's default), .bin store
+    fused_attention.launches = 0
+    bf16, s_bf16 = _serve(root, "bfloat16", "features.bin", device,
+                          rehearse, seed, "bf16_kernel")
+    launches = fused_attention.launches
+    log("serve: " + json.dumps(s_bf16))
+    check(launches == expected,
+          f"serve bf16: fused_attention launches {launches} != "
+          f"{per_forward} per forward x {forwards} forwards")
+    log(f"serve: bf16 run launched the attention kernel {launches} "
+        f"times = {per_forward} x {forwards} forwards (warm-up included)")
 
-        fused_attention.launches = 0
-        fp32, s_fp32 = _serve(root, "float32", "features.pickle", device,
-                              rehearse, seed, "fp32_kernel")
-        check(fused_attention.launches == expected,
-              f"serve fp32: launches {fused_attention.launches} != "
-              f"{expected}")
-        log("serve: " + json.dumps(s_fp32))
+    fused_attention.launches = 0
+    fp32, s_fp32 = _serve(root, "float32", "features.pickle", device,
+                          rehearse, seed, "fp32_kernel")
+    check(fused_attention.launches == expected,
+          f"serve fp32: launches {fused_attention.launches} != "
+          f"{expected}")
+    log("serve: " + json.dumps(s_fp32))
 
-        # the same fp32 model with the plain attention swapped in
-        saved = layers.fused_attention
-        layers.fused_attention = _plain_attention
-        fused_attention.launches = 0
-        try:
-            plain, s_plain = _serve(root, "float32", "features.pickle",
-                                    device, rehearse, seed, "fp32_plain")
-        finally:
-            layers.fused_attention = saved
-        check(fused_attention.launches == 0, "plain run launched the kernel")
-        log("serve: " + json.dumps(s_plain))
+    # the same fp32 model with the plain attention swapped in
+    saved = layers.fused_attention
+    layers.fused_attention = _plain_attention
+    fused_attention.launches = 0
+    try:
+        plain, s_plain = _serve(root, "float32", "features.pickle",
+                                device, rehearse, seed, "fp32_plain")
+    finally:
+        layers.fused_attention = saved
+    check(fused_attention.launches == 0, "plain run launched the kernel")
+    log("serve: " + json.dumps(s_plain))
 
-        same = sum(a["answer"] == b["answer"] for a, b in zip(fp32, plain))
-        dprob = max(abs(a["prob"] - b["prob"]) for a, b in zip(fp32, plain))
-        log(f"serve: fp32 kernel vs fp32 plain: {same}/{len(fp32)} answers "
-            f"identical, max |prob diff| {dprob}")
-        check(same == len(fp32), "fp32 served answers differ between the "
-                                 "kernel and the plain attention")
-        agree = sum(a["answer"] == b["answer"] for a, b in zip(bf16, plain))
-        log(f"serve: bf16 kernel vs fp32 plain: {agree}/{len(bf16)} answers "
-            f"agree")
+    same = sum(a["answer"] == b["answer"] for a, b in zip(fp32, plain))
+    dprob = max(abs(a["prob"] - b["prob"]) for a, b in zip(fp32, plain))
+    log(f"serve: fp32 kernel vs fp32 plain: {same}/{len(fp32)} answers "
+        f"identical, max |prob diff| {dprob}")
+    check(same == len(fp32), "fp32 served answers differ between the "
+                             "kernel and the plain attention")
+    agree = sum(a["answer"] == b["answer"] for a, b in zip(bf16, plain))
+    log(f"serve: bf16 kernel vs fp32 plain: {agree}/{len(bf16)} answers "
+        f"agree")
 
-        kern_logits = _direct_logits(root, device, rehearse, seed,
-                                     SERVE_BATCH, fused_attention)
-        plain_logits = _direct_logits(root, device, rehearse, seed,
-                                      SERVE_BATCH, _plain_attention)
-        check(kern_logits.shape == (SERVE_BATCH, config.ans_num)
-              and np.all(np.isfinite(kern_logits)),
-              f"logits: shape {kern_logits.shape} or non-finite values")
-        dlogit = float(np.abs(kern_logits - plain_logits).max())
-        log(f"serve: fp32 logits kernel vs plain on {SERVE_BATCH} requests: "
-            f"max |diff| {dlogit}, argmax identical "
-            f"{bool(np.all(kern_logits.argmax(1) == plain_logits.argmax(1)))}")
-        check(dlogit <= 1e-3 and np.all(
-            kern_logits.argmax(1) == plain_logits.argmax(1)),
-            f"fp32 logits: kernel vs plain max |diff| {dlogit} > 1e-3 or "
-            "argmax differs")
+    kern_logits = _direct_logits(root, device, rehearse, seed,
+                                 SERVE_BATCH, fused_attention)
+    plain_logits = _direct_logits(root, device, rehearse, seed,
+                                  SERVE_BATCH, _plain_attention)
+    check(kern_logits.shape == (SERVE_BATCH, config.ans_num)
+          and np.all(np.isfinite(kern_logits)),
+          f"logits: shape {kern_logits.shape} or non-finite values")
+    dlogit = float(np.abs(kern_logits - plain_logits).max())
+    log(f"serve: fp32 logits kernel vs plain on {SERVE_BATCH} requests: "
+        f"max |diff| {dlogit}, argmax identical "
+        f"{bool(np.all(kern_logits.argmax(1) == plain_logits.argmax(1)))}")
+    check(dlogit <= 1e-3 and np.all(
+        kern_logits.argmax(1) == plain_logits.argmax(1)),
+        f"fp32 logits: kernel vs plain max |diff| {dlogit} > 1e-3 or "
+        "argmax differs")
     return {"launches": launches, "per_forward": per_forward,
             "forwards": forwards, "runs": [s_bf16, s_fp32, s_plain],
-            "bf16_agreement": agree / len(bf16), "fp32_logit_diff": dlogit}
+            "bf16_agreement": agree / len(bf16), "fp32_logit_diff": dlogit,
+            "root": root}
 
 
-def phase_profile(torch, device, seed: int) -> None:
-    """Device time by kernel over one full-width bf16 forward at batch 32
-    (report only: a profiler that records no device time says so)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_profile(torch, device, seed: int) -> dict:
+    """Device time by kernel over one full-width bf16 LXMERT forward at
+    batch 32."""
     from crvqa_tpu_torch.models import LxmertConfig, build_lxmert
 
     config = LxmertConfig(dtype=torch.bfloat16)
@@ -954,6 +1046,16 @@ def phase_profile(torch, device, seed: int) -> None:
                                  ).to(device),
         visual_pos=torch.rand(SERVE_BATCH, BOXES, 4, generator=g).to(device),
         attention_mask=torch.ones(SERVE_BATCH, 14, device=device))
+    return _profile_forward(torch, model, inputs, "profile")
+
+
+def _profile_forward(torch, model, inputs, tag: str, forwards: int = 5
+                     ) -> dict:
+    """Device time by kernel over `forwards` calls of model(**inputs) after
+    3 warm-up calls (report only: a profiler that records no device time
+    says so)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.inference_mode():
         for _ in range(3):
             model(**inputs)
@@ -961,26 +1063,31 @@ def phase_profile(torch, device, seed: int) -> None:
         t0 = time.monotonic()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(forwards):
                 model(**inputs)
             torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0) / 5
+        wall_ms = 1e3 * (time.monotonic() - t0) / forwards
     dev_us = lambda e: (getattr(e, "device_time_total", None)
                         or getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
               if dev_us(e) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        log("profile: the profiler recorded no device time: not measured")
-        return
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / 5
-    log(f"profile: bf16 forward, batch {SERVE_BATCH}: host wall "
+        log(f"{tag}: the profiler recorded no device time: not measured")
+        return {"measured": False}
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / forwards
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    log(f"{tag}: bf16 forward, batch {SERVE_BATCH}: host wall "
         f"{wall_ms:.3f} ms/forward (profiler on), device busy "
-        f"{busy_ms:.3f} ms/forward, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for e in sorted(events, key=lambda e: -dev_us(e))[:12]:
-        log(f"profile: {dev_us(e) / 1e3 / 5:9.4f} ms/forward "
-            f"{e.count // 5:5d} calls/forward  {e.key[:90]}")
+        f"{busy_ms:.3f} ms/forward, idle share {idle:.3f}")
+    top = [{"ms": dev_us(e) / 1e3 / forwards, "calls": e.count // forwards,
+            "name": e.key[:100]}
+           for e in sorted(events, key=lambda e: -dev_us(e))[:12]]
+    for t in top:
+        log(f"{tag}: {t['ms']:9.4f} ms/forward {t['calls']:5d} "
+            f"calls/forward  {t['name'][:90]}")
+    return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": idle, "top": top}
 
 
 # ---------------------------------------------------------- phases 8-9
@@ -2749,11 +2856,269 @@ def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
     return out
 
 
+# ------------------------------------------------------ phases 18-19
+
+VB_EPOCHS, VB_LOGGING_STEPS, VB_SAVE_STEPS = 1, 4, 8  # 8 steps
+
+
+def _visualbert_setup(torch, config, device, seed, batch_size):
+    """A VisualBERT stage-2 state at `config` (uniform zero rate 0.7,
+    magnitude init, LMH loss, the head under `cls`) and one synthetic
+    batch of 14 tokens and 36 boxes on the device."""
+    import dataclasses
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.train import stage2
+
+    masker = cli_common.visualbert_uniform_masker(
+        config, 0.7, controlled_init="magnitude")
+    params = cli_common.visualbert_initial_params(
+        dataclasses.replace(config, dtype=torch.float32), seed, None)
+    cfg = stage2.Stage2Config(masker_type="lmh", total_steps=1000,
+                              hidden_size=config.hidden_size,
+                              classifier_key="cls")
+    model = stage2.visualbert_meta_model(config)
+    state, tx = stage2.init_state(model, masker, params, cfg, seed, device)
+    batch = to_device(synthetic_batch(
+        batch_size=batch_size, seed=seed, vocab_size=config.vocab_size,
+        ans_num=config.ans_num, feat_dim=config.visual_embedding_dim,
+        style="visualbert"), device,
+        float_dtype=config.dtype if config.dtype == torch.bfloat16 else None)
+    return model, masker, cfg, state, tx, batch
+
+
+def phase_visualbert_train(torch, device, rehearse: bool, seed: int,
+                           data_root: str, keep_dir: str) -> dict:
+    """`prune_debias_vqa_visualbert.main` at the full width of
+    `VisualBertConfig()`, batch 256, bf16, LMH loss, zero rate 0.7,
+    magnitude init, on phase serve's fabricated VQA-CP files: 8 steps with
+    two threshold resets, a checkpoint, an eval and the export (kept in
+    `keep_dir`/visualbert for phase visualbert-serve). Then timed steps on
+    one batch kept on the card, the launches of one step, and one fp32
+    step through the kernels against the plain versions."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import prune_debias_vqa_visualbert as cli
+    from crvqa_tpu_torch.models import VisualBertConfig, layers
+    from crvqa_tpu_torch.train import stage2
+
+    config = VisualBertConfig.tiny() if rehearse else VisualBertConfig()
+    per_step = config.num_hidden_layers
+    on_card = not rehearse
+    steps = N_TRAIN // TRAIN_BATCH * VB_EPOCHS
+    eval_batches = steps // VB_SAVE_STEPS * -(-N_TEST // TRAIN_BATCH)
+    out = os.path.join(keep_dir, "visualbert_run")
+    argv = ["--output_dir", out, "--dataroot", data_root,
+            "--img_root", os.path.join(data_root, "features.bin"),
+            "--vocab_file", os.path.join(data_root, "vocab.txt"),
+            "--device", str(device), "--dtype", "bfloat16",
+            "--train_batch_size", str(TRAIN_BATCH),
+            "--eval_batch_size", str(TRAIN_BATCH),
+            "--num_train_epochs", str(VB_EPOCHS),
+            "--logging_steps", str(VB_LOGGING_STEPS),
+            "--save_steps", str(VB_SAVE_STEPS), "--zero_rate", "0.7",
+            "--controlled_init", "magnitude", "--Masker_type", "lmh",
+            "--name_of_masker", "MaskedLinear1", "--do_train",
+            "--evaluate_during_training", "--seed", str(seed)] + (
+                ["--tiny"] if rehearse else [])
+    t0 = time.monotonic()
+    summary, launches = _run_counted(lambda: cli.main(argv))
+    wall_s = time.monotonic() - t0
+    losses = summary["losses"]
+    log(f"visualbert-train: {len(losses)} steps at batch {TRAIN_BATCH} in "
+        f"{wall_s:.1f} s (set-up, eval and checkpoint included); losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}; zero rates "
+        f"{summary['zero_rates']}; best eval acc {summary['best_acc']}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"visualbert-train: {len(losses)} losses (want {steps}), finite: "
+          f"{bool(np.all(np.isfinite(losses)))}")
+    want = _launch_counts(on_card,
+                          fused_attention_fwd_train=per_step * steps,
+                          fused_attention_bwd_stored=per_step * steps,
+                          fused_attention_fwd=per_step * eval_batches)
+    check(launches == want,
+          f"visualbert-train: launches {launches} != {want} ({per_step} "
+          f"forward and backward per step x {steps} steps, {per_step} per "
+          f"eval batch x {eval_batches})")
+    rates = summary["zero_rates"]
+    check(abs(rates["Uni"] - 0.7) <= 0.01,
+          f"visualbert-train: zero rate after the reset {rates} misses 0.7")
+    for name in ("mask.pt", "classifier4masker.bin", "test.json",
+                 f"ckpt_{VB_SAVE_STEPS}"):
+        check(os.path.exists(os.path.join(out, name)),
+              f"visualbert-train: {name} not written")
+    with open(os.path.join(out, "test.json")) as f:
+        check(len(json.load(f)) == N_TEST,
+              "visualbert-train: test.json incomplete")
+    kept = os.path.join(keep_dir, "visualbert")
+    os.makedirs(kept)
+    for name in ("mask.pt", "classifier4masker.bin"):
+        shutil.copy(os.path.join(out, name), kept)
+    shutil.rmtree(out)
+    result = {"steps": steps, "losses": losses, "launches": launches,
+              "per_step": per_step, "eval_batches": eval_batches,
+              "zero_rates": rates, "best_acc": summary["best_acc"],
+              "wall_s": wall_s, "artifacts": kept}
+
+    # timed steps, bf16, on one batch kept on the card
+    bf16 = dataclasses.replace(config, dtype=torch.bfloat16)
+    model, masker, cfg, state, tx, batch = _visualbert_setup(
+        torch, bf16, device, seed, TRAIN_BATCH)
+    step = stage2.make_train_step(model, masker, tx, cfg)
+    _, step_launches = _run_counted(lambda: step(state, batch))
+    check(step_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_step,
+        fused_attention_bwd_stored=per_step),
+        f"visualbert-step: one step's launches {step_launches}")
+    result["step_launches"] = step_launches
+    result["timed"] = _timed_steps(torch, step, state, batch, rehearse,
+                                   "visualbert-step")
+    del model, state, tx, batch, step
+    _free(torch, rehearse)
+
+    # one fp32 step with dropout on: kernels vs plain versions
+    model, masker, cfg, state, tx, batch = _visualbert_setup(
+        torch, config, device, seed + 1, CHECK_BATCH)
+    fn = stage2.make_loss_and_grads(model, masker, cfg)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    (loss_k, _, grads_k), check_launches = _run_counted(
+        lambda: fn(state, batch))
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.fused_attention = saved
+    scores = sorted(k for k in grads_k if k.startswith("scores/"))
+    flat = lambda g: torch.cat([g[k].reshape(-1) for k in scores])
+    # the longest sum of a weight gradient: over every row of the batch
+    terms = CHECK_BATCH * VISUALBERT_SHAPE[0]
+    grads_ok, grads_err = _close_to(torch, flat(grads_k), flat(grads_p),
+                                    False, terms)
+    loss_ok, loss_err = _close_to(torch, loss_k.reshape(1),
+                                  loss_p.reshape(1), False, terms)
+    check_out = {"batch": CHECK_BATCH, "loss_kernels": loss_k.item(),
+                 "loss_plain": loss_p.item(), "loss_abs_diff": loss_err,
+                 "score_grad_max": flat(grads_p).abs().max().item(),
+                 "score_grad_max_abs_diff": grads_err, "terms": terms,
+                 "launches": check_launches}
+    log("visualbert-step check: " + json.dumps(check_out))
+    check(check_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_step,
+        fused_attention_bwd_stored=per_step),
+        f"visualbert-step check: launches {check_launches}")
+    check(loss_ok and grads_ok,
+          f"one fp32 VisualBERT step with dropout: kernels vs plain "
+          f"versions differ: {check_out} (tolerance: _close_to over "
+          f"{terms} terms)")
+    result["check"] = check_out
+    del model, state, tx, batch
+    _free(torch, rehearse)
+    return result
+
+
+def phase_visualbert_serve(torch, device, rehearse: bool, seed: int,
+                           data_root: str, artifacts: str) -> dict:
+    """`serve_vqa --model_type visualbert` at the full width of
+    `VisualBertConfig()` over phase serve's fabricated store and requests,
+    through phase visualbert-train's mask.pt and classifier4masker.bin:
+    bf16 (.bin store) and fp32 (pickle) with the kernel, fp32 with the
+    plain attention. Zero error responses, 12 primal launches per forward,
+    fp32 answers identical to the plain attention's; then device time by
+    kernel of one bf16 forward at batch 32 (profile)."""
+    from crvqa_tpu_torch.models import (VisualBertConfig, build_visualbert,
+                                        layers)
+
+    config = VisualBertConfig.tiny() if rehearse else VisualBertConfig()
+    per_forward = config.num_hidden_layers
+    forwards = 1 + SERVE_REQUESTS // SERVE_BATCH  # warm-up + full batches
+    on_card = not rehearse
+    extra = ("--model_type", "visualbert")
+
+    def serve(dtype, store, tag):
+        return _run_counted(lambda: _serve(
+            data_root, dtype, store, device, rehearse, seed, tag,
+            artifacts=artifacts, extra=extra))
+
+    want = _launch_counts(on_card, fused_attention_fwd=per_forward * forwards)
+    (bf16, s_bf16), launches = serve("bfloat16", "features.bin",
+                                     "visualbert_bf16_kernel")
+    log("visualbert-serve: " + json.dumps(s_bf16))
+    check(launches == want,
+          f"visualbert-serve bf16: launches {launches} != {want} "
+          f"({per_forward} per forward x {forwards} forwards)")
+    (fp32, s_fp32), fp32_launches = serve("float32", "features.pickle",
+                                          "visualbert_fp32_kernel")
+    log("visualbert-serve: " + json.dumps(s_fp32))
+    check(fp32_launches == want,
+          f"visualbert-serve fp32: launches {fp32_launches} != {want}")
+    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    try:
+        (plain, s_plain), plain_launches = serve(
+            "float32", "features.pickle", "visualbert_fp32_plain")
+    finally:
+        layers.fused_attention = saved
+    log("visualbert-serve: " + json.dumps(s_plain))
+    check(plain_launches == _launch_counts(False),
+          "visualbert-serve: the plain run launched a kernel")
+    same = sum(a["answer"] == b["answer"] for a, b in zip(fp32, plain))
+    dprob = max(abs(a["prob"] - b["prob"]) for a, b in zip(fp32, plain))
+    agree = sum(a["answer"] == b["answer"] for a, b in zip(bf16, plain))
+    log(f"visualbert-serve: fp32 kernel vs fp32 plain: {same}/{len(fp32)} "
+        f"answers identical, max |prob diff| {dprob}; bf16 kernel vs fp32 "
+        f"plain: {agree}/{len(bf16)} answers agree")
+    check(same == len(fp32), "visualbert-serve: fp32 answers differ between "
+                             "the kernel and the plain attention")
+    out = {"launches": launches["fused_attention_fwd"],
+           "per_forward": per_forward, "forwards": forwards,
+           "runs": [s_bf16, s_fp32, s_plain], "fp32_prob_diff": dprob,
+           "bf16_agreement": agree / len(bf16)}
+    if not rehearse:
+        # device time by kernel of the served model's forward alone
+        model = build_visualbert(
+            dataclasses.replace(config, dtype=torch.bfloat16), "cpu",
+            torch.Generator().manual_seed(seed)).to(device).eval()
+        g = torch.Generator().manual_seed(seed)
+        inputs = dict(
+            input_ids=torch.randint(1, 1000, (SERVE_BATCH, 14), generator=g
+                                    ).to(device),
+            visual_embeds=torch.randn(SERVE_BATCH, BOXES, 2048, generator=g
+                                      ).to(device),
+            attention_mask=torch.ones(SERVE_BATCH, 14, device=device))
+        out["profile"] = _profile_forward(torch, model, inputs,
+                                          "visualbert-serve profile")
+        del model, inputs
+        _free(torch, rehearse)
+    return out
+
+
 # ----------------------------------------------------------------- summary
 
+def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
+                      basis) -> dict:
+    """A short kernel's numbers on VisualBERT's path: its (50,50) row
+    (`rows` holds one) times the `layers` launches of one forward or step;
+    `prefix` names the row's keys ("" for the primal's)."""
+    (row,) = rows
+    key = lambda name: f"{prefix}{name}" if prefix else name
+    bound_ms, bound_by = _bound(layers * row[key("bytes_ms")],
+                                layers * row[key("ops_ms")])
+    return {"launches": launches,
+            "max_abs_err": max(row[k] for k in err_keys),
+            "ms": layers * row[key("ms")],
+            "plain_ms": layers * row[key("plain_ms")],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": layers * row[library],
+            "basis": f"{basis}: {layers} launches at (Sq,Sk) "
+                     f"{VISUALBERT_SHAPE}, 12 heads"}
+
+
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
-                   midseq_bwd_rows, mplug_train, masked, compact
-                   ) -> list[dict]:
+                   midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
+                   vb_train) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -2762,10 +3127,14 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     batch 256, dropout rate 0.1, summed over the step's 34 forward-for-grad
     and 32 backward launches (`launch_mult`). The mid-length backward: one
     bf16 mPLUG mask-training step at batch 16, dropout rate 0.1, summed
-    over its 29 launches (`MIDSEQ_BWD_PER_STEP`)."""
+    over its 29 launches (`MIDSEQ_BWD_PER_STEP`). The short kernels'
+    `launches` add VisualBERT's paths (phases visualbert-serve and
+    visualbert-train) to LXMERT's; their `visualbert` entry gives one
+    VisualBERT forward (batch 32) or step (batch 256) at (50,50)."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
+    vb_layers = vb_serve["per_forward"]
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -2777,14 +3146,23 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "name": "fused_attention_fwd", "route": "cuda",
         "source": src + "fused_attention_fwd.cu",
         "replaces": "crvqa_tpu/ops/fused_attention.py:153",
-        "launches": serve["launches"],
+        "launches": serve["launches"] + vb_serve["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": total("library_ms"),
-        "basis": f"one bf16 forward at batch {SERVE_BATCH}: "
+        "basis": f"one bf16 LXMERT forward at batch {SERVE_BATCH}: "
                  f"{sum(fwd_mult.values())} launches over (Sq,Sk) "
-                 + ", ".join(f"{k}x{v}" for k, v in fwd_mult.items()),
+                 + ", ".join(f"{k}x{v}" for k, v in fwd_mult.items())
+                 + f"; launches: LXMERT serving {serve['launches']}, "
+                   f"VisualBERT serving {vb_serve['launches']}",
+        "visualbert": _visualbert_entry(
+            [r for r in rows if r["batch"] == SERVE_BATCH
+             and r["dtype"] == "bfloat16" and r["heads"] == 12
+             and (r["sq"], r["sk"]) == VISUALBERT_SHAPE],
+            "", ("max_abs_err",), "library_ms", vb_layers,
+            vb_serve["launches"],
+            f"one bf16 VisualBERT forward at batch {SERVE_BATCH}"),
     }]
     batch = MPLUG_BATCHES[0]
     main = [r for r in midseq_rows if r["batch"] == batch
@@ -2810,7 +3188,10 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     })
     main = [r for r in train_rows if r["batch"] == TRAIN_BATCH
             and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE
-            and r["heads"] == 12]
+            and r["heads"] == 12 and (r["sq"], r["sk"]) in fwd_mult]
+    vb_rows = [r for r in train_rows if r["batch"] == TRAIN_BATCH
+               and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE
+               and (r["sq"], r["sk"]) == VISUALBERT_SHAPE]
     for name, kind, replaces, mult, launches, err_keys, library in (
             ("fused_attention_fwd_train", "fwd",
              "crvqa_tpu/ops/fused_attention.py:153", fwd_mult,
@@ -2834,7 +3215,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
             "name": name, "route": "cuda",
             "source": src + ("fused_attention_fwd.cu" if kind == "fwd"
                              else "fused_attention_bwd.cu"),
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": launches + vb_train["launches"][name],
             "max_abs_err": max(r[k] for r in main for k in err_keys),
             "ms": tot(f"{kind}_ms"), "plain_ms": tot(f"{kind}_plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2843,7 +3225,14 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                      f"{MAIN_RATE}: {sum(mult.values())} launches over "
                      f"(Sq,Sk) " + ", ".join(f"{k}x{v}"
                                              for k, v in mult.items())
-                     + f"; library_ms: {what}",
+                     + f"; library_ms: {what}; launches: LXMERT stage 2 "
+                       f"{launches}, VisualBERT stage 2 "
+                       f"{vb_train['launches'][name]}",
+            "visualbert": _visualbert_entry(
+                vb_rows, f"{kind}_", err_keys, library, vb_layers,
+                vb_train["launches"][name],
+                f"one bf16 VisualBERT train step at batch {TRAIN_BATCH}, "
+                f"dropout {MAIN_RATE}"),
         })
     main = [r for r in midseq_bwd_rows if r["batch"] == MPLUG_TRAIN_BATCH
             and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
@@ -3015,7 +3404,8 @@ def main(argv=None) -> int:
                             device, rehearse, seed)
         train_rows = phase("train-kernels", phase_train_kernels, torch,
                            device, rehearse, seed)
-        serve = phase("serve", phase_serve, torch, device, rehearse, seed)
+        serve = phase("serve", phase_serve, torch, device, rehearse, seed,
+                      keep.name)
         if not rehearse:
             phase("profile", phase_profile, torch, device, seed)
         mplug = phase("mplug-serve", phase_mplug_serve, torch, device,
@@ -3037,6 +3427,11 @@ def main(argv=None) -> int:
                        keep.name)
         stage3 = phase("stage3", phase_stage3, torch, device, rehearse, seed,
                        stage1["bin"], train["artifacts"], keep.name)
+        vb_train = phase("visualbert-train", phase_visualbert_train, torch,
+                         device, rehearse, seed, serve["root"], keep.name)
+        vb_serve = phase("visualbert-serve", phase_visualbert_serve, torch,
+                         device, rehearse, seed, serve["root"],
+                         vb_train["artifacts"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3049,7 +3444,7 @@ def main(argv=None) -> int:
         return 3
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
-                             compact)
+                             compact, vb_serve, vb_train)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -3063,6 +3458,8 @@ def main(argv=None) -> int:
                        "mplug_train": mplug_train, "mplug_step": mplug_step,
                        "masked_matmul": masked, "head_compact": compact,
                        "stage1": stage1, "stage3": stage3,
+                       "visualbert_train": vb_train,
+                       "visualbert_serve": vb_serve,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

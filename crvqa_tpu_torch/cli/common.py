@@ -169,7 +169,7 @@ COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
 MODEL_TYPE_HELP = ("lxmert. The JAX package parses this flag, never reads "
                    "it and builds LXMERT; the port refuses visualbert "
                    "rather than train LXMERT under it (VisualBERT stage 2 "
-                   "is prune_debias_vqa_visualbert, not yet ported)")
+                   "is crvqa_tpu_torch.cli.prune_debias_vqa_visualbert)")
 
 
 def reject_model_type(args: argparse.Namespace, cli: str) -> None:
@@ -182,8 +182,9 @@ def reject_model_type(args: argparse.Namespace, cli: str) -> None:
             f"--model_type {args.model_type}: the JAX package's {cli} parses "
             f"this flag and never reads it, so it builds LXMERT here; the "
             f"port refuses it rather than train LXMERT under it. VisualBERT "
-            f"stage 2 is prune_debias_vqa_visualbert, not yet ported to "
-            f"crvqa_tpu_torch (ROADMAP)")
+            f"under this CLI is not yet ported (the JAX package has no "
+            f"VisualBERT stage 1 or 3); VisualBERT stage 2 is "
+            f"crvqa_tpu_torch.cli.prune_debias_vqa_visualbert")
 
 
 def reject_unported(args: argparse.Namespace, defaults: dict) -> None:
@@ -361,6 +362,33 @@ def lxmert_initial_params(config, seed: int, path: Optional[str]
     return load_params_any(path, state)
 
 
+def visualbert_initial_params(config, seed: int, path: Optional[str]
+                              ) -> dict[str, torch.Tensor]:
+    """fp32 VisualBERT params on the CPU: a seeded init from `seed`,
+    overlaid by the checkpoint at `path` (the JAX package's
+    `init_visualbert_params` + `load_params_any`)."""
+    import dataclasses
+
+    from ..models import build_visualbert
+
+    fp32 = dataclasses.replace(config, dtype=torch.float32)
+    state = build_visualbert(fp32, "cpu",
+                             torch.Generator().manual_seed(seed)).state_dict()
+    return load_params_any(path, state)
+
+
+def visualbert_uniform_masker(config, zero_rate: float, **kw):
+    """The uniform-rate VisualBERT masker over K/Q/V/AO/I/O/P/E
+    (prune_debias_VQA_visualBERT.py:127-190) whose specs key its
+    `mask.pt`; `kw` goes to `Masker.create`."""
+    from ..masking.masker import Masker
+    from ..masking.sparsity_control import ModalSparsity
+    from ..masking.spec import visualbert_mask_specs
+
+    return Masker.create(visualbert_mask_specs(config.num_hidden_layers),
+                         ModalSparsity.uniform(zero_rate), **kw)
+
+
 def lxmert_uniform_masker(config, zero_rate: float):
     """The uniform-rate LXMERT masker whose specs key `mask.pt` (the
     stage-2 artifact contract: stage 3 and serving build the same one)."""
@@ -394,7 +422,8 @@ def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]
 def overlay_classifier(state: dict[str, torch.Tensor], classifier_bin: str,
                        key: str = "classifier") -> dict[str, torch.Tensor]:
     """Swap in the stage-2 classifier (`classifier4masker.bin`,
-    mask_trainer_Robust_VQA.py:734-740)."""
+    mask_trainer_Robust_VQA.py:734-740) under `key` (VisualBERT's head is
+    `cls`: the reference saves `model.cls`)."""
     from ..core import torch_compat
 
     prefix = key + "."

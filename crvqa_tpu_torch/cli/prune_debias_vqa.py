@@ -176,7 +176,7 @@ def run(args) -> dict:
             masker.specs)
         torch_compat.export_classifier_bin(
             os.path.join(args.output_dir, "classifier4masker.bin"),
-            state.train_params[stage2.CLASSIFIER])
+            state.train_params["classifier"])
         report = masker.sparsity_report(state.scores, state.thresholds)
         summary["zero_rates"] = report
         common.logger.info("zero rates: %s",

@@ -11,6 +11,9 @@ protocol, same stats line).
 - Params: a stage-1/3 checkpoint (`--ckpt`, or a seeded init without one),
   then optionally the stage-2 subnetwork (`--mask_pt` folded in as
   `w * mask` once at load, `--classifier_bin` swapped in).
+- `--model_type lxmert` (default) or `visualbert`: VisualBERT reads the
+  2048-d box features as its `visual_embeds` (no spatials), its mask.pt
+  by the uniform VisualBERT table and its head as `cls`.
 - Runs on `--device cuda` (default), where every attention goes through
   the fused-attention kernel; `--device cpu` runs the plain versions (the
   tests' path). Without a card and without `--device cpu` it raises.
@@ -33,7 +36,9 @@ import torch
 
 from ..device import resolve_device
 from ..masking.prune import lxmert_specs_for, prune_state_dict
-from ..models import LxmertConfig, build_lxmert
+from ..masking.spec import visualbert_mask_specs
+from ..models import (LxmertConfig, VisualBertConfig, build_lxmert,
+                      build_visualbert)
 from ..train.common import model_inputs
 from . import common
 
@@ -79,31 +84,35 @@ def load_serving_params(args, model, config) -> dict[str, torch.Tensor]:
     """Checkpoint, then the optional stage-2 subnetwork artifacts, over
     `model`'s state_dict (the `run_vqa_stage3.py:227-324` pruning applied
     once at load: served weights are exactly `w * mask`)."""
+    visualbert = args.model_type == "visualbert"
     state = common.load_params_any(args.ckpt, model.state_dict())
     if args.mask_pt:
         from ..core import torch_compat
 
-        masks = torch_compat.import_mask_pt(args.mask_pt,
-                                            lxmert_specs_for(config))
+        specs = (visualbert_mask_specs(config.num_hidden_layers) if visualbert
+                 else lxmert_specs_for(config))
+        masks = torch_compat.import_mask_pt(args.mask_pt, specs)
         state = prune_state_dict(state, masks)
     if args.classifier_bin:
-        state = common.overlay_classifier(state, args.classifier_bin)
+        state = common.overlay_classifier(
+            state, args.classifier_bin, key="cls" if visualbert
+            else "classifier")
     return state
 
 
 def build_serving_model(args, device: torch.device):
     """The served model on `device` in eval mode: seeded init from
     `--seed` unless `--ckpt` supplies every parameter."""
-    if args.model_type == "visualbert":
-        raise NotImplementedError(
-            "--model_type visualbert is not yet ported to crvqa_tpu_torch "
-            "(ROADMAP)")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    config = (LxmertConfig.tiny(dtype=dtype) if args.tiny
-              else LxmertConfig(ans_num=args.ans_num, dtype=dtype))
+    if args.model_type == "visualbert":
+        config_cls, build = VisualBertConfig, build_visualbert
+    else:
+        config_cls, build = LxmertConfig, build_lxmert
+    config = (config_cls.tiny(dtype=dtype) if args.tiny
+              else config_cls(ans_num=args.ans_num, dtype=dtype))
     generator = (None if args.ckpt
                  else torch.Generator().manual_seed(args.seed))
-    model = build_lxmert(config, "cpu", generator)
+    model = build(config, "cpu", generator)
     model.load_state_dict(load_serving_params(args, model, config),
                           strict=True)
     return model.to(device).eval()
@@ -233,13 +242,19 @@ def main(argv=None) -> dict:
         return logits
 
     def device_batch(ids, feats, pos):
-        return {"input_ids": torch.from_numpy(ids).to(device, torch.long),
-                # all-ones mask = the reference's positional model call
-                # (mask_trainer_Robust_VQA.py:808)
-                "attention_mask": torch.ones(ids.shape, dtype=torch.float32,
-                                             device=device),
-                "visual_feats": torch.from_numpy(feats).to(device),
-                "visual_pos": torch.from_numpy(pos).to(device)}
+        b = {"input_ids": torch.from_numpy(ids).to(device, torch.long),
+             # all-ones mask = the reference's positional model call
+             # (mask_trainer_Robust_VQA.py:808)
+             "attention_mask": torch.ones(ids.shape, dtype=torch.float32,
+                                          device=device)}
+        if args.model_type == "visualbert":
+            # single stream: the box features are the visual_embeds
+            # (mask_trainer_visualBERT_VQA.py:820); no spatials
+            b["visual_embeds"] = torch.from_numpy(feats).to(device)
+        else:
+            b["visual_feats"] = torch.from_numpy(feats).to(device)
+            b["visual_pos"] = torch.from_numpy(pos).to(device)
+        return b
 
     bs = args.serve_batch_size
 

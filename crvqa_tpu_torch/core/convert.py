@@ -78,11 +78,13 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
 def stage2_from_jax(frozen_params: Mapping[str, Any],
                     train_params: Mapping[str, Any],
                     scores: Mapping[str, Any], thresholds: Mapping[str, Any],
-                    specs) -> dict[str, Any]:
+                    specs, classifier_key: str = "classifier"
+                    ) -> dict[str, Any]:
     """A JAX stage-2 state's parts (numpy) -> the port's:
 
-    - `params`: the full state_dict (frozen backbone + classifier), the
-      `params` argument of `crvqa_tpu_torch.train.stage2.init_state`;
+    - `params`: the full state_dict (frozen backbone + the classifier under
+      `classifier_key`, "cls" for VisualBERT), the `params` argument of
+      `crvqa_tpu_torch.train.stage2.init_state`;
     - `scores`: by spec key, transposed to the torch layout [out, in]
       (embeddings keep [vocab, hidden]);
     - `thresholds`: by spec key, 0-d fp32 tensors;
@@ -93,7 +95,7 @@ def stage2_from_jax(frozen_params: Mapping[str, Any],
     `carry_into_state` writes these into a port state."""
     params = state_dict_from_jax(frozen_params)
     params.update(state_dict_from_jax(train_params["classifier"],
-                                      prefix="classifier"))
+                                      prefix=classifier_key))
     port_scores, port_thresholds = mask_state_from_jax(scores, thresholds,
                                                        specs)
     out = {"params": params, "scores": port_scores,

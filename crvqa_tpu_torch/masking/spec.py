@@ -1,8 +1,9 @@
 """Which weights a mask covers, and their modality (mPLUG's table is
 `mplug_specs.py`).
 
-A copy of the LXMERT table of `crvqa_tpu/masking/spec.py` (itself the name
-tables of the reference's `masking/maskers_Robust.py:24-95`). The port
+A copy of the LXMERT and VisualBERT tables of `crvqa_tpu/masking/spec.py`
+(itself the name tables of the reference's `masking/maskers_Robust.py:
+24-95` and `masking/maskers_visualBert.py:24-95`). The port
 reads `mask.pt` by `torch_name`, its own parameter names; `path` keeps the
 JAX package's param path so the two tables can be compared line by line.
 """
@@ -128,4 +129,56 @@ def lxmert_mask_specs(
                         modality=modality,
                     )
                 )
+    return specs
+
+
+# VisualBERT: uniform sparsity over a single-stream BERT stack
+# (maskers_visualBert.py:24-36: K/Q/V/AO/I/O/P/E, all of modality 'Uni').
+_VISUALBERT_LAYER_TYPES: dict[str, tuple[str, ...]] = {
+    "K": ("attention", "self", "key"),
+    "Q": ("attention", "self", "query"),
+    "V": ("attention", "self", "value"),
+    "AO": ("attention", "output", "dense"),
+    "I": ("intermediate", "dense"),
+    "O": ("output", "dense"),
+}
+
+# The shipped driver's selection (prune_debias_VQA_visualBERT.py:145); the
+# masker's full table also has 'VP', the visual projection
+# (maskers_visualBert.py:24-36).
+VISUALBERT_WEIGHT_TYPES: tuple[str, ...] = ("K", "Q", "V", "AO", "I", "O",
+                                            "P", "E")
+VISUALBERT_ALL_WEIGHT_TYPES: tuple[str, ...] = VISUALBERT_WEIGHT_TYPES + (
+    "VP",)
+
+
+def visualbert_mask_specs(
+    num_layers: int = 12,
+    weight_types: Sequence[str] = VISUALBERT_WEIGHT_TYPES,
+    ptl: str = "visual_bert",
+) -> list[MaskSpec]:
+    """Every masked VisualBERT weight, all under modality 'Uni': 74 at 12
+    layers with the shipped selection."""
+    singles = {
+        "E": (("embeddings", "word_embeddings", "embedding"),
+              "embeddings.word_embeddings", True),
+        "P": (("pooler", "dense", "kernel"), "pooler.dense", False),
+        "VP": (("embeddings", "visual_projection", "kernel"),
+               "embeddings.visual_projection", False),
+    }
+    specs: list[MaskSpec] = []
+    for wt in weight_types:
+        if wt in singles:
+            subpath, tname, is_emb = singles[wt]
+            specs.append(MaskSpec(path=(ptl,) + subpath,
+                                  torch_name=f"{ptl}.{tname}",
+                                  weight_type=wt, modality="Uni",
+                                  is_embedding=is_emb))
+            continue
+        subpath = _VISUALBERT_LAYER_TYPES[wt]
+        for l in range(num_layers):
+            specs.append(MaskSpec(
+                path=(ptl, "encoder", f"layer_{l}") + subpath + ("kernel",),
+                torch_name=f"{ptl}.encoder.layer.{l}." + ".".join(subpath),
+                weight_type=wt, modality="Uni"))
     return specs

@@ -325,8 +325,16 @@ class TrainMetrics:
 
 
 def model_inputs(batch: dict) -> dict:
-    """Forward kwargs of an LXMERT batch."""
-    kw = {k: batch[k] for k in ("input_ids", "visual_feats", "visual_pos")}
+    """Forward kwargs of a batch: LXMERT batches carry (visual_feats,
+    visual_pos), VisualBERT batches visual_embeds
+    (`mask_trainer_visualBERT_VQA.py:820` passes only input_ids and
+    visual_embeds)."""
+    kw = {"input_ids": batch["input_ids"]}
+    if "visual_embeds" in batch:
+        kw["visual_embeds"] = batch["visual_embeds"]
+    else:
+        kw["visual_feats"] = batch["visual_feats"]
+        kw["visual_pos"] = batch["visual_pos"]
     if "attention_mask" in batch:
         kw["attention_mask"] = batch["attention_mask"]
     return kw

@@ -17,7 +17,7 @@ are, and the step counter and generators advance.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.func import functional_call
@@ -29,8 +29,6 @@ from ..models.layers import set_generators
 from .common import (HfAdamW, HfAdamWState, TrainMetrics, TrainRNG,
                      batch_score, clip_by_global_norm_,
                      linear_warmup_schedule, model_inputs)
-
-CLASSIFIER = "classifier"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +51,9 @@ class Stage2Config:
     accumulate_abs_grad: bool = False
     backbone_dtype: str = "float32"  # storage of the masked frozen weights
     moment_dtype: str = "float32"    # storage of the Adam moments
+    # the head's name in the model; the state keeps it under
+    # train_params["classifier"] whatever the model calls it
+    classifier_key: str = "classifier"  # "cls" for VisualBERT
 
 
 Stage2RNG = TrainRNG  # device + host generators (train/common.py)
@@ -83,8 +84,8 @@ def trainable(state: Stage2State, config: Stage2Config
               ) -> dict[str, torch.Tensor]:
     """The optimizer's flat view of what it steps: classifier, LMH (only
     with train_lmh) and scores."""
-    out = {f"train/{CLASSIFIER}/{k}": v
-           for k, v in state.train_params[CLASSIFIER].items()}
+    out = {f"train/classifier/{k}": v
+           for k, v in state.train_params["classifier"].items()}
     if config.train_lmh and "lmh" in state.train_params:
         out.update({f"train/lmh/{k}": v
                     for k, v in state.train_params["lmh"].items()})
@@ -97,7 +98,7 @@ def init_state(model: torch.nn.Module, masker: Masker,
                seed: int, device) -> tuple[Stage2State, HfAdamW]:
     """Freeze the backbone, build scores by the controlled init, split the
     trainables (`init_state` of the JAX package). `params` is a full fp32
-    state_dict (classifier included). Masked weights (and masked biases)
+    state_dict (the classifier included, under `config.classifier_key`). Masked weights (and masked biases)
     are stored in `backbone_dtype`; every other frozen parameter directly
     in the dtype the model computes with (the cast the JAX package applies
     at every apply)."""
@@ -114,14 +115,14 @@ def init_state(model: torch.nn.Module, masker: Masker,
         masked |= {f"{s.torch_name}.bias" for s in masker.specs
                    if bias_key(s) in scores}
     backbone = _dtype(config.backbone_dtype)
-    prefix = CLASSIFIER + "."
+    prefix = config.classifier_key + "."
     frozen = {}
     for name, t in params.items():
         if name.startswith(prefix):
             continue
         dt = backbone if name in masked else dtypes[name]
         frozen[name] = t.to(dt) if t.dtype.is_floating_point else t
-    train_params = {CLASSIFIER: {
+    train_params = {"classifier": {
         k[len(prefix):]: v.detach().clone().float().requires_grad_(True)
         for k, v in params.items() if k.startswith(prefix)}}
     if config.masker_type in ("lmh", "poe"):
@@ -144,16 +145,18 @@ def init_state(model: torch.nn.Module, masker: Masker,
 
 
 def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
-                  state: Stage2State, generator=None
+                  state: Stage2State, generator=None,
+                  classifier_key: str = "classifier"
                   ) -> dict[str, torch.Tensor]:
     """The model's full parameter dict: frozen backbone with the masks
-    applied (cast to the model's dtypes) plus the trainable classifier."""
+    applied (cast to the model's dtypes) plus the trainable classifier
+    under `classifier_key`."""
     masked = masker.apply_masks(state.frozen, state.scores, state.thresholds,
                                 generator=generator)
     out = {n: (t if t.dtype == model_dtypes[n] else t.to(model_dtypes[n]))
            for n, t in masked.items()}
-    out.update({f"{CLASSIFIER}.{k}": v
-                for k, v in state.train_params[CLASSIFIER].items()})
+    out.update({f"{classifier_key}.{k}": v
+                for k, v in state.train_params["classifier"].items()})
     return out
 
 
@@ -168,7 +171,8 @@ def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
 
     def microbatch(state, batch):
         leaves = trainable(state, config)
-        params = masked_params(dtypes, masker, state, state.rng.device)
+        params = masked_params(dtypes, masker, state, state.rng.device,
+                               config.classifier_key)
         logits, pooled = functional_call(model, params, (),
                                          model_inputs(batch), strict=True)
         loss = dispatch_loss(
@@ -248,11 +252,13 @@ def make_threshold_reset(masker: Masker) -> Callable:
     return reset
 
 
-def make_eval_step(model: torch.nn.Module, masker: Masker) -> Callable:
+def make_eval_step(model: torch.nn.Module, masker: Masker,
+                   config: Optional[Stage2Config] = None) -> Callable:
     """fn(state, batch) -> fp32 logits: the masked model in eval mode, no
     dropout and no randomness (`_prediction_loop`,
     mask_trainer_Robust_VQA.py:1096-1245)."""
     dtypes = param_dtypes(model)
+    key = (config or Stage2Config()).classifier_key
 
     @torch.inference_mode()
     def eval_step(state: Stage2State, batch: dict) -> torch.Tensor:
@@ -260,7 +266,8 @@ def make_eval_step(model: torch.nn.Module, masker: Masker) -> Callable:
         # a fixed generator: eval is deterministic across batches (only
         # scheme 3's bernoulli binarizer draws from it)
         gen = torch.Generator(device=state.rng.device.device).manual_seed(0)
-        params = masked_params(dtypes, masker, state, generator=gen)
+        params = masked_params(dtypes, masker, state, generator=gen,
+                               classifier_key=key)
         logits, _ = functional_call(model, params, (), model_inputs(batch),
                                     strict=True)
         return logits
@@ -276,3 +283,12 @@ def lxmert_meta_model(config) -> torch.nn.Module:
     with torch.device("meta"):
         return LxmertForVQA(config)
 
+
+
+def visualbert_meta_model(config) -> torch.nn.Module:
+    """The VisualBERT module on the meta device (pair it with
+    `Stage2Config(classifier_key="cls")`)."""
+    from ..models import VisualBertForVQA
+
+    with torch.device("meta"):
+        return VisualBertForVQA(config)

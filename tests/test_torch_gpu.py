@@ -1220,3 +1220,160 @@ def test_stage3_structured_step_at_six_heads_keeps_masks_zero():
     assert torch.isfinite(metrics.loss)
     for name, m in masks.items():
         assert not state.params[name][~m.cuda()].any(), name
+
+
+# ------------------------------------------------- VisualBERT's single stream
+
+VB_SHAPE = (50, 50)  # 14 text tokens + 36 boxes, 12 heads
+
+
+def _one_hot(b, n, heads, dtype):
+    """[b, n, heads*64] with row r one at column h*64 + r of every head."""
+    return (torch.eye(n, 64).repeat(1, heads).expand(b, n, heads * 64)
+            .contiguous().cuda().to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_kernels_at_visualbert_shape(dtype):
+    """(50, 50) at 12 heads, rows over the 48 keys the bf16 backward takes
+    in one chunk: every short kernel against its plain version at dropout
+    0 and 0.1; the keep mask each kernel applies, read out through one-hot
+    v (forward) and one-hot g (dv of both backwards), equal to `keep_mask`
+    bit for bit; the p the recompute backward rebuilds (dv at rate 0) equal
+    to the forward's fp32 residual (bf16: to its bf16 rounding)."""
+    _need_card()
+    heads, (sq, sk), b = 12, VB_SHAPE, 8
+    fwd_tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
+               else BF16_TOL)
+    bwd_tol = (dict(atol=1e-4, rtol=0) if dtype == torch.float32
+               else BF16_TOL)
+    for rate in (0.0, 0.1):
+        q, k, v, bias = _inputs(b, sq, sk, dtype, seed=50 + int(10 * rate))
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)
+                        ).cuda().to(dtype)
+        args = (heads, 64, rate, -7)
+        if rate == 0.0:
+            out = fa.fused_attention(q, k, v, bias, heads, 64)
+            ref = fa.fused_attention_reference(q, k, v, bias, heads, 64)
+            torch.testing.assert_close(out.float(), ref.float(), **fwd_tol)
+        out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+        ref, pref = fa.fused_attention_train_reference(q, k, v, bias, *args)
+        torch.testing.assert_close(out.float(), ref.float(), **fwd_tol)
+        torch.testing.assert_close(p, pref, atol=1e-6, rtol=0)
+        want = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+        stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+        recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g, *args)
+        for name, a, r in zip("qkv", stored + recomp, want + want):
+            torch.testing.assert_close(a.float(), r.float(), **bwd_tol,
+                                       msg=lambda m: f"d{name}: {m}")
+        if dtype == torch.bfloat16:
+            for a, r in zip(stored, recomp):
+                assert torch.equal(a, r)
+
+    q, k, _, _ = _inputs(b, sq, sk, dtype, seed=7)
+    bias = torch.zeros(b, sk, device="cuda")
+    v, go = _one_hot(b, sk, heads, dtype), _one_hot(b, sq, heads, dtype)
+    by_row = lambda dv: dv.view(b, sk, heads, 64)[..., :sq].permute(0, 3, 2, 1)
+    args = (heads, 64, 0.1, -7)
+    keep = fa.keep_mask(torch.arange(b, device="cuda"), sq, heads * sk, 0.1,
+                        -7).view(b, sq, heads, sk)
+    out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+    assert torch.equal(out.view(b, sq, heads, 64)[..., :sk] != 0, keep)
+    dv = fa.fused_attention_bwd_stored(q, k, v, p, go, *args)[2]
+    assert torch.equal(by_row(dv) != 0, keep)
+    dv = fa.fused_attention_bwd_recompute(q, k, v, bias, go, *args)[2]
+    assert torch.equal(by_row(dv) != 0, keep)
+    _, p0 = fa.fused_attention_fwd_train(q, k, v, bias, heads, 64, 0.0, 0)
+    dv = fa.fused_attention_bwd_recompute(q, k, v, bias, go, heads, 64, 0.0,
+                                          0)[2]
+    assert torch.equal(by_row(dv), p0.view(b, sq, heads, sk).to(dtype))
+
+
+def _visualbert_inputs(b=4, vocab=64):
+    g = torch.Generator().manual_seed(2)
+    return dict(input_ids=torch.randint(1, vocab, (b, 14), generator=g).cuda(),
+                visual_embeds=torch.randn(b, 36, 2048, generator=g).cuda(),
+                attention_mask=torch.ones(b, 14, device="cuda"))
+
+
+def test_visualbert_forward_kernel_matches_plain():
+    """A 2-layer VisualBERT at full width (768 hidden, 12x64 heads, 2048-d
+    visual features) in fp32, batch 4: the forward through the kernel (one
+    launch a layer at (50, 50)) agrees with the same model on the plain
+    attention."""
+    _need_card()
+    from crvqa_tpu_torch.models import VisualBertConfig, build_visualbert
+
+    cfg = VisualBertConfig(vocab_size=64, num_hidden_layers=2, ans_num=16)
+    model = build_visualbert(cfg, "cpu", torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    inputs = _visualbert_inputs()
+    before = fa.fused_attention.launches
+    with torch.inference_mode():
+        logits, _ = model(**inputs)
+    assert fa.fused_attention.launches == before + 2
+
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+        return fa.fused_attention_reference(q, k, v, bias, num_heads,
+                                            head_size)
+
+    saved = layers.fused_attention
+    layers.fused_attention = plain
+    try:
+        with torch.inference_mode():
+            ref, _ = model(**inputs)
+    finally:
+        layers.fused_attention = saved
+    torch.testing.assert_close(logits, ref, atol=1e-3, rtol=0)
+
+
+def test_visualbert_train_step_kernels_match_plain_versions():
+    """One VisualBERT stage-2 step (uniform zero rate 0.7, LMH, the head
+    under `cls`) of 2 layers at full width, fp32, dropout on, through the
+    kernels (2 forward-for-grad and 2 stored-backward launches) and
+    through the plain versions from the same generators: loss within 1e-5
+    relative, score gradients within 1e-3 of their largest."""
+    _need_card()
+    from crvqa_tpu_torch.cli.common import visualbert_uniform_masker
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.models import VisualBertConfig, build_visualbert
+    from crvqa_tpu_torch.train import stage2
+
+    cfg = VisualBertConfig(vocab_size=64, num_hidden_layers=2, ans_num=16)
+    masker = visualbert_uniform_masker(cfg, 0.7, controlled_init="magnitude")
+    params = build_visualbert(cfg, "cpu",
+                              torch.Generator().manual_seed(0)).state_dict()
+    sc = stage2.Stage2Config(masker_type="lmh", hidden_size=768,
+                             classifier_key="cls")
+    model = stage2.visualbert_meta_model(cfg)
+    state, _ = stage2.init_state(model, masker, params, sc, 0, "cuda")
+    batch = to_device(synthetic_batch(batch_size=8, vocab_size=64, ans_num=16,
+                                      seed=1, style="visualbert"),
+                      torch.device("cuda"))
+    fn = stage2.make_loss_and_grads(model, masker, sc)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    fwd, bwd = fa.fused_attention_fwd_train, fa.fused_attention_bwd_stored
+    before = (fwd.launches, bwd.launches)
+    loss_k, _, grads_k = fn(state, batch)
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (2, 2)
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+        return fa.fused_attention_train_reference(q, k, v, bias, num_heads,
+                                                  head_size, rate, seed)[0]
+
+    saved = layers.fused_attention
+    layers.fused_attention = plain
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.fused_attention = saved
+    assert fwd.launches - before[0] == 2
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    scores = [k for k in grads_k if k.startswith("scores/")]
+    gmax = max(grads_p[k].abs().max().item() for k in scores)
+    for k in scores:
+        torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
+                                   atol=1e-3 * gmax, msg=k)

@@ -56,7 +56,9 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.masking.compaction",
                      "crvqa_tpu_torch.train.stage1",
                      "crvqa_tpu_torch.cli.run_vqa_stage1",
-                     "crvqa_tpu_torch.cli.run_vqa_stage3"):
+                     "crvqa_tpu_torch.cli.run_vqa_stage3",
+                     "crvqa_tpu_torch.models.visualbert",
+                     "crvqa_tpu_torch.cli.prune_debias_vqa_visualbert"):
         assert expected in mods
 
 

@@ -205,7 +205,8 @@ def test_streaming_flushes_partial_batches(artifacts, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--model_type", "visualbert"], "not yet ported"),
+    (["--model_type", "visualbert", "--ckpt", "some_msgpack_dir"],
+     "not yet ported"),
     (["--ckpt", "some_msgpack_dir"], "not yet ported"),
 ])
 def test_unported_options_raise(artifacts, extra, error):
