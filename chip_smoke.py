@@ -132,18 +132,26 @@ Phases (each one's seconds are logged):
               call.
  16. stage1   `crvqa_tpu_torch.cli.run_vqa_stage1.main` at full LXMERT width,
               batch 64, bf16, LMH loss, 512 synthetic examples: 8 steps, a
-              checkpoint, an eval and the .bin, the final eval; 34 forward-
+              checkpoint, an eval and the .bin with its .msgpack twin (the
+              JAX package's params file), the final eval; 34 forward-
               for-grad and 32 stored-backward launches per step, 34 per eval
-              batch; timed steps; one fp32 step through the kernels against
-              the plain attentions.
+              batch; the twin read by `load_params_any` bit-equal to the
+              .bin over every parameter and written again to the same
+              bytes (its size, read and write seconds); timed steps; one
+              fp32 step through the kernels against the plain attentions.
  17. stage3   `crvqa_tpu_torch.cli.run_vqa_stage3.main` from that .bin,
               batch 64, bf16, 4 steps and an eval each: (a) FT_trainedMask
               with phase train's mask.pt and classifier4masker.bin (audited
               zero rate 0.7), (b) FT_randMask over the reference scope, (c)
               seeded head and FFN .npy masks at zero rate 0.5, compacting the
               language layers to 6 heads (the short kernel at H = 6) and FFN
-              1536; masked weights exactly 0 after the steps; timed steps of
-              (a) and (c).
+              1536; masked weights exactly 0 after the steps; each run's
+              .bin and .msgpack written; (a)'s
+              `<label4save>_FT_trainedMask.bin.msgpack` served with
+              `serve_vqa --ckpt` (128 requests at batch 32 over phase
+              serve's files, bf16 and fp32, zero error responses, 34 primal
+              launches a forward, fp32 answers identical to serving (a)'s
+              .bin); timed steps of (a) and (c).
  18. visualbert-train  `crvqa_tpu_torch.cli.prune_debias_vqa_visualbert.main`
               at the full width of `VisualBertConfig()` (768 hidden, 12
               layers of 12x64 heads, FFN 3072, 2048-d visual features, 2274
@@ -163,7 +171,20 @@ Phases (each one's seconds are logged):
               bf16 and fp32; zero error responses, 12 primal launches per
               forward, fp32 answers identical to the plain attention's;
               device time by kernel of one bf16 forward at batch 32.
- 20. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 20. vqavs    `crvqa_tpu_torch.cli.prune_debias_vqavs.main` at full LXMERT
+              width, batch 256, bf16, phase train's canonical configuration,
+              on fabricated VQA-VS files (the three question JSONs, targets,
+              the train_val_test answer vocabulary, the
+              VQAvs_test_annotations.json payload) over phase serve's
+              feature store: 4 steps with one threshold reset, an eval
+              before training and one at step 4, the export. Finite losses;
+              34 forward-for-grad and 32 stored-backward launches per step,
+              34 primal per eval batch; prefictions_VQAvs_test.json
+              byte-equal to test.json; `compute_vqavs_scores` on it gives
+              the IID score, the 9 OOD splits and Final_Score, each finite
+              and within [0, 100], and on the most-voted answers the IID
+              score the votes give.
+ 21. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -844,25 +865,34 @@ def fabricate(root: str, config, rng, torch, seed: int) -> dict:
 
 
 def _serve(root, dtype, store, device, tiny, seed, tag, artifacts=None,
-           extra=()):
-    """serve_vqa over the requests; `artifacts` is the directory of the
-    mask.pt and classifier4masker.bin to serve (default: `root`), `extra`
-    more argv (`--model_type visualbert`)."""
+           extra=(), ckpt=None, requests=SERVE_REQUESTS):
+    """serve_vqa over the first `requests` requests; `artifacts` is the
+    directory of the mask.pt and classifier4masker.bin to serve (default:
+    `root`), or `ckpt` a params file to serve as it is (`--ckpt`, no
+    stage-2 artifacts); `extra` more argv (`--model_type visualbert`)."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import serve_vqa
 
     artifacts = artifacts or root
     out = os.path.join(root, f"responses_{tag}.jsonl")
+    inp = os.path.join(root, "requests.jsonl")
+    if requests != SERVE_REQUESTS:
+        with open(inp) as f:
+            head = f.readlines()[:requests]
+        inp = os.path.join(root, f"requests_{requests}.jsonl")
+        with open(inp, "w") as f:
+            f.writelines(head)
+    params = (["--ckpt", ckpt] if ckpt else
+              ["--mask_pt", os.path.join(artifacts, "mask.pt"),
+               "--classifier_bin", os.path.join(artifacts,
+                                                "classifier4masker.bin")])
     argv = ["--dataroot", root, "--img_root", os.path.join(root, store),
-            "--vocab_file", os.path.join(root, "vocab.txt"),
-            "--mask_pt", os.path.join(artifacts, "mask.pt"),
-            "--classifier_bin", os.path.join(artifacts,
-                                             "classifier4masker.bin"),
+            "--vocab_file", os.path.join(root, "vocab.txt"), *params,
             "--dtype", dtype, "--seed", str(seed),
             "--serve_batch_size", str(SERVE_BATCH), "--max_wait_ms", "5",
-            "--input", os.path.join(root, "requests.jsonl"),
-            "--output", out, "--device", str(device), *extra]
+            "--input", inp, "--output", out, "--device", str(device),
+            *extra]
     if tiny:
         argv.append("--tiny")
     t0 = time.monotonic()
@@ -873,9 +903,9 @@ def _serve(root, dtype, store, device, tiny, seed, tag, artifacts=None,
     errors = [r for r in responses if "error" in r]
     check(not errors, f"serve {tag}: {len(errors)} error responses, first: "
                       f"{errors[:1]}")
-    check(len(responses) == SERVE_REQUESTS
+    check(len(responses) == requests
           and [r["question_id"] for r in responses] == list(
-              range(SERVE_REQUESTS)),
+              range(requests)),
           f"serve {tag}: responses missing or out of order")
     lat = np.asarray(stats["batch_ms"])
     summary = {"tag": tag, "dtype": dtype, "store": store,
@@ -2290,12 +2320,28 @@ def _device_calls(torch, prof, names) -> dict:
             for name in names}
 
 
+def _profile_pass(torch, fn):
+    """A profile of `fn()` (which ends in a synchronise) run twice under one
+    profiler, the first pass its warm-up, traced and discarded: a session
+    on the H100 can lose the kernels CUPTI misses while it starts (the
+    first launches, or all of them), and the counts below are exact."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            prof.step()
+    return prof
+
+
 def mm_profile_counts(seed: int) -> dict:
     """Launches by kernel name (the masked-matmul kernels and
     `tile_gemm_kernel`) in a profile of one bf16 autograd run of
-    `masked_matmul` at MM_SHAPES[0] on the card, after one run unprofiled."""
+    `masked_matmul` at MM_SHAPES[0] on the card, after one run unprofiled
+    (`_profile_pass`: one more, profiled and discarded)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from crvqa_tpu_torch.ops import masked_matmul as mm
 
     device = torch.device("cuda")
@@ -2303,12 +2349,13 @@ def mm_profile_counts(seed: int) -> dict:
     x, w, s, t, gy = _mm_inputs(torch, m, k, n, "bfloat16", "bfloat16",
                                 device, seed)
     leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
-    torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
         torch.cuda.synchronize()
+
+    run()
+    prof = _profile_pass(torch, run)
     return _device_calls(torch, prof, (
         "masked_operand_pass_kernel", "wgmma_gemm_kernel",
         "ds_split_reduce_kernel", "tile_gemm_kernel"))
@@ -2489,9 +2536,9 @@ HC_PROFILE_WANT = {
 def hc_profile_counts(seed: int) -> dict:
     """Launches by kernel name in a profile of one head-compact call at x
     [256 * 36, 768], 4 of 12 heads kept, in bf16 and in fp32 on the card,
-    each after one call unprofiled."""
+    each after one call unprofiled (`_profile_pass`: one more, profiled
+    and discarded)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
     device = torch.device("cuda")
@@ -2501,13 +2548,14 @@ def hc_profile_counts(seed: int) -> dict:
     out = {}
     for dtype in HC_PROFILE_WANT:
         x, wt = (t.to(device, getattr(torch, dtype)) for t in (x32, wt32))
-        sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run():
             sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
             torch.cuda.synchronize()
-        out[dtype] = _device_calls(torch, prof, HC_PROFILE_WANT[dtype])
+
+        run()
+        out[dtype] = _device_calls(torch, _profile_pass(torch, run),
+                                   HC_PROFILE_WANT[dtype])
     return out
 
 
@@ -2644,11 +2692,14 @@ def phase_stage1(torch, device, rehearse: bool, seed: int, keep_dir: str
           f"stage1: launches {launches} != {want} ({per_fwd} forward and "
           f"{per_bwd} backward per step x {steps}, {per_fwd} per eval batch "
           f"x {eval_batches})")
-    for name in ("run_FTlmh_only.bin", "test.json", "eval_results_vqa.txt",
+    for name in ("run_FTlmh_only.bin", "run_FTlmh_only.bin.msgpack",
+                 "test.json", "eval_results_vqa.txt",
                  "best_eval_results_vqa_noMASK.txt", f"ckpt_{steps}"):
         check(os.path.exists(os.path.join(out_dir, name)),
               f"stage1: {name} not written")
     os.remove(os.path.join(out_dir, f"ckpt_{steps}"))  # 2.5 GB, not needed
+    twin = _check_twin(torch, config, os.path.join(out_dir,
+                                                   "run_FTlmh_only.bin"))
     _free(torch, rehearse)
 
     bf16 = LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse else (
@@ -2698,7 +2749,47 @@ def phase_stage1(torch, device, rehearse: bool, seed: int, keep_dir: str
             "per_forward": per_fwd, "per_backward": per_bwd,
             "eval_batches": eval_batches, "wall_s": wall_s,
             "summary": summary, "timed": timed, "check": check_out,
-            "bin": os.path.join(out_dir, "run_FTlmh_only.bin")}
+            "twin": twin, "bin": os.path.join(out_dir, "run_FTlmh_only.bin")}
+
+
+def _check_twin(torch, config, bin_path: str) -> dict:
+    """The `.msgpack` twin the stage-1 CLI wrote beside `bin_path` (the
+    JAX package's params file): read by `load_params_any`, every
+    parameter bit-equal to the `.bin`'s; written again from the `.bin`'s
+    parameters, the same bytes. Its size and its read and write seconds
+    (host clock, the CPU tensors of a whole LXMERT)."""
+    import dataclasses
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.models import build_lxmert
+
+    twin = bin_path + ".msgpack"
+    model = build_lxmert(dataclasses.replace(config, dtype=torch.float32),
+                         "meta")
+    template = model.state_dict()
+    t0 = time.monotonic()
+    from_twin = cli_common.load_params_any(twin, template)
+    read_s = time.monotonic() - t0
+    from_bin = cli_common.load_params_any(bin_path, template)
+    differ = [k for k in template if from_twin[k].dtype != from_bin[k].dtype
+              or not torch.equal(from_twin[k], from_bin[k])]
+    n = sum(t.numel() for t in from_bin.values())
+    check(not differ, f"stage1: the .msgpack twin differs from the .bin at "
+                      f"{differ[:5]} ({len(differ)} tensors)")
+    again = twin + ".again"
+    t0 = time.monotonic()
+    cli_common.save_params_msgpack(again, from_bin, model)
+    write_s = time.monotonic() - t0
+    with open(twin, "rb") as a, open(again, "rb") as b:
+        same = a.read() == b.read()
+    os.remove(again)
+    check(same, "stage1: the twin written again from the .bin's parameters "
+                "has other bytes")
+    out = {"bytes": os.path.getsize(twin), "params": n,
+           "tensors": len(template), "read_s": read_s, "write_s": write_s}
+    log("stage1: .msgpack twin bit-equal to the .bin over "
+        f"{n} parameters; " + json.dumps(out))
+    return out
 
 
 class _HeadsSeen:
@@ -2727,15 +2818,18 @@ class _HeadsSeen:
 
 
 def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
-                 stage2_dir: str, keep_dir: str) -> dict:
+                 stage2_dir: str, keep_dir: str, serve_root: str) -> dict:
     """`run_vqa_stage3.main` at full width, batch 64, bf16, LMH loss, from
     phase stage1's .bin, three ways: (a) FT_trainedMask with phase train's
     mask.pt and classifier4masker.bin; (b) FT_randMask --rand_scope
     reference; (c) seeded head and FFN .npy masks at zero rate 0.5, which
     compact the 9 language layers to 6 heads and FFN 1536. 4 steps and an
     eval of 4 batches each. Checks launches, the masked weights exactly 0
-    after the steps, the audited zero rate, the heads the kernel ran at;
-    then timed steps of (a) and (c)."""
+    after the steps, the audited zero rate, the heads the kernel ran at,
+    each run's .bin and .msgpack; serves (a)'s .msgpack (the JAX package's
+    params file) with `serve_vqa --ckpt` over phase serve's files, bf16 and
+    fp32, fp32 answers identical to serving (a)'s .bin; then timed steps of
+    (a) and (c)."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import common as cli_common
@@ -2808,8 +2902,8 @@ def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
                             "off zero")
         saved_bin = os.path.join(keep_dir, f"stage3_{tag}", "run" + (
             "FT_randMask.bin" if tag == "rand" else "_FT_trainedMask.bin"))
-        check(os.path.exists(saved_bin), f"stage3 {tag}: {saved_bin} not "
-                                         "written")
+        for path in (saved_bin, saved_bin + ".msgpack"):
+            check(os.path.exists(path), f"stage3 {tag}: {path} not written")
         out[tag] = res
     check(abs(out["trained"]["zero_rate"] - 0.7) <= 0.01,
           f"stage3 trained: audited zero rate {out['trained']['zero_rate']}")
@@ -2825,6 +2919,9 @@ def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
         {heads, config.num_attention_heads}),
         f"stage3 structured: the kernel ran at heads "
         f"{out['structured']['kernel_heads']}")
+    out["trained"]["msgpack_serve"] = _serve_stage3_msgpack(
+        torch, device, rehearse, seed, serve_root, config,
+        os.path.join(keep_dir, "stage3_trained", "run_FT_trainedMask.bin"))
 
     # timed steps: (a) the trained mask, (c) the compacted model
     bf16 = LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse else (
@@ -2853,6 +2950,42 @@ def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
         rehearse, "stage3-step structured")
     del model, state, tx, batch, params
     _free(torch, rehearse)
+    return out
+
+
+MSGPACK_REQUESTS = 128
+
+
+def _serve_stage3_msgpack(torch, device, rehearse, seed, root, config,
+                          bin_path) -> dict:
+    """`serve_vqa --ckpt <stage 3's .msgpack>` at full width, batch 32, the
+    first MSGPACK_REQUESTS requests: bf16 and fp32, zero error responses,
+    34 primal launches a forward; fp32 answers identical to serving the
+    .bin of the same run."""
+    per_forward = config.l_layers + config.r_layers + 4 * config.x_layers
+    forwards = 1 + -(-MSGPACK_REQUESTS // SERVE_BATCH)  # warm-up included
+    runs, answers, launches = {}, {}, {}
+    for tag, dtype, ckpt in (
+            ("bf16", "bfloat16", bin_path + ".msgpack"),
+            ("fp32", "float32", bin_path + ".msgpack"),
+            ("fp32_bin", "float32", bin_path)):
+        (responses, runs[tag]), counts = _run_counted(lambda: _serve(
+            root, dtype, "features.bin", device, rehearse, seed,
+            f"stage3_{tag}", ckpt=ckpt, requests=MSGPACK_REQUESTS))
+        launches[tag] = counts["fused_attention_fwd"]
+        answers[tag] = [r["answer"] for r in responses]
+        check(counts == _launch_counts(
+            not rehearse, fused_attention_fwd=per_forward * forwards),
+            f"stage3 serving {ckpt} ({dtype}): launches {counts}, want "
+            f"{per_forward} x {forwards} forwards")
+    same = sum(a == b for a, b in zip(answers["fp32"], answers["fp32_bin"]))
+    check(same == MSGPACK_REQUESTS,
+          f"stage3: fp32 answers from the .msgpack and the .bin differ "
+          f"({same}/{MSGPACK_REQUESTS} identical)")
+    out = {"requests": MSGPACK_REQUESTS, "per_forward": per_forward,
+           "forwards": forwards, "launches": launches, "runs": runs,
+           "fp32_identical_to_bin": same}
+    log("stage3: served the .msgpack: " + json.dumps(out))
     return out
 
 
@@ -3097,6 +3230,157 @@ def phase_visualbert_serve(torch, device, rehearse: bool, seed: int,
 
 # ----------------------------------------------------------------- summary
 
+# ----------------------------------------------------------------- phase 20
+
+VQAVS_TRAIN, VQAVS_TEST = 1024, 512  # 4 steps at batch 256, 2 eval batches
+
+
+def fabricate_vqavs(root: str, serve_root: str, rng, ans_num: int,
+                    splits) -> dict:
+    """The VQA-VS file contract (`dataset_LXM_VQAvs.py:118-289`) over phase
+    serve's feature store and vocab: the three question JSONs, the train
+    and test targets, the train_val_test answer vocabulary, and the
+    `VQAvs_test_annotations.json` payload (`annotations` plus the nine
+    `<split>_qid` lists, `comput_vqavs_score.py:121-135`). Returns the
+    payload."""
+    os.makedirs(os.path.join(root, "cache"))
+    label2ans = ["yes", "no"] + [f"answer_{i}" for i in range(2, ans_num)]
+    for name, obj in (("train_val_test_label2ans.pkl", label2ans),
+                      ("train_val_test_ans2label.pkl",
+                       {a: i for i, a in enumerate(label2ans)})):
+        with open(os.path.join(root, "cache", name), "wb") as f:
+            pickle.dump(obj, f)
+    with open(os.path.join(serve_root, "features.pickle"), "rb") as f:
+        images = sorted(pickle.load(f))
+    annotations = []
+    for split, fname, n, qid0 in (
+            ("train", "Training-Ques.json", VQAVS_TRAIN, 3000000),
+            ("val", "Val-Ques.json", 0, 4000000),
+            ("test", "IID-Test-Ques.json", VQAVS_TEST, 5000000)):
+        questions, targets = [], []
+        for i in range(n):
+            t = int(rng.integers(len(TEMPLATES)))
+            subject = SUBJECTS[int(rng.integers(len(SUBJECTS)))]
+            image = images[int(rng.integers(len(images)))]
+            labels = sorted({int(x) % ans_num for x in
+                             rng.integers(40 * t, 40 * t + 60, size=2)})
+            counts = [int(rng.integers(1, 4)) for _ in labels]
+            questions.append({"question_id": qid0 + i, "image_id": image,
+                              "question": TEMPLATES[t].format(subject)})
+            targets.append({"question_id": qid0 + i, "image_id": image,
+                            "question_type": TEMPLATES[t].split(" {}")[0],
+                            "labels": labels,
+                            "scores": [min(1.0, c / 3) for c in counts]})
+            if split == "test":
+                words = [label2ans[x] for x in labels]
+                annotations.append({
+                    "question_id": qid0 + i, "answers_word": words,
+                    "answer_count": dict(zip(words, counts)),
+                    "answer_type": "yes/no" if t in (2, 4) else "other"})
+        with open(os.path.join(root, fname), "w") as f:
+            json.dump({"questions": questions}, f)
+        if n:
+            with open(os.path.join(root, "cache", f"{split}_target.pkl"),
+                      "wb") as f:
+                pickle.dump(targets, f)
+    qids = [a["question_id"] for a in annotations]
+    payload = {"annotations": annotations}
+    for split in splits:
+        payload[f"{split}_qid"] = [int(q) for q in rng.choice(
+            qids, size=len(qids) // 3, replace=False)]
+    with open(os.path.join(root, "VQAvs_test_annotations.json"), "w") as f:
+        json.dump(payload, f)
+    return payload
+
+
+def phase_vqavs(torch, device, rehearse: bool, seed: int, serve_root: str,
+                keep_dir: str) -> dict:
+    """`crvqa_tpu_torch.cli.prune_debias_vqavs.main` at full width, batch
+    256, bf16, phase train's canonical configuration, on fabricated VQA-VS
+    files over phase serve's feature store: 4 steps with one threshold
+    reset, an eval before training and one at step 4, the export. Checks
+    finite losses, the launches per step and per eval batch,
+    `prefictions_VQAvs_test.json` byte-equal to `test.json`, and the
+    port's `compute_vqavs_scores` on it: the IID score, the 9 OOD splits
+    and Final_Score, each finite and within [0, 100]; on the most-voted
+    answers, the IID score their votes give."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import prune_debias_vqavs
+    from crvqa_tpu_torch.evals import VQAVS_SPLITS, compute_vqavs_scores
+    from crvqa_tpu_torch.models import LxmertConfig
+
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    fwd_mult, bwd_mult = launch_mult(config)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    steps = VQAVS_TRAIN // TRAIN_BATCH
+    eval_batches = 2 * -(-VQAVS_TEST // TRAIN_BATCH)  # pre-train + step 4
+    root = os.path.join(keep_dir, "vqavs")
+    t0 = time.monotonic()
+    payload = fabricate_vqavs(root, serve_root, np.random.default_rng(seed),
+                              config.ans_num, VQAVS_SPLITS)
+    fabricate_s = time.monotonic() - t0
+    out = os.path.join(root, "out")
+    argv = ["--output_dir", out, "--dataroot", root,
+            "--img_root", os.path.join(serve_root, "features.bin"),
+            "--vocab_file", os.path.join(serve_root, "vocab.txt"),
+            "--device", str(device), "--dtype", "bfloat16",
+            "--train_batch_size", str(TRAIN_BATCH),
+            "--eval_batch_size", str(TRAIN_BATCH), "--num_train_epochs", "1",
+            "--logging_steps", str(steps), "--save_steps", str(steps),
+            "--Lang_comp", "0.3", "--Vis_comp", "0.3", "--Fus_comp", "0.3",
+            "--zero_rate", "0.7", "--controlled_init", "magnitude",
+            "--Masker_type", "lmh", "--name_of_masker", "MaskedLinear1",
+            "--do_train", "--evaluate_during_training",
+            "--seed", str(seed)] + (["--tiny"] if rehearse else [])
+    t0 = time.monotonic()
+    summary, launches = _run_counted(lambda: prune_debias_vqavs.main(argv))
+    cli_s = time.monotonic() - t0
+    losses = summary["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"vqavs: losses {losses} (want {steps} finite)")
+    want = _launch_counts(
+        not rehearse, fused_attention_fwd_train=per_fwd * steps,
+        fused_attention_bwd_stored=per_bwd * steps,
+        fused_attention_fwd=per_fwd * eval_batches)
+    check(launches == want,
+          f"vqavs: launches {launches} != {want} ({per_fwd} forward and "
+          f"{per_bwd} backward per step x {steps}, {per_fwd} per eval batch "
+          f"x {eval_batches})")
+    with open(os.path.join(out, "test.json"), "rb") as f:
+        test_json = f.read()
+    with open(os.path.join(out, "prefictions_VQAvs_test.json"), "rb") as f:
+        check(f.read() == test_json,
+              "vqavs: prefictions_VQAvs_test.json is not test.json")
+    preds = json.loads(test_json)
+    check(len(preds) == VQAVS_TEST, f"vqavs: {len(preds)} predictions")
+    scores = compute_vqavs_scores(preds, payload)
+    check(set(scores) == {"iid", "Final_Score", *VQAVS_SPLITS}
+          and all(np.isfinite(v) and 0.0 <= v <= 100.0
+                  for v in scores.values()),
+          f"vqavs: scores {scores}")
+    # random weights score about 0 here; the scorer itself is held to the
+    # most-voted answers, whose IID score is the mean of min(1, votes / 3)
+    annos = payload["annotations"]
+    best = [max(a["answer_count"].values()) for a in annos]
+    oracle = compute_vqavs_scores(
+        [{"question_id": a["question_id"], "answer": max(
+            a["answer_count"], key=a["answer_count"].get)} for a in annos],
+        payload)
+    want_iid = round(100.0 * sum(min(1.0, c / 3) for c in best)
+                     / len(best), 2)
+    check(oracle["iid"] == want_iid and 0.0 < oracle["Final_Score"] <= 100.0,
+          f"vqavs: the most-voted answers score {oracle}, IID not {want_iid}")
+    shutil.rmtree(root)
+    result = {"steps": steps, "losses": losses, "launches": launches,
+              "per_forward": per_fwd, "per_backward": per_bwd,
+              "eval_batches": eval_batches, "zero_rates": summary["zero_rates"],
+              "scores": scores, "oracle_scores": oracle,
+              "fabricate_s": fabricate_s, "cli_s": cli_s}
+    log("vqavs: " + json.dumps(result))
+    return result
+
+
 def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
                       basis) -> dict:
     """A short kernel's numbers on VisualBERT's path: its (50,50) row
@@ -3118,7 +3402,7 @@ def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
 
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
-                   vb_train) -> list[dict]:
+                   vb_train, vqavs, stage3) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -3129,12 +3413,15 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     bf16 mPLUG mask-training step at batch 16, dropout rate 0.1, summed
     over its 29 launches (`MIDSEQ_BWD_PER_STEP`). The short kernels'
     `launches` add VisualBERT's paths (phases visualbert-serve and
-    visualbert-train) to LXMERT's; their `visualbert` entry gives one
+    visualbert-train) to LXMERT's, and those of phase vqavs and of phase
+    stage3's serving of its .msgpack; their `visualbert` entry gives one
     VisualBERT forward (batch 32) or step (batch 256) at (50,50)."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
     vb_layers = vb_serve["per_forward"]
+    msgpack_launches = sum(
+        stage3["trained"]["msgpack_serve"]["launches"].values())
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -3146,7 +3433,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "name": "fused_attention_fwd", "route": "cuda",
         "source": src + "fused_attention_fwd.cu",
         "replaces": "crvqa_tpu/ops/fused_attention.py:153",
-        "launches": serve["launches"] + vb_serve["launches"],
+        "launches": (serve["launches"] + vb_serve["launches"]
+                     + vqavs["launches"]["fused_attention_fwd"]
+                     + msgpack_launches),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3155,7 +3444,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                  f"{sum(fwd_mult.values())} launches over (Sq,Sk) "
                  + ", ".join(f"{k}x{v}" for k, v in fwd_mult.items())
                  + f"; launches: LXMERT serving {serve['launches']}, "
-                   f"VisualBERT serving {vb_serve['launches']}",
+                   f"VisualBERT serving {vb_serve['launches']}, VQA-VS "
+                   f"stage-2 evals {vqavs['launches']['fused_attention_fwd']}"
+                   f", serving stage 3's .msgpack {msgpack_launches}",
         "visualbert": _visualbert_entry(
             [r for r in rows if r["batch"] == SERVE_BATCH
              and r["dtype"] == "bfloat16" and r["heads"] == 12
@@ -3216,7 +3507,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
             "source": src + ("fused_attention_fwd.cu" if kind == "fwd"
                              else "fused_attention_bwd.cu"),
             "replaces": replaces,
-            "launches": launches + vb_train["launches"][name],
+            "launches": (launches + vb_train["launches"][name]
+                         + vqavs["launches"][name]),
             "max_abs_err": max(r[k] for r in main for k in err_keys),
             "ms": tot(f"{kind}_ms"), "plain_ms": tot(f"{kind}_plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3227,7 +3519,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                                              for k, v in mult.items())
                      + f"; library_ms: {what}; launches: LXMERT stage 2 "
                        f"{launches}, VisualBERT stage 2 "
-                       f"{vb_train['launches'][name]}",
+                       f"{vb_train['launches'][name]}, VQA-VS stage 2 "
+                       f"{vqavs['launches'][name]}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
@@ -3426,12 +3719,15 @@ def main(argv=None) -> int:
         stage1 = phase("stage1", phase_stage1, torch, device, rehearse, seed,
                        keep.name)
         stage3 = phase("stage3", phase_stage3, torch, device, rehearse, seed,
-                       stage1["bin"], train["artifacts"], keep.name)
+                       stage1["bin"], train["artifacts"], keep.name,
+                       serve["root"])
         vb_train = phase("visualbert-train", phase_visualbert_train, torch,
                          device, rehearse, seed, serve["root"], keep.name)
         vb_serve = phase("visualbert-serve", phase_visualbert_serve, torch,
                          device, rehearse, seed, serve["root"],
                          vb_train["artifacts"])
+        vqavs = phase("vqavs", phase_vqavs, torch, device, rehearse, seed,
+                      serve["root"], keep.name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3444,7 +3740,7 @@ def main(argv=None) -> int:
         return 3
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
-                             compact, vb_serve, vb_train)
+                             compact, vb_serve, vb_train, vqavs, stage3)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -3459,7 +3755,7 @@ def main(argv=None) -> int:
                        "masked_matmul": masked, "head_compact": compact,
                        "stage1": stage1, "stage3": stage3,
                        "visualbert_train": vb_train,
-                       "visualbert_serve": vb_serve,
+                       "visualbert_serve": vb_serve, "vqavs": vqavs,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

@@ -138,7 +138,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="batches prepared and copied to the device ahead "
                         "on a producer thread; 0 disables")
     p.add_argument("--resume_from", type=str, default=None,
-                   help="a checkpoint written by this port (ckpt_<step>)")
+                   help="a checkpoint written by this port (ckpt_<step>); "
+                        "the JAX package's msgpack ckpt_<step> is refused")
     p.add_argument("--train_shuffle", type=str2bool, default=True)
     p.add_argument("--hidden_dropout_prob", type=float, default=None)
     p.add_argument("--attention_probs_dropout_prob", type=float, default=None)
@@ -163,7 +164,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 # flag -> its default; setting one elsewhere raises "not yet ported"
 COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
                    "wandb_project": None, "tensorboard_dir": None,
-                   "profile_dir": None, "dataset": "vqacp"}
+                   "profile_dir": None}
 
 
 MODEL_TYPE_HELP = ("lxmert. The JAX package parses this flag, never reads "
@@ -280,8 +281,10 @@ def transfer_dtype(args) -> Optional[torch.dtype]:
 
 def build_data(args, config, device: torch.device):
     """(train_batches(epoch), eval_batches(), label2ans, n_train): VQA-CP
-    from --dataroot/--img_root, else --synthetic N examples. Batches arrive
-    as device tensors through the prefetcher (`data/prefetch.py`)."""
+    or (`--dataset vqavs`) VQA-VS from --dataroot/--img_root, else
+    --synthetic N examples. Batches arrive as device tensors through the
+    prefetcher (`data/prefetch.py`). As in the JAX package, the VQA-VS
+    train split ignores --data_ratio and loads with seed 0."""
     from ..data.prefetch import prefetch_batches
     from ..data.synthetic import synthetic_batch
 
@@ -324,11 +327,20 @@ def build_data(args, config, device: torch.device):
     from ..data import vqacp
 
     tokenizer = vqacp.make_tokenizer(args.vocab_file)
-    ans2label, label2ans = vqacp.load_answer_vocab(args.dataroot)
-    ans_num = len(ans2label)
-    train = vqacp.load_entries(args.dataroot, "train", tokenizer, ans_num,
-                               ratio=args.data_ratio, seed=args.seed)
-    test = vqacp.load_entries(args.dataroot, "test", tokenizer, ans_num)
+    if args.dataset == "vqavs":
+        from ..data import vqavs
+
+        ans2label, label2ans = vqavs.load_answer_vocab(args.dataroot)
+        ans_num = len(ans2label)
+        train = vqavs.load_entries(args.dataroot, "train", tokenizer, ans_num)
+        test = vqavs.load_entries(args.dataroot, "test", tokenizer, ans_num)
+    else:
+        ans2label, label2ans = vqacp.load_answer_vocab(args.dataroot)
+        ans_num = len(ans2label)
+        train = vqacp.load_entries(args.dataroot, "train", tokenizer,
+                                   ans_num, ratio=args.data_ratio,
+                                   seed=args.seed)
+        test = vqacp.load_entries(args.dataroot, "test", tokenizer, ans_num)
     priors = vqacp.compute_bias_priors(train, ans_num)
     vqacp.attach_bias(train, priors, ans_num)
     vqacp.attach_bias(test, priors, ans_num)
@@ -404,19 +416,43 @@ def lxmert_uniform_masker(config, zero_rate: float):
 
 def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]
                     ) -> dict[str, torch.Tensor]:
-    """Overlay a params checkpoint onto `state` (a state_dict): reference
-    torch artifacts (`.bin`/`.pt`/`.pth` state_dicts or whole-model
-    pickles). The JAX package's msgpack checkpoint dirs are not yet
-    ported."""
+    """Overlay a params checkpoint onto `state` (a state_dict), by the
+    JAX package's dispatch (`crvqa_tpu/cli/common.py:load_params_any`):
+    `.bin`/`.pt`/`.pth` are reference torch artifacts (state_dicts or
+    whole-module pickles); every other path is a msgpack params file of
+    the JAX package's (the stage-1 `.msgpack` twin, the stage-3
+    `_FT_trainedMask.bin.msgpack`), carried over by `state_dict_from_jax`.
+    Either way every key of `state` must be present at its shape. A
+    training state (the JAX package's `ckpt_<step>`: the step, the
+    parameters, the optimizer's state) is refused."""
     if path is None:
         return state
-    if path.endswith((".bin", ".pt", ".pth")):
-        from ..core import torch_compat
+    from ..core import torch_compat
 
+    if path.endswith((".bin", ".pt", ".pth")):
         return torch_compat.load_torch_params(path, state)
-    raise NotImplementedError(
-        f"{path}: msgpack checkpoint directories are not yet ported to "
-        "crvqa_tpu_torch (ROADMAP); pass a .bin/.pt/.pth checkpoint")
+    from ..core.checkpoint import load_msgpack
+    from ..core.convert import state_dict_from_jax
+
+    tree = load_msgpack(path)
+    if isinstance(tree, dict) and {"step", "opt_state"} <= set(tree):
+        raise NotImplementedError(
+            f"{path}: a training state (the JAX package's ckpt_<step>), "
+            "not a params file: reading the params out of it is not yet "
+            "ported to crvqa_tpu_torch (ROADMAP); pass the params file its "
+            "stage 1 or 3 wrote (<label4save>_FT*.bin.msgpack)")
+    return torch_compat.fill_state_dict(state_dict_from_jax(tree), state)
+
+
+def save_params_msgpack(path: str, state: dict[str, torch.Tensor],
+                        model: torch.nn.Module) -> None:
+    """Write a state_dict as the JAX package's msgpack params file (its
+    nested tree, `convert.jax_tree_from_state_dict` over `model`'s
+    modules), readable by its `load_params_any`."""
+    from ..core.checkpoint import save_msgpack
+    from ..core.convert import jax_tree_from_state_dict
+
+    save_msgpack(path, jax_tree_from_state_dict(state, model))
 
 
 def overlay_classifier(state: dict[str, torch.Tensor], classifier_bin: str,

@@ -6,10 +6,12 @@
         --dataroot DATA --img_root FEATS --vocab_file vocab.txt \\
         --train_batch_size 256 --do_train --evaluate_during_training
 
-Loads the stage-1 checkpoint (`--stage1_ckpt`, a torch .bin/.pt; seeded
-init without one), builds the per-modality Masker, trains the mask scores
-and the classifier with the `--Masker_type` debias loss, resets the
-thresholds every `--logging_steps`, checkpoints and (with
+Loads the stage-1 checkpoint (`--stage1_ckpt`: a torch .bin/.pt, or the
+JAX package's msgpack params file; seeded init without one), reads VQA-CP
+or (`--dataset vqavs`, or `prune_debias_vqavs`) VQA-VS, builds the
+per-modality Masker, trains the mask scores and the classifier with the
+`--Masker_type` debias loss, resets the thresholds every
+`--logging_steps`, checkpoints and (with
 `--evaluate_during_training`) evaluates every `--save_steps`, and at each
 new best writes `test.json`, `mask.pt` and `classifier4masker.bin` in the
 JAX CLI's formats. Runs on the card (`--device cuda`, the default, raising
@@ -18,9 +20,10 @@ without one); `--device cpu` runs the kernels' plain versions.
 Not yet ported (raise when set away from their defaults): `--scan_layers`,
 `--structured_masking`, `--steps_per_dispatch` > 1, `--zero_opt`,
 `--mesh_*`, `--multihost`, `--profile_dir`, `--tensorboard_dir`,
-`--wandb_project`, `--dataset vqavs`, msgpack `--stage1_ckpt` directories.
-`--model_type` other than lxmert raises too: the JAX CLI parses it and
-never reads it, building LXMERT whatever it says (`common.reject_model_type`).
+`--wandb_project`; a `--resume_from` of the JAX package's msgpack
+`ckpt_<step>`. `--model_type` other than lxmert raises too: the JAX CLI
+parses it and never reads it, building LXMERT whatever it says
+(`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "reweight"])
     p.add_argument("--stage1_ckpt", type=str, default=None,
                    help="stage-1 checkpoint (torch .bin/.pt state_dict or "
-                        "module pickle)")
+                        "module pickle, or a msgpack params file)")
     p.add_argument("--controlled_init", type=str, default="magnitude",
                    choices=["magnitude", "uniform", "double_uniform",
                             "magnitude_soft", "magnitude_global", "none"])

@@ -12,20 +12,21 @@ Re-design of the reference's `prune_debias_VQA_visualBERT.py` +
 over K/Q/V/AO/I/O/P/E (no modality split, prune_debias_VQA_visualBERT.py:
 127-190), the model called with (input_ids, visual_embeds) only (the box
 features of the VQA-CP pipeline, spatials dropped), the classifier head
-`model.cls`. Loads `--stage1_ckpt` (a torch .bin/.pt; seeded init without
-one), trains the mask scores and the classifier with the `--Masker_type`
-debias loss, resets the thresholds every `--logging_steps`, checkpoints
-and (with `--evaluate_during_training`) evaluates every `--save_steps`,
+`model.cls`. Loads `--stage1_ckpt` (a torch .bin/.pt, or the JAX
+package's msgpack params file; seeded init without one), trains the mask
+scores and the classifier with the `--Masker_type` debias loss, resets
+the thresholds every `--logging_steps`, checkpoints and (with
+`--evaluate_during_training`) evaluates every `--save_steps`,
 and at each new best writes `test.json`, `mask.pt` (VisualBERT's torch
 names) and `classifier4masker.bin` (the `cls` head) in the JAX CLI's
 formats. Runs on the card (`--device cuda`, the default, raising without
 one); `--device cpu` runs the kernels' plain versions.
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`,
-`--dataset vqavs`, msgpack `--stage1_ckpt` directories; `--model_type`
-other than visualbert (the JAX CLI parses it and builds VisualBERT
-whatever it says).
+`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`;
+a `--resume_from` of the JAX package's msgpack `ckpt_<step>`;
+`--model_type` other than visualbert (the JAX CLI parses it and builds
+VisualBERT whatever it says). `--dataset vqavs` reads the VQA-VS files.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "reweight"])
     p.add_argument("--stage1_ckpt", type=str, default=None,
                    help="stage-1 checkpoint (torch .bin/.pt state_dict or "
-                        "module pickle)")
+                        "module pickle, or a msgpack params file)")
     p.add_argument("--controlled_init", type=str, default="magnitude")
     p.add_argument("--threshold", type=float, default=1e-2)
     p.add_argument("--init_scale", type=float, default=2e-2)

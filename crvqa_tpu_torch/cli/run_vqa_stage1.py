@@ -7,23 +7,24 @@ loss (counterpart of `crvqa_tpu/cli/run_vqa_stage1.py`; same argv plus
         --FT_type lmh --train_batch_size 64 --do_train \\
         --evaluate_during_training
 
-Starts from `--init_ckpt` (a torch .bin/.pt state_dict or module pickle;
-seeded init without one), trains every parameter under `--FT_type`'s loss
-with the clipped Adam of `train/stage1.py`, checkpoints every
-`--save_steps` (`ckpt_<step>`, the port's torch format, keep 2; resumable
-with `--resume_from`) and, with `--evaluate_during_training`, evaluates
-there, writing `test.json` and the parameters as
-`<label4save>_FT{only,lmh_only,lpf_only,rubi_only}.bin` at each new best
-(the final parameters when no evaluation ran). The JAX CLI also writes a
-`.msgpack` twin of that file; the port writes the torch `.bin` only.
-Runs on the card (`--device cuda`, the default, raising without one);
-`--device cpu` runs the kernels' plain versions.
+Starts from `--init_ckpt` (a torch .bin/.pt state_dict or module pickle,
+or the JAX package's msgpack params file; seeded init without one), trains
+every parameter under `--FT_type`'s loss with the clipped Adam of
+`train/stage1.py`, checkpoints every `--save_steps` (`ckpt_<step>`, the
+port's torch format, keep 2; resumable with `--resume_from`, which refuses
+the JAX package's msgpack `ckpt_<step>`) and, with
+`--evaluate_during_training`, evaluates there, writing `test.json` and the
+parameters as `<label4save>_FT{only,lmh_only,lpf_only,rubi_only}.bin` with
+its `.msgpack` twin (the JAX package's params file) at each new best (the
+final parameters when no evaluation ran). `--dataset vqavs` trains on the
+VQA-VS files. Runs on the card (`--device cuda`, the default, raising
+without one); `--device cpu` runs the kernels' plain versions.
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`,
-`--dataset vqavs`, msgpack checkpoint directories. `--model_type` other
-than lxmert raises too: the JAX CLI parses it and never reads it, building
-LXMERT whatever it says (`common.reject_model_type`).
+`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`.
+`--model_type` other than lxmert raises too: the JAX CLI parses it and
+never reads it, building LXMERT whatever it says
+(`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["normal", "lmh", "lpf", "rubi"])
     p.add_argument("--training_type", type=str, default="FTonly")
     p.add_argument("--init_ckpt", type=str, default=None,
-                   help="pretrained LXMERT weights (torch .bin/.pt/.pth)")
+                   help="pretrained LXMERT weights (torch .bin/.pt/.pth, "
+                        "or a msgpack params file)")
     common.add_dense_train_flags(p)
     return p
 
@@ -109,7 +111,8 @@ def train_and_evaluate(args, config: LxmertConfig,
     `run_vqa_stage3.py` of the JAX package): train with logging, periodic
     checkpoints and evaluations, the best parameters to `bin_path`, then
     the final evaluation. `masks` (stage 3) are the constant masks by
-    weight name, or None."""
+    weight name, or None. Each save writes `bin_path` and, for the JAX
+    package, `bin_path + ".msgpack"`."""
     log = common.RunLog(args.output_dir)
     train_batches, eval_batches, label2ans, n_train = common.build_data(
         args, config, device)
@@ -130,6 +133,8 @@ def train_and_evaluate(args, config: LxmertConfig,
 
     def save_best(state):
         torch_compat.save_torch_state_dict(bin_path, state.params)
+        common.save_params_msgpack(bin_path + ".msgpack", state.params,
+                                   model)
 
     best = -1.0
     losses = []

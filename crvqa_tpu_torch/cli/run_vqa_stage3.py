@@ -24,16 +24,19 @@ then one of:
 With a mask it logs the achieved zero rate (`see_weight_rate`) and zeroes
 the masked weights; in every case it overlays `--classifier_bin`, then runs
 the stage-1 loop with the masks multiplying the weights in every forward.
-The parameters go to `<label4save>_FT_trainedMask.bin` (or
-`<label4save>FT_randMask.bin`, the reference's own spelling) as a torch
-state_dict; the JAX CLI writes that name as a `.msgpack`, the port the
-torch file only.
+The parameters go to `<label4save>_FT_trainedMask.bin.msgpack` (or
+`<label4save>FT_randMask.bin.msgpack`, the reference's own spelling), the
+JAX package's params file and the only file its stage 3 writes, at the
+best evaluation or, when none ran, at the end; the port also writes the
+torch state_dict under the name without `.msgpack`. `--stage1_ckpt` takes
+either kind of file, `--dataset vqavs` the VQA-VS files; `--resume_from`
+refuses the JAX package's msgpack `ckpt_<step>`.
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`,
-`--dataset vqavs`, msgpack checkpoint directories. `--model_type` other
-than lxmert raises too: the JAX CLI parses it and never reads it, building
-LXMERT whatever it says (`common.reject_model_type`).
+`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`.
+`--model_type` other than lxmert raises too: the JAX CLI parses it and
+never reads it, building LXMERT whatever it says
+(`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["normal", "lmh", "lpf", "rubi"])
     p.add_argument("--training_type", type=str, default="FT_trainedMask",
                    choices=["FT_trainedMask", "FT_randMask"])
-    p.add_argument("--stage1_ckpt", type=str, default=None)
+    p.add_argument("--stage1_ckpt", type=str, default=None,
+                   help="stage-1 parameters: torch .bin/.pt/.pth or a "
+                        "msgpack params file")
     p.add_argument("--mask_pt", type=str, default=None,
                    help="stage-2 mask.pt (required for FT_trainedMask)")
     p.add_argument("--classifier_bin", type=str, default=None,

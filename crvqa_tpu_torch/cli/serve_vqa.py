@@ -8,7 +8,9 @@ protocol, same stats line).
   request gets an `"error"` response; it never takes down its batch.
 - Micro-batching: up to `--serve_batch_size` requests, waiting at most
   `--max_wait_ms` after the first; every batch is padded to that one shape.
-- Params: a stage-1/3 checkpoint (`--ckpt`, or a seeded init without one),
+- Params: a stage-1/3 checkpoint (`--ckpt`: a torch .bin, or the JAX
+  package's msgpack params file such as its stage-3
+  `_FT_trainedMask.bin.msgpack`; a seeded init without one),
   then optionally the stage-2 subnetwork (`--mask_pt` folded in as
   `w * mask` once at load, `--classifier_bin` swapped in).
 - `--model_type lxmert` (default) or `visualbert`: VisualBERT reads the
@@ -48,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_type", type=str, default="lxmert",
                    choices=["lxmert", "visualbert"])
     p.add_argument("--ckpt", type=str, default=None,
-                   help="params checkpoint: stage-1/3 torch .bin")
+                   help="params checkpoint: stage-1/3 torch .bin, or a "
+                        "msgpack params file of the JAX package's")
     p.add_argument("--mask_pt", type=str, default=None,
                    help="stage-2 mask.pt -> serve the pruned subnetwork")
     p.add_argument("--classifier_bin", type=str, default=None,

@@ -1,6 +1,6 @@
-"""Checkpoint / resume in the port's own torch format (counterpart of
-`crvqa_tpu/core/checkpoint.py`, whose msgpack files the port does not read
-yet).
+"""Checkpoint / resume in the port's own torch format, and the JAX
+package's msgpack parameter files (counterpart of
+`crvqa_tpu/core/checkpoint.py`).
 
 A checkpoint holds what training changes. Stage 2 (`save_checkpoint`): the
 step, mask scores, thresholds, the classifier and LMH parameters, the
@@ -13,14 +13,24 @@ twins, the optimizer state and the generators. The frozen backbone is not
 stored: a resumed or serving run rebuilds it from the same checkpoint or
 `--seed`. Writes are atomic (temporary file, then rename);
 `<path>.meta.json` carries the metadata.
+
+`save_msgpack` / `load_msgpack` write and read a tree in the JAX package's
+format (`flax.serialization.to_bytes`, through the port's own codec
+`core/msgpack.py`): the parameter files its stage 1 writes beside the
+`.bin` and its stage 3 writes alone. Its `ckpt_<step>` training states are
+msgpack files too; a resume from one is refused
+(`check_port_checkpoint`).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+import zipfile
+from typing import Any, Optional
 
 import torch
+
+from . import msgpack
 
 
 def _cpu(tree):
@@ -39,6 +49,49 @@ def _write(path: str, payload: dict, metadata: Optional[dict]) -> None:
     if metadata is not None:
         with open(path + ".meta.json", "w") as f:
             json.dump(metadata, f)
+
+
+def save_msgpack(path: str, tree, metadata: Optional[dict] = None) -> None:
+    """Write `tree` (nested dicts of numpy arrays or tensors) as the JAX
+    package's `save_checkpoint` does: msgpack to `<path>.tmp`, renamed
+    over `path` (a preempted write never leaves a torn file), and
+    `<path>.meta.json` with the metadata."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        msgpack.pack(tree, f)
+    os.replace(tmp, path)
+    if metadata is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(metadata, f)
+
+
+def load_msgpack(path: str) -> Any:
+    """A msgpack file of the JAX package's as a nested dict: numpy arrays,
+    bfloat16 leaves as `torch.bfloat16` tensors (`core/msgpack.py`)."""
+    return msgpack.read_file(path)
+
+
+def check_port_checkpoint(path: str) -> None:
+    """Refuse, before `torch.load` fails on it, a `--resume_from` that is
+    not a checkpoint of this port (torch.save writes a zip archive): the
+    JAX package's `ckpt_<step>` is a msgpack training state."""
+    if zipfile.is_zipfile(path):
+        return
+    with open(path, "rb") as f:
+        head = f.read(1)
+    # a non-empty map (0x80, the empty one, also opens a pickle)
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        raise NotImplementedError(
+            f"{path}: a msgpack training state (the JAX package's "
+            "ckpt_<step>, flax.serialization): resuming from it is not yet "
+            "ported to crvqa_tpu_torch (ROADMAP); resume from a ckpt_<step> "
+            "this port wrote")
+
+
+def _read(path: str) -> dict:
+    check_port_checkpoint(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _copy(path: str, dst: dict, src: dict, what: str) -> None:
@@ -69,7 +122,7 @@ def save_checkpoint(path: str, state, metadata: Optional[dict] = None
 def load_checkpoint(path: str, state):
     """Copy a checkpoint into `state` (built by `stage2.init_state` with
     the same configuration) in place; returns it."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    raw = _read(path)
 
     _copy(path, state.scores, raw["scores"], "scores")
     state.thresholds = {k: t.to(state.scores[k].device)
@@ -116,7 +169,7 @@ def load_mplug_checkpoint(path: str, state):
     with the same configuration (a resume: everything is restored), or a
     serving state (the trained parameters, scores and thresholds only, as
     the JAX server drops the rest)."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    raw = _read(path)
     missing = sorted(set(raw["params"]) - set(state.params))
     if missing:
         raise KeyError(f"{path}: parameters {missing[:5]} are not the "
@@ -175,7 +228,7 @@ def load_stage1_checkpoint(path: str, state):
     """Copy a stage-1/3 checkpoint into `state` (built by
     `stage1.init_state` with the same configuration) in place; returns
     it."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    raw = _read(path)
     _copy(path, state.params, raw["params"], "params")
     if state.lmh_params is not None:
         _copy(path, state.lmh_params, raw["lmh_params"], "lmh_params")

@@ -14,8 +14,9 @@ the same mapping, written without flax, over a nested dict of numpy arrays
   `weight_g` [].
 
 `model.load_state_dict(state_dict_from_jax(params), strict=True)` then
-gives the same model. mPLUG's tree needs renames beyond that rule
-(`mplug_state_dict_from_jax`). `stage2_from_jax` carries a JAX stage-2 state
+gives the same model, and `jax_tree_from_state_dict` goes back: a port
+state_dict to the JAX package's tree, for the msgpack files it reads.
+mPLUG's tree needs renames beyond that rule (`mplug_state_dict_from_jax`). `stage2_from_jax` carries a JAX stage-2 state
 (`crvqa_tpu/train/stage2.py:Stage2State`, as numpy) across the same way,
 and `mplug_train_state_from_jax` an mPLUG training state and
 `carry_into_stage1_state` a stage-1/3 one, so both packages can start a
@@ -63,7 +64,10 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
                 continue
-            arr = np.asarray(value)
+            if isinstance(value, torch.Tensor):  # a msgpack bf16 leaf
+                arr = value.detach().float().numpy()
+            else:
+                arr = np.asarray(value)
             if arr.dtype.name == "bfloat16":  # torch.from_numpy has no bf16
                 arr = arr.astype(np.float32)
             leaf, arr = _leaf(key, arr)
@@ -73,6 +77,58 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = ""
 
     walk(params, ())
     return out
+
+
+def _jax_leaf(owner: torch.nn.Module, name: str, t: torch.Tensor
+              ) -> tuple[str, torch.Tensor]:
+    """`_leaf` read in reverse, by the type of the module that owns the
+    tensor: a Linear's weight is a Dense kernel [in, out], an Embedding's
+    an `embedding`, a LayerNorm's a `scale`."""
+    if name == "weight":
+        if isinstance(owner, torch.nn.Linear):
+            return "kernel", t.T
+        if isinstance(owner, torch.nn.Embedding):
+            return "embedding", t
+        if isinstance(owner, torch.nn.LayerNorm):
+            return "scale", t
+    if name == "weight_v":
+        return "v", t.T
+    if name == "weight_g":
+        return "g", t.reshape(1)
+    return name, t
+
+
+def _sorted_tree(node: dict) -> dict:
+    """Keys sorted at every level, the order of a tree that went through
+    `jax.device_get` (the JAX package's files)."""
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(node.items())}
+
+
+def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                             model: torch.nn.Module) -> dict[str, Any]:
+    """The port's state_dict (names of `model`, which may live on the meta
+    device) -> the JAX package's nested param tree of CPU tensors, the
+    inverse of `state_dict_from_jax`: `a.3.b` -> `a_3` / `b`, and each leaf
+    renamed and laid out by its owning module's type (`_jax_leaf`). Keys
+    are sorted as in the JAX package's own files."""
+    tree: dict[str, Any] = {}
+    for name, t in state_dict.items():
+        module_path, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(module_path)
+        parts = module_path.split(".") if module_path else []
+        path: list[str] = []
+        for p in parts:
+            if p.isdigit() and path:
+                path[-1] = f"{path[-1]}_{p}"
+            else:
+                path.append(p)
+        key, value = _jax_leaf(owner, leaf, t.detach().cpu())
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = value.contiguous()
+    return _sorted_tree(tree)
 
 
 def stage2_from_jax(frozen_params: Mapping[str, Any],

@@ -22,6 +22,7 @@ import pickle
 import types
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from ..masking.spec import MaskSpec
@@ -40,6 +41,13 @@ def import_mask_pt(path: str, specs: Sequence[MaskSpec]
         raise KeyError(f"{path}: mask.pt lacks {missing[:10]}"
                        f"{'...' if len(missing) > 10 else ''}")
     return {n: raw[n].to(torch.bool) for n in names}
+
+
+def load_mask_dict_bool(path: str) -> dict[str, np.ndarray]:
+    """mask.pt -> {torch_name: bool ndarray}, every key it holds (what
+    `evals.compare_mask` compares)."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    return {k: v.numpy().astype(bool) for k, v in raw.items()}
 
 
 def export_mask_pt(path: str, masks: dict[str, torch.Tensor],

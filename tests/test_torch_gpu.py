@@ -34,6 +34,24 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
+def _profiled(fn, cpu=True):
+    """A profile of `fn()` (which ends in a synchronise) run twice under one
+    profiler, the first pass its warm-up: traced and discarded, so the
+    recorded pass does not lose the kernels CUPTI misses while it starts
+    (the first launches of a session, or all of them, on the H100)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            prof.step()
+    return prof
+
+
 @pytest.fixture(autouse=True)
 def _full_fp32():
     """fp32 checks in full fp32: no TF32 in matmuls or cuDNN."""
@@ -371,21 +389,22 @@ def test_short_routes_bf16_to_tensor_cores_and_fp32_to_scalar_kernels():
     """The profiler names what ran: bf16 the mma kernels, fp32 the scalar
     ones, forward and backward."""
     _need_card()
-    from torch.profiler import ProfilerActivity, profile
-
     ran = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, bias = _inputs(4, 36, 36, dtype)
         g = torch.randn_like(q)
         _, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.1, 3)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def run():
             fa.fused_attention(q, k, v, bias, 12, 64)
             fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.1, 3)
             fa.fused_attention_bwd_stored(q, k, v, p, g, 12, 64, 0.1, 3)
             fa.fused_attention_bwd_recompute(q, k, v, bias, g, 12, 64, 0.1,
                                              3)
             torch.cuda.synchronize()
+
+        prof = _profiled(run, cpu=False)
         ran[dtype] = " ".join(e.key for e in prof.key_averages())
     for name in ("fused_attention_fwd_mma_kernel",
                  "fused_attention_bwd_mma_kernel"):
@@ -628,24 +647,23 @@ def test_midseq_routes_bf16_to_tensor_cores_and_fp32_to_scalar_kernels():
     """The profiler names what ran: bf16 the mma kernels, fp32 the scalar
     ones, forward and backward."""
     _need_card()
-    from torch.profiler import ProfilerActivity, profile
-
     from crvqa_tpu_torch.ops import midseq_attention as ma
 
     ran = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, bias = _inputs(3, 577, 577, dtype)
         g = torch.randn_like(q)
-        ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)  # builds, loads
-        torch.cuda.synchronize()
-        # CPU activity too: a CUDA-only session that follows another
-        # profiler session in the same process can come back without the
-        # kernels (seen on the H100 after the short-kernel test above)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run():
             ma.midseq_attention(q, k, v, bias, 12, 64)
             ma.midseq_attention_bwd(q, k, v, bias, g, 12, 64)
             torch.cuda.synchronize()
+
+        run()  # builds and loads both kernels before the profiler
+        # CPU activity too: a CUDA-only session that follows another
+        # profiler session in the same process can come back without the
+        # kernels (seen on the H100 after the short-kernel test above)
+        prof = _profiled(run)
         ran[dtype] = " ".join(e.key for e in prof.key_averages())
     for name in ("midseq_fwd_mma_kernel", "midseq_bwd_dq_mma_kernel",
                  "midseq_bwd_dkv_mma_kernel"):
@@ -914,7 +932,6 @@ def test_masked_matmul_runs_on_the_wgmma_product_kernel():
     session in a long process can drop a kernel event; chip_smoke.py
     checks the counts of one run.)"""
     _need_card()
-    from torch.profiler import ProfilerActivity, profile
     from crvqa_tpu_torch.ops import masked_matmul as mm
 
     for x_dtype, w_dtype in MM_DTYPES:
@@ -922,11 +939,13 @@ def test_masked_matmul_runs_on_the_wgmma_product_kernel():
         leaves = [v.clone().requires_grad_(True) for v in (x, w, s, t)]
         torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run():
             for _ in range(3):
                 torch.autograd.grad(mm.masked_matmul(*leaves), leaves, gy)
             torch.cuda.synchronize()
+
+        prof = _profiled(run)
         ran = " ".join(e.key for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA)
         for name in ("wgmma_gemm_kernel<false, true>",
@@ -1114,7 +1133,6 @@ def test_head_compact_runs_on_the_wgmma_kernel():
     """The profiler names what ran: the head-compact TMA + wgmma kernel,
     its operand pass for fp32 operands, and no `tile_gemm_kernel`."""
     _need_card()
-    from torch.profiler import ProfilerActivity, profile
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
     keep = _hc_keep([1, 4, 5, 10], 0)
@@ -1122,11 +1140,13 @@ def test_head_compact_runs_on_the_wgmma_kernel():
         x, wt = _hc_inputs(9216, 768, dtype, dtype, 2)
         sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run():
             for _ in range(3):
                 sm.head_compact_matmul_pallas(x, wt, keep, 12, 64)
             torch.cuda.synchronize()
+
+        prof = _profiled(run)
         ran = " ".join(e.key for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA)
         assert "head_compact_kernel" in ran, (dtype, ran)

@@ -1,6 +1,7 @@
 """The port stands alone: `crvqa_tpu_torch`, `chip_smoke.py` and
-`chip_times.py` import neither JAX (jax, flax, optax) nor anything of the
-JAX package."""
+`chip_times.py` import neither JAX (jax, flax, optax), nor the msgpack and
+ml_dtypes packages behind flax's checkpoints (the port reads and writes
+them with its own codec), nor anything of the JAX package."""
 import ast
 import pathlib
 import pkgutil
@@ -11,7 +12,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "crvqa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "crvqa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
+             "crvqa_tpu")
 
 
 def _port_modules():
@@ -58,7 +60,15 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.cli.run_vqa_stage1",
                      "crvqa_tpu_torch.cli.run_vqa_stage3",
                      "crvqa_tpu_torch.models.visualbert",
-                     "crvqa_tpu_torch.cli.prune_debias_vqa_visualbert"):
+                     "crvqa_tpu_torch.cli.prune_debias_vqa_visualbert",
+                     "crvqa_tpu_torch.core.msgpack",
+                     "crvqa_tpu_torch.data.vqavs",
+                     "crvqa_tpu_torch.data.preprocess",
+                     "crvqa_tpu_torch.cli.prune_debias_vqavs",
+                     "crvqa_tpu_torch.evals",
+                     "crvqa_tpu_torch.evals.vqa_eval",
+                     "crvqa_tpu_torch.evals.scoring",
+                     "crvqa_tpu_torch.evals.compare_mask"):
         assert expected in mods
 
 

@@ -205,12 +205,22 @@ def test_streaming_flushes_partial_batches(artifacts, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--model_type", "visualbert", "--ckpt", "some_msgpack_dir"],
+    (["--model_type", "visualbert", "--ckpt", "JAX_CKPT"],
      "not yet ported"),
-    (["--ckpt", "some_msgpack_dir"], "not yet ported"),
+    (["--ckpt", "JAX_CKPT"], "not yet ported"),
 ])
 def test_unported_options_raise(artifacts, extra, error):
-    with pytest.raises(NotImplementedError, match=error):
+    """msgpack params files serve (tests/test_torch_checkpoint_interchange.py);
+    the JAX package's msgpack training state `ckpt_<step>` as `--ckpt` is
+    still refused, for either model."""
+    from crvqa_tpu.core import checkpoint as jckpt
+
+    ckpt = str(artifacts / "ckpt_4")
+    jckpt.save_checkpoint(ckpt, {"step": np.int32(4),
+                                 "params": _jax_params(11),
+                                 "opt_state": {"count": np.int32(4)}})
+    extra = [ckpt if a == "JAX_CKPT" else a for a in extra]
+    with pytest.raises(NotImplementedError, match="training state.*" + error):
         tserve.main(_argv(artifacts, "features.bin",
                           artifacts / "never.jsonl")
                     + ["--device", "cpu"] + extra)

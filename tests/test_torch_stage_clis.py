@@ -4,9 +4,9 @@ widths, on the fabricated VQA-CP files of tests/test_dress_rehearsal.py:
 with the trained mask, the reference-scope random mask, and structured
 head / FFN masks.
 
-Checked: the artifacts and their names (the JAX CLIs' names, less the
-`.msgpack` twins the port does not write); the stage-1 `.bin` loads in the
-JAX package's loader; stage 3 keeps its pruned weights exactly zero and
+Checked: the artifacts and their names (the JAX CLIs' names, the stage-1
+`.msgpack` twin included); the stage-1 `.bin` loads in the JAX package's
+loader; stage 3 keeps its pruned weights exactly zero and
 reports the mask's zero rate; the structured run compacts the language
 branch; `--resume_from` continues the step count; unported flags raise;
 `--model_type visualbert`, which the JAX CLIs parse and never read, is
@@ -35,11 +35,11 @@ from crvqa_tpu_torch.masking.prune import lxmert_specs_for
 from crvqa_tpu_torch.models import LxmertConfig
 from tests.test_dress_rehearsal import _fabricate
 
-# what the JAX stage-1 CLI writes for these flags, less its .msgpack twin
+# what the JAX stage-1 CLI writes for these flags
 STAGE1_FILES = {"args.txt", "best_eval_results_vqa_noMASK.txt", "ckpt_4",
                 "ckpt_4.meta.json", "ckpt_8", "ckpt_8.meta.json",
                 "eval_results_vqa.txt", "metrics.jsonl", "test.json",
-                "run_FTlmh_only.bin"}
+                "run_FTlmh_only.bin", "run_FTlmh_only.bin.msgpack"}
 
 
 def _data(root):

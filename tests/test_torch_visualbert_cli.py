@@ -173,7 +173,7 @@ def test_without_a_card_the_default_device_raises(runs, tmp_path, cli):
 
 @pytest.mark.parametrize("extra", [["--model_type", "lxmert"],
                                    ["--mesh_data", "2"],
-                                   ["--stage1_ckpt", "some_msgpack_dir"]])
+                                   ["--profile_dir", "p"]])
 def test_stage2_cli_refuses_what_it_does_not_run(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         tcli.main(["--output_dir", str(tmp_path), "--tiny", "--device",
