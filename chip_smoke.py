@@ -184,8 +184,36 @@ Phases (each one's seconds are logged):
               the IID score, the 9 OOD splits and Final_Score, each finite
               and within [0, 100], and on the most-voted answers the IID
               score the votes give.
- 21. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 21. structured  `prune_debias_vqa --structured_masking heads` at full
+              LXMERT width, batch 256, bf16, phase train's configuration
+              over phase serve's files (the same `fabricate` from the same
+              seed as phase train's): 8 steps with resets at 4 and 8, the
+              export and an eval, a `--profile_dir` window (start 4, 2
+              steps) and `--tensorboard_dir`. Finite losses; 34 + 32
+              launches a step, 34 an eval batch; (12,) gates on exactly
+              the specs matching "self"; after the reset each head spec
+              has max(int(12 sp), 1) gates at or below its threshold;
+              mask.pt's structured weights in constant 64-row blocks equal
+              to the gates; head_mask.npy (9, 12) of 0/1; the trace holds
+              2 x (34 + 32) attention kernels, and gives the step's device
+              busy ms, wall ms and idle share; the event file's losses
+              equal metrics.jsonl's (the port's reader). Then `layers` for
+              2 steps (scalar gates, the same launches); the primal, the
+              forward for grad and the stored backward at the trained
+              mask's kept head count H' against their plain versions
+              (LXMERT's (Sq, Sk), batch 64, bf16, rate 0.1, `_close_to`),
+              timed; `run_vqa_stage3 --head_mask_npy` from phase stage1's
+              .bin (batch 64, 4 steps, an eval; 34 + 32 launches a step at
+              H'); one fp32 structured step at batch 8 with dropout on
+              through the kernels against the plain versions
+              (`_close_to`); timed bf16 structured steps at batch 256.
+ 22. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
+
+The device-time profiles of the serving and training phases (phases 7,
+8, 10, 13, 16-19, 21) profile their work twice under one profiler and
+keep the second pass (`_warm_profile`): a session loses what launches
+while CUPTI starts.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1082,26 +1110,24 @@ def phase_profile(torch, device, seed: int) -> dict:
 def _profile_forward(torch, model, inputs, tag: str, forwards: int = 5
                      ) -> dict:
     """Device time by kernel over `forwards` calls of model(**inputs) after
-    3 warm-up calls (report only: a profiler that records no device time
+    3 warm-up calls, profiled after a discarded warm-up pass
+    (`_warm_profile`; report only: a profiler that records no device time
     says so)."""
-    from torch.profiler import ProfilerActivity, profile
+    def run():
+        for _ in range(forwards):
+            model(**inputs)
+        torch.cuda.synchronize()
 
     with torch.inference_mode():
         for _ in range(3):
             model(**inputs)
         torch.cuda.synchronize()
-        t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(forwards):
-                model(**inputs)
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0) / forwards
+        prof, wall_ms = _warm_profile(torch, run)
+        wall_ms /= forwards
     dev_us = lambda e: (getattr(e, "device_time_total", None)
                         or getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
-              if dev_us(e) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              if dev_us(e) > 0 and _device_kernel(torch, e)]
     if not events:
         log(f"{tag}: the profiler recorded no device time: not measured")
         return {"measured": False}
@@ -1209,8 +1235,7 @@ def _profile_categories(torch, prof, wall_ms: float, calls: int) -> dict:
     dev_us = lambda e: (getattr(e, "device_time_total", None)
                         or getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
-              if dev_us(e) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              if dev_us(e) > 0 and _device_kernel(torch, e)]
     if not events:
         log("profile: the profiler recorded no device time: not measured")
         return {"measured": False}
@@ -1302,18 +1327,13 @@ def _serve_mplug(torch, root, images, args, device, tag, expect,
                "build_s": build_s, "warm_up_s": warm_s,
                "launches": launches}
     if profile and on_card:
-        from torch.profiler import ProfilerActivity, profile as profiler
-
         first = requests[:args.serve_batch_size]
         run_batch(first)
         sync()
-        t1 = time.monotonic()
-        with profiler(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            run_batch(first)
-            sync()
+        prof, wall_ms = _warm_profile(torch, lambda: (run_batch(first),
+                                                      sync()))
         summary["profile"] = prof_out = _profile_categories(
-            torch, prof, 1e3 * (time.monotonic() - t1), 1)
+            torch, prof, wall_ms, 1)
         if prof_out["measured"]:
             log(f"mplug-profile: one {args.dtype} batch-"
                 f"{args.serve_batch_size} beam request batch: host wall "
@@ -1624,9 +1644,11 @@ def phase_train(torch, device, rehearse: bool, seed: int, keep_dir: str
 
 # ----------------------------------------------------------------- phase 8
 
-def _stage2_setup(torch, config, device, seed, batch_size):
-    """A stage-2 state at `config` in the canonical configuration and one
-    synthetic batch on the device."""
+def _stage2_setup(torch, config, device, seed, batch_size,
+                  structured: str = "none"):
+    """A stage-2 state at `config` in the canonical configuration (with
+    `structured` "heads" or "layers": gates on the specs matching "self",
+    the CLI's default) and one synthetic batch on the device."""
     import dataclasses
 
     from crvqa_tpu_torch.data.prefetch import to_device
@@ -1634,13 +1656,18 @@ def _stage2_setup(torch, config, device, seed, batch_size):
     from crvqa_tpu_torch.masking.masker import Masker
     from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
     from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.masking.structured import StructuredMasker
     from crvqa_tpu_torch.models import build_lxmert
     from crvqa_tpu_torch.train import stage2
 
-    masker = Masker.create(
-        lxmert_mask_specs(config.l_layers, config.r_layers, config.x_layers),
-        ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7),
-        controlled_init="magnitude")
+    specs = lxmert_mask_specs(config.l_layers, config.r_layers,
+                              config.x_layers)
+    sparsity = ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7)
+    masker = (Masker.create(specs, sparsity, controlled_init="magnitude")
+              if structured == "none" else StructuredMasker.create(
+                  specs, sparsity, controlled_init="magnitude",
+                  structured_masking=structured,
+                  num_heads=config.num_attention_heads))
     params = build_lxmert(dataclasses.replace(config, dtype=torch.float32),
                           "cpu", torch.Generator().manual_seed(seed)
                           ).state_dict()
@@ -1733,23 +1760,21 @@ def phase_step(torch, device, rehearse: bool, seed: int) -> dict:
 
 
 def _profile_steps(torch, fn, steps: int = 2) -> dict:
-    """Device time by kernel over `steps` calls of fn (report only: a
-    profiler that records no device time says so)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """Device time by kernel over `steps` calls of fn, profiled after a
+    discarded warm-up pass of `steps` more (`_warm_profile`; report only:
+    a profiler that records no device time says so)."""
+    def run():
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.monotonic() - t0) / steps
+
+    torch.cuda.synchronize()
+    prof, wall_ms = _warm_profile(torch, run)
+    wall_ms /= steps
     dev_us = lambda e: (getattr(e, "device_time_total", None)
                         or getattr(e, "cuda_time_total", 0))
     events = [e for e in prof.key_averages()
-              if dev_us(e) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              if dev_us(e) > 0 and _device_kernel(torch, e)]
     if not events:
         log("profile: the profiler recorded no device time: not measured")
         return {"measured": False}
@@ -2032,18 +2057,17 @@ def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
           f"mplug-step: launches {launches} != "
           f"{_mplug_train_launches(TIMED_STEPS)}")
     if not rehearse:
-        from torch.profiler import ProfilerActivity, profile
-
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         sync()
-        t1 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def two_steps():
             for _ in range(2):
                 step(state, batch)
             sync()
+
+        prof, wall_ms = _warm_profile(torch, two_steps)
         out["profile"] = prof_out = _profile_categories(
-            torch, prof, 1e3 * (time.monotonic() - t1) / 2, 2)
+            torch, prof, wall_ms / 2, 2)
         if prof_out["measured"]:
             log(f"mplug-step profile: one bf16 batch-{bs} mask-training "
                 f"step: host wall {prof_out['wall_ms']:.3f} ms (profiler "
@@ -2298,13 +2322,14 @@ def _mm_profile(torch, mm, device, seed) -> dict:
     return got
 
 
-def _fresh_process(fn: str, seed: int, tag: str):
-    """chip_smoke.<fn>(seed) in a fresh Python process on the card; its
-    JSON result."""
-    code = ("import json, sys, chip_smoke as s; "
-            f"print('RESULT', json.dumps(s.{fn}(int(sys.argv[1]))))")
-    proc = subprocess.run([sys.executable, "-c", code, str(seed)], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
+def _fresh_process(fn: str, seed: int, tag: str, *args: str):
+    """chip_smoke.<fn>(seed, *args) in a fresh Python process on the card;
+    its JSON result."""
+    code = ("import json, sys, chip_smoke as s; print('RESULT', json.dumps("
+            f"s.{fn}(int(sys.argv[1]), *sys.argv[2:])))")
+    proc = subprocess.run([sys.executable, "-c", code, str(seed), *args],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
     lines = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]
     check(proc.returncode == 0 and len(lines) == 1,
           f"{tag}: the profiling process failed (exit {proc.returncode}): "
@@ -2320,27 +2345,39 @@ def _device_calls(torch, prof, names) -> dict:
             for name in names}
 
 
-def _profile_pass(torch, fn):
-    """A profile of `fn()` (which ends in a synchronise) run twice under one
-    profiler, the first pass its warm-up, traced and discarded: a session
-    on the H100 can lose the kernels CUPTI misses while it starts (the
-    first launches, or all of them), and the counts below are exact."""
+def _device_kernel(torch, e) -> bool:
+    """A profile event that is work on the card: the schedule's
+    `ProfilerStep#` annotation spans the whole pass on the device's
+    timeline too, and is not."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep"))
+
+
+def _warm_profile(torch, fn):
+    """(profile, wall ms of the profiled pass) of `fn()` (which ends in a
+    synchronise) run twice under one profiler, the first pass its warm-up,
+    traced and discarded: a session on the H100 can lose the kernels
+    CUPTI misses while it starts (the first launches, or all of them)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            prof.step()
-    return prof
+        fn()
+        prof.step()
+        t0 = time.monotonic()
+        fn()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+        prof.step()
+    return prof, wall_ms
+
 
 
 def mm_profile_counts(seed: int) -> dict:
     """Launches by kernel name (the masked-matmul kernels and
     `tile_gemm_kernel`) in a profile of one bf16 autograd run of
     `masked_matmul` at MM_SHAPES[0] on the card, after one run unprofiled
-    (`_profile_pass`: one more, profiled and discarded)."""
+    (`_warm_profile`: one more, profiled and discarded)."""
     import torch
     from crvqa_tpu_torch.ops import masked_matmul as mm
 
@@ -2355,7 +2392,7 @@ def mm_profile_counts(seed: int) -> dict:
         torch.cuda.synchronize()
 
     run()
-    prof = _profile_pass(torch, run)
+    prof, _ = _warm_profile(torch, run)
     return _device_calls(torch, prof, (
         "masked_operand_pass_kernel", "wgmma_gemm_kernel",
         "ds_split_reduce_kernel", "tile_gemm_kernel"))
@@ -2429,9 +2466,9 @@ def phase_head_compact_kernel(torch, device, rehearse: bool, seed: int
     Timed (bf16 at HC_TIMED_KEPT, fp32 at 4 kept) beside the port's
     `head_compact_matmul` (gather + cuBLAS + scatter) and
     `dense_masked_matmul` (cuBLAS on w * mask); the operand pass timed on
-    fp32 x; then one bf16 and one fp32 call profiled in a fresh process. No
-    entry point reaches the kernel; `launches` counts this phase's
-    checking run."""
+    fp32 x; then one bf16 and one fp32 call, each profiled in a fresh
+    process. No entry point reaches the kernel; `launches` counts this
+    phase's checking run."""
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
     m, k, bm, bk = (256, 128, 128, 128) if rehearse else (
@@ -2512,8 +2549,11 @@ def phase_head_compact_kernel(torch, device, rehearse: bool, seed: int
         # the plain version is itself the one PyTorch call for the function
         out["pass"]["plain_ms"] = _graph_ms(torch, lambda: (
             sm.operand_pass_reference(x)))
-        out["profile"] = _fresh_process("hc_profile_counts", seed,
-                                        "head-compact-kernel")
+        # one process a dtype: a second session in one process can come
+        # back without any kernel event
+        out["profile"] = {dtype: _fresh_process(
+            "hc_profile_counts", seed, "head-compact-kernel", dtype)
+            for dtype in HC_PROFILE_WANT}
         log(f"head-compact-kernel: profiles of one call: {out['profile']}")
         check(out["profile"] == HC_PROFILE_WANT,
               f"head-compact-kernel: the profiler saw {out['profile']}, "
@@ -2533,11 +2573,11 @@ HC_PROFILE_WANT = {
                 "tile_gemm_kernel": 0}}
 
 
-def hc_profile_counts(seed: int) -> dict:
+def hc_profile_counts(seed: int, dtype: str) -> dict:
     """Launches by kernel name in a profile of one head-compact call at x
-    [256 * 36, 768], 4 of 12 heads kept, in bf16 and in fp32 on the card,
-    each after one call unprofiled (`_profile_pass`: one more, profiled
-    and discarded)."""
+    [256 * 36, 768], 4 of 12 heads kept, in `dtype` on the card, after
+    one call unprofiled (`_warm_profile`: one more, profiled and
+    discarded)."""
     import torch
     from crvqa_tpu_torch.ops import structured_matmul as sm
 
@@ -2545,18 +2585,15 @@ def hc_profile_counts(seed: int) -> dict:
     x32, wt32, order = _hc_inputs(torch, TRAIN_BATCH * BOXES, 768, seed)
     keep = sm.expand_keep_idx(_hc_mask(torch, order, HC_KEPT), HC_KEPT).to(
         device, torch.int32)
-    out = {}
-    for dtype in HC_PROFILE_WANT:
-        x, wt = (t.to(device, getattr(torch, dtype)) for t in (x32, wt32))
+    x, wt = (t.to(device, getattr(torch, dtype)) for t in (x32, wt32))
 
-        def run():
-            sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
-            torch.cuda.synchronize()
+    def run():
+        sm.head_compact_matmul_pallas(x, wt, keep, HC_HEADS, 64)
+        torch.cuda.synchronize()
 
-        run()
-        out[dtype] = _device_calls(torch, _profile_pass(torch, run),
-                                   HC_PROFILE_WANT[dtype])
-    return out
+    run()
+    return _device_calls(torch, _warm_profile(torch, run)[0],
+                         HC_PROFILE_WANT[dtype])
 
 
 def _hc_times(torch, sm, x, wt, keep, hm, bm, bk) -> dict:
@@ -3381,6 +3418,440 @@ def phase_vqavs(torch, device, rehearse: bool, seed: int, serve_root: str,
     return result
 
 
+# ------------------------------------------------------------ phase 21
+
+STRUCT_LOGGING = 4               # a threshold reset every 4 steps
+# --profile_start_step, --profile_steps: the window opens at tick 4, so
+# step 4's threshold reset falls in the discarded warm-up and steps 6-7
+# are plain train steps
+STRUCT_PROFILE = (5, 2)
+STRUCT_LAYERS_RATIO = 0.25       # 512 of the 2048 questions: 2 steps
+STRUCT_CHECK_BATCH = 8
+
+
+def _trace_split(path: str, steps: int) -> dict:
+    """A ProfileWindow's Chrome trace over `steps` active steps: the short
+    attention kernels it holds (forward, backward), the device's busy time
+    per step (its kernels', copies' and sets' durations, by category), the
+    wall time per step (first to last event of the window) and the idle
+    share."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def category(e) -> str:
+        name = e.get("name", "")
+        if "fused_attention" in name:
+            return ("fused_attention_bwd" if "bwd" in name
+                    else "fused_attention_fwd")
+        if e.get("cat") != "kernel":
+            return "copy"
+        low = name.lower()
+        if any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma",
+                                  "gemv", "sm90_")):
+            return "gemm"
+        return "other"
+
+    by_cat: dict = {}
+    calls: dict = {}
+    by_name: dict = {}
+    for e in device:
+        c = category(e)
+        by_cat[c] = by_cat.get(c, 0.0) + e["dur"] / 1e3 / steps
+        calls[c] = calls.get(c, 0) + 1
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = [{"ms": us / 1e3 / steps, "name": name[:100]} for name, us in
+           sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]
+    wall_ms = ((max(e["ts"] + e["dur"] for e in events)
+                - min(e["ts"] for e in events)) / 1e3 / steps
+               if events else 0.0)
+    busy_ms = sum(by_cat.values())
+    return {"attention_fwd": calls.get("fused_attention_fwd", 0),
+            "attention_bwd": calls.get("fused_attention_bwd", 0),
+            "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": (max(0.0, 1 - busy_ms / wall_ms) if wall_ms
+                           else None),
+            "by_category_ms": by_cat, "launches_by_category": calls,
+            "top": top, "bytes": os.path.getsize(path)}
+
+
+def _f32(v: float) -> float:
+    import struct
+
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+def _trained_heads_rows(torch, device, rehearse, seed, heads) -> list:
+    """The primal (rate 0, as an eval runs it), the forward for grad and
+    the stored backward (rate 0.1) at `heads` (stage 3's uniform kept
+    count), LXMERT's four (Sq, Sk), batch 64, bf16, against their plain
+    versions with the tolerances the kernel phases hold them to at 12 and
+    6 heads (`_close_to` does not fit these bf16 outputs: on the card
+    they differ by 2^-8, one bf16 step between 0.5 and 1, where |want|
+    is below 0.5 and its 2^-7 |want| allows less); timed on the card
+    beside the plain versions and `scaled_dot_product_attention`."""
+    import torch.nn.functional as F
+
+    from crvqa_tpu_torch.ops import fused_attention as fa
+
+    b = 2 if rehearse else S1_BATCH
+    rows = []
+    for sq, sk in SERVE_SHAPES:
+        q, k, v, bias = _attention_inputs(torch, b, sq, sk, "bfloat16",
+                                          device, seed + 7 * sq + sk, heads)
+        gen = torch.Generator().manual_seed(seed + sq * sk)
+        g = torch.randn(q.shape, generator=gen).to(device, q.dtype)
+        args = (heads, 64, MAIN_RATE, KERNEL_SEED)
+        primal = fa.fused_attention(q, k, v, bias, heads, 64)
+        primal_ref = fa.fused_attention_reference(q, k, v, bias, heads, 64)
+        out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+        ref_out, ref_p = fa.fused_attention_train_reference(q, k, v, bias,
+                                                            *args)
+        stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+        ref_s = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+        pairs = {"primal": (primal, primal_ref, TOL["bfloat16"]),
+                 "fwd": (out, ref_out, TOL["bfloat16"]),
+                 "p": (p, ref_p, dict(atol=TOL_P, rtol=0.0))}
+        for name, x, y in zip(("dq", "dk", "dv"), stored, ref_s):
+            pairs[name] = (x, y, TOL_BWD["bfloat16"])
+        checks = {n: (bool(torch.allclose(x.float(), y.float(), **tol)),
+                      _max_err(torch, [x], [y]))
+                  for n, (x, y, tol) in pairs.items()}
+        row = {"batch": b, "dtype": "bfloat16", "rate": MAIN_RATE,
+               "heads": heads, "sq": sq, "sk": sk,
+               **{f"{n}_err": err for n, (_, err) in checks.items()}}
+        row["primal_bytes_ms"], row["primal_ops_ms"] = _bound_terms(
+            b, sq, sk, "bfloat16", heads)
+        for kind in ("fwd", "stored"):
+            row[f"{kind}_bytes_ms"], row[f"{kind}_ops_ms"] = (
+                _train_bound_terms(b, sq, sk, "bfloat16", kind, heads))
+        if not rehearse:
+            split = lambda t: (t.view(b, t.shape[1], heads, 64)
+                               .transpose(1, 2).detach().requires_grad_())
+            qh, kh, vh = split(q), split(k), split(v)
+            gh = g.view(b, sq, heads, 64).transpose(1, 2)
+            mask = bias.to(q.dtype)[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)
+            timed = {
+                "primal_ms": lambda: fa.fused_attention(q, k, v, bias,
+                                                        heads, 64),
+                "primal_plain_ms": lambda: fa.fused_attention_reference(
+                    q, k, v, bias, heads, 64),
+                "fwd_ms": lambda: fa.fused_attention_fwd_train(
+                    q, k, v, bias, *args),
+                "fwd_plain_ms": lambda: fa.fused_attention_train_reference(
+                    q, k, v, bias, *args),
+                "stored_ms": lambda: fa.fused_attention_bwd_stored(
+                    q, k, v, p, g, *args),
+                "stored_plain_ms": lambda: fa.fused_attention_bwd_reference(
+                    q, k, v, p, g, *args),
+                "library_primal_ms": lambda: F.scaled_dot_product_attention(
+                    qh.detach(), kh.detach(), vh.detach(), attn_mask=mask),
+                "library_fwd_ms": sdpa,
+                "library_fwd_bwd_ms": lambda: torch.autograd.grad(
+                    sdpa(), (qh, kh, vh), gh)}
+            for key, fn in timed.items():
+                row[key] = _graph_ms(torch, fn)
+        rows.append(row)
+        log("structured-kernels: " + json.dumps(row))
+        check(all(ok for ok, _ in checks.values()),
+              f"short attention kernels at the trained {heads} heads "
+              f"disagree with their plain versions at B={b} bf16 rate "
+              f"{MAIN_RATE} ({sq},{sk}): {row} (tolerances: outputs "
+              f"{TOL['bfloat16']}, gradients {TOL_BWD['bfloat16']}, p "
+              f"{TOL_P}, as at 12 and 6 heads in phases kernel and "
+              f"train-kernels)")
+    return rows
+
+
+def phase_structured(torch, device, rehearse: bool, seed: int,
+                     data_root: str, stage1_bin: str, keep_dir: str
+                     ) -> dict:
+    """Structured mask training at full width (module docstring, phase
+    21): `prune_debias_vqa --structured_masking heads` (8 steps, a trace
+    window and a TensorBoard file) and `layers` (2 steps); stage 3 from
+    the trained head_mask.npy, with the short kernels held at its kept
+    head count first; one fp32 structured step through the kernels
+    against the plain versions, and timed bf16 structured steps."""
+    import glob
+
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import prune_debias_vqa, run_vqa_stage3
+    from crvqa_tpu_torch.masking import compaction
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.models import LxmertConfig, layers
+    from crvqa_tpu_torch.train import stage2
+    from crvqa_tpu_torch.utils.tb_events import read_scalars
+
+    on_card = not rehearse
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    fwd_mult, bwd_mult = launch_mult(config)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    heads, hs = config.num_attention_heads, config.head_size
+    steps = N_TRAIN // TRAIN_BATCH
+    eval_batches = -(-N_TEST // TRAIN_BATCH)
+    rates = ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7).as_dict()
+    self_specs = [s for s in lxmert_mask_specs(
+        config.l_layers, config.r_layers, config.x_layers)
+        if "self" in ".".join(s.path)]
+    root = os.path.join(keep_dir, "structured")
+    out: dict = {"self_specs": len(self_specs)}
+
+    def argv(out_dir, kind, *extra):
+        return ["--output_dir", out_dir, "--dataroot", data_root,
+                "--img_root", os.path.join(data_root, "features.bin"),
+                "--vocab_file", os.path.join(data_root, "vocab.txt"),
+                "--device", str(device), "--dtype", "bfloat16",
+                "--train_batch_size", str(TRAIN_BATCH),
+                "--eval_batch_size", str(TRAIN_BATCH),
+                "--num_train_epochs", "1",
+                "--logging_steps", str(STRUCT_LOGGING),
+                "--save_steps", "1000", "--Lang_comp", "0.3",
+                "--Vis_comp", "0.3", "--Fus_comp", "0.3",
+                "--zero_rate", "0.7", "--controlled_init", "magnitude",
+                "--Masker_type", "lmh", "--name_of_masker", "MaskedLinear1",
+                "--structured_masking", kind, "--do_train",
+                "--seed", str(seed), *extra] + (["--tiny"] if rehearse
+                                                 else [])
+
+    def structured_masks(path, state, gate_shape):
+        """Each structured weight of mask.pt: its 64-row head blocks (the
+        whole matrix for a scalar gate) all 0 or all 1, equal to the
+        final gates."""
+        masks = torch.load(path, weights_only=True)
+        for s in self_specs:
+            kept = (state.scores[s.key] > state.thresholds[s.key]).cpu()
+            check(tuple(kept.shape) == gate_shape,
+                  f"structured: {s.key} gate shape {tuple(kept.shape)}")
+            m = masks[f"{s.torch_name}.weight"]
+            m = m.reshape(heads, hs, -1) if gate_shape else m.reshape(1, -1)
+            const = m.all(dim=-1).all(dim=-1) | ~m.any(dim=-1).any(dim=-1)
+            check(bool(const.all()) and torch.equal(
+                m.reshape(m.shape[0], -1)[:, 0], kept.reshape(-1)),
+                f"structured: mask.pt {s.torch_name}: blocks not constant "
+                "or not the final gates")
+
+    # 1. heads: 8 steps, resets at 4 and 8, a trace of steps 5-6, the
+    # export and an eval
+    heads_dir = os.path.join(root, "heads")
+    prof_dir, tb_dir = (os.path.join(root, "profile"),
+                        os.path.join(root, "tb"))
+    t0 = time.monotonic()
+    summary, launches = _run_counted(lambda: prune_debias_vqa.main(argv(
+        heads_dir, "heads", "--do_eval", "--profile_dir", prof_dir,
+        "--profile_start_step", str(STRUCT_PROFILE[0]),
+        "--profile_steps", str(STRUCT_PROFILE[1]),
+        "--tensorboard_dir", tb_dir)))
+    wall_s = time.monotonic() - t0
+    state = summary.pop("state")
+    losses = summary["losses"]
+    log(f"structured heads: {len(losses)} steps at batch {TRAIN_BATCH} in "
+        f"{wall_s:.1f} s (set-up, the trace, the export and an eval "
+        f"included); losses {[round(x, 4) for x in losses]}; launches "
+        f"{launches}; gate-level zero rates {summary['zero_rates']}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"structured heads: losses {losses}")
+    want = _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd * steps,
+        fused_attention_bwd_stored=per_bwd * steps,
+        fused_attention_fwd=per_fwd * eval_batches)
+    check(launches == want, f"structured heads: launches {launches} != "
+                            f"{want}")
+    gates = sorted(k for k, v in state.scores.items()
+                   if tuple(v.shape) == (heads,))
+    log(f"structured heads: {len(gates)} specs carry ({heads},) gates; "
+        f"{len(self_specs)} specs match 'self'")
+    check(gates == sorted(s.key for s in self_specs),
+          f"structured heads: ({heads},) gates on {len(gates)} specs, "
+          f"{len(self_specs)} match 'self'")
+    for s in self_specs:  # after the export's reset
+        k = max(int(heads * rates[s.modality]), 1)
+        off = int((state.scores[s.key] <= state.thresholds[s.key]).sum())
+        check(off == k, f"structured heads: {s.key} has {off} gates at or "
+                        f"below its threshold, not {k}")
+    structured_masks(os.path.join(heads_dir, "mask.pt"), state, (heads,))
+    del state
+    _free(torch, rehearse)
+    hm_path = os.path.join(heads_dir, "head_mask.npy")
+    hm = np.load(hm_path)
+    kept = [int(x) for x in hm.sum(axis=1)]
+    log(f"structured heads: head_mask.npy {hm.shape}, heads kept per "
+        f"language layer {kept}")
+    check(hm.shape == (config.l_layers, heads) and hm.dtype == np.float32
+          and set(np.unique(hm).tolist()) <= {0.0, 1.0},
+          f"structured heads: head_mask.npy {hm.shape} {hm.dtype}")
+    trace = summary["trace"]
+    check(trace is not None and os.path.exists(trace),
+          f"structured heads: no trace in {prof_dir}")
+    split = _trace_split(trace, STRUCT_PROFILE[1])
+    log(f"structured-trace: steps {STRUCT_PROFILE[0] + 1}-"
+        f"{STRUCT_PROFILE[0] + STRUCT_PROFILE[1]} of the CLI: device busy "
+        f"{split['busy_ms']:.3f} ms/step, wall {split['wall_ms']:.3f} "
+        f"ms/step, idle share {split['idle_share']}; by category (ms/step) "
+        f"{json.dumps(split['by_category_ms'])}; launches "
+        f"{json.dumps(split['launches_by_category'])}")
+    want_attn = (STRUCT_PROFILE[1] * per_fwd * on_card,
+                 STRUCT_PROFILE[1] * per_bwd * on_card)
+    check((split["attention_fwd"], split["attention_bwd"]) == want_attn,
+          f"structured heads: the trace holds {split['attention_fwd']} "
+          f"forward and {split['attention_bwd']} backward attention "
+          f"kernels, not {want_attn}")
+    for t in split["top"]:
+        log(f"structured-trace: {t['ms']:9.4f} ms/step  {t['name'][:90]}")
+    with open(os.path.join(heads_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    (events,) = glob.glob(os.path.join(tb_dir, "events.out.tfevents.*"))
+    tb_loss = [(s, v) for _, s, tag, v in read_scalars(events)
+               if tag == "loss"]
+    jl_loss = [(x["step"], _f32(x["loss"])) for x in logged if "loss" in x]
+    check(tb_loss == jl_loss and len(jl_loss) == steps // STRUCT_LOGGING,
+          f"structured heads: TensorBoard loss {tb_loss} != metrics.jsonl "
+          f"{jl_loss}")
+    out["heads"] = {"steps": steps, "losses": losses, "launches": launches,
+                    "wall_s": wall_s, "zero_rates": summary["zero_rates"],
+                    "head_gate_specs": len(gates), "heads_kept": kept,
+                    "trace": split, "logged_ex_s": [
+                        x["ex_s"] for x in logged if "ex_s" in x]}
+
+    # 2. layers: scalar gates, 2 steps
+    layers_dir = os.path.join(root, "layers")
+    lsum, llaunches = _run_counted(lambda: prune_debias_vqa.main(argv(
+        layers_dir, "layers", "--data_ratio", str(STRUCT_LAYERS_RATIO))))
+    lstate = lsum.pop("state")
+    lsteps = len(lsum["losses"])
+    log(f"structured layers: {lsteps} steps: losses "
+        f"{[round(x, 4) for x in lsum['losses']]}; launches {llaunches}")
+    check(lsteps == int(N_TRAIN * STRUCT_LAYERS_RATIO) // TRAIN_BATCH
+          and all(np.isfinite(lsum["losses"])),
+          f"structured layers: losses {lsum['losses']}")
+    check(llaunches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd * lsteps,
+        fused_attention_bwd_stored=per_bwd * lsteps),
+        f"structured layers: launches {llaunches}")
+    scalar = sorted(k for k, v in lstate.scores.items() if v.dim() == 0)
+    check(scalar == sorted(s.key for s in self_specs),
+          f"structured layers: scalar gates on {len(scalar)} specs")
+    structured_masks(os.path.join(layers_dir, "mask.pt"), lstate, ())
+    check(not os.path.exists(os.path.join(layers_dir, "head_mask.npy")),
+          "structured layers: wrote a head_mask.npy")
+    out["layers"] = {"steps": lsteps, "losses": lsum["losses"],
+                     "launches": llaunches, "scalar_gates": len(scalar)}
+    del lstate
+    _free(torch, rehearse)
+
+    # 3. stage 3 from the trained head_mask.npy: the kernels at its kept
+    # head count, then the CLI
+    h_prime = min(compaction._pad_count(hm.sum(axis=1), 2), heads)
+    log(f"structured: stage 3 compacts the language layers to H' = "
+        f"{h_prime} heads")
+    out["h_prime"] = h_prime
+    out["kernel_rows"] = _trained_heads_rows(torch, device, rehearse, seed,
+                                             h_prime)
+    s3_steps = S3_SYNTHETIC // S1_BATCH
+    s3_argv = ["--output_dir", os.path.join(root, "stage3"), "--device",
+               str(device), "--dtype", "bfloat16", "--FT_type", "lmh",
+               "--stage1_ckpt", stage1_bin, "--synthetic", str(S3_SYNTHETIC),
+               "--train_batch_size", str(S1_BATCH), "--eval_batch_size",
+               str(S1_BATCH), "--num_train_epochs", "1", "--logging_steps",
+               "2", "--save_steps", "1000", "--seed", str(seed),
+               "--do_train", "--do_eval", "--head_mask_npy", hm_path] + (
+                   ["--tiny"] if rehearse else [])
+    with _HeadsSeen() as seen:
+        s3, s3_launches = _run_counted(lambda: run_vqa_stage3.main(s3_argv))
+    s3.pop("state")
+    log(f"structured stage3: H' {s3['lang_num_heads']}, losses "
+        f"{[round(x, 4) for x in s3['losses']]}, eval acc {s3['eval_acc']},"
+        f" launches {s3_launches}, kernel heads {sorted(seen.heads)}")
+    check(len(s3["losses"]) == s3_steps and all(np.isfinite(s3["losses"])),
+          f"structured stage3: losses {s3['losses']}")
+    check(s3["lang_num_heads"] == h_prime,
+          f"structured stage3: {s3['lang_num_heads']} heads, not {h_prime}")
+    check(s3_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd * s3_steps,
+        fused_attention_bwd_stored=per_bwd * s3_steps,
+        fused_attention_fwd=per_fwd * s3_steps),
+        f"structured stage3: launches {s3_launches}")
+    check(not on_card or sorted(seen.heads) == sorted({h_prime, heads}),
+          f"structured stage3: the kernel ran at heads {sorted(seen.heads)}")
+    out["stage3"] = {"steps": s3_steps, "losses": s3["losses"],
+                     "launches": s3_launches, "eval_acc": s3["eval_acc"],
+                     "kernel_heads": sorted(seen.heads)}
+    _free(torch, rehearse)
+
+    # 4. one fp32 structured step with dropout on: kernels vs plain
+    # versions from the same generators; then timed bf16 steps
+    model, masker, cfg, state, tx, batch = _stage2_setup(
+        torch, config, device, seed + 1, STRUCT_CHECK_BATCH, "heads")
+    state = stage2.make_threshold_reset(masker)(state)
+    fn = stage2.make_loss_and_grads(model, masker, cfg)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    (loss_k, _, grads_k), check_launches = _run_counted(
+        lambda: fn(state, batch))
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.fused_attention = saved
+    scores = sorted(k for k in grads_k if k.startswith("scores/"))
+    flat = lambda g: torch.cat([g[k].reshape(-1) for k in scores])
+    terms = STRUCT_CHECK_BATCH * BOXES  # a weight gradient's longest sum
+    grads_ok, grads_err = _close_to(torch, flat(grads_k), flat(grads_p),
+                                    False, terms)
+    loss_ok, loss_err = _close_to(torch, loss_k.reshape(1),
+                                  loss_p.reshape(1), False, terms)
+    check_out = {"batch": STRUCT_CHECK_BATCH, "loss_kernels": loss_k.item(),
+                 "loss_plain": loss_p.item(), "loss_abs_diff": loss_err,
+                 "score_grad_max": flat(grads_p).abs().max().item(),
+                 "score_grad_max_abs_diff": grads_err, "terms": terms,
+                 "launches": check_launches}
+    log("structured-step check: " + json.dumps(check_out))
+    check(check_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd,
+        fused_attention_bwd_stored=per_bwd),
+        f"structured-step check: launches {check_launches}")
+    check(loss_ok and grads_ok,
+          f"one fp32 structured step with dropout: kernels vs plain "
+          f"versions differ: {check_out} (tolerance: _close_to over "
+          f"{terms} terms)")
+    out["check"] = check_out
+    del model, state, tx, batch, fn, grads_k, grads_p
+    _free(torch, rehearse)
+
+    bf16 = LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse else (
+        LxmertConfig(dtype=torch.bfloat16))
+    model, masker, cfg, state, tx, batch = _stage2_setup(
+        torch, bf16, device, seed, TRAIN_BATCH, "heads")
+    state = stage2.make_threshold_reset(masker)(state)
+    step = stage2.make_train_step(model, masker, tx, cfg)
+    _, step_launches = _run_counted(lambda: step(state, batch))
+    check(step_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=per_fwd,
+        fused_attention_bwd_stored=per_bwd),
+        f"structured-step: one step's launches {step_launches}")
+    out["timed"] = _timed_steps(torch, step, state, batch, rehearse,
+                                "structured-step")
+    # one threshold reset of this state (the CLI's, every
+    # --logging_steps), on the host clock to a synchronise
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    reset = stage2.make_threshold_reset(masker)
+    sync()
+    t0 = time.monotonic()
+    reset(state)
+    sync()
+    out["reset_ms"] = 1e3 * (time.monotonic() - t0)
+    log(f"structured-step: one threshold reset {out['reset_ms']:.3f} ms")
+    del model, state, tx, batch, step
+    _free(torch, rehearse)
+    return out
+
+
 def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
                       basis) -> dict:
     """A short kernel's numbers on VisualBERT's path: its (50,50) row
@@ -3400,9 +3871,30 @@ def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
                      f"{VISUALBERT_SHAPE}, 12 heads"}
 
 
+def _trained_heads_entry(structured, prefix, err_keys, library, mult,
+                         launches) -> dict:
+    """A short kernel's numbers at the kept head count H' of phase
+    structured's trained head_mask.npy: its rows at LXMERT's (Sq, Sk),
+    batch 64, summed over one stage-3 step's (or forward's) launches."""
+    rows = structured["kernel_rows"]
+    tot = lambda name: sum(r[f"{prefix}_{name}"] * mult[(r["sq"], r["sk"])]
+                           for r in rows)
+    bound_ms, bound_by = _bound(tot("bytes_ms"), tot("ops_ms"))
+    return {"heads": structured["h_prime"], "launches": launches,
+            "max_abs_err": max(r[k] for r in rows for k in err_keys),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(r[library] * mult[(r["sq"], r["sk"])]
+                              for r in rows),
+            "basis": f"stage 3 at the trained H' = {structured['h_prime']} "
+                     f"heads, bf16, batch {rows[0]['batch']}: "
+                     f"{sum(mult.values())} launches over (Sq,Sk) "
+                     + ", ".join(f"{k}x{v}" for k, v in mult.items())}
+
+
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
-                   vb_train, vqavs, stage3) -> list[dict]:
+                   vb_train, vqavs, stage3, structured) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -3414,14 +3906,19 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     over its 29 launches (`MIDSEQ_BWD_PER_STEP`). The short kernels'
     `launches` add VisualBERT's paths (phases visualbert-serve and
     visualbert-train) to LXMERT's, and those of phase vqavs and of phase
-    stage3's serving of its .msgpack; their `visualbert` entry gives one
-    VisualBERT forward (batch 32) or step (batch 256) at (50,50)."""
+    stage3's serving of its .msgpack, and phase structured's runs; their
+    `visualbert` entry gives one VisualBERT forward (batch 32) or step
+    (batch 256) at (50,50), their `trained_heads` entry one stage-3 step
+    (forward) at the kept head count of phase structured's head mask."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
     vb_layers = vb_serve["per_forward"]
     msgpack_launches = sum(
         stage3["trained"]["msgpack_serve"]["launches"].values())
+    struct_runs = [structured[k]["launches"]
+                   for k in ("heads", "layers", "stage3")]
+    struct_launches = lambda name: sum(r[name] for r in struct_runs)
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -3435,7 +3932,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "replaces": "crvqa_tpu/ops/fused_attention.py:153",
         "launches": (serve["launches"] + vb_serve["launches"]
                      + vqavs["launches"]["fused_attention_fwd"]
-                     + msgpack_launches),
+                     + msgpack_launches
+                     + struct_launches("fused_attention_fwd")),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3446,7 +3944,13 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                  + f"; launches: LXMERT serving {serve['launches']}, "
                    f"VisualBERT serving {vb_serve['launches']}, VQA-VS "
                    f"stage-2 evals {vqavs['launches']['fused_attention_fwd']}"
-                   f", serving stage 3's .msgpack {msgpack_launches}",
+                   f", serving stage 3's .msgpack {msgpack_launches}, "
+                   f"structured stage 2 and 3 "
+                   f"{struct_launches('fused_attention_fwd')}",
+        "trained_heads": _trained_heads_entry(
+            structured, "primal", ("primal_err",), "library_primal_ms",
+            fwd_mult, structured["stage3"]["launches"][
+                "fused_attention_fwd"]),
         "visualbert": _visualbert_entry(
             [r for r in rows if r["batch"] == SERVE_BATCH
              and r["dtype"] == "bfloat16" and r["heads"] == 12
@@ -3508,7 +4012,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                              else "fused_attention_bwd.cu"),
             "replaces": replaces,
             "launches": (launches + vb_train["launches"][name]
-                         + vqavs["launches"][name]),
+                         + vqavs["launches"][name]
+                         + struct_launches(name)),
             "max_abs_err": max(r[k] for r in main for k in err_keys),
             "ms": tot(f"{kind}_ms"), "plain_ms": tot(f"{kind}_plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3520,13 +4025,19 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                      + f"; library_ms: {what}; launches: LXMERT stage 2 "
                        f"{launches}, VisualBERT stage 2 "
                        f"{vb_train['launches'][name]}, VQA-VS stage 2 "
-                       f"{vqavs['launches'][name]}",
+                       f"{vqavs['launches'][name]}, structured stage 2 "
+                       f"and 3 {struct_launches(name)}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
                 f"one bf16 VisualBERT train step at batch {TRAIN_BATCH}, "
                 f"dropout {MAIN_RATE}"),
         })
+        if kind != "recompute":  # stage 3 runs the stored backward
+            out[-1]["trained_heads"] = _trained_heads_entry(
+                structured, kind, ("fwd_err", "p_err") if kind == "fwd"
+                else ("dq_err", "dk_err", "dv_err"), library, mult,
+                structured["stage3"]["launches"][name])
     main = [r for r in midseq_bwd_rows if r["batch"] == MPLUG_TRAIN_BATCH
             and r["dtype"] == "bfloat16" and r["rate"] == MAIN_RATE]
     mult = MIDSEQ_BWD_PER_STEP
@@ -3728,6 +4239,9 @@ def main(argv=None) -> int:
                          vb_train["artifacts"])
         vqavs = phase("vqavs", phase_vqavs, torch, device, rehearse, seed,
                       serve["root"], keep.name)
+        structured = phase("structured", phase_structured, torch, device,
+                           rehearse, seed, serve["root"], stage1["bin"],
+                           keep.name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3740,7 +4254,8 @@ def main(argv=None) -> int:
         return 3
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
-                             compact, vb_serve, vb_train, vqavs, stage3)
+                             compact, vb_serve, vb_train, vqavs, stage3,
+                             structured)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -3756,7 +4271,8 @@ def main(argv=None) -> int:
                        "stage1": stage1, "stage3": stage3,
                        "visualbert_train": vb_train,
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
-                       "kernels": kernels}, f, indent=1)
+                       "structured": structured, "kernels": kernels},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -145,13 +145,21 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--attention_probs_dropout_prob", type=float, default=None)
     p.add_argument("--classifier_dropout", type=float, default=None)
     p.add_argument("--wandb_project", type=str, default=None,
-                   help="not yet ported")
+                   help="mirror step metrics to wandb (optional; absent "
+                        "wandb degrades to JSONL/TB with a notice)")
     p.add_argument("--tensorboard_dir", type=str, default=None,
-                   help="not yet ported")
+                   help="also write the scalar metrics as a TensorBoard "
+                        "event file into this dir (utils/tb_events.py; "
+                        "metrics.jsonl stays the default sink)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="not yet ported")
-    p.add_argument("--profile_start_step", type=int, default=10)
-    p.add_argument("--profile_steps", type=int, default=5)
+                   help="write a torch.profiler Chrome trace of a "
+                        "training-step window into this dir "
+                        "(ProfileWindow)")
+    p.add_argument("--profile_start_step", type=int, default=10,
+                   help="the trace window opens at the first step at or "
+                        "past this one")
+    p.add_argument("--profile_steps", type=int, default=5,
+                   help="trace window length in steps")
     p.add_argument("--tiny", action="store_true",
                    help="tiny 2/1/1-layer config for smoke tests")
     p.add_argument("--dataset", type=str, default="vqacp",
@@ -162,9 +170,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 
 
 # flag -> its default; setting one elsewhere raises "not yet ported"
-COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
-                   "wandb_project": None, "tensorboard_dir": None,
-                   "profile_dir": None}
+COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False}
 
 
 MODEL_TYPE_HELP = ("lxmert. The JAX package parses this flag, never reads "
@@ -210,22 +216,117 @@ def dump_args(args: argparse.Namespace, output_dir: str) -> None:
         json.dump(vars(args), f, indent=2, default=str)
 
 
-class RunLog:
-    """JSON-line step logs on stdout, mirrored into
-    `<output_dir>/metrics.jsonl` (the JAX package's MetricsWriter sink)."""
+_metrics_writer = None
 
-    def __init__(self, output_dir: str):
-        self.path = os.path.join(output_dir, "metrics.jsonl")
 
-    def step(self, step: int, **metrics) -> None:
-        payload = {"step": step}
-        payload.update({k: (round(float(v), 6)
-                            if isinstance(v, (int, float, np.floating))
-                            else v) for k, v in metrics.items()})
-        line = json.dumps(payload)
-        print(line, flush=True)
-        with open(self.path, "a") as f:
-            f.write(line + "\n")
+def init_metrics(args: argparse.Namespace) -> None:
+    """The run's MetricsWriter (`metrics.jsonl`, plus a TensorBoard event
+    file with `--tensorboard_dir` and wandb with `--wandb_project`); every
+    later `log_step` writes into it."""
+    global _metrics_writer
+    from ..utils.profiling import MetricsWriter
+
+    if _metrics_writer is not None:
+        _metrics_writer.close()
+    _metrics_writer = MetricsWriter(
+        args.output_dir, tensorboard_dir=getattr(args, "tensorboard_dir",
+                                                 None),
+        wandb_project=getattr(args, "wandb_project", None))
+
+
+def log_step(step: int, **metrics) -> None:
+    """A JSON line on stdout, numbers rounded to 6 places; the unrounded
+    values go to the MetricsWriter when `init_metrics` ran."""
+    payload = {"step": step}
+    payload.update({k: (round(float(v), 6)
+                        if isinstance(v, (int, float, np.floating)) else v)
+                    for k, v in metrics.items()})
+    print(json.dumps(payload), flush=True)
+    if _metrics_writer is not None:
+        _metrics_writer.write(step, **metrics)
+
+
+class ProfileWindow:
+    """Drives `--profile_dir`: a torch.profiler trace of the steps between
+    the first `tick(step)` at or past `profile_start_step` and the first
+    at or past start + `profile_steps` (the JAX package's window: the
+    host counter may stride over the bounds). Call `tick` once per
+    iteration after the step; one-shot; `close()` ends an open window.
+
+    Two departures from the JAX trace:
+
+    - warm-up step: CUPTI loses what launches while a session starts, so
+      the session opens one tick earlier (the tick whose step plus the
+      last stride reaches the start) and that step is traced and
+      discarded (`schedule(wait=0, warmup=1, active=1)`, the active
+      window one profiler step); the active steps are exactly the JAX
+      package's. A window that opens at the first tick has no earlier
+      tick and so no warm-up step.
+    - synchronised edges: on a CUDA device the window synchronises before
+      it turns active and before it stops, so the trace holds the active
+      steps' kernels and no others.
+
+    The Chrome trace goes into `profile_dir` when the window stops."""
+
+    def __init__(self, args: argparse.Namespace):
+        self.dir = getattr(args, "profile_dir", None)
+        self.start = getattr(args, "profile_start_step", 10)
+        self.stop_at = self.start + getattr(args, "profile_steps", 5)
+        self.device = torch.device(getattr(args, "device", "cpu"))
+        self.active = False
+        self.path: Optional[str] = None  # the written trace
+        self._prof = None
+        self._last: Optional[int] = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _open(self, warmup: int) -> None:
+        from torch.profiler import profile, schedule
+
+        from ..utils.profiling import activities
+
+        # the whole active window is one profiler step
+        sched = (schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warmup else None)
+        self._prof = profile(activities=activities(self.device),
+                             schedule=sched)
+        self._prof.start()
+
+    def tick(self, step: int) -> None:
+        if self.dir is None:
+            return
+        stride = 1 if self._last is None else step - self._last
+        self._last = step
+        if self._prof is None:
+            if step >= self.start:  # no earlier tick: no warm-up step
+                self._open(warmup=0)
+                self.active = True
+            elif step + stride >= self.start:
+                self._open(warmup=1)
+        elif not self.active:
+            if step >= self.start:
+                self._sync()
+                self._prof.step()  # warm-up -> active
+                self.active = True
+        elif step >= self.stop_at:
+            self.close()
+
+    def close(self) -> None:
+        """Stop an open window (short runs, preemption) and write its
+        trace; a window still warming up writes none."""
+        if self._prof is None:
+            return
+        self._sync()
+        self._prof.stop()
+        if self.active:
+            from ..utils.profiling import export_trace
+
+            self.path = export_trace(self._prof, self.dir)
+        self._prof = None
+        self.active = False
+        self.dir = None  # one-shot
 
 
 class PreemptionGuard:

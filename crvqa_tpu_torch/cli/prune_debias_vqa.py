@@ -14,16 +14,21 @@ per-modality Masker, trains the mask scores and the classifier with the
 `--logging_steps`, checkpoints and (with
 `--evaluate_during_training`) evaluates every `--save_steps`, and at each
 new best writes `test.json`, `mask.pt` and `classifier4masker.bin` in the
-JAX CLI's formats. Runs on the card (`--device cuda`, the default, raising
-without one); `--device cpu` runs the kernels' plain versions.
+JAX CLI's formats. `--structured_masking heads|layers` trains one gate per
+attention head or per matrix of the specs `--structured_masking_types`
+selects (`masking/structured.py`); `mask.pt` carries the gates expanded
+to their weights and, with `heads`, `head_mask.npy` the language layers'
+[L, H] head mask for stage 3's `--head_mask_npy`. Step metrics go to
+`metrics.jsonl` (and `--tensorboard_dir`, `--wandb_project`);
+`--profile_dir` traces a step window (`common.ProfileWindow`). Runs on
+the card (`--device cuda`, the default, raising without one); `--device
+cpu` runs the kernels' plain versions.
 
 Not yet ported (raise when set away from their defaults): `--scan_layers`,
-`--structured_masking`, `--steps_per_dispatch` > 1, `--zero_opt`,
-`--mesh_*`, `--multihost`, `--profile_dir`, `--tensorboard_dir`,
-`--wandb_project`; a `--resume_from` of the JAX package's msgpack
-`ckpt_<step>`. `--model_type` other than lxmert raises too: the JAX CLI
-parses it and never reads it, building LXMERT whatever it says
-(`common.reject_model_type`).
+`--steps_per_dispatch` > 1, `--zero_opt`, `--mesh_*`, `--multihost`; a
+`--resume_from` of the JAX package's msgpack `ckpt_<step>`. `--model_type`
+other than lxmert raises too: the JAX CLI parses it and never reads it,
+building LXMERT whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -40,14 +45,15 @@ from ..device import resolve_device
 from ..masking.masker import Masker
 from ..masking.sparsity_control import ModalSparsity
 from ..masking.spec import lxmert_mask_specs
+from ..masking.structured import (StructuredMasker, lang_head_mask,
+                                  weight_masks)
 from ..models import LxmertConfig
 from ..train import stage2
 from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from . import common
 
 UNPORTED = dict(common.COMMON_UNPORTED, scan_layers=False,
-                steps_per_dispatch=1, zero_opt=False,
-                structured_masking="none")
+                steps_per_dispatch=1, zero_opt=False)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,9 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero_opt", type=common.str2bool, default=False,
                    help="not yet ported")
     p.add_argument("--structured_masking", type=str, default="none",
-                   choices=["none", "heads", "layers"],
-                   help="not yet ported")
-    p.add_argument("--structured_masking_types", type=str, default="self")
+                   choices=["none", "heads", "layers"])
+    p.add_argument("--structured_masking_types", type=str, default="self",
+                   help="comma-separated module-name substrings to mask "
+                        "structurally (the reference's "
+                        "structured_masking_types); others stay unstructured")
     return p
 
 
@@ -116,13 +124,14 @@ def main(argv=None) -> dict:
 
 def run(args) -> dict:
     """The stage-2 run; returns a summary: final step, every step's loss,
-    best eval accuracy and the zero rates of the last export."""
+    best eval accuracy, the zero rates of the last export, the trace
+    `--profile_dir` wrote (`trace`) and the final state (`state`)."""
     common.reject_model_type(args, "prune_debias_vqa")
     common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
-    log = common.RunLog(args.output_dir)
+    common.init_metrics(args)
     common.dict_parser(args.masking_scheduler_conf)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -136,12 +145,20 @@ def run(args) -> dict:
                               config.x_layers, layers_to_mask=layers)
     sparsity = ModalSparsity.from_compression(
         args.Lang_comp, args.Vis_comp, args.Fus_comp, args.zero_rate)
-    masker = Masker.create(
-        specs, sparsity, mask_biases=args.mask_biases,
-        threshold=args.threshold, init_scale=args.init_scale,
+    masker_kw = dict(
+        mask_biases=args.mask_biases, threshold=args.threshold,
+        init_scale=args.init_scale,
         controlled_init=(None if args.controlled_init == "none"
                          else args.controlled_init),
         binarizer_name=args.name_of_masker, global_prune=args.global_prune)
+    if args.structured_masking != "none":
+        masker = StructuredMasker.create(
+            specs, sparsity, structured_masking=args.structured_masking,
+            structured_types=tuple(
+                t for t in args.structured_masking_types.split(",") if t),
+            num_heads=config.num_attention_heads, **masker_kw)
+    else:
+        masker = Masker.create(specs, sparsity, **masker_kw)
 
     train_batches, eval_batches, label2ans, n_train = common.build_data(
         args, config, device)
@@ -165,7 +182,8 @@ def run(args) -> dict:
     step_fn = stage2.make_train_step(model, masker, tx, cfg)
     reset_fn = stage2.make_threshold_reset(masker)
     eval_fn = stage2.make_eval_step(model, masker)
-    summary: dict = {"losses": [], "best_acc": None, "zero_rates": None}
+    summary: dict = {"losses": [], "best_acc": None, "zero_rates": None,
+                     "trace": None}
 
     def evaluate(state):
         out = predict(eval_fn, state, eval_batches())
@@ -173,10 +191,21 @@ def run(args) -> dict:
 
     def export_best(state):
         state = reset_fn(state)
+        masks = masker.binary_masks(state.scores, state.thresholds)
+        # mask.pt carries weight-shaped masks: structured gates expanded
         torch_compat.export_mask_pt(
             os.path.join(args.output_dir, "mask.pt"),
-            masker.binary_masks(state.scores, state.thresholds),
-            masker.specs)
+            weight_masks(masker, masks, state.frozen), masker.specs)
+        if args.structured_masking == "heads":
+            hm = lang_head_mask(masker, masks, config.l_layers,
+                                config.num_attention_heads)
+            if hm is not None:
+                np.save(os.path.join(args.output_dir, "head_mask.npy"), hm)
+            else:
+                common.logger.warning(
+                    "structured 'heads' export skipped: no language-layer "
+                    "head gates under structured_masking_types=%s",
+                    args.structured_masking_types)
         torch_compat.export_classifier_bin(
             os.path.join(args.output_dir, "classifier4masker.bin"),
             state.train_params["classifier"])
@@ -202,11 +231,13 @@ def run(args) -> dict:
         step = state.step
         t_last, s_last = time.perf_counter(), step
         guard = common.PreemptionGuard()
+        profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
                 state, metrics = step_fn(state, batch)
                 losses.append(metrics.loss)
                 prev, step = step, state.step
+                profiler.tick(step)
                 if common.crossed(step, prev, args.logging_steps):
                     state = reset_fn(state)
                     distance = masker.mask_drift(state.scores,
@@ -219,11 +250,11 @@ def run(args) -> dict:
                     ex_s = ((step - s_last) * args.train_batch_size
                             / max(now - t_last, 1e-9))
                     t_last, s_last = now, step
-                    log.step(step, loss=float(metrics.loss),
-                             score=100 * float(metrics.score)
-                             / metrics.batch_size, epoch=epoch,
-                             mask_distance=distance, mask_change=change,
-                             ex_s=round(ex_s, 1))
+                    common.log_step(step, loss=float(metrics.loss),
+                                    score=100 * float(metrics.score)
+                                    / metrics.batch_size, epoch=epoch,
+                                    mask_distance=distance,
+                                    mask_change=change, ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
                     ckpt.save_checkpoint(
                         os.path.join(args.output_dir, f"ckpt_{step}"), state,
@@ -231,7 +262,7 @@ def run(args) -> dict:
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
-                        log.step(step, eval_acc=acc)
+                        common.log_step(step, eval_acc=acc)
                         if acc > best:
                             best = acc
                             dump_predictions(
@@ -242,10 +273,13 @@ def run(args) -> dict:
                     path = os.path.join(args.output_dir, f"ckpt_{step}")
                     ckpt.save_checkpoint(path, state, metadata={
                         "step": step, "preempted": True})
-                    log.step(step, preempted=True, checkpoint=path)
+                    common.log_step(step, preempted=True, checkpoint=path)
+                    profiler.close()
                     summary.update(step=step, losses=[float(x)
                                                       for x in losses])
                     return summary
+        profiler.close()
+        summary["trace"] = profiler.path
         if best < 0:
             # no best-eval export fired: export the final state so the run
             # still yields its artifacts
@@ -253,14 +287,14 @@ def run(args) -> dict:
 
     if args.do_eval or args.do_predict:
         acc, out = evaluate(state)
-        log.step(state.step, final_eval_acc=acc)
+        common.log_step(state.step, final_eval_acc=acc)
         common.write_eval_results(args.output_dir, "eval_results_vqa.txt",
                                   eval_acc=acc)
         if not os.path.exists(os.path.join(args.output_dir, "test.json")):
             dump_predictions(os.path.join(args.output_dir, "test.json"),
                              out["logits"], out["question_id"], label2ans)
     summary.update(step=state.step, losses=[float(x) for x in losses],
-                   best_acc=best if best >= 0 else None)
+                   best_acc=best if best >= 0 else None, state=state)
     return summary
 
 

@@ -19,12 +19,13 @@ the thresholds every `--logging_steps`, checkpoints and (with
 `--evaluate_during_training`) evaluates every `--save_steps`,
 and at each new best writes `test.json`, `mask.pt` (VisualBERT's torch
 names) and `classifier4masker.bin` (the `cls` head) in the JAX CLI's
-formats. Runs on the card (`--device cuda`, the default, raising without
-one); `--device cpu` runs the kernels' plain versions.
+formats. Step metrics go to `metrics.jsonl` (and `--tensorboard_dir`,
+`--wandb_project`); `--profile_dir` traces a step window
+(`common.ProfileWindow`). Runs on the card (`--device cuda`, the default,
+raising without one); `--device cpu` runs the kernels' plain versions.
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`;
-a `--resume_from` of the JAX package's msgpack `ckpt_<step>`;
+`--multihost`; a `--resume_from` of the JAX package's msgpack `ckpt_<step>`;
 `--model_type` other than visualbert (the JAX CLI parses it and builds
 VisualBERT whatever it says). `--dataset vqavs` reads the VQA-VS files.
 """
@@ -106,7 +107,7 @@ def run(args) -> dict:
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
-    log = common.RunLog(args.output_dir)
+    common.init_metrics(args)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     overrides = common.config_overrides(args)
@@ -144,7 +145,8 @@ def run(args) -> dict:
     step_fn = stage2.make_train_step(model, masker, tx, cfg)
     reset_fn = stage2.make_threshold_reset(masker)
     eval_fn = stage2.make_eval_step(model, masker, cfg)
-    summary: dict = {"losses": [], "best_acc": None, "zero_rates": None}
+    summary: dict = {"losses": [], "best_acc": None, "zero_rates": None,
+                     "trace": None}
 
     def evaluate(state):
         out = predict(eval_fn, state, eval_batches())
@@ -171,21 +173,23 @@ def run(args) -> dict:
         step = state.step
         t_last, s_last = time.perf_counter(), step
         guard = common.PreemptionGuard()
+        profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
                 state, metrics = step_fn(state, batch)
                 losses.append(metrics.loss)
                 prev, step = step, state.step
+                profiler.tick(step)
                 if common.crossed(step, prev, args.logging_steps):
                     state = reset_fn(state)
                     now = time.perf_counter()
                     ex_s = ((step - s_last) * args.train_batch_size
                             / max(now - t_last, 1e-9))
                     t_last, s_last = now, step
-                    log.step(step, loss=float(metrics.loss),
-                             score=100 * float(metrics.score)
-                             / metrics.batch_size, epoch=epoch,
-                             ex_s=round(ex_s, 1))
+                    common.log_step(step, loss=float(metrics.loss),
+                                    score=100 * float(metrics.score)
+                                    / metrics.batch_size, epoch=epoch,
+                                    ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
                     ckpt.save_checkpoint(
                         os.path.join(args.output_dir, f"ckpt_{step}"), state,
@@ -193,7 +197,7 @@ def run(args) -> dict:
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
-                        log.step(step, eval_acc=acc)
+                        common.log_step(step, eval_acc=acc)
                         if acc > best:
                             best = acc
                             dump_predictions(
@@ -204,10 +208,13 @@ def run(args) -> dict:
                     path = os.path.join(args.output_dir, f"ckpt_{step}")
                     ckpt.save_checkpoint(path, state, metadata={
                         "step": step, "preempted": True})
-                    log.step(step, preempted=True, checkpoint=path)
+                    common.log_step(step, preempted=True, checkpoint=path)
+                    profiler.close()
                     summary.update(step=step, losses=[float(x)
                                                       for x in losses])
                     return summary
+        profiler.close()
+        summary["trace"] = profiler.path
         if best < 0:
             # no best-eval export fired: export the final state so the run
             # still yields its artifacts
@@ -215,7 +222,7 @@ def run(args) -> dict:
 
     if args.do_eval or args.do_predict:
         acc, out = evaluate(state)
-        log.step(state.step, final_eval_acc=acc)
+        common.log_step(state.step, final_eval_acc=acc)
         common.write_eval_results(args.output_dir, "eval_results_vqa.txt",
                                   eval_acc=acc)
         if not os.path.exists(os.path.join(args.output_dir, "test.json")):

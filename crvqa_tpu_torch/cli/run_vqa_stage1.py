@@ -17,13 +17,15 @@ the JAX package's msgpack `ckpt_<step>`) and, with
 parameters as `<label4save>_FT{only,lmh_only,lpf_only,rubi_only}.bin` with
 its `.msgpack` twin (the JAX package's params file) at each new best (the
 final parameters when no evaluation ran). `--dataset vqavs` trains on the
-VQA-VS files. Runs on the card (`--device cuda`, the default, raising
-without one); `--device cpu` runs the kernels' plain versions.
+VQA-VS files. Step metrics go to `metrics.jsonl` (and
+`--tensorboard_dir`, `--wandb_project`); `--profile_dir` traces a step
+window (`common.ProfileWindow`). Runs on the card (`--device cuda`, the
+default, raising without one); `--device cpu` runs the kernels' plain
+versions.
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`.
-`--model_type` other than lxmert raises too: the JAX CLI parses it and
-never reads it, building LXMERT whatever it says
+`--multihost`. `--model_type` other than lxmert raises too: the JAX CLI
+parses it and never reads it, building LXMERT whatever it says
 (`common.reject_model_type`).
 """
 from __future__ import annotations
@@ -113,7 +115,7 @@ def train_and_evaluate(args, config: LxmertConfig,
     the final evaluation. `masks` (stage 3) are the constant masks by
     weight name, or None. Each save writes `bin_path` and, for the JAX
     package, `bin_path + ".msgpack"`."""
-    log = common.RunLog(args.output_dir)
+    common.init_metrics(args)
     train_batches, eval_batches, label2ans, n_train = common.build_data(
         args, config, device)
     cfg = stage1_config(args, config, n_train)
@@ -125,7 +127,7 @@ def train_and_evaluate(args, config: LxmertConfig,
     step_fn = stage1.make_train_step(model, cfg, tx)
     eval_fn = stage1.make_eval_step(model)
     summary: dict = {"losses": [], "best_acc": None, "eval_acc": None,
-                     "bin": bin_path}
+                     "bin": bin_path, "trace": None}
 
     def evaluate(state):
         out = predict(eval_fn, state, eval_batches())
@@ -142,20 +144,22 @@ def train_and_evaluate(args, config: LxmertConfig,
         step = state.step
         t_last, s_last = time.perf_counter(), step
         guard = common.PreemptionGuard()
+        profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
                 state, metrics = step_fn(state, batch)
                 losses.append(metrics.loss)
                 prev, step = step, state.step
+                profiler.tick(step)
                 if common.crossed(step, prev, args.logging_steps):
                     now = time.perf_counter()
                     ex_s = ((step - s_last) * args.train_batch_size
                             / max(now - t_last, 1e-9))
                     t_last, s_last = now, step
-                    log.step(step, loss=float(metrics.loss),
-                             score=100 * float(metrics.score)
-                             / metrics.batch_size, epoch=epoch,
-                             ex_s=round(ex_s, 1))
+                    common.log_step(step, loss=float(metrics.loss),
+                                    score=100 * float(metrics.score)
+                                    / metrics.batch_size, epoch=epoch,
+                                    ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
                     ckpt.save_stage1_checkpoint(
                         os.path.join(args.output_dir, f"ckpt_{step}"), state,
@@ -163,7 +167,7 @@ def train_and_evaluate(args, config: LxmertConfig,
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
-                        log.step(step, eval_acc=acc)
+                        common.log_step(step, eval_acc=acc)
                         if acc > best:
                             best = acc
                             dump_predictions(
@@ -174,10 +178,13 @@ def train_and_evaluate(args, config: LxmertConfig,
                     path = os.path.join(args.output_dir, f"ckpt_{step}")
                     ckpt.save_stage1_checkpoint(path, state, metadata={
                         "step": step, "preempted": True})
-                    log.step(step, preempted=True, checkpoint=path)
+                    common.log_step(step, preempted=True, checkpoint=path)
+                    profiler.close()
                     summary.update(step=step,
                                    losses=[float(x) for x in losses])
                     return summary
+        profiler.close()
+        summary["trace"] = profiler.path
         if best < 0:
             # no best-eval save fired: keep the final parameters, and
             # never overwrite a best-eval save with them
@@ -190,7 +197,7 @@ def train_and_evaluate(args, config: LxmertConfig,
 
     if args.do_eval or args.do_predict:
         acc, out = evaluate(state)
-        log.step(state.step, final_eval_acc=acc)
+        common.log_step(state.step, final_eval_acc=acc)
         common.write_eval_results(args.output_dir, "eval_results_vqa.txt",
                                   eval_acc=acc)
         summary["eval_acc"] = acc

@@ -30,10 +30,11 @@ JAX package's params file and the only file its stage 3 writes, at the
 best evaluation or, when none ran, at the end; the port also writes the
 torch state_dict under the name without `.msgpack`. `--stage1_ckpt` takes
 either kind of file, `--dataset vqavs` the VQA-VS files; `--resume_from`
-refuses the JAX package's msgpack `ckpt_<step>`.
+refuses the JAX package's msgpack `ckpt_<step>`. Metrics, TensorBoard,
+wandb and `--profile_dir` as stage 1 (the shared loop).
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`, `--profile_dir`, `--tensorboard_dir`, `--wandb_project`.
+`--multihost`.
 `--model_type` other than lxmert raises too: the JAX CLI parses it and
 never reads it, building LXMERT whatever it says
 (`common.reject_model_type`).

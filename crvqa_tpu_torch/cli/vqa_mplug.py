@@ -14,7 +14,10 @@ one), and ends with a final reset, `mask.pt`, `mask_config.json` and
 `ckpt_final`. `--do_eval` / `--do_predict` answer `--test_files` by beam
 search or by ranking `--answer_list` into `vqa_result.json`, fetching each
 batch's result `--eval_pipeline_depth` batches late. `serve_mplug --ckpt`
-serves what it wrote.
+serves what it wrote. Step metrics go to `metrics.jsonl` (and
+`--tensorboard_dir`, `--wandb_project`); `--profile_dir` traces a step
+window (`common.ProfileWindow`); `serve_mplug` accepts these flags and,
+like the JAX server, ignores them.
 
 Weights are seeded from `--seed` (`--init_ckpt` is not yet ported). Runs on
 `--device cuda` (default; raises without a card) or `--device cpu` (the
@@ -334,7 +337,7 @@ def run(args) -> dict:
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
-    log = common.RunLog(args.output_dir)
+    common.init_metrics(args)
 
     config, tokenizer, model = build_model(args)
     train_batches, eval_batches, n_train = build_data(args, config,
@@ -362,7 +365,7 @@ def run(args) -> dict:
         max_len=args.max_answer_len, min_length=args.min_length,
         use_cache=args.decode_cache)
     summary: dict = {"losses": [], "resets": [], "zero_rates": None,
-                     "num_predictions": None}
+                     "num_predictions": None, "trace": None}
 
     if args.do_train:
         step_fn = mplug_train.make_train_step(model, cfg, masker=masker)
@@ -371,12 +374,14 @@ def run(args) -> dict:
         losses = []
         step = state.step
         guard = common.PreemptionGuard()
+        profiler = common.ProfileWindow(args)
         t_last, s_last = time.perf_counter(), step
         for epoch in range(int(args.num_train_epochs)):
             for batch_idx, batch in enumerate(train_batches(epoch)):
                 state, loss = step_fn(state, batch)
                 losses.append(loss)
                 prev, step = step, state.step
+                profiler.tick(step)
                 if masker is not None and common.crossed(
                         step, prev, args.masker_update_step):
                     # the FRACTIONAL epoch: the schedules move at 0.1-epoch
@@ -387,15 +392,15 @@ def run(args) -> dict:
                     achieved = masker.sparsity_report(
                         state.scores, state.thresholds)["all"]
                     summary["resets"].append((step, float(target), achieved))
-                    log.step(step, sparsity=achieved, target=target)
+                    common.log_step(step, sparsity=achieved, target=target)
                 if common.crossed(step, prev, args.logging_steps):
                     loss_f = float(loss)  # device fence
                     now = time.perf_counter()
                     ex_s = ((step - s_last) * args.train_batch_size
                             / max(now - t_last, 1e-9))
                     t_last, s_last = now, step
-                    log.step(step, loss=loss_f, epoch=epoch,
-                             ex_s=round(ex_s, 1))
+                    common.log_step(step, loss=loss_f, epoch=epoch,
+                                    ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
                     ckpt.save_mplug_checkpoint(
                         os.path.join(args.output_dir, f"ckpt_{step}"), state,
@@ -405,10 +410,13 @@ def run(args) -> dict:
                     path = os.path.join(args.output_dir, f"ckpt_{step}")
                     ckpt.save_mplug_checkpoint(path, state, metadata={
                         "step": step, "preempted": True})
-                    log.step(step, preempted=True, checkpoint=path)
+                    common.log_step(step, preempted=True, checkpoint=path)
+                    profiler.close()
                     summary.update(step=step,
                                    losses=[float(x) for x in losses])
                     return summary
+        profiler.close()
+        summary["trace"] = profiler.path
         if masker is not None:
             state = reset_fn(state, None)
             masks = masker.binary_masks(state.scores, state.thresholds)
@@ -433,14 +441,14 @@ def run(args) -> dict:
 
     if args.do_eval or args.do_predict:
         results = evaluate(args, config, tokenizer, model, masker, cfg,
-                           state, gen_fn, eval_batches(), device, log)
+                           state, gen_fn, eval_batches(), device)
         summary["num_predictions"] = len(results)
     summary["step"] = state.step
     return summary
 
 
 def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
-             batches, device, log) -> list:
+             batches, device) -> list:
     """Answer every eval batch (beam search, or ranking with
     `--eval_method rank`) into `vqa_result.json`. Each batch's result is
     fetched `--eval_pipeline_depth` batches after it was issued, so the
@@ -485,9 +493,9 @@ def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
         flush_one()
     with open(os.path.join(args.output_dir, "vqa_result.json"), "w") as f:
         json.dump(results, f)
-    log.step(state.step, num_predictions=len(results),
-             eval_seconds=round(time.perf_counter() - t0, 1),
-             eval_pipeline_depth=depth)
+    common.log_step(state.step, num_predictions=len(results),
+                    eval_seconds=round(time.perf_counter() - t0, 1),
+                    eval_pipeline_depth=depth)
     return results
 
 

@@ -99,6 +99,11 @@ def _copy(path: str, dst: dict, src: dict, what: str) -> None:
         raise KeyError(f"{path}: {what} keys differ from the run's "
                        f"({sorted(set(dst) ^ set(src))[:5]})")
     for k, t in src.items():
+        if dst[k].shape != t.shape:
+            # copy_ would broadcast a structured run's () or (H,) gate
+            raise ValueError(f"{path}: {what}/{k} has shape "
+                             f"{tuple(t.shape)}, the run's "
+                             f"{tuple(dst[k].shape)}")
         dst[k].copy_(t)
 
 

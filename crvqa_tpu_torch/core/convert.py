@@ -192,6 +192,11 @@ def carry_into_state(state, carried: Mapping[str, Any]) -> None:
     parameters in place with `stage2_from_jax`'s (the frozen backbone and
     classifier enter through `init_state`'s `params`)."""
     for key, t in carried["scores"].items():
+        if state.scores[key].shape != t.shape:
+            # copy_ would broadcast a () or (H,) gate of another masker
+            raise ValueError(f"scores {key}: carried shape "
+                             f"{tuple(t.shape)}, the state's "
+                             f"{tuple(state.scores[key].shape)}")
         state.scores[key].copy_(t)
     state.thresholds = {k: t.to(state.scores[k].device)
                         for k, t in carried["thresholds"].items()}

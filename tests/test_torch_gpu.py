@@ -1397,3 +1397,77 @@ def test_visualbert_train_step_kernels_match_plain_versions():
     for k in scores:
         torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
                                    atol=1e-3 * gmax, msg=k)
+
+
+# ----------------------------------------------- structured mask training
+
+def test_structured_stage2_step_launch_counts():
+    """One structured ("heads") stage-2 step of a 1/1/1-layer LXMERT at
+    full width, bf16, through the kernels: 6 forward-for-grad and 4
+    stored-backward launches (the last cross layer's visual branch never
+    reaches the logits), (12,) gates on the 'self' specs, a finite loss
+    and moved gates."""
+    _need_card()
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.masking.structured import StructuredMasker
+    from crvqa_tpu_torch.train import stage2
+
+    cfg = LxmertConfig(vocab_size=64, l_layers=1, r_layers=1, x_layers=1,
+                       ans_num=16, dtype=torch.bfloat16)
+    masker = StructuredMasker.create(
+        lxmert_mask_specs(1, 1, 1),
+        ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7),
+        controlled_init="magnitude", structured_masking="heads")
+    params = build_lxmert(LxmertConfig(vocab_size=64, l_layers=1,
+                                       r_layers=1, x_layers=1, ans_num=16),
+                          "cpu", torch.Generator().manual_seed(0)
+                          ).state_dict()
+    sc = stage2.Stage2Config(masker_type="lmh", hidden_size=768,
+                             learning_rate=1e-2)
+    model = stage2.lxmert_meta_model(cfg)
+    state, tx = stage2.init_state(model, masker, params, sc, 0, "cuda")
+    state = stage2.make_threshold_reset(masker)(state)
+    gates = {k: v.detach().clone() for k, v in state.scores.items()
+             if tuple(v.shape) == (12,)}
+    assert sorted(gates) == sorted(s.key for s in masker.specs
+                                   if masker._is_structured(s))
+    batch = to_device(synthetic_batch(batch_size=8, vocab_size=64,
+                                      ans_num=16, seed=1),
+                      torch.device("cuda"), float_dtype=torch.bfloat16)
+    fwd, bwd = fa.fused_attention_fwd_train, fa.fused_attention_bwd_stored
+    before = (fwd.launches, bwd.launches)
+    state, metrics = stage2.make_train_step(model, masker, tx, sc)(state,
+                                                                    batch)
+    torch.cuda.synchronize()
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (6, 4)
+    assert torch.isfinite(metrics.loss)
+    assert any(not torch.equal(state.scores[k], g) for k, g in gates.items())
+
+
+def test_profile_window_traces_the_active_steps_kernels(tmp_path):
+    """`ProfileWindow` on the card (start 2, 2 steps): the session opens
+    at tick 1 and discards step 2 as its warm-up; the Chrome trace holds
+    the primal attention kernel of steps 3 and 4 and of no other step."""
+    _need_card()
+    import argparse
+    import json
+
+    from crvqa_tpu_torch.cli.common import ProfileWindow
+
+    args = argparse.Namespace(profile_dir=str(tmp_path), device="cuda",
+                              profile_start_step=2, profile_steps=2)
+    window = ProfileWindow(args)
+    q, k, v, bias = _inputs(4, 14, 14, torch.bfloat16)
+    before = fa.fused_attention.launches
+    for step in range(1, 8):
+        fa.fused_attention(q, k, v, bias, 12, 64)
+        window.tick(step)
+    window.close()
+    assert fa.fused_attention.launches - before == 7
+    events = json.load(open(window.path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "fused_attention" in e.get("name", "")]
+    assert len(kernels) == 2

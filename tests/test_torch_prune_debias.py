@@ -124,11 +124,8 @@ def test_resume_continues_the_step_count(run, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--scan_layers", "true"), ("--structured_masking", "heads"),
-    ("--steps_per_dispatch", "4"), ("--zero_opt", "true"),
-    ("--mesh_model", "2"), ("--multihost", "true"),
-    ("--profile_dir", "p"), ("--tensorboard_dir", "tb"),
-    ("--wandb_project", "w")])
+    ("--scan_layers", "true"), ("--steps_per_dispatch", "4"),
+    ("--zero_opt", "true"), ("--mesh_model", "2"), ("--multihost", "true")])
 def test_unported_flags_raise(tmp_path, flag, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         prune_debias_vqa.main(["--output_dir", str(tmp_path), "--tiny",

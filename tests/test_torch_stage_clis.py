@@ -183,7 +183,7 @@ def test_stage1_resume_continues_the_step_count(chain, tmp_path):
 @pytest.mark.parametrize("cli", [run_vqa_stage1, run_vqa_stage3])
 @pytest.mark.parametrize("flag,value", [
     ("--model_type", "visualbert"), ("--mesh_data", "2"),
-    ("--multihost", "true"), ("--profile_dir", "p")])
+    ("--multihost", "true")])
 def test_unported_flags_raise(tmp_path, cli, flag, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--output_dir", str(tmp_path), "--tiny", "--device", "cpu",
