@@ -207,7 +207,23 @@ Phases (each one's seconds are logged):
               H'); one fp32 structured step at batch 8 with dropout on
               through the kernels against the plain versions
               (`_close_to`); timed bf16 structured steps at batch 256.
- 22. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 22. mplug-files  the mPLUG trainer as users start it, at full width
+              (`MPlugConfig()`, ViT-B-16 at 384 px, mask mode, bf16, batch
+              16): a pretraining-format `.pth` written at 224 px (197
+              positions) and read by `vqa_mplug.load_init_ckpt` (every
+              weight equal to what was written, the positional embedding
+              after its resize to 577; bytes and host seconds); then
+              `vqa_mplug` on PNG files with `--augment true`, `--init_ckpt`
+              that .pth, `--use_checkpoint true` and `--data_workers 4`
+              (2 steps; the launches of checkpointed steps); `--opt
+              adahessian` (2 steps, 0 attention launches), `--opt lamb`
+              and `--opt adamp` (2 steps each) on synthetic batches; the
+              host time of one augmented batch of 16; timed steps (ms,
+              peak memory) of adamw with `--use_checkpoint` false and true
+              (4 steps each, launches as predicted), lamb, adamp and
+              adahessian; one fp32 step at batch 8 with dropout on,
+              checkpointed and not, bit-equal.
+ 23. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 The device-time profiles of the serving and training phases (phases 7,
@@ -1881,18 +1897,22 @@ def phase_midseq_bwd_kernel(torch, device, rehearse: bool, seed: int
 
 
 def _mplug_train_launches(steps, eval_batches=0, mode="mask", distill=False,
-                          on_card=True) -> dict:
+                          on_card=True, checkpoint=False) -> dict:
     """Launches of `steps` mPLUG train steps and `eval_batches` beam
     batches (`MIDSEQ_FWD_PER_STEP`, `MIDSEQ_BWD_PER_STEP`, `SHORT_PER_STEP`;
-    18 mid-length and 11 short per encoded eval batch)."""
+    18 mid-length and 11 short per encoded eval batch). `checkpoint`
+    (`--use_checkpoint`): every attention of a training forward sits in a
+    checkpointed layer, so its forward runs again in the backward."""
     fwd = sum(MIDSEQ_FWD_PER_STEP.values())
     bwd = fwd if mode == "full" else sum(MIDSEQ_BWD_PER_STEP.values())
     twin = steps if distill else 0  # the twins' forward, eval mode
+    runs = 2 if checkpoint else 1
     return _launch_counts(
-        on_card, midseq_attention_fwd=fwd * (steps + twin) + 18 * eval_batches,
+        on_card,
+        midseq_attention_fwd=fwd * (runs * steps + twin) + 18 * eval_batches,
         midseq_attention_bwd=bwd * steps,
         fused_attention_fwd=SHORT_PER_STEP * (twin + eval_batches),
-        fused_attention_fwd_train=SHORT_PER_STEP * steps,
+        fused_attention_fwd_train=SHORT_PER_STEP * runs * steps,
         fused_attention_bwd_stored=SHORT_PER_STEP * steps)
 
 
@@ -1998,22 +2018,26 @@ def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
     return out
 
 
-def _mplug_train_setup(torch, device, rehearse, seed, dtype, batch_size):
+def _mplug_train_setup(torch, device, rehearse, seed, dtype, batch_size,
+                       extra=(), params=None):
     """An mPLUG mask-training state at full width (the CLI's own build
-    functions and defaults) and one synthetic batch on the device."""
+    functions and defaults, plus the flags `extra`) and one synthetic batch
+    on the device. `params`: the fp32 initial weights on the CPU, when the
+    caller holds them already (`init_state` does not change them)."""
     from crvqa_tpu_torch.cli import vqa_mplug
     from crvqa_tpu_torch.data.mplug_data import synthetic_mplug_batch
     from crvqa_tpu_torch.data.prefetch import to_device
     from crvqa_tpu_torch.train import mplug_train
 
     args = vqa_mplug.build_parser().parse_args(
-        ["--output_dir", "unused", "--dtype", dtype, "--seed", str(seed)]
-        + (["--tiny"] if rehearse else []))
+        ["--output_dir", "unused", "--dtype", dtype, "--seed", str(seed),
+         *extra] + (["--tiny"] if rehearse else []))
     config, _, model = vqa_mplug.build_model(args)
     masker = vqa_mplug.build_masker(args, config)
     cfg = vqa_mplug.train_config(args, 100)
     state = mplug_train.init_state(
-        model, vqa_mplug.initial_params(args, config), cfg, device,
+        model, params if params is not None
+        else vqa_mplug.initial_params(args, config), cfg, device,
         masker=masker, seed=seed, train=True)
     ql, al, apq = (int(x) for x in MPLUG_TRAIN_SHAPES.split(","))
     batch = to_device(synthetic_mplug_batch(
@@ -2119,6 +2143,295 @@ def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
     if not rehearse:
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------- phase 22
+
+MPLUG_FILES_TRAIN = 32       # records: 2 steps at batch 16
+MPLUG_FILES_IMAGES = 16      # PNG files, 480 x 400, uint8 RGB
+MPLUG_PRETRAIN_RES = 224     # the .pth's resolution: 197 positions
+MPLUG_OPT_STEPS = 2
+MPLUG_TIMED = dict(warmup=1, steps=4)
+ADAHESSIAN_BATCH = 16
+
+
+def fabricate_mplug_files(root: str, rehearse: bool, rng) -> dict:
+    """mPLUG's training files, made from `rng`: `fabricate_mplug`'s vocab,
+    PNG images (480 x 400: RandomResizedCrop has room to move), and
+    train / test annotation JSONs of the reference's records (question,
+    image, answers with their bias)."""
+    import numpy as np
+    from PIL import Image
+
+    fab = fabricate_mplug(root, rehearse, rng, n_requests=8)
+    os.makedirs(os.path.join(root, "imgs"))
+    names = []
+    for i in range(MPLUG_FILES_IMAGES):
+        name = f"imgs/img_{i:03d}.png"
+        Image.fromarray(rng.integers(0, 256, (400, 480, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, name))
+        names.append(name)
+    answers = fab["answers"][:40]
+
+    def records(n, qid0):
+        out = []
+        for i in range(n):
+            ans = [answers[int(rng.integers(len(answers)))]
+                   for _ in range(5)]
+            out.append({"image": names[i % len(names)],
+                        "question": TEMPLATES[i % len(TEMPLATES)].format(
+                            SUBJECTS[i % len(SUBJECTS)]),
+                        "question_id": qid0 + i, "answer": ans,
+                        "bias": [float(rng.random() * 0.5) for _ in ans]})
+        return out
+
+    for split, n, qid0 in (("train", MPLUG_FILES_TRAIN, 0),
+                           ("test", 8, 10000)):
+        with open(os.path.join(root, f"vqa_{split}.json"), "w") as f:
+            json.dump(records(n, qid0), f)
+    return {"names": names}
+
+
+def _pretrain_checkpoint(torch, args, config, path, rng) -> dict:
+    """The port's seeded fp32 weights written as the reference's
+    pretraining checkpoint: `{"model": ...}`, the text and fusion towers
+    under `bert.` / `fusion.`, the positional embedding at
+    `MPLUG_PRETRAIN_RES`, plus what the model has no parameter for (the
+    tied decoder, `visual.proj`, a text-tower key). Returns what it
+    wrote, in the port's names."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import vqa_mplug
+
+    params = vqa_mplug.initial_params(args, config)
+    patches = (MPLUG_PRETRAIN_RES // config.vit.patch_size) ** 2
+    pos = "visual_encoder.visual.positional_embedding"
+    params[pos] = torch.from_numpy(rng.normal(
+        0.0, 0.036, (patches + 1, config.vit.width)).astype(np.float32))
+    sd = {}
+    for k, v in params.items():
+        for tower, inner in (("text_encoder.", "bert."),
+                             ("fusion_encoder.", "fusion.")):
+            if k.startswith(tower):
+                k = tower + inner + k[len(tower):]
+        sd[k] = v
+    sd["text_decoder.cls.predictions.decoder.weight"] = params[
+        "text_decoder.bert.embeddings.word_embeddings.weight"]
+    sd["visual_encoder.visual.proj"] = torch.zeros(config.vit.width, 512)
+    sd["visual_encoder.token_embedding.weight"] = torch.zeros(8, 512)
+    torch.save({"model": sd}, path)
+    return params
+
+
+def phase_mplug_files(torch, device, rehearse: bool, seed: int) -> dict:
+    """Module docstring, phase 22."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import vqa_mplug
+    from crvqa_tpu_torch.core import torch_compat
+    from crvqa_tpu_torch.data import mplug_data
+    from crvqa_tpu_torch.train import mplug_train
+
+    on_card = not rehearse
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bs = MPLUG_TRAIN_BATCH
+    out: dict = {"batch": bs}
+    rng = np.random.default_rng(seed + 23)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mplug_files_") as root:
+        fabricate_mplug_files(root, rehearse, rng)
+        res = 32 if rehearse else 384
+
+        def cli(tag, *extra, files=False):
+            data = (["--vocab_file", os.path.join(root, "vocab.txt"),
+                     "--train_files", os.path.join(root, "vqa_train.json"),
+                     "--test_files", os.path.join(root, "vqa_test.json"),
+                     "--vqa_root", root, "--data_workers", "4"] if files
+                    else ["--synthetic", str(MPLUG_OPT_STEPS * bs),
+                          "--synthetic_shapes", MPLUG_TRAIN_SHAPES])
+            return (["--output_dir", os.path.join(root, tag), "--device",
+                     str(device), "--dtype", "bfloat16", "--seed",
+                     str(seed), "--train_batch_size", str(bs),
+                     "--num_train_epochs", "1", "--masker_update_step",
+                     "100", "--logging_steps", "1", "--save_steps", "0",
+                     "--image_res", str(res), "--do_train", *data, *extra]
+                    + (["--tiny"] if rehearse else []))
+
+        def run(tag, argv, **expect):
+            t0 = time.monotonic()
+            summary, launches = _run_counted(lambda: vqa_mplug.main(argv))
+            wall_s = time.monotonic() - t0
+            losses = summary["losses"]
+            log(f"mplug-files {tag}: {len(losses)} steps at batch {bs} in "
+                f"{wall_s:.1f} s (set-up included); losses "
+                f"{[round(x, 4) for x in losses]}; launches {launches}")
+            check(len(losses) == MPLUG_OPT_STEPS and all(np.isfinite(losses)),
+                  f"mplug-files {tag}: losses {losses}")
+            want = _mplug_train_launches(on_card=on_card, **expect)
+            if rehearse:
+                want = {k: 0 for k in want}
+            check(launches == want,
+                  f"mplug-files {tag}: launches {launches} != {want}")
+            with open(os.path.join(root, tag, "metrics.jsonl")) as f:
+                ex_s = [x["ex_s"] for x in map(json.loads, f) if "ex_s" in x]
+            return {"losses": losses, "launches": launches, "wall_s": wall_s,
+                    "logged_ex_s": ex_s}
+
+        # the pretraining-format checkpoint, read back at full width
+        args = vqa_mplug.build_parser().parse_args(cli(
+            "load", "--init_ckpt", "unused.pth", "--init_ckpt_format",
+            "pretrain"))
+        config, _, _ = vqa_mplug.build_model(args)
+        pth = os.path.join(root, "mplug_pretrain.pth")
+        written = _pretrain_checkpoint(torch, args, config, pth, rng)
+        args.init_ckpt = pth
+        base = vqa_mplug.initial_params(args, config)
+        t0 = time.monotonic()
+        loaded, _ = vqa_mplug.load_init_ckpt(args, base)
+        load_s = time.monotonic() - t0
+        pos = "visual_encoder.visual.positional_embedding"
+        resized = torch_compat.resize_pos_embed_np(
+            written[pos], config.vit.num_patches + 1)
+        check(loaded[pos].shape == base[pos].shape
+              and torch.equal(loaded[pos], resized),
+              f"mplug-files: the positional embedding "
+              f"{tuple(written[pos].shape)} was not resized to "
+              f"{tuple(base[pos].shape)}")
+        bad = [k for k in written if k != pos
+               and not torch.equal(loaded[k], written[k])]
+        check(not bad and set(loaded) == set(base),
+              f"mplug-files: loaded weights differ from the written: "
+              f"{bad[:5]}")
+        out["init_ckpt"] = {"bytes": os.path.getsize(pth), "load_s": load_s,
+                            "from_res": MPLUG_PRETRAIN_RES, "to_res": res}
+        log(f"mplug-files init_ckpt: {out['init_ckpt']}")
+        del written, base, loaded
+        gc.collect()
+
+        # the augment alone: one batch of 16 images from their PNGs
+        paths = [os.path.join(root, "imgs", n) for n in sorted(
+            os.listdir(os.path.join(root, "imgs")))][:bs]
+        times = []
+        for i in range(4):
+            t0 = time.monotonic()
+            px = mplug_data.load_images(paths, res,
+                                        rng=np.random.default_rng(i),
+                                        workers=4, raw=True)
+            times.append(time.monotonic() - t0)
+        check(px.dtype == np.uint8 and px.shape == (bs, res, res, 3),
+              f"mplug-files: augmented batch {px.dtype} {px.shape}")
+        out["augment_batch_ms"] = [1e3 * t for t in times]
+        log(f"mplug-files augment: host ms per batch of {bs} at {res} px, "
+            f"4 workers: {[round(x, 1) for x in out['augment_batch_ms']]} "
+            "(the first builds the native ops)")
+
+        # the trainer on files: --augment true, the .pth, checkpointing
+        out["files"] = run("files", cli(
+            "files", "--init_ckpt", pth, "--init_ckpt_format", "pretrain",
+            "--use_checkpoint", "true", files=True),
+            steps=MPLUG_OPT_STEPS, checkpoint=True)
+        for opt in ("lamb", "adamp"):
+            out[opt] = run(opt, cli(opt, "--opt", opt),
+                           steps=MPLUG_OPT_STEPS)
+        _mplug_timed_steps(torch, device, rehearse, seed, out)
+        _mplug_checkpoint_bit_equal(torch, device, rehearse, seed, out)
+        # last: the plain attention's double backward holds the most
+        out["adahessian"] = run("adahessian", cli(
+            "adahessian", "--opt", "adahessian"), steps=0)
+        _mplug_timed_steps(torch, device, rehearse, seed, out,
+                           adahessian=True)
+    return out
+
+
+def _mplug_timed_steps(torch, device, rehearse, seed, out,
+                       adahessian=False) -> None:
+    """Timed steps of phase 22: ms and peak memory per setting, launches
+    as predicted (adahessian alone, or the other four)."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import vqa_mplug as vm
+    from crvqa_tpu_torch.train import mplug_train
+
+    on_card = not rehearse
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bs = MPLUG_TRAIN_BATCH
+    args0 = vm.build_parser().parse_args(
+        ["--output_dir", "unused", "--seed", str(seed)]
+        + (["--tiny"] if rehearse else []))
+    params = vm.initial_params(args0, vm.build_model(args0)[0])
+    settings = ((("adahessian", ("--opt", "adahessian"), ADAHESSIAN_BATCH,
+                  dict(steps=0)),) if adahessian else (
+        ("adamw", (), bs, dict(steps=1)),
+        ("adamw_checkpoint", ("--use_checkpoint", "true"), bs,
+         dict(steps=1, checkpoint=True)),
+        ("lamb", ("--opt", "lamb"), bs, dict(steps=1)),
+        ("adamp", ("--opt", "adamp"), bs, dict(steps=1))))
+    timed = out.setdefault("timed", {})
+    for tag, extra, batch, expect in settings:
+        model, masker, cfg, state, batch_t = _mplug_train_setup(
+            torch, device, rehearse, seed, "bfloat16", batch, extra, params)
+        step = mplug_train.make_train_step(model, cfg, masker)
+        for _ in range(MPLUG_TIMED["warmup"]):
+            state, _ = step(state, batch_t)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        losses = []
+        t0 = time.monotonic()
+        _, launches = _run_counted(lambda: [
+            losses.append(step(state, batch_t)[1])
+            for _ in range(MPLUG_TIMED["steps"])])
+        sync()
+        dt = time.monotonic() - t0
+        losses = [float(x) for x in losses]
+        row = {"batch": batch, "step_ms": 1e3 * dt / MPLUG_TIMED["steps"],
+               "losses": losses, "launches": launches,
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if on_card else None)}
+        timed[tag] = row
+        log(f"mplug-files timed {tag}: " + json.dumps(row))
+        check(all(np.isfinite(losses)), f"mplug-files {tag}: {losses}")
+        n = MPLUG_TIMED["steps"]
+        want = _mplug_train_launches(
+            on_card=on_card, **{**expect, "steps": expect["steps"] * n})
+        check(rehearse or launches == want,
+              f"mplug-files timed {tag}: launches {launches} != {want}")
+        del model, state, batch_t, step
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+
+def _mplug_checkpoint_bit_equal(torch, device, rehearse, seed, out) -> None:
+    """Phase 22's fp32 step at batch 8 with dropout on, checkpointed and
+    not: the loss and every gradient bit-equal."""
+    from crvqa_tpu_torch.train import mplug_train
+
+    on_card = not rehearse
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    grads = {}
+    for flag in ("false", "true"):
+        model, masker, cfg, state, batch_t = _mplug_train_setup(
+            torch, device, rehearse, seed + 1, "float32", MPLUG_CHECK_BATCH,
+            ("--use_checkpoint", flag))
+        fn = mplug_train.make_loss_and_grads(model, cfg, masker)
+        loss, g = fn(state, batch_t)
+        sync()
+        grads[flag] = (loss.cpu(), {k: v.cpu() for k, v in g.items()})
+        del model, state, batch_t, fn, g
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    (la, ga), (lb, gb) = grads["false"], grads["true"]
+    differ = [k for k in ga if not torch.equal(ga[k], gb[k])]
+    out["checkpoint_bit_equal"] = {"loss": float(la),
+                                   "loss_equal": bool(torch.equal(la, lb)),
+                                   "grads_differ": differ[:5]}
+    log("mplug-files fp32 checkpointed vs plain step: "
+        + json.dumps(out["checkpoint_bit_equal"]))
+    check(torch.equal(la, lb) and not differ,
+          f"mplug-files: a checkpointed fp32 step is not bit-equal to the "
+          f"plain one: {out['checkpoint_bit_equal']}")
 
 
 # ------------------------------------------------------- phases 14-17
@@ -4242,6 +4555,8 @@ def main(argv=None) -> int:
         structured = phase("structured", phase_structured, torch, device,
                            rehearse, seed, serve["root"], stage1["bin"],
                            keep.name)
+        mplug_files = phase("mplug-files", phase_mplug_files, torch, device,
+                            rehearse, seed)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4271,7 +4586,8 @@ def main(argv=None) -> int:
                        "stage1": stage1, "stage3": stage3,
                        "visualbert_train": vb_train,
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
-                       "structured": structured, "kernels": kernels},
+                       "structured": structured,
+                       "mplug_files": mplug_files, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

@@ -16,7 +16,7 @@ import json
 import logging
 import os
 import signal
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -515,7 +515,9 @@ def lxmert_uniform_masker(config, zero_rate: float):
         zero_rate, ("Lang", "Vis", "Fus", "P")))
 
 
-def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]
+def load_params_any(path: Optional[str], state: dict[str, torch.Tensor],
+                    torch_loader: Optional[Callable] = None,
+                    from_jax: Optional[Callable] = None
                     ) -> dict[str, torch.Tensor]:
     """Overlay a params checkpoint onto `state` (a state_dict), by the
     JAX package's dispatch (`crvqa_tpu/cli/common.py:load_params_any`):
@@ -525,12 +527,19 @@ def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]
     `_FT_trainedMask.bin.msgpack`), carried over by `state_dict_from_jax`.
     Either way every key of `state` must be present at its shape. A
     training state (the JAX package's `ckpt_<step>`: the step, the
-    parameters, the optimizer's state) is refused."""
+    parameters, the optimizer's state) is refused.
+
+    `torch_loader(path, state)` replaces the torch branch for a model's own
+    name shims (the mPLUG importer, as the JAX function's hook);
+    `from_jax(tree)` replaces `state_dict_from_jax` for a model whose JAX
+    tree needs renames beyond its rule (`mplug_state_dict_from_jax`)."""
     if path is None:
         return state
     from ..core import torch_compat
 
     if path.endswith((".bin", ".pt", ".pth")):
+        if torch_loader is not None:
+            return torch_loader(path, state)
         return torch_compat.load_torch_params(path, state)
     from ..core.checkpoint import load_msgpack
     from ..core.convert import state_dict_from_jax
@@ -542,7 +551,8 @@ def load_params_any(path: Optional[str], state: dict[str, torch.Tensor]
             "not a params file: reading the params out of it is not yet "
             "ported to crvqa_tpu_torch (ROADMAP); pass the params file its "
             "stage 1 or 3 wrote (<label4save>_FT*.bin.msgpack)")
-    return torch_compat.fill_state_dict(state_dict_from_jax(tree), state)
+    return torch_compat.fill_state_dict(
+        (from_jax or state_dict_from_jax)(tree), state)
 
 
 def save_params_msgpack(path: str, state: dict[str, torch.Tensor],

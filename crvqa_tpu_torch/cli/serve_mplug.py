@@ -15,8 +15,10 @@ protocol and stats line as `serve_vqa`).
   `--zero_rate`; `--mode full` the unmasked weights. Weights are seeded
   from `--seed`; `--ckpt` lays a checkpoint written by
   `crvqa_tpu_torch.cli.vqa_mplug` (a `ckpt_<step>` or `ckpt_final`) over
-  them: its trained parameters, scores and thresholds. `--init_ckpt`
-  (reference `.pth` or msgpack import) is not yet ported and raises.
+  them: its trained parameters, scores and thresholds. `--init_ckpt` and
+  `--use_checkpoint` are parsed and not read, as the JAX server parses and
+  ignores them (a logged line says so): serving never loads the training
+  init, and has no backward to recompute for.
 - Every batch is padded to `--serve_batch_size` (beam search and ranking
   are row-independent: padding cannot change a real row's answer).
 - Runs on `--device cuda` (default), where the attentions go through the
@@ -86,6 +88,11 @@ def build_server(args, device: torch.device,
     common.reject_unported(args, vqa_mplug.MPLUG_UNPORTED)
     if not args.vocab_file:
         raise ValueError("serve_mplug requires --vocab_file")
+    for flag in ("init_ckpt", "use_checkpoint"):
+        if getattr(args, flag):
+            common.logger.info(
+                "serve_mplug: --%s is not read (as in the JAX server): the "
+                "served weights come from --seed and --ckpt", flag)
     config, tokenizer, model = vqa_mplug.build_model(args)
     masker = (vqa_mplug.build_masker(args, config) if args.mode == "mask"
               else None)

@@ -19,10 +19,21 @@ serves what it wrote. Step metrics go to `metrics.jsonl` (and
 window (`common.ProfileWindow`); `serve_mplug` accepts these flags and,
 like the JAX server, ignores them.
 
-Weights are seeded from `--seed` (`--init_ckpt` is not yet ported). Runs on
-`--device cuda` (default; raises without a card) or `--device cpu` (the
-kernels' plain versions: the tests' path). `serve_mplug` shares the argv,
-the model, the masker and the rank function.
+Weights are seeded from `--seed`, then `--init_ckpt` lays a checkpoint
+over them before the masker's scores are formed: a reference torch
+`.pth`/`.pt`/`.bin` (`torch_compat.load_mplug_torch_checkpoint`; the
+pos-embed resize and the `fusion.`/`bert.` shim under
+`--init_ckpt_format pretrain`, or `auto` in a full-mode training run; its
+`_m` twins override the distill copy) or a msgpack params file of the JAX
+package's. `--augment true` (the default) runs the train transforms on
+image files. `--opt` takes every name of the reference's factory
+(`train/optim.py`, `train/timm_optim.py`); under adahessian the model takes
+the plain attention everywhere, as the JAX CLI does, because the attention
+kernels have no double backward. `--use_checkpoint` recomputes the ViT's,
+the encoders' and the decoder's layers in the backward. Runs on `--device
+cuda` (default; raises without a card) or `--device cpu` (the kernels'
+plain versions: the tests' path). `serve_mplug` shares the argv, the
+model, the masker and the rank function.
 """
 from __future__ import annotations
 
@@ -46,12 +57,12 @@ from ..masking.sparsity_control import MaskerScheduler, ModalSparsity
 from ..models.mplug import (MPlugBertConfig, MPlugConfig, ViTConfig,
                             build_mplug)
 from ..train import mplug_train
+from ..train.optim import is_second_order
 from . import common
 
-# flags of paths this slice does not reach -> their defaults; set elsewhere
+# flags of paths the port does not reach -> their defaults; set elsewhere
 # they raise "not yet ported"
-MPLUG_UNPORTED = {**common.COMMON_UNPORTED, "init_ckpt": None,
-                  "init_ckpt_format": "auto", "use_checkpoint": False}
+MPLUG_UNPORTED = dict(common.COMMON_UNPORTED)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,14 +107,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_files", type=str, nargs="*", default=None)
     p.add_argument("--vqa_root", type=str, default="")
     p.add_argument("--init_ckpt", type=str, default=None,
-                   help="not yet ported (msgpack or reference .pth import)")
+                   help="params init: a msgpack params file of the JAX "
+                        "package's, or a reference torch .pt/.pth/.bin "
+                        "(vqa_mplug.py:338-376 import: model/module "
+                        "unwrap, pos-embed resize, fusion./bert. shim)")
     p.add_argument("--init_ckpt_format", type=str, default="auto",
                    choices=["auto", "pretrain", "finetuned"],
-                   help="not yet ported")
+                   help="'pretrain' applies the pos-embed resize and the "
+                        "fusion./bert. shim; 'auto' in a full-mode "
+                        "training run only (vqa_mplug.py:346)")
     p.add_argument("--clip_name", type=str, default="ViT-B-16",
                    choices=["ViT-B-16", "ViT-L-14"])
     p.add_argument("--use_checkpoint", type=common.str2bool, default=False,
-                   help="not yet ported (activation checkpointing)")
+                   help="activation checkpointing of the transformer "
+                        "layers in training")
     p.add_argument("--eval_method", type=str, default="beam",
                    choices=["beam", "rank"])
     p.add_argument("--answer_list", type=str, default=None)
@@ -129,14 +146,23 @@ def build_model(args) -> tuple[MPlugConfig, Optional[object], torch.nn.Module]:
     (vqa_mplug.py:209-222 of the JAX package)."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     lm_head = torch.bfloat16 if args.lm_head_dtype == "bfloat16" else None
+    kernels = not is_second_order(args.opt)
+    if not kernels:
+        common.logger.warning(
+            "opt=adahessian needs second-order autodiff: forcing the plain "
+            "attention path (the attention kernels have no double "
+            "backward; the JAX CLI forces its XLA attention path here, "
+            "--fused_attention/--midseq_attention ignored)")
+    shared = dict(dtype=dtype, use_checkpoint=args.use_checkpoint,
+                  attention_kernels=kernels)
     bert = (MPlugBertConfig.tiny if args.tiny else MPlugBertConfig)(
-        dtype=dtype, lm_head_dtype=lm_head)
+        lm_head_dtype=lm_head, **shared)
     if args.tiny:
-        vit = ViTConfig.tiny(dtype=dtype)
+        vit = ViTConfig.tiny(**shared)
     elif args.clip_name == "ViT-L-14":
-        vit = ViTConfig.vit_l_14(image_res=args.image_res, dtype=dtype)
+        vit = ViTConfig.vit_l_14(image_res=args.image_res, **shared)
     else:
-        vit = ViTConfig(image_res=args.image_res, dtype=dtype)
+        vit = ViTConfig(image_res=args.image_res, **shared)
     config = MPlugConfig(bert=bert, vit=vit, distill=args.distill)
     over = common.config_overrides(args)
     if over.pop("classifier_dropout", None) is not None:
@@ -194,6 +220,41 @@ def initial_params(args, config: MPlugConfig) -> dict[str, torch.Tensor]:
         vit=dataclasses.replace(config.vit, dtype=torch.float32))
     return build_mplug(fp32, "cpu",
                        torch.Generator().manual_seed(args.seed)).state_dict()
+
+
+def load_init_ckpt(args, params: dict[str, torch.Tensor]
+                   ) -> tuple[dict[str, torch.Tensor],
+                              Optional[dict[str, torch.Tensor]]]:
+    """`--init_ckpt` over the seeded fp32 `params` (vqa_mplug.py:397-421
+    of the JAX package): (params, the checkpoint's `_m` twins or None).
+    A torch file goes through the mPLUG importer, its pretrain shims on
+    under `--init_ckpt_format pretrain` or, with `auto`, in a full-mode
+    training run (the reference's gate, vqa_mplug.py:346); the twins fill
+    a copy of the seeded params (only with `--distill`). Anything else is
+    a msgpack params file of the JAX package's. Logs the JAX CLI's line:
+    missing leaves, unused keys, shims applied."""
+    pretrain = (args.init_ckpt_format == "pretrain"
+                or (args.init_ckpt_format == "auto" and args.mode == "full"
+                    and args.do_train))
+    twins = []
+
+    def torch_loader(path, template):
+        loaded, loaded_m, report = torch_compat.load_mplug_torch_checkpoint(
+            path, template, template_m=template if args.distill else None,
+            pretrain_format=pretrain)
+        twins.append(loaded_m)
+        common.logger.info(
+            "init_ckpt %s: %d template leaves missing, %d checkpoint keys "
+            "unused%s", path, len(report["missing"]), len(report["unused"]),
+            " (pretrain-format shims applied)" if pretrain else "")
+        return loaded
+
+    from ..core.convert import mplug_state_dict_from_jax
+
+    params = common.load_params_any(args.init_ckpt, params,
+                                    torch_loader=torch_loader,
+                                    from_jax=mplug_state_dict_from_jax)
+    return params, (twins[0] if twins else None)
 
 
 def train_config(args, steps_per_epoch: int) -> mplug_train.MPlugTrainConfig:
@@ -332,8 +393,6 @@ def run(args) -> dict:
     threshold reset's (step, target, achieved zero rate), the last export's
     zero rates and the number of predictions."""
     common.reject_unported(args, MPLUG_UNPORTED)
-    if args.do_train:
-        mplug_train.check_optimizer(args.opt)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
@@ -355,9 +414,20 @@ def run(args) -> dict:
                        "init_scale": args.init_scale,
                        "controlled_init": args.controlled_init,
                        "masker_update_step": args.masker_update_step}, f)
+    params, params_m = initial_params(args, config), None
+    if args.init_ckpt:
+        # before init_state: mask mode's magnitude scores read these fp32
+        # weights
+        params, params_m = load_init_ckpt(args, params)
     state = mplug_train.init_state(
-        model, initial_params(args, config), cfg, device, masker=masker,
-        seed=args.seed, train=args.do_train)
+        model, params, cfg, device, masker=masker, seed=args.seed,
+        train=args.do_train)
+    if params_m is not None and state.params_m is not None:
+        # the checkpoint's twins override init_state's copy (the reference
+        # copies, then load_state_dict fills the twins, :338-373)
+        with torch.no_grad():
+            for k, t in params_m.items():
+                state.params_m[k].copy_(t)
     if args.resume_from:
         ckpt.load_mplug_checkpoint(args.resume_from, state)
     gen_fn = mplug_train.make_generate_step(

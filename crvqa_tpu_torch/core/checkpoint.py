@@ -23,6 +23,8 @@ msgpack files too; a resume from one is refused
 """
 from __future__ import annotations
 
+import dataclasses
+
 import json
 import os
 import zipfile
@@ -159,7 +161,8 @@ def save_mplug_checkpoint(path: str, state, metadata: Optional[dict] = None
         "params_m": state.params_m, "scores_m": state.scores_m,
         "thresholds_m": state.thresholds_m,
         "opt_state": (None if opt is None else
-                      {"count": opt.count, "mu": opt.mu, "nu": opt.nu}),
+                      {f.name: getattr(opt, f.name)
+                       for f in dataclasses.fields(opt)}),
         "rng": (None if state.rng is None else
                 {"device": state.rng.device.get_state(),
                  "host": state.rng.host.get_state()}),
@@ -201,15 +204,33 @@ def load_mplug_checkpoint(path: str, state):
                            "--distill)")
         _copy(path, state.params_m, raw["params_m"], "params_m")
     if state.opt_state is not None:
-        opt = raw["opt_state"]
-        state.opt_state.count = opt["count"]
-        _copy(path, state.opt_state.mu, opt["mu"], "opt_state/mu")
-        _copy(path, state.opt_state.nu, opt["nu"], "opt_state/nu")
+        _copy_opt_state(path, state.opt_state, raw["opt_state"])
     if state.rng is not None:
         state.rng.device.set_state(raw["rng"]["device"])
         state.rng.host.set_state(raw["rng"]["host"])
     state.step = int(raw["step"])
     return state
+
+
+def _copy_opt_state(path: str, opt, raw: dict) -> None:
+    """An optimizer state's fields from a checkpoint: the count, and every
+    dict of tensors (a slot dict's dicts one by one) copied in place. A
+    checkpoint of another `--opt` has other fields and is refused."""
+    names = {f.name for f in dataclasses.fields(opt)}
+    if set(raw) != names:
+        raise KeyError(f"{path}: optimizer state {sorted(raw)}, the run's "
+                       f"{sorted(names)} (another --opt?)")
+    opt.count = raw["count"]
+    for name in names - {"count"}:
+        dst, src = getattr(opt, name), raw[name]
+        if src and all(isinstance(v, dict) for v in src.values()):
+            if set(dst) != set(src):
+                raise KeyError(f"{path}: opt_state/{name} slots differ "
+                               "from the run's (another --opt?)")
+            for slot in src:
+                _copy(path, dst[slot], src[slot], f"opt_state/{name}/{slot}")
+        else:
+            _copy(path, dst, src, f"opt_state/{name}")
 
 
 def save_stage1_checkpoint(path: str, state,

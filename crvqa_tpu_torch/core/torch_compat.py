@@ -20,7 +20,7 @@ import dataclasses
 import io
 import pickle
 import types
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -107,19 +107,10 @@ def fill_state_dict(state: dict[str, Any], template: dict[str, torch.Tensor]
     dtype; a missing key raises KeyError, a shape mismatch ValueError.
     Keys of `state` that the template lacks are ignored (the JAX package's
     `torch_state_dict_to_flax` rule)."""
-    missing = [k for k in template if k not in state]
+    out, missing, _ = _fill_report(state, template)
     if missing:
         raise KeyError(f"missing keys in torch state_dict: {missing[:10]}"
                        f"{'...' if len(missing) > 10 else ''}")
-    out = {}
-    for name, t in template.items():
-        arr = torch.as_tensor(state[name]).detach().to(t.dtype)
-        if name.endswith("weight_g"):
-            arr = arr.reshape(t.shape)
-        if arr.shape != t.shape:
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
-                             f"{tuple(t.shape)}")
-        out[name] = arr
     return out
 
 
@@ -235,3 +226,156 @@ def module_pickle_state_dict(path: str) -> dict[str, Any]:
     if state and all(k.startswith("module.") for k in state):
         state = {k[len("module."):]: v for k, v in state.items()}
     return state
+
+
+# ------------------------------------------- mPLUG pretrained-checkpoint import
+#
+# The reference starts mPLUG from a downloaded torch checkpoint
+# (`mPLUG/vqa_mplug.py:338-376`): a `model`/`module` unwrap, a bilinear
+# resize of the visual positional embedding to the configured resolution,
+# a `fusion.`/`bert.` key shim for pretraining-format checkpoints, and
+# `load_state_dict(strict=False)`. The functions below run that pipeline
+# into the port's state_dict (the counterpart of
+# `crvqa_tpu/core/torch_compat.py:419-585`). The port's names ARE the
+# reference's, so the key remap only drops what the model has no parameter
+# for.
+
+_MPLUG_TOWERS = ("visual_encoder", "text_encoder", "fusion_encoder",
+                 "text_decoder", "visn_fc", "visn_layer_norm")
+_POS_EMBED = "visual_encoder.visual.positional_embedding"
+
+
+def resize_pos_embed_np(pos, new_len: int) -> torch.Tensor:
+    """`models/visual_transformers.py:resize_pos_embed` (:19-38): the class
+    token kept, the square patch grid resized bilinearly to `new_len - 1`
+    positions. fp32 on the CPU, before any cast or device move, so the
+    result is bit-equal to the JAX package's (the same F.interpolate)."""
+    pos = torch.as_tensor(np.asarray(pos, np.float32)
+                          if not isinstance(pos, torch.Tensor) else pos)
+    pos = pos.detach().to("cpu", torch.float32)
+    if pos.shape[0] == new_len:
+        return pos
+    tok, grid = pos[:1], pos[1:]
+    gs_old = int(round(len(grid) ** 0.5))
+    gs_new = int(round((new_len - 1) ** 0.5))
+    g = grid.contiguous().reshape(1, gs_old, gs_old, -1).permute(0, 3, 1, 2)
+    g = torch.nn.functional.interpolate(g, size=(gs_new, gs_new),
+                                        mode="bilinear")
+    g = g.permute(0, 2, 3, 1).reshape(gs_new * gs_new, -1)
+    return torch.cat([tok, g], 0)
+
+
+def strip_fusion_bert_keys(sd: dict[str, Any]) -> dict[str, Any]:
+    """The reference's pretraining-format key shim with its exact dict
+    semantics (`vqa_mplug.py:367-371`): every key holding 'fusion' or
+    'bert' but not 'decode' is re-keyed at `key.replace('fusion.', '')
+    .replace('bert.', '')`, and a key whose rename equals itself is
+    DELETED (set, then del, of the same name)."""
+    sd = dict(sd)
+    for key in list(sd.keys()):
+        if ("fusion" in key or "bert" in key) and "decode" not in key:
+            encoder_key = key.replace("fusion.", "").replace("bert.", "")
+            sd[encoder_key] = sd[key]
+            del sd[key]
+    return sd
+
+
+def _mplug_remap_key(key: str) -> Optional[str]:
+    """A reference mPLUG parameter name -> the port's name (the same one),
+    or None for what the model has no parameter for: the CLIP text tower
+    and `logit_scale` (everything under `visual_encoder.` but `visual.`),
+    `visual.proj` (never applied with skip_last_layer), the tied
+    `cls.predictions.decoder`, `position_ids` buffers, and any other
+    module (the beam generator's)."""
+    tower = key.split(".", 1)[0]
+    if tower == "visual_encoder":
+        if not key.startswith("visual_encoder.visual."):
+            return None
+        return None if key == "visual_encoder.visual.proj" else key
+    if tower in ("text_encoder", "fusion_encoder", "text_decoder"):
+        if key.endswith("position_ids") or key.startswith(
+                "text_decoder.cls.predictions.decoder"):
+            return None
+        return key
+    return key if tower in ("visn_fc", "visn_layer_norm") else None
+
+
+def _fill_report(state: dict[str, Any], template: dict[str, torch.Tensor]
+                 ) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
+    """(template filled from `state` where it has the key, cast to the
+    template's dtype; missing template names; used state names). A shape
+    mismatch raises ValueError; a weight-norm `weight_g` takes the
+    template's shape."""
+    out, missing, used = {}, [], []
+    for name, t in template.items():
+        if name not in state:
+            missing.append(name)
+            out[name] = t
+            continue
+        used.append(name)
+        arr = torch.as_tensor(state[name]).detach().to(dtype=t.dtype)
+        if name.endswith("weight_g"):
+            arr = arr.reshape(t.shape)
+        if arr.shape != t.shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                             f"{tuple(t.shape)}")
+        out[name] = arr
+    return out, missing, used
+
+
+def load_mplug_torch_checkpoint(
+        path: str, template: dict[str, torch.Tensor],
+        template_m: Optional[dict[str, torch.Tensor]] = None,
+        pretrain_format: bool = True,
+) -> tuple[dict[str, torch.Tensor], Optional[dict[str, torch.Tensor]],
+           dict[str, list]]:
+    """A reference-format mPLUG checkpoint laid over `template` (the
+    port's fp32 state_dict on the CPU), as `mPLUG/vqa_mplug.py:338-376`
+    loads it: `model` unwrapped first, then `module` (a whole-module
+    pickle is read through `module_pickle_state_dict`); under
+    `pretrain_format` (the reference's `not evaluate and not do_mask`
+    gate) the positional embeddings of the tower and its `_m` twin are
+    resized to the template's length and the `fusion.`/`bert.` shim
+    applies; then a strict=False fill of the template and, when the
+    checkpoint carries `_m` twins and `template_m` is given, of the twins'.
+
+    Returns (params, params_m or None, report): `missing` template names
+    the checkpoint did not cover (`missing_m` for the twins) and `unused`
+    checkpoint keys nothing consumed, the JAX function's report."""
+    try:
+        raw = torch.load(path, map_location="cpu", weights_only=False)
+    except (ModuleNotFoundError, AttributeError):
+        raw = {"model": module_pickle_state_dict(path)}
+    if isinstance(raw, dict) and ("model" in raw or "module" in raw):
+        sd = raw.get("model", raw.get("module"))
+    else:
+        sd = raw.state_dict() if hasattr(raw, "state_dict") else raw
+    sd = {k: (v.detach() if isinstance(v, torch.Tensor)
+              else torch.as_tensor(np.asarray(v))) for k, v in sd.items()}
+    if pretrain_format:
+        new_len = template[_POS_EMBED].shape[0]
+        for k in (_POS_EMBED, _POS_EMBED.replace("visual_encoder.",
+                                                 "visual_encoder_m.")):
+            if k in sd:
+                sd[k] = resize_pos_embed_np(sd[k], new_len)
+        sd = strip_fusion_bert_keys(sd)
+
+    main, twin, unmapped = {}, {}, []
+    for k, v in sd.items():
+        tower = k.split(".", 1)[0]
+        is_twin = tower.endswith("_m") and tower[:-2] in _MPLUG_TOWERS
+        name = _mplug_remap_key(tower[:-2] + k[len(tower):] if is_twin
+                                else k)
+        if name is None:
+            unmapped.append(k)
+        else:
+            (twin if is_twin else main)[name] = v
+    params, missing, used = _fill_report(main, template)
+    report = {"missing": missing,
+              "unused": sorted(set(main) - set(used)) + unmapped}
+    params_m = None
+    if template_m is not None and twin:
+        params_m, missing_m, used_m = _fill_report(twin, template_m)
+        report["missing_m"] = missing_m
+        report["unused"] += sorted(set(twin) - set(used_m))
+    return params, params_m, report

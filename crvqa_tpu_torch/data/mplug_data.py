@@ -6,8 +6,8 @@ dimension with zero weights marking padding.
 
 Fixed-length question and answer tokenization, the OCR / object question
 splicing, annotation loading (`load_entries`), the batch iterator
-(`iterate_batches`, eval transform only: the train-time augmentations are
-not ported yet), the image loader and synthetic batches."""
+(`iterate_batches`, with the train transforms under `augment`), the image
+loader and synthetic batches."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +15,7 @@ import json
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -149,21 +149,31 @@ _POOLS: dict[int, ThreadPoolExecutor] = {}
 
 
 def load_images(paths: Sequence[str], image_res: int = 384,
+                rng: Optional[np.random.Generator] = None,
                 workers: int = 0, raw: bool = False) -> np.ndarray:
-    """Decode + the eval transform (resize, CLIP normalise; `raw=True`
-    keeps the resized uint8 pixels for the device-normalise path):
-    [N, res, res, 3] float32 (or uint8). PIL is imported here only.
-    `workers` > 0 decodes on a persistent thread pool."""
+    """Decode + transform: [N, res, res, 3] float32 (uint8 with `raw=True`,
+    the device-normalise path). With `rng`, the train transforms
+    (RandomResizedCrop + HFlip + RandomAugment(2, 7),
+    `mPLUG/dataset/__init__.py:28-35`) draw from it; without, the eval
+    transform (resize, normalise). PIL is imported here only.
+
+    Each image draws from its own `rng.spawn()` child, so the pixels are a
+    function of the seed alone: `workers` > 0 (a persistent thread pool;
+    PIL and the native ops release the GIL) changes wall time, never a
+    pixel."""
     from PIL import Image
 
-    from .augment import test_transform
+    from .augment import test_transform, train_transform
 
     out = np.zeros((len(paths), image_res, image_res, 3),
                    np.uint8 if raw else np.float32)
+    rngs = rng.spawn(len(paths)) if rng is not None else [None] * len(paths)
 
     def one(i: int) -> None:
-        out[i] = test_transform(Image.open(paths[i]).convert("RGB"),
-                                image_res, raw=raw)
+        img = Image.open(paths[i]).convert("RGB")
+        out[i] = (train_transform(img, rngs[i], image_res, raw=raw)
+                  if rngs[i] is not None
+                  else test_transform(img, image_res, raw=raw))
 
     if workers > 0 and len(paths) > 1:
         pool = _POOLS.setdefault(workers, ThreadPoolExecutor(
@@ -211,15 +221,14 @@ def iterate_batches(entries: MPlugEntries, batch_size: int,
                     raw_images: bool = False) -> Iterator[dict]:
     """Fixed-shape numpy batches in the JAX package's order (the same
     `RandomState(seed)` shuffle). A ragged final batch is padded with its
-    last row and flagged in "valid"; consumers skip the pad rows."""
-    if augment:
-        raise NotImplementedError(
-            "--augment true (RandomResizedCrop + HFlip + RandAugment): not "
-            "yet ported to crvqa_tpu_torch (ROADMAP); pass --augment false")
+    last row and flagged in "valid"; consumers skip the pad rows.
+    `augment`: the train transforms, from one `default_rng(seed)` for the
+    pass (each image from its own spawned child, `load_images`)."""
     n = len(entries)
     order = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
+    aug_rng = np.random.default_rng(seed) if augment else None
     for start in range(0, n, batch_size):
         idx = order[start: start + batch_size]
         valid = np.ones(batch_size, bool)
@@ -232,7 +241,8 @@ def iterate_batches(entries: MPlugEntries, batch_size: int,
         yield {
             "valid": valid,
             "images": load_images([entries.image_paths[i] for i in idx],
-                                  image_res, workers=workers, raw=raw_images),
+                                  image_res, rng=aug_rng, workers=workers,
+                                  raw=raw_images),
             "question_ids": entries.question_tokens[idx],
             "question_mask": entries.question_mask[idx],
             "answer_ids": entries.answer_tokens[idx],

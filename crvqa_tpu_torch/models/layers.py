@@ -150,7 +150,8 @@ def dispatch_attention(q, k, v, attention_bias, num_heads: int,
                        head_size: int, rate: float,
                        generator: Optional[torch.Generator],
                        seed_generator: Optional[torch.Generator],
-                       short_kernel: bool = True) -> torch.Tensor:
+                       short_kernel: bool = True,
+                       kernels: bool = True) -> torch.Tensor:
     """Attention on flat [B, S, H*D] projections, dispatched as the JAX
     package's `MultiHeadAttention._attend` (crvqa_tpu/models/layers.py:
     255-307) dispatches when its kernels are on:
@@ -161,7 +162,15 @@ def dispatch_attention(q, k, v, attention_bias, num_heads: int,
     - a key-wise bias past that bound that `midseq_attention.supported`
       admits -> `midseq_attention`;
     - anything else (a causal [B, 1, L, L] bias, shapes out of scope) ->
-      the eager path, the counterpart of the XLA einsums."""
+      the eager path, the counterpart of the XLA einsums.
+
+    `kernels=False` takes the eager path for every shape: the model's
+    setting under a second-order optimizer, whose double backward the
+    kernels' autograd Functions do not have (the JAX package turns its
+    kernels off there too, crvqa_tpu/cli/common.py:289-302)."""
+    if not kernels:
+        return eager_attention(q, k, v, attention_bias, num_heads,
+                               head_size, rate, generator)
     keywise = attention_bias is None or (
         attention_bias.dim() == 4 and attention_bias.shape[1] == 1
         and attention_bias.shape[2] == 1)
@@ -219,11 +228,13 @@ class MultiHeadAttention(nn.Module):
       the whole cache under the caller's key bias. Returns (out, caches)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_size: int,
-                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32,
+                 kernels: bool = True):
         super().__init__()
         d = num_heads * head_size
         self.num_heads, self.head_size = num_heads, head_size
         self.dropout_rate = dropout_rate
+        self.kernels = kernels  # False: always the eager path
         self.generator: Optional[torch.Generator] = None       # masks
         self.seed_generator: Optional[torch.Generator] = None  # kernel seeds
         self.query = nn.Linear(hidden_size, d, dtype=dtype)
@@ -258,7 +269,7 @@ class MultiHeadAttention(nn.Module):
         rate = self.dropout_rate if self.training else 0.0
         return dispatch_attention(q, k, v, attention_bias, self.num_heads,
                                   self.head_size, rate, self.generator,
-                                  self.seed_generator)
+                                  self.seed_generator, kernels=self.kernels)
 
 
 class AttentionOutput(nn.Module):
@@ -379,6 +390,66 @@ def set_generators(model: nn.Module, device_generator: torch.Generator,
         elif hasattr(m, "seed_generator"):  # every attention module
             m.generator = device_generator
             m.seed_generator = seed_generator
+
+
+def _generators(module: nn.Module) -> list[torch.Generator]:
+    """The distinct generators `set_generators` handed to `module`'s
+    dropouts and attentions."""
+    found: dict[int, torch.Generator] = {}
+    for m in module.modules():
+        for g in (getattr(m, "generator", None),
+                  getattr(m, "seed_generator", None)):
+            if g is not None:
+                found.setdefault(id(g), g)
+    return list(found.values())
+
+
+def checkpointed(module: nn.Module, *args, **kwargs):
+    """module(*args, **kwargs) under activation checkpointing
+    (`torch.utils.checkpoint`, non-reentrant): the block's activations are
+    dropped after the forward and recomputed in the backward.
+
+    The recompute replays the forward's randomness exactly, as flax's
+    `nn.remat` replays its dropout key: every generator of the block (the
+    dropout masks' and the attention kernels' seed draws; checkpoint itself
+    restores only the global RNGs, which the port never draws from) is set
+    back to its state at the forward before the recompute and returned to
+    where it was after it. The block's parameters are captured at the
+    forward and laid over it again for the recompute, which runs after the
+    caller's `functional_call` has restored the module's own (meta)
+    tensors."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    gens = _generators(module)
+    saved = [g.get_state() for g in gens]
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    calls = []
+
+    def run(*a, **kw):
+        if not calls:
+            calls.append(1)
+            return module(*a, **kw)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        try:
+            return functional_call(module, tensors, a, kw)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
+
+
+def maybe_checkpointed(enabled: bool, module: nn.Module, *args, **kwargs):
+    """`checkpointed` when `enabled` and gradients are being recorded (a
+    training forward), else a plain call: without a backward there is
+    nothing to recompute."""
+    if enabled and torch.is_grad_enabled():
+        return checkpointed(module, *args, **kwargs)
+    return module(*args, **kwargs)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator,

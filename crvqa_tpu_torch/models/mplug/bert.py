@@ -25,7 +25,8 @@ from torch import nn
 
 from ..layers import (AttentionOutput, Dropout, FFNOutput,
                       Intermediate, LayerNorm, MultiHeadAttention,
-                      PadFrozenEmbed, extend_attention_mask, gelu)
+                      PadFrozenEmbed, extend_attention_mask, gelu,
+                      maybe_checkpointed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,12 @@ class MPlugBertConfig:
     # None: the tied LM head in fp32 (reference-exact); torch.bfloat16:
     # operands rounded to bf16, fp32 accumulation and logits
     lm_head_dtype: Optional[torch.dtype] = None
+    # activation checkpointing of the text encoder's, the fusion encoder's
+    # and (without self caches) the decoder's layers in a training forward
+    # (`--use_checkpoint`; the JAX config's use_remat)
+    use_checkpoint: bool = False
+    # False: the eager attention everywhere (the setting under AdaHessian)
+    attention_kernels: bool = True
 
     @property
     def head_size(self) -> int:
@@ -104,7 +111,7 @@ class BertSelfBlock(nn.Module):
         self.self = MultiHeadAttention(c.hidden_size, c.num_attention_heads,
                                        c.head_size,
                                        c.attention_probs_dropout_prob,
-                                       c.dtype)
+                                       c.dtype, kernels=c.attention_kernels)
         self.output = AttentionOutput(c.hidden_size, c.hidden_dropout_prob,
                                       c.dtype)
 
@@ -170,6 +177,7 @@ class TextEncoder(nn.Module):
 
     def __init__(self, c: MPlugBertConfig):
         super().__init__()
+        self.use_checkpoint = c.use_checkpoint
         self.embeddings = BertEmbeddings(c)
         self.encoder = _Encoder(nn.ModuleList(
             BertLayer(c) for _ in range(c.text_encoder_layers)))
@@ -178,7 +186,7 @@ class TextEncoder(nn.Module):
         h = self.embeddings(input_ids)
         bias = extend_attention_mask(attention_mask)
         for layer in self.encoder.layer:
-            h = layer(h, bias)
+            h = maybe_checkpointed(self.use_checkpoint, layer, h, bias)
         return h
 
 
@@ -226,6 +234,7 @@ class FusionEncoder(nn.Module):
 
     def __init__(self, c: MPlugBertConfig):
         super().__init__()
+        self.use_checkpoint = c.use_checkpoint
         start = c.text_encoder_layers
         self.encoder = _Encoder(nn.ModuleDict({
             str(start + rel): FusionLayer(
@@ -238,7 +247,8 @@ class FusionEncoder(nn.Module):
         image_bias = extend_attention_mask(image_mask)
         text, image = text_embeds, image_embeds
         for layer in self.encoder.layer.values():
-            text, image = layer(text, text_bias, image, image_bias)
+            text, image = maybe_checkpointed(self.use_checkpoint, layer, text,
+                                             text_bias, image, image_bias)
         return image, text
 
 
@@ -336,8 +346,10 @@ class TextDecoder(nn.Module):
                                  memory_groups=memory_groups)
                 new_caches.append(cache)
             else:
-                h = layer(h, self_bias, enc_states, enc_bias,
-                          cross_kv=layer_kv, memory_groups=memory_groups)
+                h = maybe_checkpointed(c.use_checkpoint, layer, h, self_bias,
+                                       enc_states, enc_bias,
+                                       cross_kv=layer_kv,
+                                       memory_groups=memory_groups)
         if position is not None and self_caches is None:
             h = h[:, position:position + 1]
         logits = self.lm_head(h)

@@ -18,7 +18,8 @@ function as a stride-P convolution, without cuDNN and its TF32 default).
 The self-attention dispatches as the JAX block's (vit.py:99-119): the
 mid-length kernel when H*S > 1024 and `midseq_attention.supported` admits
 the shape (ViT-B-16: S = 577), else the eager path (short contexts of small
-configurations never take the short kernel here).
+configurations never take the short kernel here). `use_checkpoint`
+recomputes each residual block in the backward (`layers.checkpointed`).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from torch import nn
 
 from ...data.augment import CLIP_MEAN, CLIP_STD
-from ..layers import LayerNorm, dispatch_attention
+from ..layers import LayerNorm, dispatch_attention, maybe_checkpointed
 
 
 def clip_normalize_u8(images: torch.Tensor) -> torch.Tensor:
@@ -54,6 +55,11 @@ class ViTConfig:
     heads: int = 12
     attn_dropout: float = 0.1
     dtype: torch.dtype = torch.float32
+    # activation checkpointing of every residual block in a training
+    # forward (`--use_checkpoint`; the JAX config's use_remat)
+    use_checkpoint: bool = False
+    # False: the eager attention everywhere (the setting under AdaHessian)
+    attention_kernels: bool = True
 
     @property
     def num_patches(self) -> int:
@@ -106,6 +112,7 @@ class ViTAttention(nn.Module):
         super().__init__()
         self.num_heads, self.head_size = c.heads, c.head_size
         self.dropout_rate = c.attn_dropout
+        self.kernels = c.attention_kernels
         self.generator: Optional[torch.Generator] = None
         self.seed_generator: Optional[torch.Generator] = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * c.width, c.width,
@@ -120,7 +127,8 @@ class ViTAttention(nn.Module):
         rate = self.dropout_rate if self.training else 0.0
         return self.out_proj(dispatch_attention(
             q, k, v, None, self.num_heads, self.head_size, rate,
-            self.generator, self.seed_generator, short_kernel=False))
+            self.generator, self.seed_generator, short_kernel=False,
+            kernels=self.kernels))
 
 
 class MLP(nn.Module):
@@ -151,12 +159,13 @@ class ResidualAttentionBlock(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, c: ViTConfig):
         super().__init__()
+        self.use_checkpoint = c.use_checkpoint
         self.resblocks = nn.ModuleList(ResidualAttentionBlock(c)
                                        for _ in range(c.layers))
 
     def forward(self, x):
         for block in self.resblocks:
-            x = block(x)
+            x = maybe_checkpointed(self.use_checkpoint, block, x)
         return x
 
 

@@ -28,15 +28,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()  # guards _locks
-_locks: dict[str, threading.Lock] = {}  # one per library: builds overlap
+_locks: dict[str, threading.Lock] = {}  # one per name: builds overlap
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _name_lock(name: str) -> threading.Lock:
+    with _lock:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def build_library(src: str, lib_name: str, command: list[str]) -> str:
     """Compile `src` into BUILD_DIR/lib_name with `command + [src, "-o",
     out]` when the library is missing or older than its source. The
     compiler's output (for nvcc: `-Xptxas -v` register and shared-memory
-    use) is kept beside the library as `<lib_name>.log`. Returns the path."""
+    use) is kept beside the library as `<lib_name>.log`. Returns the path.
+    Calls for one library are serialised (a per-library lock), so threads
+    that touch it first together build it once."""
+    with _name_lock(lib_name):
+        return _build(src, lib_name, command)
+
+
+def _build(src: str, lib_name: str, command: list[str]) -> str:
     lib = os.path.join(BUILD_DIR, lib_name)
     newest = max([os.path.getmtime(src)]
                  + [os.path.getmtime(os.path.join(CSRC_DIR, h))
@@ -77,9 +89,7 @@ def nvcc_path() -> str:
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if stale) and load `csrc/<name>.cu` as `lib<name>.so`; one
     load per process. Different libraries build concurrently."""
-    with _lock:
-        name_lock = _locks.setdefault(name, threading.Lock())
-    with name_lock:
+    with _name_lock(name):
         lib = _loaded.get(name)
         if lib is None:
             path = build_library(os.path.join(CSRC_DIR, name + ".cu"),

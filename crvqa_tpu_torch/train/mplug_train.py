@@ -5,8 +5,10 @@
 One step computes the weighted, (1 - bias)-reweighted LM loss, takes
 gradients with respect to the mask scores plus the LM-head parameters (mask
 mode) or every parameter (full mode), clips them by one global norm and
-applies the dual-rate AdamW (`create_two_optimizer`: lr1 for the body, lr2
-for `visual_encoder`) under the reference's schedules. With `distill` the
+applies the dual-rate `--opt` (`create_two_optimizer`: lr1 for the body,
+lr2 for `visual_encoder`; AdamW by default, any name of the reference's
+factory in `optim.py` / `timm_optim.py`; AdaHessian also takes the
+Hutchinson diagonal) under the reference's schedules. With `distill` the
 momentum twins (a second parameter dict, EMA'd from the live one before
 every step, with their own EMA'd scores and thresholds in mask mode) supply
 soft labels.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 from torch.func import functional_call
@@ -39,9 +41,7 @@ from ..models.mplug.generator import (beam_generate, init_self_caches,
                                       precompute_cross_kv)
 from .common import (AdamWState, GroupAdamW, Schedule, TrainRNG,
                      clip_by_global_norm_)
-
-# --opt values the port runs (timm's fused variant is the same arithmetic)
-PORTED_OPTS = ("adamw", "fusedadamw")
+from .optim import OptState, TwoGroupOptimizer, base_name, is_second_order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,8 @@ class MPlugTrainConfig:
     warmup_lr_init: float = 1e-5
     decay_epochs: int = 1  # 'step' sched, epoch mode
     opt: str = "adamw"
-    opt_momentum: float = 0.9  # sgd / momentum / rmsprop only (not ported)
+    opt_momentum: float = 0.9  # sgd / nesterov / momentum / rmsprop / sgdp
+    # / rmsproptf
     max_grad_norm: float = 1.0
     use_bias_reweight: bool = True  # the (1 - bias) * loss debias term
     distill: bool = False
@@ -104,7 +105,7 @@ class MPlugState:
     params_m: Optional[dict[str, torch.Tensor]] = None
     scores_m: Optional[dict[str, torch.Tensor]] = None
     thresholds_m: Optional[dict[str, torch.Tensor]] = None
-    opt_state: Optional[AdamWState] = None
+    opt_state: Optional[Union[AdamWState, OptState]] = None
     rng: Optional[TrainRNG] = None
 
 
@@ -277,23 +278,16 @@ def make_lr_schedule(sched: str, lr: float, warmup: int, total: int,
                      "reference config)")
 
 
-def check_optimizer(opt: str) -> None:
-    """Raise for an `--opt` the port does not run yet (the reference's timm
-    factory, optim_factory.py:56-127, takes a `lookahead_` prefix too)."""
-    if opt.lower().split("_")[-1] not in PORTED_OPTS:
-        raise NotImplementedError(
-            f"--opt {opt}: not yet ported to crvqa_tpu_torch (ROADMAP); "
-            f"one of {PORTED_OPTS}")
-
-
-def make_two_group_adamw(config: MPlugTrainConfig, names: Iterable[str]
-                         ) -> GroupAdamW:
+def make_two_group_adamw(config: MPlugTrainConfig, names: Iterable[str]):
     """The dual-rate optimizer over the trainables `names`
     (`create_two_optimizer`, mPLUG/optim/optim_factory.py:141-171):
     `visual_encoder` leaves at lr2, everything else at lr1, bias and
-    LayerNorm weights undecayed. The caller clips by one global norm over
-    the whole trainable set first (`make_train_step`)."""
-    check_optimizer(config.opt)
+    LayerNorm weights undecayed. The inner optimizer is `config.opt`
+    (default adamw, the shipped choice: `GroupAdamW`; the rest of the
+    factory's table: `optim.TwoGroupOptimizer`, which raises ValueError
+    for a name outside it; adahessian: `timm_optim.AdaHessian`, which
+    clips its own gradients). For the others the caller clips by one
+    global norm over the whole trainable set first (`make_train_step`)."""
 
     def sched(lr: float) -> Schedule:
         if config.steps_per_epoch > 0:
@@ -308,9 +302,20 @@ def make_two_group_adamw(config: MPlugTrainConfig, names: Iterable[str]
                                 config.decay_rate, config.decay_steps)
 
     names = list(names)
-    return GroupAdamW({"body": sched(config.lr1), "visual": sched(config.lr2)},
-                      two_group_labels(names), decay_mask(names),
-                      weight_decay=config.weight_decay)
+    schedules = {"body": sched(config.lr1), "visual": sched(config.lr2)}
+    groups, decay = two_group_labels(names), decay_mask(names)
+    if is_second_order(config.opt):
+        from .timm_optim import AdaHessian
+
+        return AdaHessian(schedules, groups, decay,
+                          weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm)
+    if base_name(config.opt) in ("adamw", "fusedadamw"):
+        return GroupAdamW(schedules, groups, decay,
+                          weight_decay=config.weight_decay)
+    return TwoGroupOptimizer(config.opt, schedules, groups, decay,
+                             weight_decay=config.weight_decay,
+                             momentum=config.opt_momentum)
 
 
 # ------------------------------------------------------------------ state
@@ -418,11 +423,17 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
     forward on the (masked) model in training mode, dropout drawing from
     the state's generators, and the backward. `batch` holds device tensors
     "images", "question_ids", "question_mask", "answer_ids" / "answer_mask"
-    [B, A, L], "weights" [B, A] and optionally "bias" [B, A]."""
+    [B, A, L], "weights" [B, A] and optionally "bias" [B, A].
+
+    Under adahessian (`config.opt`) fn(state, batch, z=None) -> (loss,
+    grads, hess): the Hutchinson diagonal z * (H @ z) from one Rademacher
+    probe per trainable leaf (`timm_optim.hutchinson`), drawn from the
+    state's device generator before the forward unless `z` is given."""
     dtypes = param_dtypes(model)
     mask_mode = config.mode == "mask"
     if mask_mode and masker is None:
         raise ValueError("mask mode needs a masker")
+    second_order = is_second_order(config.opt)
 
     def soft_labels(state: MPlugState, batch: dict) -> torch.Tensor:
         """Momentum twins -> soft labels (model_vqa_mplug.py:65-92), the
@@ -440,7 +451,7 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
                 strict=True)
             return torch.softmax(logits_m[:, :-1].float(), dim=-1)
 
-    def loss_and_grads(state: MPlugState, batch: dict):
+    def loss_and_grads(state: MPlugState, batch: dict, z=None):
         soft, alpha = None, 0.0
         if config.distill:
             # EMA the twins BEFORE they produce the soft labels, like
@@ -454,13 +465,24 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
             if config.alpha_warmup_steps:
                 alpha *= min(1.0, state.step / config.alpha_warmup_steps)
         leaves = trainable(state, config)
-        model.train()
-        set_generators(model, state.rng.device, state.rng.host)
         bias = batch.get("bias") if config.use_bias_reweight else None
-        loss = functional_call(
-            model, masked_params(model, masker if mask_mode else None, state),
-            (MPlug.loss, *(batch[k] for k in _BATCH_KEYS), batch["weights"]),
-            dict(bias=bias, soft_labels=soft, alpha=alpha), strict=True)
+
+        def loss_fn(_leaves: dict) -> torch.Tensor:
+            # the leaves ARE the state's tensors: the forward reads them
+            model.train()
+            set_generators(model, state.rng.device, state.rng.host)
+            return functional_call(
+                model,
+                masked_params(model, masker if mask_mode else None, state),
+                (MPlug.loss, *(batch[k] for k in _BATCH_KEYS),
+                 batch["weights"]),
+                dict(bias=bias, soft_labels=soft, alpha=alpha), strict=True)
+
+        if second_order:
+            from .timm_optim import hutchinson
+
+            return hutchinson(loss_fn, leaves, state.rng.device, z=z)
+        loss = loss_fn(leaves)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
@@ -474,17 +496,24 @@ def make_train_step(model: torch.nn.Module, config: MPlugTrainConfig,
                     masker: Optional[Masker] = None) -> Callable:
     """fn(state, batch) -> (state, loss): one optimizer step, updating
     `state` in place: `make_loss_and_grads`, one global-norm clip over the
-    whole trainable set, then the two-group AdamW."""
+    whole trainable set, then the two-group optimizer (adahessian: the
+    (grads, hess) pair to `AdaHessian`, which clips the gradients
+    itself)."""
     loss_and_grads = make_loss_and_grads(model, config, masker)
-    tx: list[GroupAdamW] = []  # built at the first step, from its leaves
+    second_order = is_second_order(config.opt)
+    tx: list = []  # built at the first step, from its leaves
 
     def train_step(state: MPlugState, batch: dict):
-        loss, grads = loss_and_grads(state, batch)
         leaves = trainable(state, config)
-        clip_by_global_norm_(list(grads.values()), config.max_grad_norm)
         if not tx:
             tx.append(make_two_group_adamw(config, leaves))
-        tx[0].step(leaves, grads, state.opt_state)
+        if second_order:
+            loss, grads, hess = loss_and_grads(state, batch)
+            tx[0].step(leaves, (grads, hess), state.opt_state)
+        else:
+            loss, grads = loss_and_grads(state, batch)
+            clip_by_global_norm_(list(grads.values()), config.max_grad_norm)
+            tx[0].step(leaves, grads, state.opt_state)
         state.step += 1
         return state, loss
 

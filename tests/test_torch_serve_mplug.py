@@ -3,8 +3,8 @@ the CPU at tiny widths, on the files the JAX package's mPLUG rehearsal
 fabricates (real JPEGs, a toy WordPiece vocab, an answer list): responses
 in arrival order, answers invariant to the serve batch size (padding
 cannot change a real row), an unreadable image errors only its own
-request, rank mode, and the flags not yet ported raise (`--ckpt` is served:
-tests/test_torch_vqa_mplug.py).
+request, rank mode, and --init_ckpt / --use_checkpoint parsed and not read,
+as the JAX server does (`--ckpt` is served: tests/test_torch_vqa_mplug.py).
 The same checks as tests/test_serving_mplug.py makes of the JAX server."""
 import json
 
@@ -89,9 +89,18 @@ def test_serve_rank_mode(root, k_test):
 
 @pytest.mark.parametrize("flag", [["--init_ckpt", "mplug_base.pth"],
                                   ["--use_checkpoint", "true"]])
-def test_unported_flags_raise(root, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_mplug.main(_args(root, flag))
+def test_training_flags_are_parsed_and_not_read(root, flag, caplog):
+    """As the JAX server parses --init_ckpt and --use_checkpoint and never
+    reads them (crvqa_tpu/cli/serve_mplug.py:55-95): the same answers as
+    without the flag (the .pth named here does not even exist), and a
+    logged line says the flag is not read."""
+    reqs = _requests(root, 3)
+    default = _serve(root, reqs, 3, "default")
+    with caplog.at_level("INFO", logger="crvqa_tpu_torch"):
+        flagged = _serve(root, reqs, 3, "flagged", extra=flag)
+    assert flagged == default
+    assert any(f"{flag[0]} is not read" in r.getMessage()
+               for r in caplog.records)
 
 
 def test_without_a_card_the_default_device_raises(root, monkeypatch):

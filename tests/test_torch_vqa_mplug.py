@@ -4,8 +4,10 @@ resets on a moving target, checkpoints, resume, final reset, exports, beam
 and rank evaluation) and on the files the JAX package's mPLUG rehearsal
 fabricates (annotation JSONs, JPEGs, a toy vocab), whose loaders are held
 against the JAX package's; `mask.pt` carries the JAX CLI's keys; `serve_mplug
---ckpt` serves what the trainer wrote; the flags not yet ported raise;
-the reset's k against the JAX package's, where the two differ by one.
+--ckpt` serves what the trainer wrote; every `--opt`, `--use_checkpoint`
+and `--augment true` on files run (the augmented batches equal the JAX
+CLI's); only `--mesh_*` and `--multihost` raise; the reset's k against
+the JAX package's, where the two differ by one.
 """
 import json
 
@@ -341,8 +343,6 @@ def test_serve_ckpt_loads_what_training_changed(root):
 # ------------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("flag", [
-    ["--opt", "adamp"], ["--opt", "sgdp"], ["--opt", "adahessian"],
-    ["--use_checkpoint", "true"], ["--init_ckpt", "mplug_base.pth"],
     ["--mesh_data", "2"], ["--mesh_model", "2"], ["--multihost", "true"]],
     ids=lambda f: f[0].strip("-") + "_" + f[1])
 def test_unported_flags_raise(tmp_path, flag):
@@ -351,11 +351,79 @@ def test_unported_flags_raise(tmp_path, flag):
     assert not (tmp_path / "ckpt_final").exists()
 
 
-def test_augment_on_files_raises(root):
-    argv = [a for a in _file_argv(root, root / "out", ["--do_train"])
-            if a not in ("--augment", "false")]
-    with pytest.raises(NotImplementedError, match="--augment"):
-        vqa_mplug.main(argv)
+@pytest.mark.parametrize("extra", [
+    ["--opt", "adahessian"], ["--opt", "lookahead_lamb"],
+    ["--opt", "adamp", "--mode", "full"], ["--opt", "sgdp"],
+    ["--use_checkpoint", "true"],
+    ["--use_checkpoint", "true", "--opt", "adahessian", "--distill", "true"]],
+    ids=lambda e: "_".join(x.strip("-") for x in e))
+def test_opts_and_checkpointing_train(tmp_path, extra):
+    """The flags that raised before this slice run the CLI end to end:
+    finite losses, the artifacts, a resume from their own checkpoint (the
+    optimizer's state restored by field)."""
+    summary = vqa_mplug.main(_argv(tmp_path, [
+        "--do_train", "--num_train_epochs", "1", *extra]))
+    assert summary["step"] == 4 and all(np.isfinite(summary["losses"]))
+    assert (tmp_path / "ckpt_final").exists()
+    again = vqa_mplug.main(_argv(tmp_path / "again", [
+        "--do_train", "--num_train_epochs", "1", "--resume_from",
+        str(tmp_path / "ckpt_3"), *extra]))
+    assert again["step"] == 3 + 4
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_augment_on_files_feeds_the_jax_batches(root, monkeypatch):
+    """`--augment true` (the default) on image files: the batches that
+    reach the train step are byte-identical to the JAX CLI's (RandAugment
+    on every image from one generator per epoch, one spawned child per
+    image), and the run writes its artifacts."""
+    from crvqa_tpu.cli import vqa_mplug as jcli
+    from crvqa_tpu.train import mplug_train as jtrain
+    from crvqa_tpu_torch.train import mplug_train as ttrain
+
+    argv = [a for a in _file_argv(root, root / "port", [
+        "--do_train", "--train_batch_size", "8", "--save_steps", "0"])
+        if a not in ("--augment", "false")]
+    seen = {"jax": [], "port": []}
+
+    def jax_spy(*a, **kw):
+        def step(state, batch):
+            seen["jax"].append({k: np.asarray(v) for k, v in batch.items()})
+            if len(seen["jax"]) == 2:
+                raise _Stop
+            return state, 0.0
+        return step
+
+    monkeypatch.setattr(jtrain, "make_train_step", jax_spy)
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    jargv[jargv.index("--output_dir") + 1] = str(root / "jax")
+    with pytest.raises(_Stop):
+        jcli.main(jargv)
+    real = ttrain.make_train_step
+
+    def port_spy(*a, **kw):
+        inner = real(*a, **kw)
+
+        def step(state, batch):
+            seen["port"].append({k: v.cpu().numpy() if torch.is_tensor(v)
+                                 else v for k, v in batch.items()})
+            return inner(state, batch)
+        return step
+
+    monkeypatch.setattr(ttrain, "make_train_step", port_spy)
+    summary = vqa_mplug.main(argv)
+    assert summary["step"] == 2 and all(np.isfinite(summary["losses"]))
+    assert len(seen["port"]) == len(seen["jax"]) == 2
+    for got, want in zip(seen["port"], seen["jax"]):
+        assert set(want) <= set(got)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert seen["port"][0]["images"].dtype == np.uint8
+    names = {p.name for p in (root / "port").iterdir()}
+    assert {"mask.pt", "ckpt_final", "metrics.jsonl"} <= names
 
 
 def test_without_a_card_the_default_device_raises(tmp_path, monkeypatch):
