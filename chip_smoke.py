@@ -10,8 +10,9 @@ NVIDIA card: the quickest proof that the port still starts on the GPU.
 Phases (each one's seconds are logged):
   1. device   the card's name, count and power limit; TF32 off for matmuls
               and cuDNN (fp32 comparisons are full fp32).
-  2. build    every CUDA source under crvqa_tpu_torch/csrc and the native
-              feature store, compiled from the checkout, all at once; each
+  2. build    every CUDA source under crvqa_tpu_torch/csrc, the native
+              feature store and WordPiece encoder, compiled from the
+              checkout, all at once; each
               kernel instantiation's registers, shared memory and spills
               (`-Xptxas -v`), its tensor-core instructions (HMMA, and
               HGMMA for `wgmma`) and TMA loads (UTMALDG), from `cuobjdump
@@ -57,7 +58,7 @@ Phases (each one's seconds are logged):
               serve loop at the full width of `MPlugConfig()` (ViT-B-16 at
               384 px, BERT 768 x 12 heads, 6 text / 6 fusion (stride 3) / 12
               decoder layers, vocab 30522) on seeded weights in `--mode
-              mask` (zero rate 0.5, magnitude_soft): 256 requests over
+              mask` (zero rate 0.5, magnitude_soft): 128 requests over
               fabricated uint8 images and a 30522-line vocab, beam 5 at
               batch 8 and 32 in bf16, rank (k_test 10 over 3129 fabricated
               answers) at batch 8 in bf16, and beam at batch 8 in fp32 and
@@ -223,7 +224,30 @@ Phases (each one's seconds are logged):
               (4 steps each, launches as predicted), lamb, adamp and
               adahessian; one fp32 step at batch 8 with dropout on,
               checkpointed and not, bit-equal.
- 23. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
+ 23. resume   the JAX package's training states on the card
+              (`core/convert.py`, `cli/common.resume_any`): (a) stage 2
+              at full LXMERT width, batch 256, compression 0.3/0.3/0.3 at
+              zero rate 0.7, LMH, dropout 0, on two synthetic batches
+              cycled: 2 fp32 steps of the CLI, its step-2 state written in
+              the JAX package's layout (`save_jax_training_state`; bytes,
+              host seconds), read back twice into fresh states (every
+              leaf bit-equal to what was written, the two reads' leaves
+              and generators bit-identical; read seconds), then
+              `prune_debias_vqa --resume_from` that file for 2 fp32 steps
+              against 2 from the port's own ckpt_2 (losses rtol 1e-4,
+              trained leaves atol 2 * lr * steps; 34 + 32 attention
+              launches a step); a bf16 state (dropout 0.1) resumed from
+              it times 4 train steps on one batch kept on the card
+              (finite losses); (b)
+              a 2-step mask-mode mPLUG state at full width as a JAX
+              `ckpt_final`, served by `serve_mplug --ckpt` (bf16 beam at
+              batch 8, 16 requests) with the answers and launches of the
+              port's own ckpt_final of the same state; (c) a stage-3
+              (FT_randMask from phase stage1's .bin, batch 64) and a
+              VisualBERT stage-2 (batch 256) state written in the JAX
+              layout after 2 steps and resumed for 2 (launches, finite
+              losses). Every file is deleted at the end of the phase.
+ 24. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
 The device-time profiles of the serving and training phases (phases 7,
@@ -279,7 +303,7 @@ MIDSEQ_TOL = {"float32": dict(atol=1e-5, rtol=0.0),
               # 0.07 here, so this is tight enough to catch a missed
               # rounding point or a few mishandled padded keys
               "bfloat16": dict(atol=5e-3, rtol=1e-2)}
-MPLUG_REQUESTS = 256
+MPLUG_REQUESTS = 128  # per serve run; the smoke's time limit bounds it
 MPLUG_BATCHES = (8, 32)
 MPLUG_IMAGES = 32
 MPLUG_ANSWERS = 3129  # the size of mPLUG's VQA answer list
@@ -364,19 +388,21 @@ def phase_device(torch, rehearse: bool) -> dict:
 # ----------------------------------------------------------------- phase 2
 
 def phase_build() -> dict:
-    """Compile every CUDA source and the feature store from the checkout,
-    one compiler process each, all started together."""
-    from crvqa_tpu_torch.native import feature_store
+    """Compile every CUDA source, the feature store and the WordPiece
+    encoder from the checkout, one compiler process each, all started
+    together."""
+    from crvqa_tpu_torch.native import feature_store, wordpiece
     from crvqa_tpu_torch.ops import _build
 
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR)
                      if f.endswith(".cu"))
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as pool:
         jobs = {name: pool.submit(_build.load_cuda_library, name)
                 for name in sources}
         jobs["feature_store"] = pool.submit(feature_store._load_lib)
+        jobs["wordpiece"] = pool.submit(wordpiece.load)
         for name, job in jobs.items():
             job.result()
     seconds = time.monotonic() - t0
@@ -1963,6 +1989,7 @@ def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
                 check(abs(target - achieved) <= (0.02 if rehearse else 2e-3),
                       f"mplug-train {tag}: zero rate {achieved} after a reset "
                       f"to {target}")
+            del summary["state"]  # GBs on the card; the checks are done
             return dict(summary, wall_s=wall_s, launches=launches)
 
         # the main path: mask mode, 8 steps, resets at 2 4 6 8, ckpt_6,
@@ -4205,9 +4232,388 @@ def _trained_heads_entry(structured, prefix, err_keys, library, mult,
                      + ", ".join(f"{k}x{v}" for k, v in mult.items())}
 
 
+# ----------------------------------------------------------------- phase 23
+
+RESUME_LR = 5e-5  # the CLI's default: the parity tolerance is 2 * lr * steps
+NO_DROPOUT = ("--hidden_dropout_prob", "0", "--attention_probs_dropout_prob",
+              "0", "--classifier_dropout", "0")
+
+
+def _tree_diff(torch, a, b, path="") -> list[str]:
+    """Paths where two file trees (nested dicts of numpy arrays and bf16
+    tensors) differ in structure, type, dtype, shape or any bit."""
+    import numpy as np
+
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            return [path or "/"]
+        return [d for k in b for d in _tree_diff(torch, a[k], b[k],
+                                                 f"{path}/{k}")]
+    if a is None or b is None:
+        return [] if a is b else [path]
+    raw = lambda x: (x.contiguous().view(torch.int16).numpy().tobytes()
+                     if isinstance(x, torch.Tensor)
+                     else np.ascontiguousarray(x).tobytes())
+    same = (type(a) is type(b) and a.dtype == b.dtype
+            and tuple(a.shape) == tuple(b.shape) and raw(a) == raw(b))
+    return [] if same else [path]
+
+
+def _state_bits_equal(torch, a, b) -> bool:
+    """Two port stage-2 states hold bit-identical tensors and generators."""
+    dicts = lambda s: [s.frozen, s.scores, s.thresholds,
+                       *s.train_params.values(), s.opt_state.mu,
+                       s.opt_state.nu]
+    for x, y in zip(dicts(a), dicts(b)):
+        if set(x) != set(y) or not all(torch.equal(x[k], y[k]) for k in x):
+            return False
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and torch.equal(a.rng.device.get_state(),
+                            b.rng.device.get_state())
+            and torch.equal(a.rng.host.get_state(), b.rng.host.get_state()))
+
+
+def _write_jax(path, tree) -> dict:
+    from crvqa_tpu_torch.core import checkpoint as ckpt
+
+    t0 = time.monotonic()
+    ckpt.save_jax_training_state(path, tree, metadata={
+        "step": int(tree["step"])})
+    return {"bytes": os.path.getsize(path),
+            "write_s": time.monotonic() - t0}
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
+    """Phase resume (a): LXMERT stage 2 at full width."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.cli import prune_debias_vqa
+    from crvqa_tpu_torch.core import checkpoint as ckpt
+    from crvqa_tpu_torch.core import convert
+    from crvqa_tpu_torch.masking.masker import Masker
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.models import LxmertConfig
+    from crvqa_tpu_torch.train import stage2
+
+    on_card = not rehearse
+    fp32 = (LxmertConfig.tiny if rehearse else LxmertConfig)(
+        dtype=torch.float32, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, classifier_dropout=0.0)
+    fwd_mult, bwd_mult = launch_mult(fp32)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    specs = lxmert_mask_specs(fp32.l_layers, fp32.r_layers, fp32.x_layers)
+    model = stage2.lxmert_meta_model(fp32)
+    cfg = stage2.Stage2Config(hidden_size=fp32.hidden_size)
+
+    def argv(tag, dtype, save, *extra):
+        return ["--output_dir", os.path.join(root, tag), "--device",
+                str(device), "--dtype", dtype, "--synthetic",
+                str(2 * TRAIN_BATCH), "--synthetic_pool", "2",
+                "--train_batch_size", str(TRAIN_BATCH), "--eval_batch_size",
+                str(TRAIN_BATCH), "--num_train_epochs", "1",
+                "--logging_steps", "2", "--save_steps", str(save),
+                "--learning_rate", str(RESUME_LR), "--Lang_comp", "0.3",
+                "--Vis_comp", "0.3", "--Fus_comp", "0.3", "--zero_rate",
+                "0.7", "--controlled_init", "magnitude", "--Masker_type",
+                "lmh", "--seed", str(seed), "--do_train", *NO_DROPOUT,
+                *extra] + (["--tiny"] if rehearse else [])
+
+    def counted(tag, fn, steps):
+        summary, launches = _run_counted(fn)
+        _add_launches(total, launches)
+        want = _launch_counts(on_card,
+                              fused_attention_fwd_train=per_fwd * steps,
+                              fused_attention_bwd_stored=per_bwd * steps)
+        check(launches == want, f"resume {tag}: launches {launches} != "
+                                f"{want} ({per_fwd} + {per_bwd} a step)")
+        losses = summary["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"resume {tag}: losses {losses} (want {steps}, finite)")
+        return summary, launches
+
+    out: dict = {"per_step": [per_fwd, per_bwd]}
+    # the port's own run: 2 fp32 steps, ckpt_2 in its format
+    first, _ = counted("stage2 first", lambda: prune_debias_vqa.main(
+        argv("first", "float32", 2)), 2)
+    state = first["state"]
+    ckpt.load_checkpoint(os.path.join(root, "first", "ckpt_2"), state)
+    jax_path = os.path.join(root, "jax_ckpt_2")
+    written = convert.jax_from_stage2_state(state, model, specs, cfg)
+    out["file"] = _write_jax(jax_path, written)
+    del first, state
+    _free(torch, rehearse)
+
+    # read back twice into fresh states: bit-equal to what was written,
+    # and to each other (leaves and generators)
+    params = cli_common.lxmert_initial_params(fp32, seed, None)
+    masker = Masker.create(specs, ModalSparsity.from_compression(
+        0.3, 0.3, 0.3, 0.7), controlled_init="magnitude")
+    reads, states = [], []
+    for _ in range(2):
+        st, _ = stage2.init_state(model, masker, params, cfg, seed, device)
+        t0 = time.monotonic()
+        cli_common.resume_any(jax_path, st, "stage2", cfg, specs)
+        if on_card:
+            torch.cuda.synchronize()
+        reads.append(time.monotonic() - t0)
+        states.append(st)
+    diff = _tree_diff(torch, convert.jax_from_stage2_state(
+        states[0], model, specs, cfg), written)
+    check(not diff, f"resume stage2: {len(diff)} leaves differ from what "
+                    f"was written, first {diff[:3]}")
+    check(_state_bits_equal(torch, *states),
+          "resume stage2: two reads of one file differ")
+    out["file"]["read_s"] = reads
+    del written, states
+    _free(torch, rehearse)
+
+    # timed bf16 steps (dropout 0.1, the main path's) from the file
+    out.update(_resume_timed_bf16(torch, device, rehearse, seed, masker,
+                                  params, jax_path, specs, cfg))
+    del params
+    _free(torch, rehearse)
+
+    # 2 fp32 steps from the JAX-layout file vs from the port's ckpt_2
+    b, out["launches"] = counted("stage2 from the JAX file",
+                                 lambda: prune_debias_vqa.main(argv(
+                                     "from_jax", "float32", 0,
+                                     "--resume_from", jax_path)), 2)
+    c, _ = counted("stage2 from the port's file", lambda: prune_debias_vqa.main(
+        argv("from_port", "float32", 0, "--resume_from",
+             os.path.join(root, "first", "ckpt_2"))), 2)
+    check(b["step"] == c["step"] == 4, f"resume stage2: steps {b['step']}, "
+                                       f"{c['step']} (want 4)")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                       c["losses"]))
+    sb, sc = b["state"], c["state"]
+    leaves = lambda s: {**{f"scores/{k}": v for k, v in s.scores.items()},
+                        **{f"classifier/{k}": v for k, v in
+                           s.train_params["classifier"].items()}}
+    lb, lc = leaves(sb), leaves(sc)
+    max_diff = max(float((lb[k].float() - lc[k].float()).abs().max())
+                   for k in lb)
+    out.update(losses_from_jax=b["losses"], losses_from_port=c["losses"],
+               loss_rel_diff=loss_rel, leaves_max_abs_diff=max_diff)
+    log(f"resume stage2: 2 fp32 steps from the JAX-layout file vs the "
+        f"port's own: losses {b['losses']} / {c['losses']}, trained leaves "
+        f"max |diff| {max_diff:.3g}")
+    check(loss_rel <= 1e-4 and max_diff <= 2 * RESUME_LR * 2,
+          f"resume stage2: the steps from the two files differ (loss rel "
+          f"{loss_rel:.3g} > 1e-4 or leaves {max_diff:.3g} > "
+          f"{2 * RESUME_LR * 2})")
+    del b, c, sb, sc, lb, lc
+    _free(torch, rehearse)
+
+    log(f"resume stage2: JAX-layout file {out['file']['bytes']} bytes, "
+        f"written in {out['file']['write_s']:.2f} s, read and carried in "
+        f"{[round(r, 2) for r in reads]} s; bf16 steps from it: "
+        f"{out['bf16_step_ms']:.2f} ms a step, losses "
+        f"{[round(x, 4) for x in out['bf16_losses']]}")
+    return out
+
+
+def _resume_timed_bf16(torch, device, rehearse, seed, masker, params,
+                       jax_path, specs, cfg) -> dict:
+    """A bf16 stage-2 state at the main path's configuration (dropout
+    0.1) resumed from the JAX-layout file, then timed train steps on one
+    synthetic batch kept on the device (2 warm-up, 4 timed, synchronised;
+    host clock)."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.models import LxmertConfig
+    from crvqa_tpu_torch.train import stage2
+
+    config = (LxmertConfig.tiny if rehearse else LxmertConfig)(
+        dtype=torch.bfloat16)
+    model = stage2.lxmert_meta_model(config)
+    state, tx = stage2.init_state(model, masker, params, cfg, seed, device)
+    cli_common.resume_any(jax_path, state, "stage2", cfg, specs)
+    step_fn = stage2.make_train_step(model, masker, tx, cfg)
+    batch = to_device(synthetic_batch(
+        batch_size=TRAIN_BATCH, seed=seed, vocab_size=config.vocab_size,
+        ans_num=config.ans_num, feat_dim=config.visual_feat_dim,
+        pos_dim=config.visual_pos_dim), device, float_dtype=torch.bfloat16)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    losses = []
+    for _ in range(2):
+        state, m = step_fn(state, batch)
+        losses.append(float(m.loss))
+    sync()
+    t0 = time.monotonic()
+    timed = [step_fn(state, batch)[1].loss for _ in range(4)]
+    sync()
+    step_ms = (time.monotonic() - t0) / 4 * 1e3
+    losses += [float(x) for x in timed]
+    check(state.step == 2 + 6 and all(np.isfinite(losses)),
+          f"resume stage2 bf16: step {state.step}, losses {losses}")
+    return {"bf16_losses": losses, "bf16_step_ms": step_ms}
+
+
+def _resume_mplug(torch, device, rehearse, seed, root, total) -> dict:
+    """Phase resume (b): an mPLUG mask-mode state as a JAX ckpt_final,
+    served by serve_mplug --ckpt beside the port's own ckpt_final."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import vqa_mplug
+    from crvqa_tpu_torch.core import convert
+
+    rng = np.random.default_rng(seed + 41)
+    fab = fabricate_mplug(root, rehearse, rng, n_requests=16)
+    bs = MPLUG_TRAIN_BATCH
+    targv = ["--output_dir", os.path.join(root, "train"), "--device",
+             str(device), "--dtype", "bfloat16", "--seed", str(seed),
+             "--zero_rate", "0.5", "--init_sparsity", "0.3",
+             "--final_sparsity_epoch", "1", "--synthetic", str(2 * bs),
+             "--synthetic_shapes", MPLUG_TRAIN_SHAPES, "--train_batch_size",
+             str(bs), "--eval_batch_size", str(bs), "--num_train_epochs",
+             "1", "--masker_update_step", "2", "--logging_steps", "2",
+             "--save_steps", "0", "--do_train"] + (
+                 ["--tiny"] if rehearse else [])
+    summary, launches = _run_counted(lambda: vqa_mplug.main(targv))
+    _add_launches(total, launches)
+    check(summary["step"] == 2 and all(np.isfinite(summary["losses"])),
+          f"resume mplug: training ended at {summary['step']}, losses "
+          f"{summary['losses']}")
+    args = vqa_mplug.build_parser().parse_args(targv)
+    config, _, model = vqa_mplug.build_model(args)
+    masker = vqa_mplug.build_masker(args, config)
+    cfg = vqa_mplug.train_config(args, 2)
+    jax_final = os.path.join(root, "jax_ckpt_final")
+    out = {"file": _write_jax(jax_final, convert.jax_from_mplug_state(
+        summary["state"], model, cfg, masker.specs))}
+    del summary
+    _free(torch, rehearse)
+    beam = ({} if rehearse else
+            {"midseq_attention_fwd": 18, "fused_attention_fwd": 11})
+    answers = {}
+    for tag, path in (("port", os.path.join(root, "train", "ckpt_final")),
+                      ("jax", jax_final)):
+        sargs = _mplug_args(root, device, rehearse, seed, "bfloat16", 8,
+                            f"resume_{tag}", ("--ckpt", path,
+                                              "--zero_rate", "0.5"))
+        t0 = time.monotonic()
+        responses, served = _serve_mplug(torch, root, fab["images"], sargs,
+                                         device, f"resume_{tag}", beam)
+        served["wall_s"] = time.monotonic() - t0
+        _add_launches(total, served["launches"])
+        answers[tag] = [r["answer"] for r in responses]
+        out[tag] = served
+    same = sum(a == b for a, b in zip(answers["port"], answers["jax"]))
+    log(f"resume mplug: JAX-layout ckpt_final {out['file']['bytes']} bytes "
+        f"({out['file']['write_s']:.2f} s to write); served answers equal "
+        f"to the port's own ckpt_final's: {same}/{len(answers['port'])}")
+    check(same == len(answers["port"]) == 16,
+          f"resume mplug: {same} of {len(answers['port'])} answers equal")
+    out["same_answers"] = same
+    return out
+
+
+def _resume_other(torch, device, rehearse, seed, root, stage1_bin,
+                  total) -> dict:
+    """Phase resume (c): stage 3 and VisualBERT stage 2, 2 steps written in
+    the JAX layout and 2 more resumed from it."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import common as cli_common
+    from crvqa_tpu_torch.cli import prune_debias_vqa_visualbert, run_vqa_stage3
+    from crvqa_tpu_torch.core import convert
+    from crvqa_tpu_torch.masking.spec import visualbert_mask_specs
+    from crvqa_tpu_torch.models import LxmertConfig, VisualBertConfig
+    from crvqa_tpu_torch.train import stage1, stage2
+
+    on_card = not rehearse
+    tiny = ["--tiny"] if rehearse else []
+    lx = (LxmertConfig.tiny if rehearse else LxmertConfig)()
+    vb = (VisualBertConfig.tiny if rehearse else VisualBertConfig)()
+    fwd_mult, bwd_mult = launch_mult(lx)
+    runs = {
+        "stage3": (run_vqa_stage3.main, S1_BATCH,
+                   sum(fwd_mult.values()), sum(bwd_mult.values()),
+                   ["--stage1_ckpt", stage1_bin, "--training_type",
+                    "FT_randMask", "--FT_type", "lmh"],
+                   lambda st: convert.jax_from_stage1_state(
+                       st, stage2.lxmert_meta_model(lx),
+                       stage1.Stage1Config(),
+                       cli_common.lxmert_uniform_masker(lx, 0.7).specs)),
+        "visualbert": (prune_debias_vqa_visualbert.main, TRAIN_BATCH,
+                       vb.num_hidden_layers, vb.num_hidden_layers,
+                       ["--zero_rate", "0.7", "--controlled_init",
+                        "magnitude", "--Masker_type", "lmh"],
+                       lambda st: convert.jax_from_stage2_state(
+                           st, stage2.visualbert_meta_model(vb),
+                           visualbert_mask_specs(vb.num_hidden_layers),
+                           stage2.Stage2Config(classifier_key="cls"))),
+    }
+    out = {}
+    for tag, (main, bs, per_fwd, per_bwd, extra, to_jax) in runs.items():
+        def argv(name, *more):
+            return ["--output_dir", os.path.join(root, f"{tag}_{name}"),
+                    "--device", str(device), "--dtype", "bfloat16",
+                    "--synthetic", str(2 * bs), "--synthetic_pool", "2",
+                    "--train_batch_size", str(bs), "--eval_batch_size",
+                    str(bs), "--num_train_epochs", "1", "--logging_steps",
+                    "2", "--save_steps", "0", "--seed", str(seed),
+                    "--do_train", *extra, *more] + tiny
+
+        first = main(argv("first"))
+        path = os.path.join(root, f"{tag}_jax_ckpt_2")
+        info = _write_jax(path, to_jax(first["state"]))
+        del first
+        _free(torch, rehearse)
+        resumed, launches = _run_counted(lambda: main(argv(
+            "resumed", "--resume_from", path)))
+        _add_launches(total, launches)
+        want = _launch_counts(on_card, fused_attention_fwd_train=per_fwd * 2,
+                              fused_attention_bwd_stored=per_bwd * 2)
+        check(launches == want,
+              f"resume {tag}: launches {launches} != {want}")
+        check(resumed["step"] == 4 and len(resumed["losses"]) == 2
+              and all(np.isfinite(resumed["losses"])),
+              f"resume {tag}: ended at step {resumed['step']}, losses "
+              f"{resumed['losses']}")
+        log(f"resume {tag}: JAX-layout ckpt_2 {info['bytes']} bytes; 2 "
+            f"steps from it: losses "
+            f"{[round(x, 4) for x in resumed['losses']]}; launches "
+            f"{launches}")
+        out[tag] = dict(info, losses=resumed["losses"], launches=launches)
+        del resumed
+        _free(torch, rehearse)
+    return out
+
+
+def phase_resume(torch, device, rehearse: bool, seed: int, stage1_bin: str
+                 ) -> dict:
+    """The JAX package's training states on the card (module docstring,
+    phase 23). `launches` sums every counted run of the phase."""
+    total: dict = {}
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as root:
+        for key, fn, args in (
+                ("stage2", _resume_stage2, ()),
+                ("mplug", _resume_mplug, ()),
+                ("other", _resume_other, (stage1_bin,))):
+            sub = os.path.join(root, key)
+            os.makedirs(sub)
+            out[key] = fn(torch, device, rehearse, seed, sub, *args, total)
+            shutil.rmtree(sub)  # the full-width files are several GB
+    out["launches"] = total
+    return out
+
+
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
-                   vb_train, vqavs, stage3, structured) -> list[dict]:
+                   vb_train, vqavs, stage3, structured, resume) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -4219,7 +4625,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     over its 29 launches (`MIDSEQ_BWD_PER_STEP`). The short kernels'
     `launches` add VisualBERT's paths (phases visualbert-serve and
     visualbert-train) to LXMERT's, and those of phase vqavs and of phase
-    stage3's serving of its .msgpack, and phase structured's runs; their
+    stage3's serving of its .msgpack, phase structured's runs and phase
+    resume's (every kernel that phase runs counts its launches there); their
     `visualbert` entry gives one VisualBERT forward (batch 32) or step
     (batch 256) at (50,50), their `trained_heads` entry one stage-3 step
     (forward) at the kept head count of phase structured's head mask."""
@@ -4232,6 +4639,7 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     struct_runs = [structured[k]["launches"]
                    for k in ("heads", "layers", "stage3")]
     struct_launches = lambda name: sum(r[name] for r in struct_runs)
+    resume_launches = lambda name: resume["launches"].get(name, 0)
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -4246,7 +4654,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "launches": (serve["launches"] + vb_serve["launches"]
                      + vqavs["launches"]["fused_attention_fwd"]
                      + msgpack_launches
-                     + struct_launches("fused_attention_fwd")),
+                     + struct_launches("fused_attention_fwd")
+                     + resume_launches("fused_attention_fwd")),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4259,7 +4668,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    f"stage-2 evals {vqavs['launches']['fused_attention_fwd']}"
                    f", serving stage 3's .msgpack {msgpack_launches}, "
                    f"structured stage 2 and 3 "
-                   f"{struct_launches('fused_attention_fwd')}",
+                   f"{struct_launches('fused_attention_fwd')}, resumes and "
+                   f"their serving {resume_launches('fused_attention_fwd')}",
         "trained_heads": _trained_heads_entry(
             structured, "primal", ("primal_err",), "library_primal_ms",
             fwd_mult, structured["stage3"]["launches"][
@@ -4283,7 +4693,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "name": "midseq_attention_fwd", "route": "cuda",
         "source": src + "midseq_attention_fwd.cu",
         "replaces": "crvqa_tpu/ops/midseq_attention.py:103",
-        "launches": mplug["main_launches"]["midseq_attention_fwd"],
+        "launches": (mplug["main_launches"]["midseq_attention_fwd"]
+                     + resume_launches("midseq_attention_fwd")),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4326,7 +4737,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
             "replaces": replaces,
             "launches": (launches + vb_train["launches"][name]
                          + vqavs["launches"][name]
-                         + struct_launches(name)),
+                         + struct_launches(name)
+                         + resume_launches(name)),
             "max_abs_err": max(r[k] for r in main for k in err_keys),
             "ms": tot(f"{kind}_ms"), "plain_ms": tot(f"{kind}_plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4339,7 +4751,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                        f"{launches}, VisualBERT stage 2 "
                        f"{vb_train['launches'][name]}, VQA-VS stage 2 "
                        f"{vqavs['launches'][name]}, structured stage 2 "
-                       f"and 3 {struct_launches(name)}",
+                       f"and 3 {struct_launches(name)}, resumes "
+                       f"{resume_launches(name)}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
@@ -4363,7 +4776,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "name": "midseq_attention_bwd", "route": "cuda",
         "source": src + "midseq_attention_bwd.cu",
         "replaces": "crvqa_tpu/ops/midseq_attention.py:133",
-        "launches": mplug_train["main"]["launches"]["midseq_attention_bwd"],
+        "launches": (mplug_train["main"]["launches"]["midseq_attention_bwd"]
+                     + resume_launches("midseq_attention_bwd")),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": tot("ms"), "plain_ms": tot("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4557,6 +4971,8 @@ def main(argv=None) -> int:
                            keep.name)
         mplug_files = phase("mplug-files", phase_mplug_files, torch, device,
                             rehearse, seed)
+        resume = phase("resume", phase_resume, torch, device, rehearse, seed,
+                       stage1["bin"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4570,7 +4986,7 @@ def main(argv=None) -> int:
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
                              compact, vb_serve, vb_train, vqavs, stage3,
-                             structured)
+                             structured, resume)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -4587,7 +5003,8 @@ def main(argv=None) -> int:
                        "visualbert_train": vb_train,
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
                        "structured": structured,
-                       "mplug_files": mplug_files, "kernels": kernels},
+                       "mplug_files": mplug_files, "resume": resume,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)

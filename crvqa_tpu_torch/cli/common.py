@@ -138,8 +138,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="batches prepared and copied to the device ahead "
                         "on a producer thread; 0 disables")
     p.add_argument("--resume_from", type=str, default=None,
-                   help="a checkpoint written by this port (ckpt_<step>); "
-                        "the JAX package's msgpack ckpt_<step> is refused")
+                   help="a ckpt_<step> written by this port or by the JAX "
+                        "package's CLI of the same name (its msgpack "
+                        "training state)")
     p.add_argument("--train_shuffle", type=str2bool, default=True)
     p.add_argument("--hidden_dropout_prob", type=float, default=None)
     p.add_argument("--attention_probs_dropout_prob", type=float, default=None)
@@ -527,7 +528,8 @@ def load_params_any(path: Optional[str], state: dict[str, torch.Tensor],
     `_FT_trainedMask.bin.msgpack`), carried over by `state_dict_from_jax`.
     Either way every key of `state` must be present at its shape. A
     training state (the JAX package's `ckpt_<step>`: the step, the
-    parameters, the optimizer's state) is refused.
+    parameters, the optimizer's state) is refused, as the JAX function
+    refuses it (it goes to `--resume_from`, `resume_any`).
 
     `torch_loader(path, state)` replaces the torch branch for a model's own
     name shims (the mPLUG importer, as the JAX function's hook);
@@ -546,13 +548,43 @@ def load_params_any(path: Optional[str], state: dict[str, torch.Tensor],
 
     tree = load_msgpack(path)
     if isinstance(tree, dict) and {"step", "opt_state"} <= set(tree):
-        raise NotImplementedError(
-            f"{path}: a training state (the JAX package's ckpt_<step>), "
-            "not a params file: reading the params out of it is not yet "
-            "ported to crvqa_tpu_torch (ROADMAP); pass the params file its "
-            "stage 1 or 3 wrote (<label4save>_FT*.bin.msgpack)")
+        raise ValueError(
+            f"{path}: a training state (the JAX package's ckpt_<step>: the "
+            "step, the parameters, the optimizer's state), not a params "
+            "file; the JAX package's load_params_any cannot read one either "
+            "(its from_bytes into a params template fails). Resume it with "
+            "--resume_from, or pass the params file its stage 1 or 3 wrote "
+            "(<label4save>_FT*.bin.msgpack)")
     return torch_compat.fill_state_dict(
         (from_jax or state_dict_from_jax)(tree), state)
+
+
+def resume_any(path: str, state, kind: str, config, specs=()):
+    """`--resume_from` of either package's checkpoint into `state` (built
+    by the run's `init_state`), in place; returns it. A zip archive is this
+    port's own checkpoint (`core/checkpoint.py`); a msgpack map is the JAX
+    package's training state (`ckpt_<step>`, `ckpt_final`), carried over
+    by `core/convert.py`, whose parameters replace the run's (the JAX
+    CLIs' `load_checkpoint` replaces the whole state). `kind`: 'stage2',
+    'stage1' (stages 1 and 3) or 'mplug' (a training or a serving state);
+    `config` the state's training config, `specs` the masker's."""
+    from ..core import checkpoint as ckpt
+    from ..core import convert
+
+    if ckpt.checkpoint_format(path) == "port":
+        return {"stage2": ckpt.load_checkpoint,
+                "stage1": ckpt.load_stage1_checkpoint,
+                "mplug": ckpt.load_mplug_checkpoint}[kind](path, state)
+    tree = ckpt.load_jax_training_state(path)
+    if kind == "stage2":
+        convert.stage2_state_from_jax(state, tree, specs, config)
+    elif kind == "stage1":
+        convert.stage1_state_from_jax(state, tree, config, specs)
+    else:
+        convert.mplug_state_from_jax(state, tree, config, specs)
+    logger.info("resumed from the JAX package's training state %s at step "
+                "%d", path, int(tree["step"]))
+    return state
 
 
 def save_params_msgpack(path: str, state: dict[str, torch.Tensor],

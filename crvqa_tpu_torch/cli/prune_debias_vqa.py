@@ -24,9 +24,13 @@ to their weights and, with `heads`, `head_mask.npy` the language layers'
 the card (`--device cuda`, the default, raising without one); `--device
 cpu` runs the kernels' plain versions.
 
+`--resume_from` takes a `ckpt_<step>` of this port or of the JAX
+package's stage-2 CLI (`common.resume_any`; the JAX state's backbone
+replaces the --seed / --stage1_ckpt one, as its own resume does).
+
 Not yet ported (raise when set away from their defaults): `--scan_layers`,
 `--steps_per_dispatch` > 1, `--zero_opt`, `--mesh_*`, `--multihost`; a
-`--resume_from` of the JAX package's msgpack `ckpt_<step>`. `--model_type`
+JAX `ckpt_<step>` written under `--scan_layers`. `--model_type`
 other than lxmert raises too: the JAX CLI parses it and never reads it,
 building LXMERT whatever it says (`common.reject_model_type`).
 """
@@ -178,7 +182,8 @@ def run(args) -> dict:
                                   device)
     del params
     if args.resume_from:
-        ckpt.load_checkpoint(args.resume_from, state)
+        common.resume_any(args.resume_from, state, "stage2", cfg,
+                          masker.specs)
     step_fn = stage2.make_train_step(model, masker, tx, cfg)
     reset_fn = stage2.make_threshold_reset(masker)
     eval_fn = stage2.make_eval_step(model, masker)

@@ -24,9 +24,11 @@ formats. Step metrics go to `metrics.jsonl` (and `--tensorboard_dir`,
 (`common.ProfileWindow`). Runs on the card (`--device cuda`, the default,
 raising without one); `--device cpu` runs the kernels' plain versions.
 
+`--resume_from` takes a `ckpt_<step>` of this port or of the JAX CLI
+(`common.resume_any`).
+
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`; a `--resume_from` of the JAX package's msgpack `ckpt_<step>`;
-`--model_type` other than visualbert (the JAX CLI parses it and builds
+`--multihost`; `--model_type` other than visualbert (the JAX CLI parses it and builds
 VisualBERT whatever it says). `--dataset vqavs` reads the VQA-VS files.
 """
 from __future__ import annotations
@@ -98,7 +100,8 @@ def main(argv=None) -> dict:
 
 def run(args) -> dict:
     """The stage-2 run; returns a summary: final step, every step's loss,
-    best eval accuracy and the zero rates of the last export."""
+    best eval accuracy, the zero rates of the last export and the final
+    state (`state`)."""
     if args.model_type != "visualbert":
         raise NotImplementedError(
             f"--model_type {args.model_type}: prune_debias_vqa_visualbert "
@@ -141,7 +144,8 @@ def run(args) -> dict:
                                   device)
     del params
     if args.resume_from:
-        ckpt.load_checkpoint(args.resume_from, state)
+        common.resume_any(args.resume_from, state, "stage2", cfg,
+                          masker.specs)
     step_fn = stage2.make_train_step(model, masker, tx, cfg)
     reset_fn = stage2.make_threshold_reset(masker)
     eval_fn = stage2.make_eval_step(model, masker, cfg)
@@ -229,7 +233,7 @@ def run(args) -> dict:
             dump_predictions(os.path.join(args.output_dir, "test.json"),
                              out["logits"], out["question_id"], label2ans)
     summary.update(step=state.step, losses=[float(x) for x in losses],
-                   best_acc=best if best >= 0 else None)
+                   best_acc=best if best >= 0 else None, state=state)
     return summary
 
 

@@ -11,8 +11,8 @@ Starts from `--init_ckpt` (a torch .bin/.pt state_dict or module pickle,
 or the JAX package's msgpack params file; seeded init without one), trains
 every parameter under `--FT_type`'s loss with the clipped Adam of
 `train/stage1.py`, checkpoints every `--save_steps` (`ckpt_<step>`, the
-port's torch format, keep 2; resumable with `--resume_from`, which refuses
-the JAX package's msgpack `ckpt_<step>`) and, with
+port's torch format, keep 2; resumable with `--resume_from`, which also
+takes the JAX CLI's msgpack `ckpt_<step>`, `common.resume_any`) and, with
 `--evaluate_during_training`, evaluates there, writing `test.json` and the
 parameters as `<label4save>_FT{only,lmh_only,lpf_only,rubi_only}.bin` with
 its `.msgpack` twin (the JAX package's params file) at each new best (the
@@ -108,12 +108,13 @@ def run(args) -> dict:
 
 def train_and_evaluate(args, config: LxmertConfig,
                        params: dict[str, torch.Tensor], masks, device,
-                       bin_path: str) -> dict:
+                       bin_path: str, specs=()) -> dict:
     """The stage-1/3 loop shared by both drivers (`run_vqa_stage1.py` /
     `run_vqa_stage3.py` of the JAX package): train with logging, periodic
     checkpoints and evaluations, the best parameters to `bin_path`, then
     the final evaluation. `masks` (stage 3) are the constant masks by
-    weight name, or None. Each save writes `bin_path` and, for the JAX
+    weight name, or None; `specs` the masker's that keyed them (a JAX
+    `--resume_from` keys its masks by spec). Each save writes `bin_path` and, for the JAX
     package, `bin_path + ".msgpack"`."""
     common.init_metrics(args)
     train_batches, eval_batches, label2ans, n_train = common.build_data(
@@ -122,7 +123,7 @@ def train_and_evaluate(args, config: LxmertConfig,
     state, tx = stage1.init_state(params, cfg, args.seed, device, masks=masks)
     del params
     if args.resume_from:
-        ckpt.load_stage1_checkpoint(args.resume_from, state)
+        common.resume_any(args.resume_from, state, "stage1", cfg, specs)
     model = lxmert_meta_model(config)
     step_fn = stage1.make_train_step(model, cfg, tx)
     eval_fn = stage1.make_eval_step(model)

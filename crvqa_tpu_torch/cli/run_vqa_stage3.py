@@ -30,7 +30,8 @@ JAX package's params file and the only file its stage 3 writes, at the
 best evaluation or, when none ran, at the end; the port also writes the
 torch state_dict under the name without `.msgpack`. `--stage1_ckpt` takes
 either kind of file, `--dataset vqavs` the VQA-VS files; `--resume_from`
-refuses the JAX package's msgpack `ckpt_<step>`. Metrics, TensorBoard,
+takes this port's `ckpt_<step>` or the JAX CLI's msgpack one (its masks
+too, `common.resume_any`). Metrics, TensorBoard,
 wandb and `--profile_dir` as stage 1 (the shared loop).
 
 Not yet ported (raise when set away from their defaults): `--mesh_*`,
@@ -120,6 +121,7 @@ def run(args) -> dict:
 
     masks = None
     rate = None
+    specs = ()
     if args.head_mask_npy or args.ffn_mask_npy:
         # physical compaction (HF prune_heads / prune_ffns), in place of an
         # unstructured mask
@@ -140,6 +142,7 @@ def run(args) -> dict:
         config = lxmert_config(args, **overrides)
     else:
         masker = common.lxmert_uniform_masker(config, args.zero_rate)
+        specs = masker.specs
         if args.training_type == "FT_randMask":
             if args.rand_scope == "reference":
                 masks = reference_rand_masks(params, masker.specs,
@@ -164,7 +167,7 @@ def run(args) -> dict:
               else "FT_randMask.bin")  # the reference's own spelling
     bin_path = os.path.join(args.output_dir, args.label4save + suffix)
     summary = train_and_evaluate(args, config, params, masks, device,
-                                 bin_path)
+                                 bin_path, specs)
     summary.update(zero_rate=rate, lang_num_heads=config.lang_num_heads,
                    lang_intermediate_size=config.lang_intermediate_size)
     return summary

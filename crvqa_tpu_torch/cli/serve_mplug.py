@@ -15,7 +15,9 @@ protocol and stats line as `serve_vqa`).
   `--zero_rate`; `--mode full` the unmasked weights. Weights are seeded
   from `--seed`; `--ckpt` lays a checkpoint written by
   `crvqa_tpu_torch.cli.vqa_mplug` (a `ckpt_<step>` or `ckpt_final`) over
-  them: its trained parameters, scores and thresholds. `--init_ckpt` and
+  them: its trained parameters, scores and thresholds; or the JAX
+  package's `ckpt_final` / `ckpt_<step>`, whose parameters (all of them),
+  scores and thresholds are kept, as the JAX server keeps them. `--init_ckpt` and
   `--use_checkpoint` are parsed and not read, as the JAX server parses and
   ignores them (a logged line says so): serving never loads the training
   init, and has no backward to recompute for.
@@ -41,7 +43,6 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from ..core import checkpoint as ckpt
 from ..device import resolve_device
 from ..train import mplug_train
 from . import common, vqa_mplug
@@ -52,9 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = vqa_mplug.build_parser()
     p.prog = "serve_mplug"
     p.add_argument("--ckpt", type=str, default=None,
-                   help="a checkpoint written by crvqa_tpu_torch.cli."
-                        "vqa_mplug with the same --mode, --seed and masker "
-                        "flags")
+                   help="a ckpt_final / ckpt_<step> written by "
+                        "crvqa_tpu_torch.cli.vqa_mplug (same --mode, --seed "
+                        "and masker flags) or by the JAX package's")
     p.add_argument("--serve_batch_size", type=int, default=8)
     p.add_argument("--max_wait_ms", type=float, default=20.0)
     p.add_argument("--input", type=str, default="-",
@@ -73,7 +74,8 @@ def build_state(args, config, model, masker, device
         model, vqa_mplug.initial_params(args, config), cfg, device,
         masker=masker, seed=args.seed)
     if args.ckpt:
-        ckpt.load_mplug_checkpoint(args.ckpt, state)
+        common.resume_any(args.ckpt, state, "mplug", cfg,
+                          masker.specs if masker is not None else None)
     return state
 
 

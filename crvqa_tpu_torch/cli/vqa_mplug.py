@@ -10,7 +10,8 @@ thresholds are reset to the MaskerScheduler's target at the fractional
 epoch; `--mode full` trains every parameter; `--distill true` adds the
 momentum twins' soft labels. It logs `ex_s` every `--logging_steps`,
 writes `ckpt_<step>` every `--save_steps` (`--resume_from` restarts from
-one), and ends with a final reset, `mask.pt`, `mask_config.json` and
+one, or from the JAX CLI's `ckpt_<step>`: `common.resume_any`, the
+`--opt` states by `core/convert.MPLUG_OPT_LAYOUTS`), and ends with a final reset, `mask.pt`, `mask_config.json` and
 `ckpt_final`. `--do_eval` / `--do_predict` answer `--test_files` by beam
 search or by ranking `--answer_list` into `vqa_result.json`, fetching each
 batch's result `--eval_pipeline_depth` batches late. `serve_mplug --ckpt`
@@ -391,7 +392,8 @@ def main(argv=None) -> dict:
 def run(args) -> dict:
     """The run; returns a summary: final step, every step's loss, each
     threshold reset's (step, target, achieved zero rate), the last export's
-    zero rates and the number of predictions."""
+    zero rates, the number of predictions and the final state
+    (`state`)."""
     common.reject_unported(args, MPLUG_UNPORTED)
     device = resolve_device(args.device)
     common.setup_logging(args.output_dir)
@@ -429,7 +431,8 @@ def run(args) -> dict:
             for k, t in params_m.items():
                 state.params_m[k].copy_(t)
     if args.resume_from:
-        ckpt.load_mplug_checkpoint(args.resume_from, state)
+        common.resume_any(args.resume_from, state, "mplug", cfg,
+                          masker.specs if masker is not None else None)
     gen_fn = mplug_train.make_generate_step(
         model, cfg, masker=masker, beam_size=args.beam_size,
         max_len=args.max_answer_len, min_length=args.min_length,
@@ -513,7 +516,7 @@ def run(args) -> dict:
         results = evaluate(args, config, tokenizer, model, masker, cfg,
                            state, gen_fn, eval_batches(), device)
         summary["num_predictions"] = len(results)
-    summary["step"] = state.step
+    summary.update(step=state.step, state=state)
     return summary
 
 

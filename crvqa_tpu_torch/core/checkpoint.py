@@ -17,9 +17,11 @@ stored: a resumed or serving run rebuilds it from the same checkpoint or
 `save_msgpack` / `load_msgpack` write and read a tree in the JAX package's
 format (`flax.serialization.to_bytes`, through the port's own codec
 `core/msgpack.py`): the parameter files its stage 1 writes beside the
-`.bin` and its stage 3 writes alone. Its `ckpt_<step>` training states are
-msgpack files too; a resume from one is refused
-(`check_port_checkpoint`).
+`.bin` and its stage 3 writes alone. Its `ckpt_<step>` / `ckpt_final`
+training states are msgpack files too: `checkpoint_format` tells the two
+kinds of file apart, `load_jax_training_state` reads such a state and
+`save_jax_training_state` writes one; `core/convert.py` maps it onto the
+port's states and back, and `cli/common.resume_any` picks the reader.
 """
 from __future__ import annotations
 
@@ -74,25 +76,52 @@ def load_msgpack(path: str) -> Any:
     return msgpack.read_file(path)
 
 
-def check_port_checkpoint(path: str) -> None:
-    """Refuse, before `torch.load` fails on it, a `--resume_from` that is
-    not a checkpoint of this port (torch.save writes a zip archive): the
-    JAX package's `ckpt_<step>` is a msgpack training state."""
+def checkpoint_format(path: str) -> str:
+    """'port' for a checkpoint this port wrote (torch.save writes a zip
+    archive), 'jax' for the JAX package's (a msgpack map,
+    flax.serialization); anything else raises."""
     if zipfile.is_zipfile(path):
-        return
+        return "port"
     with open(path, "rb") as f:
         head = f.read(1)
     # a non-empty map (0x80, the empty one, also opens a pickle)
     if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
-        raise NotImplementedError(
-            f"{path}: a msgpack training state (the JAX package's "
-            "ckpt_<step>, flax.serialization): resuming from it is not yet "
-            "ported to crvqa_tpu_torch (ROADMAP); resume from a ckpt_<step> "
-            "this port wrote")
+        return "jax"
+    raise ValueError(f"{path}: neither a checkpoint of this port (a zip "
+                     "archive) nor the JAX package's (a msgpack map)")
+
+
+def load_jax_training_state(path: str) -> dict:
+    """The JAX package's `ckpt_<step>` / `ckpt_final` as a nested dict
+    (numpy arrays, bfloat16 leaves as `torch.bfloat16` tensors, the
+    optimizer's tuples as dicts keyed "0", "1", ...). A msgpack file
+    without the step and the optimizer state (a params file) raises."""
+    tree = load_msgpack(path)
+    if not (isinstance(tree, dict) and {"step", "opt_state"} <= set(tree)):
+        raise ValueError(f"{path}: not a training state of the JAX package "
+                         "(no step / opt_state); a params file goes to "
+                         "--stage1_ckpt, --init_ckpt or serve_vqa --ckpt")
+    return tree
+
+
+def save_jax_training_state(path: str, tree: dict,
+                            metadata: Optional[dict] = None) -> None:
+    """Write a training state in the JAX package's layout (built by
+    `core/convert.jax_from_*_state`) as its `save_checkpoint` does:
+    msgpack to `<path>.tmp`, renamed over `path`, and `<path>.meta.json`;
+    its `load_checkpoint` reads the file into the state template of the
+    same run configuration."""
+    if not {"step", "opt_state"} <= set(tree):
+        raise ValueError("a training state holds step and opt_state")
+    save_msgpack(path, tree, metadata)
 
 
 def _read(path: str) -> dict:
-    check_port_checkpoint(path)
+    if checkpoint_format(path) != "port":
+        raise ValueError(f"{path}: the JAX package's training state; read "
+                         "it with load_jax_training_state and carry it "
+                         "over with core/convert.py (cli/common.resume_any "
+                         "does both)")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -1,5 +1,6 @@
-"""Self-contained BERT WordPiece tokenizer, pure Python (the port's copy of
-`crvqa_tpu/data/tokenization.py` without its native bulk encoder).
+"""Self-contained BERT WordPiece tokenizer (the port's copy of
+`crvqa_tpu/data/tokenization.py`): pure Python, plus the native C++ bulk
+encoder (`native/wordpiece.py`) behind `raw_ids_batch`.
 
 The exact algorithm of the vendored `hg_transformers/tokenization_bert.py`
 (BasicTokenizer :347-483, WordpieceTokenizer :485-543): text cleaning, CJK
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import unicodedata
 from typing import Iterable, Sequence, Union
+
+from ..native.wordpiece import NativeWordPiece, dense_ids
 
 _CJK_RANGES = (
     (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
@@ -123,10 +126,19 @@ SPECIAL_TOKENS = ("[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]")
 
 
 class WordPieceTokenizer:
-    """The slice of `BertTokenizer` the serving paths use, over a BERT
-    `vocab.txt` (one token per line, id = line number)."""
+    """The slice of `BertTokenizer` the training and serving paths use, over
+    a BERT `vocab.txt` (one token per line, id = line number).
 
-    def __init__(self, vocab_file: str, do_lower_case: bool = True):
+    Batches go through `raw_ids_batch`: rows of ASCII text through the
+    native encoder (built with g++ at the first batch; a failed build
+    raises), the rest through the Python algorithm, with the same ids. The
+    Python path takes every row when `native` is False, when the vocab's
+    ids are not 0..n-1 (a repeated line in vocab.txt) or without
+    lowercasing (the C++ encoder implements the lowercasing spec), as in
+    the JAX package."""
+
+    def __init__(self, vocab_file: str, do_lower_case: bool = True,
+                 native: bool = True):
         with open(vocab_file, encoding="utf-8") as f:
             self.vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
         self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
@@ -142,6 +154,49 @@ class WordPieceTokenizer:
         self.cls_token_id = self.vocab[self.cls_token]
         self.sep_token_id = self.vocab[self.sep_token]
         self.pad_token_id = self.vocab[self.pad_token]
+        self._native = None if (native and do_lower_case
+                                and dense_ids(self.vocab)) else False
+
+    def _native_handle(self):
+        """The native encoder (built at the first call), or False."""
+        if self._native is None:
+            self._native = NativeWordPiece(
+                self.vocab, self.all_special_tokens, self.unk_token_id)
+        return self._native
+
+    def raw_ids_batch(self, texts: Sequence[str], cap: int = 512
+                      ) -> list[list[int]]:
+        """Raw wordpiece ids per text, at most `cap` (no specials added):
+        the bulk tokenization entry (`crvqa_tpu/data/tokenization.py:
+        159-173`). ASCII rows run through the native encoder; a row with a
+        non-ASCII byte, or with a special token glued to other text (HF
+        splits those out as substrings, the C++ encoder only between
+        spaces), through the Python algorithm."""
+        native = self._native_handle()
+        if native:
+            rows = native.encode_batch(list(texts), cap=cap)
+            rows = [None if self._has_glued_special(t) else r
+                    for r, t in zip(rows, texts)]
+        else:
+            rows = [None] * len(texts)
+        return [r if r is not None
+                else self.convert_tokens_to_ids(self.tokenize(t))[:cap]
+                for r, t in zip(rows, texts)]
+
+    def _has_glued_special(self, text: str) -> bool:
+        """True if a special token occurs not delimited by whitespace."""
+        for sp in self.all_special_tokens:
+            start = 0
+            while True:
+                i = text.find(sp, start)
+                if i < 0:
+                    break
+                j = i + len(sp)
+                if not ((i == 0 or text[i - 1].isspace())
+                        and (j == len(text) or text[j].isspace())):
+                    return True
+                start = j
+        return False
 
     def _split_on_specials(self, text: str) -> list[str]:
         """Split special tokens out of the raw text as substrings, before
@@ -195,8 +250,7 @@ class WordPieceTokenizer:
         if isinstance(texts, str):
             texts = [texts]
         ids, mask = [], []
-        for t in texts:
-            r = self.convert_tokens_to_ids(self.tokenize(t))
+        for r in self.raw_ids_batch(texts, cap=max(512, max_length)):
             if add_special_tokens:
                 r = ([self.cls_token_id] + r[: max(0, max_length - 2)]
                      + [self.sep_token_id])

@@ -44,14 +44,16 @@ def tokenize_questions(questions: Sequence[str], tokenizer,
                        ) -> tuple[np.ndarray, np.ndarray]:
     """Fixed-length-14 WordPiece ids padded with [PAD]
     (`VQAFeatureDataset.tokenize`, dataset_LXM.py:189-226: no [CLS]/[SEP],
-    truncate-or-pad to 14). Returns (ids [N, 14] int32, lengths [N])."""
+    truncate-or-pad to 14), through the tokenizer's bulk `raw_ids_batch`
+    (the native encoder for ASCII rows). Returns (ids [N, 14] int32,
+    lengths [N])."""
     pad_id = tokenizer.convert_tokens_to_ids("[PAD]")
     ids = np.full((len(questions), max_length), pad_id, np.int32)
     lengths = np.zeros(len(questions), np.int32)
-    for i, q in enumerate(questions):
-        toks = tokenizer.tokenize(q)[:max_length]
-        ids[i, : len(toks)] = tokenizer.convert_tokens_to_ids(toks)
-        lengths[i] = len(toks)
+    for i, row in enumerate(tokenizer.raw_ids_batch(questions,
+                                                    cap=max_length)):
+        ids[i, : len(row)] = row
+        lengths[i] = len(row)
     return ids, lengths
 
 

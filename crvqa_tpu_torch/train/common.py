@@ -12,6 +12,7 @@ package's, step for step.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Callable, Optional, Union
 
@@ -146,15 +147,54 @@ class HfAdamW:
 class TrainRNG:
     """The generators a training state carries. `device`: dropout masks
     (and scheme 3's bernoulli); `host` (CPU): the attention kernels'
-    per-call dropout seeds."""
+    per-call dropout seeds.
+
+    A JAX training state carries a PRNG key instead (uint32 words). Its
+    streams cannot be reproduced by torch's generators, so the key only
+    seeds them, by one rule (`from_jax_key`): the words read as one
+    big-endian integer s modulo 2^64 seed `device` with s and `host` with
+    s + 1 (mod 2^64). The key `PRNGKey(n)` of a `--seed n` run, [0, n],
+    so gives the generators of `from_seed(n)`, and two resumes of one file
+    draw the same numbers. `to_jax_key` goes back: the key the generators
+    were made from while they have drawn nothing since, else two words of
+    the SHA-256 of both generators' states (a key no earlier run drew
+    from, the same for the same states)."""
 
     device: torch.Generator
     host: torch.Generator
+    key: Optional[np.ndarray] = None  # the uint32 words of the seed
+    seeded: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @classmethod
     def from_seed(cls, seed: int, device) -> "TrainRNG":
-        return cls(torch.Generator(device=device).manual_seed(seed),
-                   torch.Generator().manual_seed(seed + 1))
+        seed %= 2 ** 64
+        rng = cls(torch.Generator(device=device).manual_seed(seed),
+                  torch.Generator().manual_seed((seed + 1) % 2 ** 64))
+        rng.key = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+        rng.seeded = rng._states()
+        return rng
+
+    @classmethod
+    def from_jax_key(cls, key, device) -> "TrainRNG":
+        words = np.asarray(key, np.uint32).reshape(-1)
+        seed = 0
+        for w in words:
+            seed = (seed << 32 | int(w)) % 2 ** 64
+        rng = cls.from_seed(seed, device)
+        rng.key = words.copy()
+        return rng
+
+    def _states(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.device.get_state(), self.host.get_state()
+
+    def to_jax_key(self) -> np.ndarray:
+        states = self._states()
+        if self.key is not None and self.seeded is not None and all(
+                torch.equal(a, b) for a, b in zip(states, self.seeded)):
+            return self.key.copy()
+        digest = hashlib.sha256(b"".join(
+            s.cpu().numpy().tobytes() for s in states)).digest()
+        return np.frombuffer(digest[:8], ">u4").astype(np.uint32)
 
 
 @dataclasses.dataclass

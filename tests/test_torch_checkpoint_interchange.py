@@ -16,8 +16,8 @@ dropout; the JAX package writes its checkpoints inside the test):
   gives the port the same starting params;
 - `jax_tree_from_state_dict` inverts `state_dict_from_jax` on the LXMERT
   and VisualBERT trees the JAX package builds;
-- a JAX `ckpt_<step>` given to `--resume_from` is refused with a clear
-  error by every LXMERT / VisualBERT training CLI.
+- a JAX `ckpt_<step>` of another stage given to `--resume_from` is
+  refused with a clear error by every LXMERT / VisualBERT training CLI.
 """
 import json
 import pickle
@@ -242,24 +242,31 @@ def test_jax_tree_from_state_dict_inverts_state_dict_from_jax(model):
 
 
 RESUME_CLIS = {
-    "stage1": (run_vqa_stage1, []),
-    "stage3": (run_vqa_stage3, ["--training_type", "FT_randMask"]),
-    "stage2": (prune_debias_vqa, []),
-    "visualbert": (prune_debias_vqa_visualbert, []),
+    "stage1": (run_vqa_stage1, [], "stage-2"),
+    "stage3": (run_vqa_stage3, ["--training_type", "FT_randMask"], "stage-2"),
+    "stage2": (prune_debias_vqa, [], "stage-1/3"),
+    "visualbert": (prune_debias_vqa_visualbert, [], "stage-1/3"),
 }
 
 
 @pytest.mark.parametrize("cli", sorted(RESUME_CLIS))
 def test_resume_from_a_jax_ckpt_is_refused(runs, tmp_path, cli):
-    """`--resume_from` of the JAX package's msgpack `ckpt_<step>` names the
-    format and the ROADMAP instead of failing inside torch.load."""
-    module, extra = RESUME_CLIS[cli]
-    jax_ckpt = runs / "jax_s1" / "ckpt_4"
+    """`--resume_from` of the JAX package's msgpack `ckpt_<step>` of another
+    stage names both kinds instead of failing inside the carry (a JAX
+    `ckpt_<step>` of the CLI's own stage resumes:
+    tests/test_torch_resume_interchange.py)."""
+    module, extra, kind = RESUME_CLIS[cli]
+    if kind == "stage-1/3":
+        jax_ckpt = runs / "jax_s1" / "ckpt_4"
+    else:
+        jax_ckpt = tmp_path / "ckpt_2"
+        jckpt.save_checkpoint(str(jax_ckpt), {
+            "step": np.int32(2), "frozen_params": {"lxmert": {}},
+            "opt_state": {"0": {}}, "rng": np.zeros(2, np.uint32)})
     assert jax_ckpt.read_bytes()[:1] in {bytes([b]) for b in range(0x81,
                                                                    0x90)}
-    with pytest.raises(NotImplementedError,
-                       match="msgpack training state.*ROADMAP"):
-        module.main(["--output_dir", str(tmp_path), "--tiny", "--device",
-                     "cpu", "--synthetic", "8", "--train_batch_size", "8",
-                     "--dtype", "float32", "--do_train", "--resume_from",
-                     str(jax_ckpt)] + extra)
+    with pytest.raises(ValueError, match=f"a JAX {kind} .*state, not a"):
+        module.main(["--output_dir", str(tmp_path / "out"), "--tiny",
+                     "--device", "cpu", "--synthetic", "8",
+                     "--train_batch_size", "8", "--dtype", "float32",
+                     "--do_train", "--resume_from", str(jax_ckpt)] + extra)

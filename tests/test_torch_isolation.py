@@ -68,7 +68,9 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.evals",
                      "crvqa_tpu_torch.evals.vqa_eval",
                      "crvqa_tpu_torch.evals.scoring",
-                     "crvqa_tpu_torch.evals.compare_mask"):
+                     "crvqa_tpu_torch.evals.compare_mask",
+                     "crvqa_tpu_torch.native.wordpiece",
+                     "crvqa_tpu_torch.data.build_vqacp_ocr"):
         assert expected in mods
 
 

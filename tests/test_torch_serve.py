@@ -206,13 +206,14 @@ def test_streaming_flushes_partial_batches(artifacts, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,error", [
     (["--model_type", "visualbert", "--ckpt", "JAX_CKPT"],
-     "not yet ported"),
-    (["--ckpt", "JAX_CKPT"], "not yet ported"),
+     "cannot read one either"),
+    (["--ckpt", "JAX_CKPT"], "cannot read one either"),
 ])
 def test_unported_options_raise(artifacts, extra, error):
     """msgpack params files serve (tests/test_torch_checkpoint_interchange.py);
     the JAX package's msgpack training state `ckpt_<step>` as `--ckpt` is
-    still refused, for either model."""
+    refused for either model, as the JAX package's `load_params_any`
+    refuses it (a params file or `--resume_from` takes it instead)."""
     from crvqa_tpu.core import checkpoint as jckpt
 
     ckpt = str(artifacts / "ckpt_4")
@@ -220,7 +221,7 @@ def test_unported_options_raise(artifacts, extra, error):
                                  "params": _jax_params(11),
                                  "opt_state": {"count": np.int32(4)}})
     extra = [ckpt if a == "JAX_CKPT" else a for a in extra]
-    with pytest.raises(NotImplementedError, match="training state.*" + error):
+    with pytest.raises(ValueError, match="training state.*" + error):
         tserve.main(_argv(artifacts, "features.bin",
                           artifacts / "never.jsonl")
                     + ["--device", "cpu"] + extra)
