@@ -45,6 +45,17 @@ Phases (each one's seconds are logged):
               gradients bit-identical; timed beside the plain versions and
               `scaled_dot_product_attention` forward and forward + backward
               under autograd.
+ 5a. offset-kernels  the training attention kernels with the runtime's
+              keep-mask offsets (row0 = the first global row of data rank 1
+              of 2, head0 = 6, the first head of tensor-parallel rank 1 of
+              2, 6 heads a rank), batch 8, fp32 and bf16, rate 0.1: the
+              short kernels at the four (Sq, Sk) and (50,50), the
+              mid-length ones at mPLUG's training shapes; keep masks read
+              out through one-hot v (the mid-length ones for the first 64
+              keys) and held to the plain `keep_mask` of those global rows
+              and heads bit for bit, outputs and gradients to the plain
+              versions with the same offsets at phases 5 and 11's
+              tolerances.
   6. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
               (768 hidden, 12x64 heads, 9/5/5 layers, 2274 answers) on
               seeded weights and fabricated data: 512 requests at batch 32 in
@@ -247,6 +258,23 @@ Phases (each one's seconds are logged):
               VisualBERT stage-2 (batch 256) state written in the JAX
               layout after 2 steps and resumed for 2 (launches, finite
               losses). Every file is deleted at the end of the phase.
+ 23a. parallel  the multi-device runtime (`crvqa_tpu_torch/parallel/`) on
+              the one card: `prune_debias_vqa` at `LxmertConfig()`, batch
+              256, 0.3/0.3/0.3 at zero rate 0.7, LMH, 8 steps (resets at 4
+              and 8, ckpt_8), and `vqa_mplug --mode mask` at
+              `MPlugConfig()`, batch 16, 4 steps (resets at 2 and 4,
+              ckpt_final), each run twice in fresh processes side by side
+              on the card: plain, and with `--multihost true
+              --coordinator_address 127.0.0.1:<free port> --num_processes
+              1 --process_id 0 --mesh_data 1` (and `--zero_opt true` for
+              stage 2; mPLUG always shards), which brings NCCL up for real
+              at world 1. The two runs' losses, launches and artifacts
+              (mask.pt, classifier4masker.bin or mask_config.json, the
+              checkpoint) bit-equal; both step times from the CLI's last
+              `ex_s` (the pair sharing the card), the peak device memory,
+              and the step's collectives timed alone on the run's
+              trainable leaves (the gradient all-reduce, ZeRO's
+              broadcast).
  24. summary  a {"kernels": [...]} line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line.
 
@@ -844,6 +872,125 @@ def _keep_and_p_probe(torch, fa, b, sq, sk, dtype, device, seed, heads=12
     return out
 
 
+# a rank's place in the runtime's layouts: data rank 1 of 2 (rows from
+# b) and tensor-parallel rank 1 of 2 (heads from 6 of 12)
+OFFSET_HEADS = 6
+
+
+def _offset_keep_readout(torch, fn, q, k, bias, heads, sq, n_keys, rate,
+                         seed, row0, head0):
+    """The keep bits a kernel's forward applies to the first `n_keys` keys
+    (<= 64), read out through one-hot v: output column h*64 + j is the
+    dropped probability of key j, nonzero iff kept (bias 0: every p >
+    0)."""
+    b, sk, d = q.shape[0], k.shape[1], heads * 64
+    v = (torch.eye(sk, 64)[None].repeat(1, 1, heads).expand(b, sk, d)
+         .contiguous().to(q.device, q.dtype))
+    out = fn(q, k, v, bias, heads, 64, rate, seed, row0=row0, head0=head0)
+    if isinstance(out, tuple):
+        out = out[0]
+    return out.view(b, sq, heads, 64)[..., :n_keys] != 0
+
+
+def phase_offset_kernels(torch, device, rehearse: bool, seed: int
+                         ) -> list[dict]:
+    """The attention kernels with the runtime's offsets (`row0` = b, the
+    first global row of data rank 1 of 2; `head0` = 6, the first head of
+    tensor-parallel rank 1 of 2, 6 heads a rank): the keep masks the short
+    kernels' forward for grad and both backwards apply, and the mid-length
+    forward's for the first 64 keys, read out and held to the plain
+    `keep_mask` of those global rows and heads bit for bit; outputs and
+    gradients against the plain versions with the same offsets, at the
+    kernel phases' tolerances. Batch 8: the short kernels at LXMERT's four
+    (Sq, Sk) and VisualBERT's (50,50), the mid-length ones at mPLUG's
+    training shapes, fp32 and bf16, dropout 0.1."""
+    from crvqa_tpu_torch.ops import fused_attention as fa
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    rows = []
+    b = 2 if rehearse else 8
+    heads, row0, head0 = OFFSET_HEADS, b, OFFSET_HEADS
+    args = (heads, 64, MAIN_RATE, KERNEL_SEED)
+    off = dict(row0=row0, head0=head0)
+    for dtype in ("float32", "bfloat16"):
+        for sq, sk in SERVE_SHAPES + [VISUALBERT_SHAPE]:
+            q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
+                                              device, seed + sq * sk, heads)
+            g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+                seed + sq)).to(device, q.dtype)
+            out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args,
+                                                  **off)
+            ref_out, ref_p = fa.fused_attention_train_reference(
+                q, k, v, bias, *args, **off)
+            stored = fa.fused_attention_bwd_stored(q, k, v, p, g, *args,
+                                                   **off)
+            recomp = fa.fused_attention_bwd_recompute(q, k, v, bias, g,
+                                                      *args, **off)
+            ref_b = fa.fused_attention_bwd_reference(q, k, v, p, g, *args,
+                                                     **off)
+            zeros = torch.zeros_like(bias)
+            keep = _offset_keep_readout(
+                torch, fa.fused_attention_fwd_train, q, k, zeros, heads, sq,
+                sk, MAIN_RATE, KERNEL_SEED, row0, head0)
+            want = fa.keep_mask(torch.arange(row0, row0 + b, device=device),
+                                sq, heads * sk, MAIN_RATE, KERNEL_SEED,
+                                col0=head0 * sk).view(b, sq, heads, sk)
+            row = {"kernel": "short", "dtype": dtype, "sq": sq, "sk": sk,
+                   "batch": b, "heads": heads, "row0": row0,
+                   "head0": head0,
+                   "keep_mismatches": int((keep != want).sum()),
+                   "fwd_err": _max_err(torch, [out], [ref_out]),
+                   "p_err": _max_err(torch, [p], [ref_p]),
+                   "bwd_stored_err": _max_err(torch, stored, ref_b),
+                   "bwd_recompute_err": _max_err(torch, recomp, ref_b)}
+            ok = (row["keep_mismatches"] == 0
+                  and torch.allclose(out.float(), ref_out.float(),
+                                     **TOL[dtype])
+                  and torch.allclose(p, ref_p, atol=TOL_P, rtol=0)
+                  and all(torch.allclose(x.float(), y.float(),
+                                         **TOL_BWD[dtype])
+                          for x, y in zip(stored + recomp, ref_b + ref_b)))
+            rows.append(row)
+            log("offset-kernels: " + json.dumps(row))
+            check(ok, f"offset-kernels: the short kernels with row0 {row0}, "
+                      f"head0 {head0} disagree at {dtype} ({sq},{sk}): {row}")
+        for sq, sk in MIDSEQ_TRAIN_SHAPES:
+            q, k, v, bias = _attention_inputs(torch, b, sq, sk, dtype,
+                                              device, seed + sq + sk, heads)
+            g = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+                seed + sk)).to(device, q.dtype)
+            out = ma.midseq_attention(q, k, v, bias, *args, **off)
+            ref = ma.midseq_attention_reference(q, k, v, bias, *args, **off)
+            grads = ma.midseq_attention_bwd(q, k, v, bias, g, *args, **off)
+            ref_g = ma.midseq_attention_bwd_reference(q, k, v, bias, g,
+                                                      *args, **off)
+            n_keys = min(sk, 64)
+            keep = _offset_keep_readout(
+                torch, ma.midseq_attention, q, k, torch.zeros_like(bias),
+                heads, sq, n_keys, MAIN_RATE, KERNEL_SEED, row0, head0)
+            want = ma.drop_factor(b, heads, sq, sk, MAIN_RATE, KERNEL_SEED,
+                                  device, row0, head0)[..., :n_keys] != 0
+            want = want.permute(0, 2, 1, 3)  # [b, i, h, key]
+            row = {"kernel": "midseq", "dtype": dtype, "sq": sq, "sk": sk,
+                   "batch": b, "heads": heads, "row0": row0,
+                   "head0": head0, "keys_read": n_keys,
+                   "keep_mismatches": int((keep != want).sum()),
+                   "fwd_err": _max_err(torch, [out], [ref]),
+                   "bwd_err": _max_err(torch, grads, ref_g)}
+            ok = (row["keep_mismatches"] == 0
+                  and torch.allclose(out.float(), ref.float(),
+                                     **MIDSEQ_TOL[dtype])
+                  and all(torch.allclose(x.float(), y.float(),
+                                         **MIDSEQ_BWD_TOL[dtype])
+                          for x, y in zip(grads, ref_g)))
+            rows.append(row)
+            log("offset-kernels: " + json.dumps(row))
+            check(ok, f"offset-kernels: the mid-length kernels with row0 "
+                      f"{row0}, head0 {head0} disagree at {dtype} "
+                      f"({sq},{sk}): {row}")
+    return rows
+
+
 WORDS = ("what color is the how many are there on a this man woman dog cat "
          "frisbee kitchen table red blue green yes no holding person in "
          "picture of wearing sitting standing room street car").split()
@@ -1028,10 +1175,12 @@ def _direct_logits(root, device, tiny, seed, n, attention):
     return np.asarray(logits.cpu())
 
 
-def _plain_attention(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+def _plain_attention(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+                     row0=0, head0=0):
     """The model's attention on the plain versions: the primal's at rate 0
     without autograd, else the forward for grad's with the same
-    counter-hash dropout, differentiated by autograd."""
+    counter-hash dropout (at the same row and head offsets), differentiated
+    by autograd."""
     import torch
 
     from crvqa_tpu_torch.ops import fused_attention as fa
@@ -1040,7 +1189,8 @@ def _plain_attention(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
         return fa.fused_attention_reference(q, k, v, bias, num_heads,
                                             head_size)
     return fa.fused_attention_train_reference(q, k, v, bias, num_heads,
-                                              head_size, rate, seed)[0]
+                                              head_size, rate, seed, row0,
+                                              head0)[0]
 
 
 def phase_serve(torch, device, rehearse: bool, seed: int, keep_dir: str
@@ -1231,11 +1381,12 @@ def fabricate_mplug(root: str, rehearse: bool, rng,
     return {"images": images, "answers": answers, "requests": n_requests}
 
 
-def _plain_midseq(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+def _plain_midseq(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+                  row0=0, head0=0):
     from crvqa_tpu_torch.ops import midseq_attention as ma
 
     return ma.midseq_attention_reference(q, k, v, bias, num_heads, head_size,
-                                         rate, seed)
+                                         rate, seed, row0, head0)
 
 
 class _PlainAttention:
@@ -4611,9 +4762,257 @@ def phase_resume(torch, device, rehearse: bool, seed: int, stage1_bin: str
     return out
 
 
+# ---------------------------------------------------------------- phase 23a
+
+# phase parallel: stage 2 at batch 256 (8 steps, resets at 4 and 8, one
+# checkpoint) and mPLUG mask mode at batch 16 (4 steps, resets at 2 and 4)
+PAR_STAGE2_STEPS, PAR_STAGE2_RESET = 8, 4
+PAR_MPLUG_STEPS, PAR_MPLUG_RESET = 4, 2
+PAR_FILES = {"stage2": ("mask.pt", "classifier4masker.bin",
+                        f"ckpt_{PAR_STAGE2_STEPS}"),
+             "mplug": ("mask.pt", "mask_config.json", "ckpt_final")}
+PAR_COLLECTIVE_REPS = 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_argv(kind: str, out: str, seed: int, rehearse: bool,
+                   port: int) -> list[str]:
+    """The phase's CLI argv; with `port` the runtime's flags too: one
+    process over NCCL (gloo in a rehearsal) at --mesh_data 1, ZeRO on
+    (stage 2 asks for it, mPLUG always shards)."""
+    device = "cpu" if rehearse else "cuda"
+    if kind == "stage2":
+        bs = 8 if rehearse else TRAIN_BATCH
+        argv = ["--output_dir", out, "--device", device, "--dtype",
+                "bfloat16", "--synthetic", str(bs * PAR_STAGE2_STEPS),
+                "--synthetic_pool", "2", "--train_batch_size", str(bs),
+                "--num_train_epochs", "1",
+                "--logging_steps", str(PAR_STAGE2_RESET),
+                "--save_steps", str(PAR_STAGE2_STEPS),
+                "--Lang_comp", "0.3", "--Vis_comp", "0.3", "--Fus_comp",
+                "0.3", "--zero_rate", "0.7", "--controlled_init",
+                "magnitude", "--Masker_type", "lmh", "--do_train",
+                "--seed", str(seed)]
+    else:
+        bs = 4 if rehearse else MPLUG_TRAIN_BATCH
+        argv = ["--output_dir", out, "--device", device, "--dtype",
+                "bfloat16", "--mode", "mask", "--synthetic",
+                str(bs * PAR_MPLUG_STEPS), "--synthetic_shapes",
+                MPLUG_TRAIN_SHAPES, "--train_batch_size", str(bs),
+                "--num_train_epochs", "1",
+                "--masker_update_step", str(PAR_MPLUG_RESET),
+                "--logging_steps", str(PAR_MPLUG_RESET),
+                "--save_steps", "100000", "--do_train", "--seed", str(seed)]
+    if rehearse:
+        argv.append("--tiny")
+    if port:
+        argv += ["--multihost", "true", "--coordinator_address",
+                 f"127.0.0.1:{port}", "--num_processes", "1",
+                 "--process_id", "0", "--mesh_data", "1"]
+        if kind == "stage2":
+            argv += ["--zero_opt", "true"]
+    return argv
+
+
+def parallel_child(seed: int, kind: str, out: str, port: str,
+                   rehearse: str) -> dict:
+    """One run of phase parallel in this (fresh) process: the CLI with the
+    launch counters from 0, its wall time, logged ex/s, peak device
+    memory, the process group's backend and world; with the runtime, the
+    step's collectives timed alone on the run's trainable leaves (the
+    gradient all-reduce and ZeRO's broadcast, CUDA events, mean of
+    `PAR_COLLECTIVE_REPS`)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from crvqa_tpu_torch.cli import common, prune_debias_vqa, vqa_mplug
+    from crvqa_tpu_torch.parallel.zero import ZeroPartition
+    from crvqa_tpu_torch.train import mplug_train, stage2
+    from crvqa_tpu_torch.train.common import allreduce_grads_
+
+    rehearse = rehearse == "1"
+    on_card = not rehearse
+    # two of these processes run side by side: half the host's cores each
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    if on_card:  # as phase device sets it in the parent
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    port_n = int(port)
+    cli = prune_debias_vqa if kind == "stage2" else vqa_mplug
+    t0 = time.monotonic()
+    summary, launches = _run_counted(lambda: cli.main(_parallel_argv(
+        kind, out, seed, rehearse, port_n)))
+    wall_s = time.monotonic() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        ex_s = [json.loads(x)["ex_s"] for x in f if '"ex_s"' in x]
+    result = {"wall_s": wall_s, "launches": launches,
+              "losses": [float(x) for x in summary["losses"]],
+              "step": summary["step"], "ex_s": ex_s,
+              "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if on_card else None),
+              "backend": dist.get_backend() if dist.is_initialized()
+              else None,
+              "world": dist.get_world_size() if dist.is_initialized()
+              else None}
+    if port_n:
+        state = summary["state"]
+        leaves = (stage2.trainable(state, stage2.Stage2Config())
+                  if kind == "stage2" else mplug_train.trainable(
+                      state, mplug_train.MPlugTrainConfig(mode="mask")))
+        mesh = common.make_run_mesh(argparse.Namespace(
+            mesh_data=1, mesh_model=1), state.rng.device.device)
+        grads = {k: v.detach().clone() for k, v in leaves.items()}
+        zero = ZeroPartition(grads, mesh)
+
+        def timed(fn) -> float:
+            fn()
+            if not on_card:
+                return 0.0
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(PAR_COLLECTIVE_REPS):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / PAR_COLLECTIVE_REPS
+
+        result["allreduce_ms"] = timed(lambda: allreduce_grads_(grads, mesh))
+        result["zero_broadcast_ms"] = timed(
+            lambda: zero.broadcast_params_(grads))
+        result["trainable_elems"] = sum(v.numel() for v in grads.values())
+    return result
+
+
+def _raw_diff(torch, a, b, path="") -> list[str]:
+    """Paths where two torch.load trees differ in structure, type, dtype,
+    shape or any bit (-0.0 and 0.0 differ; NaN payloads too)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)
+                and list(a) == list(b)):
+            return [path or "/"]
+        return [d for k in a for d in _raw_diff(torch, a[k], b[k],
+                                                f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _raw_diff(torch, x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
+        return [] if same else [path]
+    return [] if (type(a) is type(b) and a == b) else [path]
+
+
+def _files_bit_equal(torch, a_dir: str, b_dir: str, names) -> dict:
+    """Per file: whether its bytes are identical and whether what it holds
+    (torch.load trees, or JSON) is equal bit for bit; the differing paths
+    when it is not. Identical bytes hold identical contents: the files are
+    loaded only when their bytes differ (torch.save's archive could differ
+    in bytes alone)."""
+    out = {}
+    for name in names:
+        pa, pb = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        same_bytes = os.path.getsize(pa) == os.path.getsize(pb)
+        with open(pa, "rb") as f, open(pb, "rb") as g:
+            while same_bytes:
+                chunk = f.read(1 << 26)
+                same_bytes = chunk == g.read(1 << 26)
+                if not chunk:
+                    break
+        if same_bytes:
+            diff = []
+        elif name.endswith(".json"):
+            with open(pa) as f, open(pb) as g:
+                diff = [] if json.load(f) == json.load(g) else ["/"]
+        else:
+            diff = _raw_diff(torch, torch.load(pa, weights_only=True),
+                             torch.load(pb, weights_only=True))
+        out[name] = {"bytes_equal": same_bytes, "bit_equal": not diff,
+                     "differs_at": diff[:5],
+                     "bytes": os.path.getsize(pa)}
+    return out
+
+
+def phase_parallel(torch, device, rehearse: bool, seed: int) -> dict:
+    """The multi-device runtime on the one card (module docstring, phase
+    23a): each CLI twice in fresh processes, plain and with --multihost
+    over NCCL at world 1 (gloo in a rehearsal), the two side by side on
+    the card (their set-up is host work); their artifacts bit-equal, the
+    same launches, both step times (each pair sharing the card), the
+    collectives' time alone and the peak memory."""
+    on_card = not rehearse
+    out = {"launches": {}}
+    for kind in ("stage2", "mplug"):
+        steps = PAR_STAGE2_STEPS if kind == "stage2" else PAR_MPLUG_STEPS
+        batch = ((8 if rehearse else TRAIN_BATCH) if kind == "stage2"
+                 else (4 if rehearse else MPLUG_TRAIN_BATCH))
+        with tempfile.TemporaryDirectory(
+                prefix=f"chip_smoke_parallel_{kind}_") as root:
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                futures = {tag: pool.submit(
+                    _fresh_process, "parallel_child", seed,
+                    f"parallel {kind} {tag}", kind, os.path.join(root, tag),
+                    str(port), "1" if rehearse else "0")
+                    for tag, port in (("plain", 0),
+                                      ("runtime", _free_port()))}
+                runs = {tag: f.result() for tag, f in futures.items()}
+            plain, rt = runs["plain"], runs["runtime"]
+            files = _files_bit_equal(torch, os.path.join(root, "plain"),
+                                     os.path.join(root, "runtime"),
+                                     PAR_FILES[kind])
+        want_backend = "gloo" if rehearse else "nccl"
+        check(rt["backend"] == want_backend and rt["world"] == 1
+              and plain["backend"] is None,
+              f"parallel {kind}: process groups plain {plain['backend']}, "
+              f"runtime {rt['backend']} world {rt['world']} (want "
+              f"{want_backend} at world 1)")
+        check(plain["step"] == rt["step"] == steps
+              and plain["losses"] == rt["losses"]
+              and all(x == x for x in rt["losses"]),
+              f"parallel {kind}: losses plain {plain['losses']} runtime "
+              f"{rt['losses']} ({steps} steps, bit-equal)")
+        check(all(f["bit_equal"] for f in files.values()),
+              f"parallel {kind}: artifacts differ: {files}")
+        check(plain["launches"] == rt["launches"],
+              f"parallel {kind}: launches plain {plain['launches']} "
+              f"runtime {rt['launches']}")
+        path = (("fused_attention_fwd_train", "fused_attention_bwd_stored")
+                if kind == "stage2" else
+                ("midseq_attention_fwd", "midseq_attention_bwd",
+                 "fused_attention_fwd_train", "fused_attention_bwd_stored"))
+        check(all((rt["launches"][n] > 0) == on_card for n in path),
+              f"parallel {kind}: the runtime run launched {rt['launches']}")
+        _add_launches(out["launches"], rt["launches"])
+        step_ms = {tag: (1e3 * batch / r["ex_s"][-1] if r["ex_s"]
+                         and r["ex_s"][-1] > 0 else None)
+                   for tag, r in runs.items()}
+        out[kind] = {"steps": steps, "batch": batch, "files": files,
+                     "step_ms": step_ms,
+                     "step_overhead_ms": (
+                         step_ms["runtime"] - step_ms["plain"]
+                         if None not in step_ms.values() else None),
+                     "plain": plain, "runtime": rt}
+        log(f"parallel {kind}: " + json.dumps(out[kind]))
+    return out
+
+
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
-                   vb_train, vqavs, stage3, structured, resume) -> list[dict]:
+                   vb_train, vqavs, stage3, structured, resume,
+                   parallel) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -4625,8 +5024,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     over its 29 launches (`MIDSEQ_BWD_PER_STEP`). The short kernels'
     `launches` add VisualBERT's paths (phases visualbert-serve and
     visualbert-train) to LXMERT's, and those of phase vqavs and of phase
-    stage3's serving of its .msgpack, phase structured's runs and phase
-    resume's (every kernel that phase runs counts its launches there); their
+    stage3's serving of its .msgpack, phase structured's runs, phase
+    resume's and phase parallel's runtime runs (every kernel those phases
+    run counts its launches there; "resumes" in `basis` counts both); their
     `visualbert` entry gives one VisualBERT forward (batch 32) or step
     (batch 256) at (50,50), their `trained_heads` entry one stage-3 step
     (forward) at the kept head count of phase structured's head mask."""
@@ -4639,7 +5039,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     struct_runs = [structured[k]["launches"]
                    for k in ("heads", "layers", "stage3")]
     struct_launches = lambda name: sum(r[name] for r in struct_runs)
-    resume_launches = lambda name: resume["launches"].get(name, 0)
+    # phase resume's runs and phase parallel's runtime runs
+    resume_launches = lambda name: (resume["launches"].get(name, 0)
+                                    + parallel["launches"].get(name, 0))
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -4668,8 +5070,9 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    f"stage-2 evals {vqavs['launches']['fused_attention_fwd']}"
                    f", serving stage 3's .msgpack {msgpack_launches}, "
                    f"structured stage 2 and 3 "
-                   f"{struct_launches('fused_attention_fwd')}, resumes and "
-                   f"their serving {resume_launches('fused_attention_fwd')}",
+                   f"{struct_launches('fused_attention_fwd')}, resumes, "
+                   f"their serving and the runtime runs "
+                   f"{resume_launches('fused_attention_fwd')}",
         "trained_heads": _trained_heads_entry(
             structured, "primal", ("primal_err",), "library_primal_ms",
             fwd_mult, structured["stage3"]["launches"][
@@ -4751,8 +5154,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                        f"{launches}, VisualBERT stage 2 "
                        f"{vb_train['launches'][name]}, VQA-VS stage 2 "
                        f"{vqavs['launches'][name]}, structured stage 2 "
-                       f"and 3 {struct_launches(name)}, resumes "
-                       f"{resume_launches(name)}",
+                       f"and 3 {struct_launches(name)}, resumes and "
+                       f"the runtime runs {resume_launches(name)}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
@@ -4935,6 +5338,8 @@ def main(argv=None) -> int:
                             device, rehearse, seed)
         train_rows = phase("train-kernels", phase_train_kernels, torch,
                            device, rehearse, seed)
+        offset_rows = phase("offset-kernels", phase_offset_kernels, torch,
+                            device, rehearse, seed)
         serve = phase("serve", phase_serve, torch, device, rehearse, seed,
                       keep.name)
         if not rehearse:
@@ -4973,6 +5378,8 @@ def main(argv=None) -> int:
                             rehearse, seed)
         resume = phase("resume", phase_resume, torch, device, rehearse, seed,
                        stage1["bin"])
+        parallel = phase("parallel", phase_parallel, torch, device, rehearse,
+                         seed)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4986,7 +5393,7 @@ def main(argv=None) -> int:
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
                              compact, vb_serve, vb_train, vqavs, stage3,
-                             structured, resume)
+                             structured, resume, parallel)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -5004,6 +5411,8 @@ def main(argv=None) -> int:
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
                        "structured": structured,
                        "mplug_files": mplug_files, "resume": resume,
+                       "offset_kernel_rows": offset_rows,
+                       "parallel": parallel,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

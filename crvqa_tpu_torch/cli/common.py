@@ -8,10 +8,17 @@ raise "not yet ported" when set away from their defaults
 (`--prng_impl`, `--fused_attention`, `--midseq_attention`) are accepted
 and ignored: on the card the short and the mid-length attention kernels
 always run where their scope admits the shape.
+
+Multi-device runs (`--multihost`, `--mesh_data`, `--mesh_model`) are one
+process per device (`parallel/`): `init_distributed` brings the process
+group up first, `make_run_mesh` lays the ranks out, each rank feeds its
+block of every global batch (`build_data`), and only rank 0 logs at INFO,
+prints step lines and writes files.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import logging
 import os
@@ -20,6 +27,10 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import (MeshConfig, any_process, initialize_multihost,
+                             is_main_process, make_mesh, process_local_slice,
+                             shutdown)
 
 logger = logging.getLogger("crvqa_tpu_torch")
 
@@ -106,14 +117,23 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gamma", type=float, default=5.0)
     p.add_argument("--ans_num", type=int, default=2274)
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="not yet ported (data-parallel mesh)")
+                   help="data-parallel ranks (-1: every rank --mesh_model "
+                        "leaves); data x model must equal the world size")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="not yet ported (tensor parallelism)")
+                   help="ranks per model replica, which see the same rows: "
+                        "prune_debias_vqa splits heads and FFN units over "
+                        "them (tensor parallelism); elsewhere they "
+                        "replicate the compute, as in the JAX CLIs")
     p.add_argument("--multihost", type=str2bool, default=False,
-                   help="not yet ported (multi-process runtime)")
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="bring up torch.distributed (NCCL on --device "
+                        "cuda, gloo on cpu), one process per device, from "
+                        "the three flags below or torchrun's environment")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 (tcp://) under --multihost")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="the world size under --multihost")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank under --multihost")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--backbone_dtype", type=str, default="float32",
@@ -170,8 +190,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="'cuda' (default; raises without a card) or 'cpu'")
 
 
-# flag -> its default; setting one elsewhere raises "not yet ported"
-COMMON_UNPORTED = {"mesh_data": -1, "mesh_model": 1, "multihost": False}
+# the runtime's flags and their defaults (the servers parse and ignore them)
+MESH_FLAGS = {"mesh_data": -1, "mesh_model": 1, "multihost": False,
+              "coordinator_address": None, "num_processes": None,
+              "process_id": None}
 
 
 MODEL_TYPE_HELP = ("lxmert. The JAX package parses this flag, never reads "
@@ -204,15 +226,43 @@ def reject_unported(args: argparse.Namespace, defaults: dict) -> None:
                 f"(ROADMAP); leave it at {default!r}")
 
 
+def init_distributed(args: argparse.Namespace) -> None:
+    """--multihost: bring up the process group (`parallel.
+    initialize_multihost`; the reference's `utils.init_distributed_mode`,
+    `mPLUG/utils.py:238-262`). The first call of every training CLI. A
+    WORLD_SIZE above 1 in the environment without --multihost raises:
+    every process would train alone and race on --output_dir."""
+    if getattr(args, "multihost", False):
+        initialize_multihost(args.coordinator_address, args.num_processes,
+                             args.process_id, args.device)
+        atexit.register(shutdown)
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise ValueError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']} in the environment "
+            "without --multihost true: each process would train alone and "
+            "write the same --output_dir; pass --multihost true")
+
+
+def make_run_mesh(args: argparse.Namespace, device: torch.device):
+    """The run's mesh from --mesh_data / --mesh_model over the live world
+    (world 1 without --multihost); raises when they do not cover it."""
+    return make_mesh(MeshConfig(data=args.mesh_data, model=args.mesh_model),
+                     device)
+
+
 def setup_logging(output_dir: str) -> None:
+    """INFO on rank 0, WARN elsewhere (prune_debias_VQA.py:714-719)."""
     os.makedirs(output_dir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=logging.INFO if is_main_process()
+                        else logging.WARN,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
 
 
 def dump_args(args: argparse.Namespace, output_dir: str) -> None:
-    """`args.txt`: every flag (prune_debias_VQA.py:953-957)."""
+    """`args.txt`: every flag (prune_debias_VQA.py:953-957); rank 0."""
+    if not is_main_process():
+        return
     with open(os.path.join(output_dir, "args.txt"), "w") as f:
         json.dump(vars(args), f, indent=2, default=str)
 
@@ -223,12 +273,16 @@ _metrics_writer = None
 def init_metrics(args: argparse.Namespace) -> None:
     """The run's MetricsWriter (`metrics.jsonl`, plus a TensorBoard event
     file with `--tensorboard_dir` and wandb with `--wandb_project`); every
-    later `log_step` writes into it."""
+    later `log_step` writes into it. Rank 0 only: elsewhere there is
+    none."""
     global _metrics_writer
     from ..utils.profiling import MetricsWriter
 
     if _metrics_writer is not None:
         _metrics_writer.close()
+        _metrics_writer = None
+    if not is_main_process():
+        return
     _metrics_writer = MetricsWriter(
         args.output_dir, tensorboard_dir=getattr(args, "tensorboard_dir",
                                                  None),
@@ -237,12 +291,14 @@ def init_metrics(args: argparse.Namespace) -> None:
 
 def log_step(step: int, **metrics) -> None:
     """A JSON line on stdout, numbers rounded to 6 places; the unrounded
-    values go to the MetricsWriter when `init_metrics` ran."""
+    values go to the MetricsWriter when `init_metrics` ran. Rank 0
+    prints."""
     payload = {"step": step}
     payload.update({k: (round(float(v), 6)
                         if isinstance(v, (int, float, np.floating)) else v)
                     for k, v in metrics.items()})
-    print(json.dumps(payload), flush=True)
+    if is_main_process():
+        print(json.dumps(payload), flush=True)
     if _metrics_writer is not None:
         _metrics_writer.write(step, **metrics)
 
@@ -267,10 +323,12 @@ class ProfileWindow:
       it turns active and before it stops, so the trace holds the active
       steps' kernels and no others.
 
-    The Chrome trace goes into `profile_dir` when the window stops."""
+    The Chrome trace goes into `profile_dir` when the window stops; rank 0
+    alone traces."""
 
     def __init__(self, args: argparse.Namespace):
-        self.dir = getattr(args, "profile_dir", None)
+        self.dir = (getattr(args, "profile_dir", None) if is_main_process()
+                    else None)
         self.start = getattr(args, "profile_start_step", 10)
         self.stop_at = self.start + getattr(args, "profile_steps", 5)
         self.device = torch.device(getattr(args, "device", "cpu"))
@@ -333,10 +391,18 @@ class ProfileWindow:
 class PreemptionGuard:
     """SIGTERM latches a flag the train loop polls once per step: the step
     in flight finishes, one checkpoint is written and the driver returns
-    for a `--resume_from` restart. SIGINT keeps its meaning."""
+    for a `--resume_from` restart. SIGINT keeps its meaning.
 
-    def __init__(self):
+    Under a process group SIGTERM may reach only some ranks, and the save
+    and the next step are both collectives: acting on a rank's own flag
+    would mismatch them and hang the run. `save_and_stop` therefore agrees
+    first: every rank shares its flag at the same loop point every step
+    (one int over the gloo control group) and all act iff any rank was
+    signalled (crvqa_tpu/cli/common.py:357-410)."""
+
+    def __init__(self, mesh=None):
         self.triggered = False
+        self.mesh = mesh
         try:
             signal.signal(signal.SIGTERM, self._on_signal)
         except ValueError:
@@ -345,9 +411,28 @@ class PreemptionGuard:
     def _on_signal(self, signum, frame):
         self.triggered = True
 
+    def _any_process_triggered(self) -> bool:
+        """The flag agreed over every rank (a collective: every rank calls
+        it at the same loop point)."""
+        return any_process(self.triggered, self.mesh)
+
+    def save_and_stop(self, args, step: int,
+                      save: Callable[[str, dict], None]) -> bool:
+        """When any rank was signalled: `save(path, metadata)` writes
+        ckpt_<step> with the preempted marker (collectively), the step is
+        logged, and True tells the loop to return."""
+        if not self._any_process_triggered():
+            return False
+        path = os.path.join(args.output_dir, f"ckpt_{step}")
+        save(path, {"step": step, "preempted": True})
+        log_step(step, preempted=True, checkpoint=path)
+        return True
+
 
 def write_eval_results(output_dir: str, name: str, **results) -> None:
-    """`key = value` lines (prune_debias_VQA.py:979-986)."""
+    """`key = value` lines (prune_debias_VQA.py:979-986); rank 0."""
+    if not is_main_process():
+        return
     with open(os.path.join(output_dir, name), "w") as f:
         for k, v in results.items():
             f.write("%s = %s\n" % (k, v))
@@ -381,12 +466,21 @@ def transfer_dtype(args) -> Optional[torch.dtype]:
     return torch.bfloat16 if choice == "bfloat16" else None
 
 
-def build_data(args, config, device: torch.device):
+def local_batches(batches: Iterator[dict], mesh) -> Iterator[dict]:
+    """This rank's block of every global batch (`parallel.
+    process_local_slice`; the JAX package's `wrap_process_local`), before
+    the prefetcher so that it stages only those rows."""
+    return (process_local_slice(b, mesh) for b in batches)
+
+
+def build_data(args, config, device: torch.device, mesh=None):
     """(train_batches(epoch), eval_batches(), label2ans, n_train): VQA-CP
     or (`--dataset vqavs`) VQA-VS from --dataroot/--img_root, else
     --synthetic N examples. Batches arrive as device tensors through the
     prefetcher (`data/prefetch.py`). As in the JAX package, the VQA-VS
-    train split ignores --data_ratio and loads with seed 0."""
+    train split ignores --data_ratio and loads with seed 0. Batch sizes
+    are global: with a data-parallel `mesh` every rank derives the same
+    batches and keeps its block of each."""
     from ..data.prefetch import prefetch_batches
     from ..data.synthetic import synthetic_batch
 
@@ -394,7 +488,8 @@ def build_data(args, config, device: torch.device):
     depth = args.prefetch_batches
 
     def staged(batches: Iterator[dict]) -> Iterator[dict]:
-        return prefetch_batches(batches, device, depth, float_dtype=cast)
+        return prefetch_batches(local_batches(batches, mesh), device, depth,
+                                float_dtype=cast)
 
     if args.synthetic:
         n = args.synthetic

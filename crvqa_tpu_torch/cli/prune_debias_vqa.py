@@ -28,9 +28,20 @@ cpu` runs the kernels' plain versions.
 package's stage-2 CLI (`common.resume_any`; the JAX state's backbone
 replaces the --seed / --stage1_ckpt one, as its own resume does).
 
+`--multihost true` runs one process per device (`parallel/`, launched by
+torchrun or with `--coordinator_address/--num_processes/--process_id`):
+`--mesh_data` ranks each train on their block of every global batch,
+with the gradients averaged over them; `--zero_opt true` shards the Adam
+state over them (`parallel/zero.py`); `--mesh_model` > 1 splits the
+attention heads, the FFN units and their mask scores over that many
+ranks (`parallel/tp.py`, Megatron-style, as the JAX CLI applies
+`shard_params_tp`). Checkpoints and exports are collective and written
+by rank 0.
+
 Not yet ported (raise when set away from their defaults): `--scan_layers`,
-`--steps_per_dispatch` > 1, `--zero_opt`, `--mesh_*`, `--multihost`; a
-JAX `ckpt_<step>` written under `--scan_layers`. `--model_type`
+`--steps_per_dispatch` > 1, and `--structured_masking` with
+`--mesh_model` > 1; a JAX `ckpt_<step>` written under `--scan_layers`.
+`--model_type`
 other than lxmert raises too: the JAX CLI parses it and never reads it,
 building LXMERT whatever it says (`common.reject_model_type`).
 """
@@ -52,12 +63,12 @@ from ..masking.spec import lxmert_mask_specs
 from ..masking.structured import (StructuredMasker, lang_head_mask,
                                   weight_masks)
 from ..models import LxmertConfig
+from ..parallel.mesh import is_main_process
 from ..train import stage2
 from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from . import common
 
-UNPORTED = dict(common.COMMON_UNPORTED, scan_layers=False,
-                steps_per_dispatch=1, zero_opt=False)
+UNPORTED = dict(scan_layers=False, steps_per_dispatch=1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="not yet ported (values > 1)")
     p.add_argument("--zero_opt", type=common.str2bool, default=False,
-                   help="not yet ported")
+                   help="shard the Adam state of the trainable leaves over "
+                        "the data-parallel ranks (parallel/zero.py)")
     p.add_argument("--structured_masking", type=str, default="none",
                    choices=["none", "heads", "layers"])
     p.add_argument("--structured_masking_types", type=str, default="self",
@@ -130,9 +142,11 @@ def run(args) -> dict:
     """The stage-2 run; returns a summary: final step, every step's loss,
     best eval accuracy, the zero rates of the last export, the trace
     `--profile_dir` wrote (`trace`) and the final state (`state`)."""
+    common.init_distributed(args)
     common.reject_model_type(args, "prune_debias_vqa")
     common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
+    mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
     common.init_metrics(args)
@@ -165,7 +179,7 @@ def run(args) -> dict:
         masker = Masker.create(specs, sparsity, **masker_kw)
 
     train_batches, eval_batches, label2ans, n_train = common.build_data(
-        args, config, device)
+        args, config, device, mesh)
     cfg = stage2.Stage2Config(
         masker_type=args.Masker_type, learning_rate=args.learning_rate,
         warmup_steps=args.warmup_steps,
@@ -182,30 +196,56 @@ def run(args) -> dict:
                                   device)
     del params
     if args.resume_from:
+        # before the optimizer state is sharded: the file holds all of it
         common.resume_any(args.resume_from, state, "stage2", cfg,
                           masker.specs)
-    step_fn = stage2.make_train_step(model, masker, tx, cfg)
-    reset_fn = stage2.make_threshold_reset(masker)
+    from ..parallel.tp import enable_tp, tensor_parallel
+
+    tp = tensor_parallel(mesh, state.frozen, masker.specs,
+                         config.num_attention_heads)
+    if tp is not None:
+        if args.structured_masking != "none":
+            raise NotImplementedError(
+                "--structured_masking with --mesh_model > 1: not yet "
+                "ported to crvqa_tpu_torch (ROADMAP)")
+        # after the resume: the file holds whole leaves
+        enable_tp(model, tp)
+        stage2.shard_state_tp(state, tp)
+    zero = None
+    if args.zero_opt:
+        from ..parallel import zero_optimizer
+
+        tx, zero = zero_optimizer(tx, stage2.trainable(state, cfg), mesh)
+        state.opt_state = zero.shard_state(state.opt_state)
+    step_fn = stage2.make_train_step(model, masker, tx, cfg, mesh, tp)
+    reset_fn = stage2.make_threshold_reset(masker, tp)
     eval_fn = stage2.make_eval_step(model, masker)
     summary: dict = {"losses": [], "best_acc": None, "zero_rates": None,
                      "trace": None}
 
+    def save(path: str, metadata: dict) -> None:
+        ckpt.save_checkpoint(path, state, metadata, zero=zero, tp=tp)
+
     def evaluate(state):
-        out = predict(eval_fn, state, eval_batches())
+        out = predict(eval_fn, state, eval_batches(), mesh)
         return vqa_accuracy(out["logits"], out["labels"]), out
 
     def export_best(state):
         state = reset_fn(state)
-        masks = masker.binary_masks(state.scores, state.thresholds)
+        scores = stage2.full_scores(state, tp)
+        masks = masker.binary_masks(scores, state.thresholds)
         # mask.pt carries weight-shaped masks: structured gates expanded
         torch_compat.export_mask_pt(
             os.path.join(args.output_dir, "mask.pt"),
-            weight_masks(masker, masks, state.frozen), masker.specs)
+            masks if tp is not None
+            else weight_masks(masker, masks, state.frozen), masker.specs)
         if args.structured_masking == "heads":
             hm = lang_head_mask(masker, masks, config.l_layers,
                                 config.num_attention_heads)
             if hm is not None:
-                np.save(os.path.join(args.output_dir, "head_mask.npy"), hm)
+                if is_main_process():
+                    np.save(os.path.join(args.output_dir, "head_mask.npy"),
+                            hm)
             else:
                 common.logger.warning(
                     "structured 'heads' export skipped: no language-layer "
@@ -214,17 +254,25 @@ def run(args) -> dict:
         torch_compat.export_classifier_bin(
             os.path.join(args.output_dir, "classifier4masker.bin"),
             state.train_params["classifier"])
-        report = masker.sparsity_report(state.scores, state.thresholds)
+        report = masker.sparsity_report(scores, state.thresholds)
         summary["zero_rates"] = report
         common.logger.info("zero rates: %s",
                            {k: round(v, 4) for k, v in report.items()})
         sums = state.opt_state.abs_grad_sum
         if sums is not None:
-            np.savez(os.path.join(args.output_dir, "grad_abs_sum.npz"),
-                     **{k: v.cpu().numpy() for k, v in sums.items()})
+            # collective when ZeRO or tensor parallelism splits them, then
+            # rank 0 writes
+            if zero is not None:
+                sums = zero.gather_state(state.opt_state).abs_grad_sum
+            if tp is not None:
+                sums = tp.gather(sums)
+            if is_main_process():
+                np.savez(os.path.join(args.output_dir, "grad_abs_sum.npz"),
+                         **{k: v.cpu().numpy() for k, v in sums.items()})
         return state
 
-    orig_masks = masker.binary_masks(state.scores, state.thresholds)
+    orig_masks = masker.binary_masks(stage2.full_scores(state, tp),
+                                     state.thresholds)
     tmp_masks = orig_masks
     best = -1.0
     losses = []
@@ -235,7 +283,7 @@ def run(args) -> dict:
                                "after mask patching)", acc0)
         step = state.step
         t_last, s_last = time.perf_counter(), step
-        guard = common.PreemptionGuard()
+        guard = common.PreemptionGuard(mesh)
         profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
@@ -245,12 +293,12 @@ def run(args) -> dict:
                 profiler.tick(step)
                 if common.crossed(step, prev, args.logging_steps):
                     state = reset_fn(state)
-                    distance = masker.mask_drift(state.scores,
-                                                 state.thresholds, orig_masks)
-                    change = masker.mask_drift(state.scores, state.thresholds,
+                    scores = stage2.full_scores(state, tp)
+                    distance = masker.mask_drift(scores, state.thresholds,
+                                                 orig_masks)
+                    change = masker.mask_drift(scores, state.thresholds,
                                                tmp_masks)
-                    tmp_masks = masker.binary_masks(state.scores,
-                                                    state.thresholds)
+                    tmp_masks = masker.binary_masks(scores, state.thresholds)
                     now = time.perf_counter()
                     ex_s = ((step - s_last) * args.train_batch_size
                             / max(now - t_last, 1e-9))
@@ -261,9 +309,8 @@ def run(args) -> dict:
                                     mask_distance=distance,
                                     mask_change=change, ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
-                    ckpt.save_checkpoint(
-                        os.path.join(args.output_dir, f"ckpt_{step}"), state,
-                        metadata={"step": step})
+                    save(os.path.join(args.output_dir, f"ckpt_{step}"),
+                         {"step": step})
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
@@ -274,11 +321,7 @@ def run(args) -> dict:
                                 os.path.join(args.output_dir, "test.json"),
                                 out["logits"], out["question_id"], label2ans)
                             state = export_best(state)
-                if guard.triggered:
-                    path = os.path.join(args.output_dir, f"ckpt_{step}")
-                    ckpt.save_checkpoint(path, state, metadata={
-                        "step": step, "preempted": True})
-                    common.log_step(step, preempted=True, checkpoint=path)
+                if guard.save_and_stop(args, step, save):
                     profiler.close()
                     summary.update(step=step, losses=[float(x)
                                                       for x in losses])

@@ -27,9 +27,11 @@ raising without one); `--device cpu` runs the kernels' plain versions.
 `--resume_from` takes a `ckpt_<step>` of this port or of the JAX CLI
 (`common.resume_any`).
 
-Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`; `--model_type` other than visualbert (the JAX CLI parses it and builds
-VisualBERT whatever it says). `--dataset vqavs` reads the VQA-VS files.
+`--multihost true` runs one process per device (`parallel/`): the
+`--mesh_data` ranks train on their blocks of every global batch with the
+gradients averaged over them; rank 0 writes. `--model_type` other than
+visualbert raises (the JAX CLI parses it and builds VisualBERT whatever it
+says). `--dataset vqavs` reads the VQA-VS files.
 """
 from __future__ import annotations
 
@@ -102,12 +104,13 @@ def run(args) -> dict:
     """The stage-2 run; returns a summary: final step, every step's loss,
     best eval accuracy, the zero rates of the last export and the final
     state (`state`)."""
+    common.init_distributed(args)
     if args.model_type != "visualbert":
         raise NotImplementedError(
             f"--model_type {args.model_type}: prune_debias_vqa_visualbert "
             "trains VisualBERT (LXMERT's stage 2 is prune_debias_vqa)")
-    common.reject_unported(args, common.COMMON_UNPORTED)
     device = resolve_device(args.device)
+    mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
     common.init_metrics(args)
@@ -126,7 +129,7 @@ def run(args) -> dict:
         binarizer_name=args.name_of_masker)
 
     train_data, eval_data, label2ans, n_train = common.build_data(
-        args, _DataConfig(config), device)
+        args, _DataConfig(config), device, mesh)
     train_batches = lambda epoch: map(_to_visualbert_batch,
                                       train_data(epoch))
     eval_batches = lambda: map(_to_visualbert_batch, eval_data())
@@ -146,14 +149,17 @@ def run(args) -> dict:
     if args.resume_from:
         common.resume_any(args.resume_from, state, "stage2", cfg,
                           masker.specs)
-    step_fn = stage2.make_train_step(model, masker, tx, cfg)
+    step_fn = stage2.make_train_step(model, masker, tx, cfg, mesh)
     reset_fn = stage2.make_threshold_reset(masker)
     eval_fn = stage2.make_eval_step(model, masker, cfg)
     summary: dict = {"losses": [], "best_acc": None, "zero_rates": None,
                      "trace": None}
 
+    def save(path: str, metadata: dict) -> None:
+        ckpt.save_checkpoint(path, state, metadata)
+
     def evaluate(state):
-        out = predict(eval_fn, state, eval_batches())
+        out = predict(eval_fn, state, eval_batches(), mesh)
         return vqa_accuracy(out["logits"], out["labels"]), out
 
     def export_best(state):
@@ -176,7 +182,7 @@ def run(args) -> dict:
     if args.do_train:
         step = state.step
         t_last, s_last = time.perf_counter(), step
-        guard = common.PreemptionGuard()
+        guard = common.PreemptionGuard(mesh)
         profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
@@ -195,9 +201,8 @@ def run(args) -> dict:
                                     / metrics.batch_size, epoch=epoch,
                                     ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
-                    ckpt.save_checkpoint(
-                        os.path.join(args.output_dir, f"ckpt_{step}"), state,
-                        metadata={"step": step})
+                    save(os.path.join(args.output_dir, f"ckpt_{step}"),
+                         {"step": step})
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
@@ -208,11 +213,7 @@ def run(args) -> dict:
                                 os.path.join(args.output_dir, "test.json"),
                                 out["logits"], out["question_id"], label2ans)
                             state = export_best(state)
-                if guard.triggered:
-                    path = os.path.join(args.output_dir, f"ckpt_{step}")
-                    ckpt.save_checkpoint(path, state, metadata={
-                        "step": step, "preempted": True})
-                    common.log_step(step, preempted=True, checkpoint=path)
+                if guard.save_and_stop(args, step, save):
                     profiler.close()
                     summary.update(step=step, losses=[float(x)
                                                       for x in losses])

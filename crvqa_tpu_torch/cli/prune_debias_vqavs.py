@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 import shutil
 
+from ..parallel.mesh import is_main_process
 from . import prune_debias_vqa
 
 
@@ -27,7 +28,7 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     summary = prune_debias_vqa.run(args)
     test_json = os.path.join(args.output_dir, "test.json")
-    if os.path.exists(test_json):
+    if is_main_process() and os.path.exists(test_json):
         shutil.copy(test_json, os.path.join(args.output_dir,
                                             "prefictions_VQAvs_test.json"))
     return summary

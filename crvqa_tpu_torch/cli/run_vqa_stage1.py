@@ -23,10 +23,12 @@ window (`common.ProfileWindow`). Runs on the card (`--device cuda`, the
 default, raising without one); `--device cpu` runs the kernels' plain
 versions.
 
-Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`. `--model_type` other than lxmert raises too: the JAX CLI
-parses it and never reads it, building LXMERT whatever it says
-(`common.reject_model_type`).
+`--multihost true` runs one process per device (`parallel/`): the
+`--mesh_data` ranks train on their blocks of every global batch with the
+gradients averaged over them (a `--mesh_model` axis replicates the
+compute, as in the JAX CLI); rank 0 writes. `--model_type` other than
+lxmert raises: the JAX CLI parses it and never reads it, building LXMERT
+whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -45,7 +47,6 @@ from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from ..train.stage2 import lxmert_meta_model
 from . import common
 
-UNPORTED = common.COMMON_UNPORTED
 
 _SUFFIX = {"normal": "_FTonly.bin", "lmh": "_FTlmh_only.bin",
            "lpf": "_FTlpf_only.bin", "rubi": "_FTrubi_only.bin"}
@@ -94,44 +95,50 @@ def run(args) -> dict:
     """The stage-1 run; returns a summary: final step, every step's loss,
     best and final eval accuracy, the saved parameters' path (`bin`) and
     the final training state (`state`)."""
+    common.init_distributed(args)
     common.reject_model_type(args, "run_vqa_stage1")
-    common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
+    mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
     config = lxmert_config(args)
     params = common.lxmert_initial_params(config, args.seed, args.init_ckpt)
     bin_path = os.path.join(args.output_dir,
                             args.label4save + _SUFFIX[args.FT_type])
-    return train_and_evaluate(args, config, params, None, device, bin_path)
+    return train_and_evaluate(args, config, params, None, device, bin_path,
+                              mesh=mesh)
 
 
 def train_and_evaluate(args, config: LxmertConfig,
                        params: dict[str, torch.Tensor], masks, device,
-                       bin_path: str, specs=()) -> dict:
+                       bin_path: str, specs=(), mesh=None) -> dict:
     """The stage-1/3 loop shared by both drivers (`run_vqa_stage1.py` /
     `run_vqa_stage3.py` of the JAX package): train with logging, periodic
     checkpoints and evaluations, the best parameters to `bin_path`, then
-    the final evaluation. `masks` (stage 3) are the constant masks by
+    the final evaluation; over the data ranks of `mesh` when given (the
+    gradients averaged, the evaluations gathered, rank 0 writing). `masks` (stage 3) are the constant masks by
     weight name, or None; `specs` the masker's that keyed them (a JAX
     `--resume_from` keys its masks by spec). Each save writes `bin_path` and, for the JAX
     package, `bin_path + ".msgpack"`."""
     common.init_metrics(args)
     train_batches, eval_batches, label2ans, n_train = common.build_data(
-        args, config, device)
+        args, config, device, mesh)
     cfg = stage1_config(args, config, n_train)
     state, tx = stage1.init_state(params, cfg, args.seed, device, masks=masks)
     del params
     if args.resume_from:
         common.resume_any(args.resume_from, state, "stage1", cfg, specs)
     model = lxmert_meta_model(config)
-    step_fn = stage1.make_train_step(model, cfg, tx)
+    step_fn = stage1.make_train_step(model, cfg, tx, mesh)
     eval_fn = stage1.make_eval_step(model)
     summary: dict = {"losses": [], "best_acc": None, "eval_acc": None,
                      "bin": bin_path, "trace": None}
 
+    def save(path: str, metadata: dict) -> None:
+        ckpt.save_stage1_checkpoint(path, state, metadata)
+
     def evaluate(state):
-        out = predict(eval_fn, state, eval_batches())
+        out = predict(eval_fn, state, eval_batches(), mesh)
         return vqa_accuracy(out["logits"], out["labels"]), out
 
     def save_best(state):
@@ -144,7 +151,7 @@ def train_and_evaluate(args, config: LxmertConfig,
     if args.do_train:
         step = state.step
         t_last, s_last = time.perf_counter(), step
-        guard = common.PreemptionGuard()
+        guard = common.PreemptionGuard(mesh)
         profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
@@ -162,9 +169,8 @@ def train_and_evaluate(args, config: LxmertConfig,
                                     / metrics.batch_size, epoch=epoch,
                                     ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
-                    ckpt.save_stage1_checkpoint(
-                        os.path.join(args.output_dir, f"ckpt_{step}"), state,
-                        metadata={"step": step})
+                    save(os.path.join(args.output_dir, f"ckpt_{step}"),
+                         {"step": step})
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
                     if args.evaluate_during_training:
                         acc, out = evaluate(state)
@@ -175,11 +181,7 @@ def train_and_evaluate(args, config: LxmertConfig,
                                 os.path.join(args.output_dir, "test.json"),
                                 out["logits"], out["question_id"], label2ans)
                             save_best(state)
-                if guard.triggered:
-                    path = os.path.join(args.output_dir, f"ckpt_{step}")
-                    ckpt.save_stage1_checkpoint(path, state, metadata={
-                        "step": step, "preempted": True})
-                    common.log_step(step, preempted=True, checkpoint=path)
+                if guard.save_and_stop(args, step, save):
                     profiler.close()
                     summary.update(step=step,
                                    losses=[float(x) for x in losses])

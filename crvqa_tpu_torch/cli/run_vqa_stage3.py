@@ -34,9 +34,8 @@ takes this port's `ckpt_<step>` or the JAX CLI's msgpack one (its masks
 too, `common.resume_any`). Metrics, TensorBoard,
 wandb and `--profile_dir` as stage 1 (the shared loop).
 
-Not yet ported (raise when set away from their defaults): `--mesh_*`,
-`--multihost`.
-`--model_type` other than lxmert raises too: the JAX CLI parses it and
+`--multihost`, `--mesh_data`, `--mesh_model` as stage 1 (the shared
+loop). `--model_type` other than lxmert raises: the JAX CLI parses it and
 never reads it, building LXMERT whatever it says
 (`common.reject_model_type`).
 """
@@ -53,7 +52,7 @@ from ..device import resolve_device
 from ..masking import compaction
 from ..masking.masker import magnitude_masks, reference_rand_masks
 from . import common
-from .run_vqa_stage1 import UNPORTED, lxmert_config, train_and_evaluate
+from .run_vqa_stage1 import lxmert_config, train_and_evaluate
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,9 +108,10 @@ def run(args) -> dict:
     """The stage-3 run; returns the stage-1 loop's summary plus the zero
     rate (`zero_rate`, with a mask) and the language branch's head count
     and FFN width."""
+    common.init_distributed(args)
     common.reject_model_type(args, "run_vqa_stage3")
-    common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
+    mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
     config = lxmert_config(args)
@@ -167,7 +167,7 @@ def run(args) -> dict:
               else "FT_randMask.bin")  # the reference's own spelling
     bin_path = os.path.join(args.output_dir, args.label4save + suffix)
     summary = train_and_evaluate(args, config, params, masks, device,
-                                 bin_path, specs)
+                                 bin_path, specs, mesh)
     summary.update(zero_rate=rate, lang_num_heads=config.lang_num_heads,
                    lang_intermediate_size=config.lang_intermediate_size)
     return summary

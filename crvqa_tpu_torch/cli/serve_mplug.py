@@ -20,7 +20,9 @@ protocol and stats line as `serve_vqa`).
   scores and thresholds are kept, as the JAX server keeps them. `--init_ckpt` and
   `--use_checkpoint` are parsed and not read, as the JAX server parses and
   ignores them (a logged line says so): serving never loads the training
-  init, and has no backward to recompute for.
+  init, and has no backward to recompute for. The runtime's flags
+  (`--mesh_data`, `--mesh_model`, `--multihost` and its three) are parsed
+  and not read either: one process serves on `--device`.
 - Every batch is padded to `--serve_batch_size` (beam search and ranking
   are row-independent: padding cannot change a real row's answer).
 - Runs on `--device cuda` (default), where the attentions go through the
@@ -87,7 +89,6 @@ def build_server(args, device: torch.device,
     given, a key into it (pre-transformed [res, res, 3] arrays: uint8 with
     `--device_normalize`, else normalised fp32). `pixels` hands a batch's
     images in directly (the warm-up)."""
-    common.reject_unported(args, vqa_mplug.MPLUG_UNPORTED)
     if not args.vocab_file:
         raise ValueError("serve_mplug requires --vocab_file")
     for flag in ("init_ckpt", "use_checkpoint"):
@@ -95,6 +96,11 @@ def build_server(args, device: torch.device,
             common.logger.info(
                 "serve_mplug: --%s is not read (as in the JAX server): the "
                 "served weights come from --seed and --ckpt", flag)
+    for flag, default in common.MESH_FLAGS.items():
+        if getattr(args, flag) != default:
+            common.logger.info(
+                "serve_mplug: --%s is not read (as in the JAX server): one "
+                "process serves on --device", flag)
     config, tokenizer, model = vqa_mplug.build_model(args)
     masker = (vqa_mplug.build_masker(args, config) if args.mode == "mask"
               else None)

@@ -35,6 +35,12 @@ the encoders' and the decoder's layers in the backward. Runs on `--device
 cuda` (default; raises without a card) or `--device cpu` (the kernels'
 plain versions: the tests' path). `serve_mplug` shares the argv, the
 model, the masker and the rank function.
+
+`--multihost true` runs one process per device (`parallel/`): the
+`--mesh_data` ranks train and answer on their blocks of every global
+batch, the gradients averaged over them; the optimizer state is always
+sharded over them by whole leaves (`parallel/zero.py`, as the JAX CLI
+always shards it), checkpoints are gathered and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -57,14 +63,10 @@ from ..masking.mplug_specs import mplug_mask_specs
 from ..masking.sparsity_control import MaskerScheduler, ModalSparsity
 from ..models.mplug import (MPlugBertConfig, MPlugConfig, ViTConfig,
                             build_mplug)
+from ..parallel.mesh import is_main_process
 from ..train import mplug_train
 from ..train.optim import is_second_order
 from . import common
-
-# flags of paths the port does not reach -> their defaults; set elsewhere
-# they raise "not yet ported"
-MPLUG_UNPORTED = dict(common.COMMON_UNPORTED)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("vqa_mplug")
@@ -284,17 +286,20 @@ def train_config(args, steps_per_epoch: int) -> mplug_train.MPlugTrainConfig:
         alpha_warmup_steps=steps_per_epoch if args.alpha_warm_up else 0)
 
 
-def build_data(args, config: MPlugConfig, tokenizer, device: torch.device):
+def build_data(args, config: MPlugConfig, tokenizer, device: torch.device,
+               mesh=None):
     """(train_batches(epoch), eval_batches(), n_train): `--synthetic N`
     examples of `--synthetic_shapes`, else the annotation files. Batches
     arrive as device tensors through the prefetcher; "qid" and "valid" stay
-    numpy."""
+    numpy. Batch sizes are global: under a data-parallel `mesh` each rank
+    keeps its block of every batch."""
     from ..data.mplug_data import (iterate_batches, load_entries,
                                    question_token_len, synthetic_mplug_batch)
     from ..data.prefetch import prefetch_batches
 
     def staged(batches: Iterator[dict]) -> Iterator[dict]:
-        return prefetch_batches(batches, device, args.prefetch_batches)
+        return prefetch_batches(common.local_batches(batches, mesh), device,
+                                args.prefetch_batches)
 
     res = config.vit.image_res
     if args.synthetic:
@@ -394,28 +399,31 @@ def run(args) -> dict:
     threshold reset's (step, target, achieved zero rate), the last export's
     zero rates, the number of predictions and the final state
     (`state`)."""
-    common.reject_unported(args, MPLUG_UNPORTED)
+    common.init_distributed(args)
     device = resolve_device(args.device)
+    mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
     common.dump_args(args, args.output_dir)
     common.init_metrics(args)
 
     config, tokenizer, model = build_model(args)
     train_batches, eval_batches, n_train = build_data(args, config,
-                                                      tokenizer, device)
+                                                      tokenizer, device, mesh)
     steps_per_epoch = max(n_train // args.train_batch_size, 1)
     cfg = train_config(args, steps_per_epoch)
     masker = scheduler = None
     if args.mode == "mask":
         masker, scheduler = build_masker(args, config), build_scheduler(args)
         # the mask config beside the run (mPLUG/vqa_mplug.py:506-507)
-        with open(os.path.join(args.output_dir, "mask_config.json"),
-                  "w") as f:
-            json.dump({"zero_rate": args.zero_rate,
-                       "threshold": args.threshold,
-                       "init_scale": args.init_scale,
-                       "controlled_init": args.controlled_init,
-                       "masker_update_step": args.masker_update_step}, f)
+        if is_main_process():
+            with open(os.path.join(args.output_dir, "mask_config.json"),
+                      "w") as f:
+                json.dump({"zero_rate": args.zero_rate,
+                           "threshold": args.threshold,
+                           "init_scale": args.init_scale,
+                           "controlled_init": args.controlled_init,
+                           "masker_update_step": args.masker_update_step},
+                          f)
     params, params_m = initial_params(args, config), None
     if args.init_ckpt:
         # before init_state: mask mode's magnitude scores read these fp32
@@ -431,8 +439,17 @@ def run(args) -> dict:
             for k, t in params_m.items():
                 state.params_m[k].copy_(t)
     if args.resume_from:
+        # before the optimizer state is sharded: the file holds all of it
         common.resume_any(args.resume_from, state, "mplug", cfg,
                           masker.specs if masker is not None else None)
+    zero = None
+    if state.opt_state is not None:
+        # ZeRO always, as the JAX CLI shards (vqa_mplug.py:476-480): the
+        # identity over one rank
+        from ..parallel import ZeroPartition
+
+        zero = ZeroPartition(mplug_train.trainable(state, cfg), mesh)
+        state.opt_state = zero.shard_state(state.opt_state)
     gen_fn = mplug_train.make_generate_step(
         model, cfg, masker=masker, beam_size=args.beam_size,
         max_len=args.max_answer_len, min_length=args.min_length,
@@ -441,12 +458,17 @@ def run(args) -> dict:
                      "num_predictions": None, "trace": None}
 
     if args.do_train:
-        step_fn = mplug_train.make_train_step(model, cfg, masker=masker)
+        step_fn = mplug_train.make_train_step(model, cfg, masker=masker,
+                                              mesh=mesh, zero=zero)
+
+        def save(path: str, metadata: dict) -> None:
+            ckpt.save_mplug_checkpoint(path, state, metadata, zero=zero)
+
         reset_fn = (mplug_train.make_threshold_reset(masker)
                     if masker is not None else None)
         losses = []
         step = state.step
-        guard = common.PreemptionGuard()
+        guard = common.PreemptionGuard(mesh)
         profiler = common.ProfileWindow(args)
         t_last, s_last = time.perf_counter(), step
         for epoch in range(int(args.num_train_epochs)):
@@ -475,15 +497,10 @@ def run(args) -> dict:
                     common.log_step(step, loss=loss_f, epoch=epoch,
                                     ex_s=round(ex_s, 1))
                 if common.crossed(step, prev, args.save_steps):
-                    ckpt.save_mplug_checkpoint(
-                        os.path.join(args.output_dir, f"ckpt_{step}"), state,
-                        metadata={"step": step})
+                    save(os.path.join(args.output_dir, f"ckpt_{step}"),
+                         {"step": step})
                     ckpt.rotate_checkpoints(args.output_dir, keep=2)
-                if guard.triggered:
-                    path = os.path.join(args.output_dir, f"ckpt_{step}")
-                    ckpt.save_mplug_checkpoint(path, state, metadata={
-                        "step": step, "preempted": True})
-                    common.log_step(step, preempted=True, checkpoint=path)
+                if guard.save_and_stop(args, step, save):
                     profiler.close()
                     summary.update(step=step,
                                    losses=[float(x) for x in losses])
@@ -507,26 +524,31 @@ def run(args) -> dict:
                 os.path.join(args.output_dir, "mask.pt"), masks, specs)
             summary["zero_rates"] = masker.sparsity_report(state.scores,
                                                            state.thresholds)
-        ckpt.save_mplug_checkpoint(
-            os.path.join(args.output_dir, "ckpt_final"), state,
-            metadata={"step": state.step})
+        save(os.path.join(args.output_dir, "ckpt_final"),
+             {"step": state.step})
         summary["losses"] = [float(x) for x in losses]
 
     if args.do_eval or args.do_predict:
         results = evaluate(args, config, tokenizer, model, masker, cfg,
-                           state, gen_fn, eval_batches(), device)
+                           state, gen_fn, eval_batches(), device, mesh)
         summary["num_predictions"] = len(results)
     summary.update(step=state.step, state=state)
     return summary
 
 
 def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
-             batches, device) -> list:
+             batches, device, mesh=None) -> list:
     """Answer every eval batch (beam search, or ranking with
     `--eval_method rank`) into `vqa_result.json`. Each batch's result is
     fetched `--eval_pipeline_depth` batches after it was issued, so the
     device works on the next batches while the host fetches and
-    detokenizes (depth 0: the serial loop)."""
+    detokenizes (depth 0: the serial loop). Under a data-parallel `mesh`
+    each rank answers its block of every batch; the fetch gathers the
+    blocks over the data group and the question ids over the control
+    group (every rank at the same depth, so the gathers stay aligned),
+    and rank 0 writes the file (crvqa_tpu/cli/vqa_mplug.py:576-650)."""
+    from ..parallel.mesh import host_all_gather, host_all_gather_local
+
     rank_fn = answers = best_index = None
     if args.eval_method == "rank":
         rank_fn, answers, best_index = build_rank_fn(
@@ -539,10 +561,13 @@ def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
     def flush_one() -> None:
         out, qids, ok_vec = pending.popleft()
         if rank_fn is not None:
+            out = (tuple(torch.from_numpy(host_all_gather(t, mesh))
+                         for t in out) if isinstance(out, tuple)
+                   else torch.from_numpy(host_all_gather(out, mesh)))
             rows = [answers[int(i)] for i in best_index(out)]
         else:
             rows = []
-            for row in out.cpu().numpy():
+            for row in host_all_gather(out, mesh):
                 toks = [int(t) for t in row[1:]]
                 if tokenizer is not None:
                     if config.eos_token_id in toks:
@@ -555,8 +580,10 @@ def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
                 results.append({"question_id": int(qid), "answer": answer})
 
     for batch in batches:
-        qids = np.asarray(batch["qid"])
-        ok_vec = np.asarray(batch.get("valid", np.ones(len(qids), bool)))
+        local_qids = np.asarray(batch["qid"])
+        qids = host_all_gather_local(local_qids, mesh)
+        ok_vec = host_all_gather_local(np.asarray(batch.get(
+            "valid", np.ones(len(local_qids), bool))), mesh)
         out = (rank_fn(state, batch) if rank_fn is not None
                else gen_fn(state, batch)[0])
         pending.append((out, qids, ok_vec))
@@ -564,8 +591,10 @@ def evaluate(args, config, tokenizer, model, masker, cfg, state, gen_fn,
             flush_one()
     while pending:
         flush_one()
-    with open(os.path.join(args.output_dir, "vqa_result.json"), "w") as f:
-        json.dump(results, f)
+    if is_main_process():
+        with open(os.path.join(args.output_dir, "vqa_result.json"),
+                  "w") as f:
+            json.dump(results, f)
     common.log_step(state.step, num_predictions=len(results),
                     eval_seconds=round(time.perf_counter() - t0, 1),
                     eval_pipeline_depth=depth)

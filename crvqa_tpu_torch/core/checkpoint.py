@@ -22,6 +22,12 @@ training states are msgpack files too: `checkpoint_format` tells the two
 kinds of file apart, `load_jax_training_state` reads such a state and
 `save_jax_training_state` writes one; `core/convert.py` maps it onto the
 port's states and back, and `cli/common.resume_any` picks the reader.
+
+Under a process group the saves are collective: every rank calls them
+together, a ZeRO-sharded optimizer state is gathered (`zero`, a
+`parallel.zero.ZeroPartition`), rank 0 alone writes, and every rank waits
+for the write before it goes on. The file is the one-device run's, and
+any world size resumes it; tensor-parallel slices are gathered too.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.mesh import barrier, is_main_process
 from . import msgpack
 
 
@@ -46,28 +53,39 @@ def _cpu(tree):
 
 
 def _write(path: str, payload: dict, metadata: Optional[dict]) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(_cpu(payload), tmp)
-    os.replace(tmp, path)
-    if metadata is not None:
-        with open(path + ".meta.json", "w") as f:
-            json.dump(metadata, f)
+    if is_main_process():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(_cpu(payload), tmp)
+        os.replace(tmp, path)
+        if metadata is not None:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(metadata, f)
+    barrier()
+
+
+def _full_opt_state(opt, zero):
+    """The whole optimizer state: gathered over the data group when `zero`
+    shards it."""
+    return opt if zero is None else zero.gather_state(opt)
 
 
 def save_msgpack(path: str, tree, metadata: Optional[dict] = None) -> None:
     """Write `tree` (nested dicts of numpy arrays or tensors) as the JAX
     package's `save_checkpoint` does: msgpack to `<path>.tmp`, renamed
     over `path` (a preempted write never leaves a torn file), and
-    `<path>.meta.json` with the metadata."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        msgpack.pack(tree, f)
-    os.replace(tmp, path)
-    if metadata is not None:
-        with open(path + ".meta.json", "w") as f:
-            json.dump(metadata, f)
+    `<path>.meta.json` with the metadata. Rank 0 writes; every rank waits
+    for it."""
+    if is_main_process():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            msgpack.pack(tree, f)
+        os.replace(tmp, path)
+        if metadata is not None:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(metadata, f)
+    barrier()
 
 
 def load_msgpack(path: str) -> Any:
@@ -138,12 +156,21 @@ def _copy(path: str, dst: dict, src: dict, what: str) -> None:
         dst[k].copy_(t)
 
 
-def save_checkpoint(path: str, state, metadata: Optional[dict] = None
-                    ) -> None:
-    opt = state.opt_state
+def save_checkpoint(path: str, state, metadata: Optional[dict] = None,
+                    zero=None, tp=None) -> None:
+    """A `stage2.Stage2State` (collective under a process group; `tp`, a
+    `parallel.tp.TensorParallel`, gathers the split scores and moments)."""
+    opt = _full_opt_state(state.opt_state, zero)
+    scores = state.scores
+    if tp is not None:
+        scores = tp.gather(scores)
+        opt = dataclasses.replace(
+            opt, mu=tp.gather(opt.mu), nu=tp.gather(opt.nu),
+            abs_grad_sum=(None if opt.abs_grad_sum is None
+                          else tp.gather(opt.abs_grad_sum)))
     payload = {
         "step": state.step,
-        "scores": state.scores,
+        "scores": scores,
         "thresholds": state.thresholds,
         "train_params": state.train_params,
         "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu,
@@ -178,11 +205,13 @@ def load_checkpoint(path: str, state):
     return state
 
 
-def save_mplug_checkpoint(path: str, state, metadata: Optional[dict] = None
-                          ) -> None:
+def save_mplug_checkpoint(path: str, state, metadata: Optional[dict] = None,
+                          zero=None) -> None:
     """An `mplug_train.MPlugState` (training or serving): its trained
-    parameters are the leaves that require gradients."""
-    opt = state.opt_state
+    parameters are the leaves that require gradients (collective under a
+    process group)."""
+    opt = (None if state.opt_state is None
+           else _full_opt_state(state.opt_state, zero))
     payload = {
         "step": state.step,
         "params": {k: v for k, v in state.params.items() if v.requires_grad},
@@ -266,7 +295,8 @@ def save_stage1_checkpoint(path: str, state,
                            metadata: Optional[dict] = None) -> None:
     """A `stage1.Stage1State` (stage 1 or 3): the step, every parameter,
     the LMH parameters, the optimizer state and the generators. Stage 3's
-    constant masks are rebuilt from the run's arguments."""
+    constant masks are rebuilt from the run's arguments. Collective under
+    a process group (rank 0 writes)."""
     opt = state.opt_state
     payload = {
         "step": state.step, "params": state.params,
@@ -300,8 +330,9 @@ def load_stage1_checkpoint(path: str, state):
 def rotate_checkpoints(directory: str, keep: int, prefix: str = "ckpt_"
                        ) -> None:
     """Keep the newest `keep` checkpoints (`_rotate_checkpoints`,
-    mask_trainer_Robust_VQA.py:1040-1052); keep <= 0 keeps all."""
-    if keep <= 0 or not os.path.isdir(directory):
+    mask_trainer_Robust_VQA.py:1040-1052); keep <= 0 keeps all. Rank 0
+    only."""
+    if keep <= 0 or not os.path.isdir(directory) or not is_main_process():
         return
     cands = sorted((int(n[len(prefix):]), os.path.join(directory, n))
                    for n in os.listdir(directory)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..masking.spec import MaskSpec
+from ..parallel.mesh import is_main_process
 
 
 # ------------------------------------------------------------------- mask.pt
@@ -54,7 +55,9 @@ def export_mask_pt(path: str, masks: dict[str, torch.Tensor],
                    specs: Sequence[MaskSpec]) -> None:
     """Write bool masks keyed by spec key, already in the torch orientation,
     as a reference-format `mask.pt`: {`<torch_name>.weight`: BoolTensor}
-    (mask_trainer_Robust_VQA.py:943-991)."""
+    (mask_trainer_Robust_VQA.py:943-991). Rank 0 writes."""
+    if not is_main_process():
+        return
     torch.save({f"{spec.torch_name}.weight":
                 masks[spec.key].detach().to("cpu", torch.bool).contiguous()
                 for spec in specs}, path)
@@ -81,7 +84,9 @@ def export_classifier_bin(path: str, classifier: dict[str, torch.Tensor]
     """Save the classifier's state_dict (`main.0.*` / `main.3.*`) as
     `classifier4masker.bin` (mask_trainer_Robust_VQA.py:734-740, the
     module pickle replaced by its state_dict, as the JAX package writes
-    it)."""
+    it). Rank 0 writes."""
+    if not is_main_process():
+        return
     torch.save({k: v.detach().to("cpu", torch.float32).contiguous()
                 for k, v in classifier.items()}, path)
 
@@ -125,7 +130,10 @@ def load_torch_params(path: str, template: dict[str, torch.Tensor]
 def save_torch_state_dict(path: str, state: dict[str, torch.Tensor]) -> None:
     """torch.save a state_dict in the reference names (the stage-1 -> stage
     2/3 interop artifact, `<label4save>_FT*.bin`; `save_torch_state_dict`
-    of the JAX package), tensors on the CPU as they are held (fp32)."""
+    of the JAX package), tensors on the CPU as they are held (fp32). Rank
+    0 writes."""
+    if not is_main_process():
+        return
     torch.save({k: v.detach().to("cpu").contiguous()
                 for k, v in state.items()}, path)
 

@@ -111,7 +111,8 @@ __global__ void __launch_bounds__(kThreads)
         float* __restrict__ dv, int sq, int sk, int heads, int64_t q_sb,
         int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,
         int64_t v_ss, int64_t g_sb, int64_t g_ss, float scale,
-        uint32_t seed, uint32_t threshold, float keep_scale) {
+        uint32_t seed, uint32_t batch0, uint32_t col0, uint32_t threshold,
+            float keep_scale) {
   extern __shared__ float smem[];
   float* qs = smem;              // [sq][kPitch]
   float* gs = qs + sq * kPitch;  // [sq][kPitch]
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // dp = (g v^T) * drop and p_t = round_g(p * drop)
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b);
+  const uint32_t key = fa::keep_key_at(seed, (uint32_t)b + batch0, col0);
   for (int idx = tid; idx < sq * sk; idx += kThreads) {
     const int i = idx / sk, j = idx % sk;
     const float* grow = gs + i * kPitch;
@@ -217,7 +218,8 @@ int launch_typed(const void* q, const void* k, const void* v,
                  void* dq, void* dk, void* dv, int batch, int sq, int sk,
                  int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                  int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t g_sb,
-                 int64_t g_ss, uint32_t seed, uint32_t threshold,
+                 int64_t g_ss, uint32_t seed, uint32_t batch0, uint32_t col0,
+                     uint32_t threshold,
                  float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(sq, sk);
   auto kernel = fused_attention_bwd_kernel<kStored>;
@@ -232,7 +234,7 @@ int launch_typed(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), p_in, bias, static_cast<const float*>(g),
       static_cast<float*>(dq), static_cast<float*>(dk),
       static_cast<float*>(dv), sq, sk, heads, q_sb, q_ss, k_sb, k_ss, v_sb,
-      v_ss, g_sb, g_ss, scale, seed, threshold, keep_scale);
+      v_ss, g_sb, g_ss, scale, seed, batch0, col0, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -290,7 +292,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
         int sq, int sk, int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
         int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t g_sb,
-        int64_t g_ss, float scale, uint32_t seed, uint32_t threshold,
+        int64_t g_ss, float scale, uint32_t seed, uint32_t batch0,
+        uint32_t col0, uint32_t threshold,
         float keep_scale, int p_vec) {
   constexpr int kKeys = 8 * NT;  // keys a chunk (the register row)
   static_assert(4 * NT <= 32, "the keep bits of a chunk fill one word");
@@ -346,7 +349,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   __syncthreads();
 
   // 2. rows: p, dp * drop, rowsum, then the ds and p_t planes
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b);
+  const uint32_t key = fa::keep_key_at(seed, (uint32_t)b + batch0, col0);
   const int nch = (sk + kKeys - 1) / kKeys;
   for (int rt = warp; rt < row_tiles; rt += warps) {
     const int r0 = 16 * rt;
@@ -512,7 +515,8 @@ int launch_mma(const void* q, const void* k, const void* v,
                void* dk, void* dv, int batch, int sq, int sk, int heads,
                int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                int64_t v_sb, int64_t v_ss, int64_t g_sb, int64_t g_ss,
-               uint32_t seed, uint32_t threshold, float keep_scale,
+               uint32_t seed, uint32_t batch0, uint32_t col0,
+                   uint32_t threshold, float keep_scale,
                cudaStream_t stream) {
   const BwdPlan pl = bwd_plan(sq, sk, kStored);
   if (pl.total > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -532,7 +536,7 @@ int launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), p_in, bias, static_cast<const bf16*>(g),
       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       sq, sk, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale,
-      seed, threshold, keep_scale, p_vec);
+      seed, batch0, col0, threshold, keep_scale, p_vec);
   return (int)cudaGetLastError();
 }
 
@@ -546,7 +550,8 @@ extern "C" {
 // selects the variant: exactly one of them is non-null. q, k, v and g are
 // read through batch and row strides (elements; last dimension
 // contiguous); dq [B, Sq, H*D] and dk, dv [B, Sk, H*D] are contiguous.
-// `seed`, `threshold` and `keep_scale` are the forward's dropout arguments.
+// `seed`, `batch0`, `col0`, `threshold` and `keep_scale` are the forward's
+// dropout arguments.
 int fused_attention_bwd(const void* q, const void* k, const void* v,
                         const float* p_in, const float* bias, const void* g,
                         void* dq, void* dk, void* dv, int batch, int sq,
@@ -554,7 +559,8 @@ int fused_attention_bwd(const void* q, const void* k, const void* v,
                         int64_t q_ss, int64_t k_sb, int64_t k_ss,
                         int64_t v_sb, int64_t v_ss, int64_t g_sb,
                         int64_t g_ss, int is_bf16, uint32_t seed,
-                        uint32_t threshold, float keep_scale, void* stream) {
+                        uint32_t batch0, uint32_t col0, uint32_t threshold,
+                        float keep_scale, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads * sq > kMaxHeadsTimesSeq ||
       heads * sk > kMaxHeadsTimesSeq || (p_in == nullptr) == (bias == nullptr))
@@ -563,7 +569,8 @@ int fused_attention_bwd(const void* q, const void* k, const void* v,
   const bool stored = p_in != nullptr;
 #define FA_BWD_ARGS                                                          \
   q, k, v, p_in, bias, g, dq, dk, dv, batch, sq, sk, heads, q_sb, q_ss,     \
-      k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, seed, threshold, keep_scale, s
+      k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, seed, batch0, col0, threshold,   \
+      keep_scale, s
   if (is_bf16) {
     if (!fa::aligned16(q, q_sb, q_ss) || !fa::aligned16(k, k_sb, k_ss) ||
         !fa::aligned16(v, v_sb, v_ss) || !fa::aligned16(g, g_sb, g_ss))

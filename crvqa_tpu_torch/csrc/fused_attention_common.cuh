@@ -107,6 +107,17 @@ __device__ __forceinline__ uint32_t keep_key(uint32_t seed, uint32_t b,
   return keep_key(seed, b) + h * 1000003u;
 }
 
+// The key of global batch row `b` whose lane-blocked columns start at
+// `col0` (= head0 * Sk: a rank holding heads head0.. of a tensor-parallel
+// split): keep_bit(keep_key_at(seed, b, c0), i, j) ==
+// keep_bit(keep_key(seed, b), i, j + c0), since the column enters the hash
+// as j * 668265263 (mod 2^32). A data-parallel rank passes b + batch0, its
+// first global row.
+__device__ __forceinline__ uint32_t keep_key_at(uint32_t seed, uint32_t b,
+                                                uint32_t col0) {
+  return keep_key(seed, b) + col0 * 668265263u;
+}
+
 __device__ __forceinline__ bool keep_bit(uint32_t key, uint32_t i, uint32_t j,
                                          uint32_t threshold) {
   uint32_t x = i * 374761393u + j * 668265263u + key;

@@ -58,7 +58,9 @@
 //   backward, which cuts rows into chunks of 48, rebuilds p bit for bit;
 // - forward for grad: p goes from the registers to the residual as 8-byte
 //   stores (4-byte when Sk is odd), and the keep bit is
-//   `fa::keep_bit(keep_key(seed, b), i, h*Sk + j, threshold)`;
+//   `fa::keep_bit(keep_key_at(seed, b + batch0, col0), i, h*Sk + j,
+//   threshold)`: batch0 and col0 place a rank's rows and heads in the
+//   global mask (0 on one device);
 // - context: p (after dropout) rounded to bf16 straight from the score
 //   accumulators into A operands (`fa::pack_a`), V through
 //   `ldmatrix.trans`; the warp's 16 x 64 output is staged in its own q rows
@@ -120,7 +122,8 @@ __global__ void __launch_bounds__(kRows * 32)
                                int64_t q_sb, int64_t q_ss, int64_t k_sb,
                                int64_t k_ss, int64_t v_sb, int64_t v_ss,
                                float scale, float* __restrict__ p_out,
-                               uint32_t seed, uint32_t threshold,
+                               uint32_t seed, uint32_t batch0, uint32_t col0,
+                                   uint32_t threshold,
                                float keep_scale) {
   extern __shared__ float smem[];
   float* tile = smem;                        // [kKeyTile][kPitch]
@@ -168,7 +171,7 @@ __global__ void __launch_bounds__(kRows * 32)
     if (kTrain) {
       // residual (pre-dropout p), then dropout keyed on the lane-blocked
       // column h * Sk + j, as crvqa_tpu/ops/fused_attention.py:205-211
-      const uint32_t key = fa::keep_key(seed, (uint32_t)b);
+      const uint32_t key = fa::keep_key_at(seed, (uint32_t)b + batch0, col0);
       float* res = p_out == nullptr
                        ? nullptr
                        : p_out + ((int64_t)b * sq + row) * heads * sk +
@@ -238,7 +241,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         bf16* __restrict__ out, int sq, int sk, int heads, int64_t q_sb,
         int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,
         int64_t v_ss, float scale, float* __restrict__ p_out, int p_pairs,
-        uint32_t seed, uint32_t threshold, float keep_scale) {
+        uint32_t seed, uint32_t batch0, uint32_t col0, uint32_t threshold,
+            float keep_scale) {
   constexpr int kKeys = 8 * NT;  // keys a chunk (the register row)
   extern __shared__ __align__(128) unsigned char mma_smem[];
   const int warps = blockDim.x >> 5;
@@ -308,7 +312,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (live) st.finish();
 
   // p, the residual, dropout, and the context P V
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b);
+  const uint32_t key = fa::keep_key_at(seed, (uint32_t)b + batch0, col0);
   float o[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -381,14 +385,15 @@ void launch_mma(dim3 grid, int warps, const void* q, const void* k,
                 const void* v, const float* bias, void* out, int sq, int sk,
                 int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                 int64_t k_ss, int64_t v_sb, int64_t v_ss, float scale,
-                float* p_out, int p_pairs, uint32_t seed, uint32_t threshold,
+                float* p_out, int p_pairs, uint32_t seed, uint32_t batch0,
+                uint32_t col0, uint32_t threshold,
                 float keep_scale, cudaStream_t stream) {
   fused_attention_fwd_mma_kernel<kTrain, NT>
       <<<grid, warps * 32, mma_smem_bytes(warps, NT), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), sq, sk,
           heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, p_out, p_pairs,
-          seed, threshold, keep_scale);
+          seed, batch0, col0, threshold, keep_scale);
 }
 
 template <bool kTrain>
@@ -396,7 +401,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int batch, int sq, int sk, int heads, int head_dim,
            int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
            int64_t v_sb, int64_t v_ss, int is_bf16, float* p_out,
-           uint32_t seed, uint32_t threshold, float keep_scale,
+           uint32_t seed, uint32_t batch0, uint32_t col0, uint32_t threshold,
+               float keep_scale,
            void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads * sq > kMaxHeadsTimesSeq ||
@@ -416,7 +422,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
         reinterpret_cast<uintptr_t>(p_out) % 8 == 0;
 #define FA_FWD_MMA_ARGS                                                     \
   grid, warps, q, k, v, bias, out, sq, sk, heads, q_sb, q_ss, k_sb, k_ss,   \
-      v_sb, v_ss, scale, p_out, p_pairs, seed, threshold, keep_scale, s
+      v_sb, v_ss, scale, p_out, p_pairs, seed, batch0, col0, threshold,   \
+      keep_scale, s
     switch (fa::row_tiles(sk, 12)) {
       case 2: launch_mma<kTrain, 2>(FA_FWD_MMA_ARGS); break;
       case 6: launch_mma<kTrain, 6>(FA_FWD_MMA_ARGS); break;
@@ -432,7 +439,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   fused_attention_fwd_kernel<kTrain><<<grid, block, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(out), sq, sk,
-      heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, p_out, seed,
+      heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, p_out, seed, batch0,
+          col0,
       threshold, keep_scale);
   return (int)cudaGetLastError();
 }
@@ -452,23 +460,27 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
                         void* stream) {
   return launch<false>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
                        q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, nullptr,
-                       0u, 0u, 1.f, stream);
+                       0u, 0u, 0u, 0u, 1.f, stream);
 }
 
 // The forward for grad: as above, plus the fp32 residual p_out
 // [B, Sq, H*Sk] (contiguous; null to skip it) and dropout from `seed` (the
-// int32 seed's bits), `threshold` and `keep_scale` = 1 / (1 - rate).
+// int32 seed's bits), `threshold` and `keep_scale` = 1 / (1 - rate), the
+// keep mask keyed on global batch row b + `batch0` and lane-blocked column
+// `col0` + h*Sk + j (`batch0`, `col0`: the first global row and column of
+// a data- or tensor-parallel rank's slice; 0 on one device).
 int fused_attention_fwd_train(const void* q, const void* k, const void* v,
                               const float* bias, void* out, float* p_out,
                               int batch, int sq, int sk, int heads,
                               int head_dim, int64_t q_sb, int64_t q_ss,
                               int64_t k_sb, int64_t k_ss, int64_t v_sb,
                               int64_t v_ss, int is_bf16, uint32_t seed,
+                              uint32_t batch0, uint32_t col0,
                               uint32_t threshold, float keep_scale,
                               void* stream) {
   return launch<true>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
                       q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, p_out,
-                      seed, threshold, keep_scale, stream);
+                      seed, batch0, col0, threshold, keep_scale, stream);
 }
 
 const char* fused_attention_fwd_error_string(int code) {

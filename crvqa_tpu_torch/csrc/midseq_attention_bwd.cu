@@ -25,7 +25,8 @@
 // with dq, dk, dv rounded to T once at the end: the TPU kernel's rounding
 // points. rowsum is the fp32 sum of dp * p as `_bwd_kernel` forms it, not
 // the shortcut g . out, which would read a bf16-rounded output. The keep
-// bit is the forward's (`fa::keep_key(seed, b, h)`, plain key index j).
+// bit is the forward's (`fa::keep_key(seed, b + batch0, h + head0)`,
+// plain key index j).
 // The TPU wrapper pads Sq to 16 and Sk to 128 with a -1e30 bias; here
 // every loop is bounded by Sq and Sk instead. q, k, v, g are read in place
 // through their batch and row strides (last dimension contiguous); dq, dk,
@@ -144,7 +145,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                          int64_t q_sb, int64_t q_ss, int64_t k_sb,
                          int64_t k_ss, int64_t v_sb, int64_t v_ss,
                          int64_t g_sb, int64_t g_ss, float scale,
-                         uint32_t seed, uint32_t threshold,
+                         uint32_t seed, uint32_t batch0, uint32_t head0,
+                             uint32_t threshold,
                          float keep_scale) {
   extern __shared__ float smem[];
   float* tile = smem;                      // [kTile][kPitch]
@@ -206,7 +208,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   // dp = (g v^T) * drop, and each row's sum of dp * p
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+      (uint32_t)h + head0);
   float part_a = 0.f, part_b = 0.f;
   for (int j0 = 0; j0 < sk; j0 += kTile) {
     const int n = min(kTile, sk - j0);
@@ -313,7 +316,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                           int sk, int heads, int64_t q_sb, int64_t q_ss,
                           int64_t k_sb, int64_t k_ss, int64_t v_sb,
                           int64_t v_ss, int64_t g_sb, int64_t g_ss,
-                          float scale, uint32_t seed, uint32_t threshold,
+                          float scale, uint32_t seed, uint32_t batch0,
+                          uint32_t head0, uint32_t threshold,
                           float keep_scale) {
   __shared__ float ks[kOwned * kHeadDim];    // this block's keys
   __shared__ float vs[kOwned * kHeadDim];
@@ -342,7 +346,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   stage_owned(vs, v + b * v_sb + h * kHeadDim, v_ss, key0, sk);
   const float bias_a = live_a ? bias[(int64_t)b * sk + j_a] : 0.f;
   const float bias_bb = live_b ? bias[(int64_t)b * sk + j_b] : 0.f;
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+      (uint32_t)h + head0);
 
   // lane owns columns lane and lane + 32 of dv and dk of both keys
   float dva0 = 0.f, dva1 = 0.f, dvb0 = 0.f, dvb1 = 0.f;
@@ -449,7 +454,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
                              int heads, int64_t q_sb, int64_t q_ss,
                              int64_t k_sb, int64_t k_ss, int64_t v_sb,
                              int64_t v_ss, int64_t g_sb, int64_t g_ss,
-                             float scale, uint32_t seed, uint32_t threshold,
+                             float scale, uint32_t seed, uint32_t batch0,
+                             uint32_t head0, uint32_t threshold,
                              float keep_scale) {
   __shared__ __align__(128) ms::bf16 ks[2][ms::kTileElems];
   __shared__ __align__(128) ms::bf16 vs[2][ms::kTileElems];
@@ -462,7 +468,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
   const ms::bf16* kb = k + b * k_sb + h * ms::kD;
   const ms::bf16* vb = v + b * v_sb + h * ms::kD;
   const float* bias_b = bias + (int64_t)b * sk;
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+      (uint32_t)h + head0);
   const int gq = lane >> 2, c = lane & 3;
 
   uint32_t qa[4][4], ga[4][4];
@@ -575,7 +582,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
                               int heads, int64_t q_sb, int64_t q_ss,
                               int64_t k_sb, int64_t k_ss, int64_t v_sb,
                               int64_t v_ss, int64_t g_sb, int64_t g_ss,
-                              float scale, uint32_t seed, uint32_t threshold,
+                              float scale, uint32_t seed, uint32_t batch0,
+                              uint32_t head0, uint32_t threshold,
                               float keep_scale) {
   __shared__ __align__(128) ms::bf16 qs[2][ms::kTileElems];
   __shared__ __align__(128) ms::bf16 gs[2][ms::kTileElems];
@@ -588,7 +596,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
   const ms::bf16* qb = q + b * q_sb + h * ms::kD;
   const ms::bf16* gb = g + b * g_sb + h * ms::kD;
   const float* stats_bh = stats + ((int64_t)b * heads + h) * 3 * sq;
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+      (uint32_t)h + head0);
   const int gk = lane >> 2, c = lane & 3;
 
   uint32_t ka[4][4], va[4][4];
@@ -690,7 +699,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 void* dv, float* stats, int batch, int sq, int sk, int heads,
                 int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                 int64_t v_sb, int64_t v_ss, int64_t g_sb, int64_t g_ss,
-                uint32_t seed, uint32_t threshold, float keep_scale,
+                uint32_t seed, uint32_t batch0, uint32_t head0,
+                    uint32_t threshold, float keep_scale,
                 cudaStream_t stream) {
   if (!ms::aligned16(q, q_sb, q_ss) || !ms::aligned16(k, k_sb, k_ss) ||
       !ms::aligned16(v, v_sb, v_ss) || !ms::aligned16(g, g_sb, g_ss))
@@ -708,13 +718,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
       [&](dim3 grid) {
         midseq_bwd_dq_mma_kernel<4><<<grid, 128, 0, stream>>>(
             qp, kp, vp, bias, gp, dqp, stats, sq, sk, heads, q_sb, q_ss,
-            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, batch0, head0,
+                threshold,
             keep_scale);
       },
       [&](dim3 grid) {
         midseq_bwd_dq_mma_kernel<1><<<grid, 32, 0, stream>>>(
             qp, kp, vp, bias, gp, dqp, stats, sq, sk, heads, q_sb, q_ss,
-            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, batch0, head0,
+                threshold,
             keep_scale);
       });
   if (err != cudaSuccess) return (int)err;
@@ -723,13 +735,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
       [&](dim3 grid) {
         midseq_bwd_dkv_mma_kernel<4><<<grid, 128, 0, stream>>>(
             qp, kp, vp, bias, gp, stats, dkp, dvp, sq, sk, heads, q_sb, q_ss,
-            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, batch0, head0,
+                threshold,
             keep_scale);
       },
       [&](dim3 grid) {
         midseq_bwd_dkv_mma_kernel<1><<<grid, 32, 0, stream>>>(
             qp, kp, vp, bias, gp, stats, dkp, dvp, sq, sk, heads, q_sb, q_ss,
-            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+            k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, batch0, head0,
+                threshold,
             keep_scale);
       });
   return (int)err;
@@ -740,7 +754,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            const void* g, void* dq, void* dk, void* dv, float* stats,
            int batch, int sq, int sk, int heads, int64_t q_sb, int64_t q_ss,
            int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss,
-           int64_t g_sb, int64_t g_ss, uint32_t seed, uint32_t threshold,
+           int64_t g_sb, int64_t g_ss, uint32_t seed, uint32_t batch0,
+           uint32_t head0, uint32_t threshold,
            float keep_scale, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(sk);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -758,7 +773,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const dim3 dq_grid((sq + kOwned - 1) / kOwned, heads, batch);
   dq_kernel<<<dq_grid, kWarps * 32, smem, stream>>>(
       qp, kp, vp, bias, gp, static_cast<T*>(dq), stats, sq, sk, heads, q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, threshold,
+      q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale, seed, batch0, head0,
+          threshold,
       keep_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -766,7 +782,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   midseq_bwd_dkv_kernel<T><<<dkv_grid, kWarps * 32, 0, stream>>>(
       qp, kp, vp, bias, gp, stats, static_cast<T*>(dk), static_cast<T*>(dv),
       sq, sk, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, scale,
-      seed, threshold, keep_scale);
+      seed, batch0, head0, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -780,14 +796,17 @@ extern "C" {
 // `is_bf16` selects bf16 (1) or fp32 (0) for q, k, v, g, dq, dk and dv.
 // Dropout from `seed` (the int32 seed's bits), `threshold` =
 // min(int(rate * 2^32), 2^32 - 1) and `keep_scale` = 1 / (1 - rate); rate 0
-// is threshold 0, keep_scale 1.
+// is threshold 0, keep_scale 1. The keep mask is keyed on global batch row
+// b + `batch0` and head h + `head0` (a data- or tensor-parallel rank's
+// first row and head; 0 on one device).
 int midseq_attention_bwd(const void* q, const void* k, const void* v,
                          const float* bias, const void* g, void* dq, void* dk,
                          void* dv, float* stats, int batch, int sq, int sk,
                          int heads, int head_dim, int64_t q_sb, int64_t q_ss,
                          int64_t k_sb, int64_t k_ss, int64_t v_sb,
                          int64_t v_ss, int64_t g_sb, int64_t g_ss,
-                         int is_bf16, uint32_t seed, uint32_t threshold,
+                         int is_bf16, uint32_t seed, uint32_t batch0,
+                         uint32_t head0, uint32_t threshold,
                          float keep_scale, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads > 65535)
@@ -796,10 +815,10 @@ int midseq_attention_bwd(const void* q, const void* k, const void* v,
   if (is_bf16)
     return launch_bf16(q, k, v, bias, g, dq, dk, dv, stats, batch, sq, sk,
                        heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss,
-                       seed, threshold, keep_scale, s);
+                       seed, batch0, head0, threshold, keep_scale, s);
   return launch<float>(q, k, v, bias, g, dq, dk, dv, stats, batch, sq, sk,
                        heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, g_sb, g_ss,
-                       seed, threshold, keep_scale, s);
+                       seed, batch0, head0, threshold, keep_scale, s);
 }
 
 const char* midseq_attention_bwd_error_string(int code) {

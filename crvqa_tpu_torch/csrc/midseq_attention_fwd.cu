@@ -130,8 +130,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                                 T* __restrict__ out, int sq, int sk, int heads,
                                 int64_t q_sb, int64_t q_ss, int64_t k_sb,
                                 int64_t k_ss, int64_t v_sb, int64_t v_ss,
-                                float scale, uint32_t seed,
-                                uint32_t threshold, float keep_scale) {
+                                float scale, uint32_t seed, uint32_t batch0,
+                                uint32_t head0, uint32_t threshold,
+                                float keep_scale) {
   extern __shared__ float smem[];
   float* tile = smem;                     // [kKeyTile][kPitch]
   float* qs = tile + kKeyTile * kPitch;   // [kRows][D]
@@ -182,7 +183,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   // softmax over each live row of this warp, fp32
   if (live_a) {
     __syncwarp();
-    const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+    const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+        (uint32_t)h + head0);
     softmax_row<T>(pa, sk, lane, key, (uint32_t)row_a, threshold,
                    keep_scale);
     if (live_b)
@@ -240,7 +242,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
                           ms::bf16* __restrict__ out, int sq, int sk,
                           int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                           int64_t k_ss, int64_t v_sb, int64_t v_ss,
-                          float scale, uint32_t seed, uint32_t threshold,
+                          float scale, uint32_t seed, uint32_t batch0,
+                          uint32_t head0, uint32_t threshold,
                           float keep_scale) {
   __shared__ __align__(128) ms::bf16 ks[2][ms::kTileElems];
   __shared__ __align__(128) ms::bf16 vs[2][ms::kTileElems];
@@ -253,7 +256,8 @@ __global__ void __launch_bounds__(kBlockWarps * 32)
   const ms::bf16* kb = k + b * k_sb + h * ms::kD;
   const ms::bf16* vb = v + b * v_sb + h * ms::kD;
   const float* bias_b = bias + (int64_t)b * sk;
-  const uint32_t key = fa::keep_key(seed, (uint32_t)b, (uint32_t)h);
+  const uint32_t key = fa::keep_key(seed, (uint32_t)b + batch0,
+      (uint32_t)h + head0);
 
   uint32_t qa[4][4];
   ms::load_a_rows(qa, q + b * q_sb + h * ms::kD, q_ss, row0, sq, lane);
@@ -331,7 +335,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 const float* bias, void* out, int batch, int sq, int sk,
                 int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                 int64_t k_ss, int64_t v_sb, int64_t v_ss, uint32_t seed,
-                uint32_t threshold, float keep_scale, cudaStream_t stream) {
+                uint32_t batch0, uint32_t head0, uint32_t threshold,
+                float keep_scale, cudaStream_t stream) {
   if (!ms::aligned16(q, q_sb, q_ss) || !ms::aligned16(k, k_sb, k_ss) ||
       !ms::aligned16(v, v_sb, v_ss))
     return (int)cudaErrorMisalignedAddress;
@@ -345,12 +350,12 @@ int launch_bf16(const void* q, const void* k, const void* v,
       [&](dim3 grid) {
         midseq_fwd_mma_kernel<4><<<grid, 128, 0, stream>>>(
             qp, kp, vp, bias, op, sq, sk, heads, q_sb, q_ss, k_sb, k_ss,
-            v_sb, v_ss, scale, seed, threshold, keep_scale);
+            v_sb, v_ss, scale, seed, batch0, head0, threshold, keep_scale);
       },
       [&](dim3 grid) {
         midseq_fwd_mma_kernel<1><<<grid, 32, 0, stream>>>(
             qp, kp, vp, bias, op, sq, sk, heads, q_sb, q_ss, k_sb, k_ss,
-            v_sb, v_ss, scale, seed, threshold, keep_scale);
+            v_sb, v_ss, scale, seed, batch0, head0, threshold, keep_scale);
       });
 }
 
@@ -358,7 +363,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int batch, int sq, int sk, int heads, int64_t q_sb,
            int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,
-           int64_t v_ss, uint32_t seed, uint32_t threshold, float keep_scale,
+           int64_t v_ss, uint32_t seed, uint32_t batch0, uint32_t head0,
+               uint32_t threshold, float keep_scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(sk);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -373,7 +379,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), sq, sk, heads,
-      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, seed, threshold,
+      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, seed, batch0, head0, threshold,
       keep_scale);
   return (int)cudaGetLastError();
 }
@@ -387,13 +393,16 @@ extern "C" {
 // elements. `is_bf16` selects bf16 (1) or fp32 (0) for q, k, v and out.
 // Dropout from `seed` (the int32 seed's bits), `threshold` =
 // min(int(rate * 2^32), 2^32 - 1) and `keep_scale` = 1 / (1 - rate); rate 0
-// is threshold 0, keep_scale 1.
+// is threshold 0, keep_scale 1. The keep mask is keyed on global batch row
+// b + `batch0` and head h + `head0` (a data- or tensor-parallel rank's
+// first row and head; 0 on one device).
 int midseq_attention_fwd(const void* q, const void* k, const void* v,
                          const float* bias, void* out, int batch, int sq,
                          int sk, int heads, int head_dim, int64_t q_sb,
                          int64_t q_ss, int64_t k_sb, int64_t k_ss,
                          int64_t v_sb, int64_t v_ss, int is_bf16,
-                         uint32_t seed, uint32_t threshold, float keep_scale,
+                         uint32_t seed, uint32_t batch0, uint32_t head0,
+                             uint32_t threshold, float keep_scale,
                          void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads > 65535)
@@ -401,10 +410,12 @@ int midseq_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_bf16(q, k, v, bias, out, batch, sq, sk, heads, q_sb, q_ss,
-                       k_sb, k_ss, v_sb, v_ss, seed, threshold, keep_scale,
+                       k_sb, k_ss, v_sb, v_ss, seed, batch0, head0, threshold,
+                           keep_scale,
                        s);
   return launch<float>(q, k, v, bias, out, batch, sq, sk, heads, q_sb, q_ss,
-                       k_sb, k_ss, v_sb, v_ss, seed, threshold, keep_scale,
+                       k_sb, k_ss, v_sb, v_ss, seed, batch0, head0, threshold,
+                           keep_scale,
                        s);
 }
 

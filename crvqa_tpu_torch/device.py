@@ -11,7 +11,9 @@ import torch
 
 def resolve_device(name: str = "cuda") -> torch.device:
     """`"cuda"` (default) or `"cuda:N"` -> that card, raising if absent;
-    `"cpu"` -> the CPU, only when asked for by name."""
+    `"cpu"` -> the CPU, only when asked for by name. Under a process group
+    (`parallel.initialize_multihost`) a bare `"cuda"` is this process's
+    own card, `cuda:{LOCAL_RANK}`."""
     dev = torch.device(name)
     if dev.type == "cpu":
         return dev
@@ -21,4 +23,8 @@ def resolve_device(name: str = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is "
             "False; pass --device cpu to run on the CPU on purpose")
+    if dev.index is None and torch.distributed.is_initialized():
+        from .parallel.mesh import local_rank
+
+        dev = torch.device("cuda", local_rank())
     return dev

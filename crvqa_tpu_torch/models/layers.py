@@ -151,7 +151,8 @@ def dispatch_attention(q, k, v, attention_bias, num_heads: int,
                        generator: Optional[torch.Generator],
                        seed_generator: Optional[torch.Generator],
                        short_kernel: bool = True,
-                       kernels: bool = True) -> torch.Tensor:
+                       kernels: bool = True,
+                       data_index: int = 0, head0: int = 0) -> torch.Tensor:
     """Attention on flat [B, S, H*D] projections, dispatched as the JAX
     package's `MultiHeadAttention._attend` (crvqa_tpu/models/layers.py:
     255-307) dispatches when its kernels are on:
@@ -167,7 +168,13 @@ def dispatch_attention(q, k, v, attention_bias, num_heads: int,
     `kernels=False` takes the eager path for every shape: the model's
     setting under a second-order optimizer, whose double backward the
     kernels' autograd Functions do not have (the JAX package turns its
-    kernels off there too, crvqa_tpu/cli/common.py:289-302)."""
+    kernels off there too, crvqa_tpu/cli/common.py:289-302).
+
+    `data_index`: this rank's place on a data-parallel mesh. Every data
+    rank holds an equal block of the global batch, so the kernels key
+    their dropout masks on global row data_index * B + b and each rank
+    draws its block of the one-device run's mask. `head0`: the first of
+    this rank's heads under tensor parallelism, for the same reason."""
     if not kernels:
         return eager_attention(q, k, v, attention_bias, num_heads,
                                head_size, rate, generator)
@@ -186,7 +193,8 @@ def dispatch_attention(q, k, v, attention_bias, num_heads: int,
             bias2d = attention_bias[:, 0, 0, :].float()
         kernel = fused_attention if short else midseq_attention
         seed = kernel_seed(rate, seed_generator, "attention kernel")
-        return kernel(q, k, v, bias2d, num_heads, head_size, rate, seed)
+        return kernel(q, k, v, bias2d, num_heads, head_size, rate, seed,
+                      row0=data_index * q.shape[0], head0=head0)
     return eager_attention(q, k, v, attention_bias, num_heads, head_size,
                            rate, generator)
 
@@ -237,6 +245,11 @@ class MultiHeadAttention(nn.Module):
         self.kernels = kernels  # False: always the eager path
         self.generator: Optional[torch.Generator] = None       # masks
         self.seed_generator: Optional[torch.Generator] = None  # kernel seeds
+        self.data_index = 0  # the kernels' row block (`set_generators`)
+        # tensor parallelism (`parallel.tp.enable_tp`): this rank's heads
+        # from head0, f at the inputs of the projections
+        self.tp = None
+        self.head0 = 0
         self.query = nn.Linear(hidden_size, d, dtype=dtype)
         self.key = nn.Linear(hidden_size, d, dtype=dtype)
         self.value = nn.Linear(hidden_size, d, dtype=dtype)
@@ -244,6 +257,10 @@ class MultiHeadAttention(nn.Module):
     def forward(self, hidden: torch.Tensor, context: torch.Tensor,
                 attention_bias: Optional[torch.Tensor] = None, kv=None,
                 self_cache=None, cache_position: Optional[int] = None):
+        if self.tp is not None:
+            same = context is hidden
+            hidden = self.tp.copy_to_model(hidden)
+            context = hidden if same else self.tp.copy_to_model(context)
         q = self.query(hidden)
         rate = self.dropout_rate if self.training else 0.0
         if self_cache is not None:
@@ -269,13 +286,25 @@ class MultiHeadAttention(nn.Module):
         rate = self.dropout_rate if self.training else 0.0
         return dispatch_attention(q, k, v, attention_bias, self.num_heads,
                                   self.head_size, rate, self.generator,
-                                  self.seed_generator, kernels=self.kernels)
+                                  self.seed_generator, kernels=self.kernels,
+                                  data_index=self.data_index,
+                                  head0=self.head0)
+
+
+def row_parallel(dense: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """`dense(x)`; under tensor parallelism (`tp`) the local product of a
+    row-parallel dense summed over the model group (g), then its
+    replicated bias, added once."""
+    if tp is None:
+        return dense(x)
+    return tp.reduce_from_model(F.linear(x, dense.weight)) + dense.bias
 
 
 class AttentionOutput(nn.Module):
     """dense -> dropout -> residual add -> LayerNorm (`LxmertAttentionOutput`).
     `in_size` is the attention's width, heads x head size: the hidden size
-    unless the heads were compacted (`masking/compaction.py`)."""
+    unless the heads were compacted (`masking/compaction.py`). Under
+    tensor parallelism the dense is row-parallel (`row_parallel`)."""
 
     def __init__(self, hidden_size: int, dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
@@ -285,9 +314,11 @@ class AttentionOutput(nn.Module):
                                dtype=dtype)
         self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
+        self.tp = None
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+        return self.LayerNorm(self.dropout(
+            row_parallel(self.dense, hidden, self.tp)) + residual)
 
 
 class SelfAttentionLayer(nn.Module):
@@ -323,20 +354,25 @@ class CrossAttentionLayer(nn.Module):
 
 
 class Intermediate(nn.Module):
-    """`LxmertIntermediate`: dense -> activation."""
+    """`LxmertIntermediate`: dense -> activation (column-parallel under
+    tensor parallelism: f at its input)."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  act: str = "gelu", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = nn.Linear(hidden_size, intermediate_size, dtype=dtype)
         self.act = ACT2FN[act]
+        self.tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
         return self.act(self.dense(x))
 
 
 class FFNOutput(nn.Module):
-    """`LxmertOutput`: dense -> dropout -> residual add -> LayerNorm."""
+    """`LxmertOutput`: dense -> dropout -> residual add -> LayerNorm (the
+    dense row-parallel under tensor parallelism)."""
 
     def __init__(self, intermediate_size: int, hidden_size: int,
                  dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -344,9 +380,11 @@ class FFNOutput(nn.Module):
         self.dense = nn.Linear(intermediate_size, hidden_size, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
+        self.tp = None
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(self.dense(hidden)) + residual)
+        return self.LayerNorm(self.dropout(
+            row_parallel(self.dense, hidden, self.tp)) + residual)
 
 
 class TransformerLayer(nn.Module):
@@ -380,16 +418,20 @@ def extend_attention_mask(mask: Optional[torch.Tensor]
 
 
 def set_generators(model: nn.Module, device_generator: torch.Generator,
-                   seed_generator: torch.Generator) -> None:
+                   seed_generator: torch.Generator, data_index: int = 0
+                   ) -> None:
     """Give every dropout of `model` its generators: `device_generator` (on
     the model's device) for dropout masks, `seed_generator` (CPU) for the
-    fused-attention kernel's per-call seeds."""
+    attention kernels' per-call seeds; `data_index` is this rank's place on
+    a data-parallel mesh, the row block of the kernels' masks
+    (`dispatch_attention`)."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = device_generator
         elif hasattr(m, "seed_generator"):  # every attention module
             m.generator = device_generator
             m.seed_generator = seed_generator
+            m.data_index = data_index
 
 
 def _generators(module: nn.Module) -> list[torch.Generator]:

@@ -115,6 +115,7 @@ class ViTAttention(nn.Module):
         self.kernels = c.attention_kernels
         self.generator: Optional[torch.Generator] = None
         self.seed_generator: Optional[torch.Generator] = None
+        self.data_index = 0  # the kernels' row block (`set_generators`)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * c.width, c.width,
                                                        dtype=c.dtype))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * c.width,
@@ -128,7 +129,7 @@ class ViTAttention(nn.Module):
         return self.out_proj(dispatch_attention(
             q, k, v, None, self.num_heads, self.head_size, rate,
             self.generator, self.seed_generator, short_kernel=False,
-            kernels=self.kernels))
+            kernels=self.kernels, data_index=self.data_index))
 
 
 class MLP(nn.Module):

@@ -65,21 +65,22 @@ def keep_threshold(rate: float) -> int:
 
 
 def keep_mask(batch_rows: torch.Tensor, sq: int, cols: int, rate: float,
-              seed: int, head=0) -> torch.Tensor:
+              seed: int, head=0, col0: int = 0) -> torch.Tensor:
     """Bool keep mask [*batch_rows.shape, sq, cols] of
     `crvqa_tpu/ops/fused_attention.py:_keep_mask`: keyed on (seed as
-    uint32, global batch row, head argument, row i, column j). This
-    module's kernels pass head 0 and the lane-blocked column j = h*Sk + k;
-    the mid-length kernel passes the absolute head (an int or an int64
-    tensor broadcastable against `batch_rows`) and the plain key index.
-    uint32 arithmetic in int64 with explicit wrap-around."""
+    uint32, global batch row, head argument, row i, column col0 + j). This
+    module's kernels pass head 0 and the lane-blocked column h*Sk + k
+    (`col0` = head0 * Sk for a rank holding heads head0..); the mid-length
+    kernel passes the absolute head (an int or an int64 tensor
+    broadcastable against `batch_rows`) and the plain key index. uint32
+    arithmetic in int64 with explicit wrap-around."""
     dev = batch_rows.device
     seed_u = seed & _MASK32
     key = (((seed_u * 2654435761) & _MASK32)
            + batch_rows.to(torch.int64) * 97531
            + ((head * 1000003) & _MASK32)) & _MASK32
     i = torch.arange(sq, dtype=torch.int64, device=dev)[:, None]
-    j = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
+    j = torch.arange(col0, col0 + cols, dtype=torch.int64, device=dev)[None, :]
     x = (i * 374761393 + j * 668265263) & _MASK32            # [sq, cols]
     x = (x + key[..., None, None]) & _MASK32
     x = x ^ (x >> 13)
@@ -89,13 +90,16 @@ def keep_mask(batch_rows: torch.Tensor, sq: int, cols: int, rate: float,
 
 
 def _drop_factor(b: int, sq: int, num_heads: int, sk: int, rate: float,
-                 seed: int, device) -> torch.Tensor:
+                 seed: int, device, row0: int = 0, head0: int = 0
+                 ) -> torch.Tensor:
     """[B, H, Sq, Sk] fp32: 1/(1-rate) where kept, 0 where dropped (1 at
-    rate 0)."""
+    rate 0). `row0` / `head0`: the global batch row and head of the
+    slice's first (a data- or tensor-parallel rank's rows and heads), so
+    that a rank draws its part of the whole batch's mask."""
     if rate == 0.0:
         return torch.ones((), device=device)
-    keep = keep_mask(torch.arange(b, device=device), sq, num_heads * sk,
-                     rate, seed)
+    keep = keep_mask(torch.arange(row0, row0 + b, device=device), sq,
+                     num_heads * sk, rate, seed, col0=head0 * sk)
     keep = keep.reshape(b, sq, num_heads, sk).transpose(1, 2)
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
 
@@ -145,7 +149,8 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def fused_attention_train_reference(q, k, v, bias, num_heads: int,
-                                    head_size: int, rate: float, seed: int
+                                    head_size: int, rate: float, seed: int,
+                                    row0: int = 0, head0: int = 0
                                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward for grad: (out, p) with p the
     pre-dropout fp32 probabilities in the residual layout [B, Sq, H*Sk]
@@ -155,13 +160,15 @@ def fused_attention_train_reference(q, k, v, bias, num_heads: int,
     b, sq, _ = q.shape
     sk = k.shape[1]
     p = _probs(q, k, bias, num_heads, head_size)
-    pd = p * _drop_factor(b, sq, num_heads, sk, rate, seed, q.device)
+    pd = p * _drop_factor(b, sq, num_heads, sk, rate, seed, q.device, row0,
+                          head0)
     ctx = torch.matmul(pd.to(q.dtype), _split(v, num_heads, head_size))
     return _merge(ctx), p.transpose(1, 2).reshape(b, sq, num_heads * sk)
 
 
 def fused_attention_bwd_reference(q, k, v, p, g, num_heads: int,
-                                  head_size: int, rate: float, seed: int
+                                  head_size: int, rate: float, seed: int,
+                                  row0: int = 0, head0: int = 0
                                   ) -> tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """The backward step by step, with the TPU kernel's rounding points
@@ -171,7 +178,8 @@ def fused_attention_bwd_reference(q, k, v, p, g, num_heads: int,
     sk = k.shape[1]
     dt = q.dtype
     ph = p.float().reshape(b, sq, num_heads, sk).transpose(1, 2)
-    drop = _drop_factor(b, sq, num_heads, sk, rate, seed, q.device)
+    drop = _drop_factor(b, sq, num_heads, sk, rate, seed, q.device, row0,
+                        head0)
     gh = _split(g.to(dt), num_heads, head_size)
     qh, kh, vh = (_split(t, num_heads, head_size) for t in (q, k, v))
     p_t = ph * drop
@@ -188,21 +196,27 @@ def fused_attention_bwd_reference(q, k, v, p, g, num_heads: int,
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, num_heads: int, head_size: int,
-                    rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                    rate: float = 0.0, seed: int = 0, row0: int = 0,
+                    head0: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + bias) (dropout) @ v per head, in the
     projection layout: q [B, Sq, H*D], k and v [B, Sk, H*D], bias [B, Sk]
     fp32 (0 for live keys, -10000 for padding). Returns [B, Sq, H*D] in q's
     dtype. `seed` (int32 range) keys the dropout mask; it is unused at rate
-    0. Differentiable in q, k and v (`FusedAttentionFunction`)."""
+    0. `row0` / `head0` place these rows and heads in a larger batch (a
+    data-parallel rank's first global row, a tensor-parallel rank's first
+    head): the mask is that batch's slice. Differentiable in q, k and v
+    (`FusedAttentionFunction`)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _check_rate(rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FusedAttentionFunction.apply(q, k, v, bias, num_heads,
-                                            head_size, rate, seed)
+                                            head_size, rate, seed, row0,
+                                            head0)
     if rate != 0.0:
         return fused_attention_fwd_train(q, k, v, bias, num_heads, head_size,
-                                         rate, seed, residual=False)[0]
+                                         rate, seed, residual=False,
+                                         row0=row0, head0=head0)[0]
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias, num_heads, head_size)
     _check_cuda(q, k, v, bias, head_size)
@@ -213,7 +227,8 @@ fused_attention.launches = 0
 
 
 def fused_attention_fwd_train(q, k, v, bias, num_heads: int, head_size: int,
-                              rate: float, seed: int, residual: bool = True
+                              rate: float, seed: int, residual: bool = True,
+                              row0: int = 0, head0: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The forward for grad: (out, p residual [B, Sq, H*Sk] fp32, or None
     when `residual` is False)."""
@@ -221,26 +236,30 @@ def fused_attention_fwd_train(q, k, v, bias, num_heads: int, head_size: int,
     _check_rate(rate)
     if q.device.type == "cpu":
         out, p = fused_attention_train_reference(q, k, v, bias, num_heads,
-                                                 head_size, rate, seed)
+                                                 head_size, rate, seed, row0,
+                                                 head0)
         return out, (p if residual else None)
     _check_cuda(q, k, v, bias, head_size)
     return _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
-                             residual)
+                             residual, row0, head0)
 
 
 fused_attention_fwd_train.launches = 0
 
 
 def fused_attention_bwd_stored(q, k, v, p, g, num_heads: int, head_size: int,
-                               rate: float, seed: int):
+                               rate: float, seed: int, row0: int = 0,
+                               head0: int = 0):
     """dq, dk, dv from the stored fp32 residual p [B, Sq, H*Sk]."""
     if q.device.type == "cpu":
         return fused_attention_bwd_reference(q, k, v, p, g, num_heads,
-                                             head_size, rate, seed)
+                                             head_size, rate, seed, row0,
+                                             head0)
     if p.dtype != torch.float32 or not p.is_contiguous():
         raise TypeError("fused_attention backward kernel: the residual must "
                         "be a contiguous fp32 [B, Sq, H*Sk] tensor")
-    out = _launch_bwd(q, k, v, p, None, g, num_heads, head_size, rate, seed)
+    out = _launch_bwd(q, k, v, p, None, g, num_heads, head_size, rate, seed,
+                      row0, head0)
     fused_attention_bwd_stored.launches += 1
     return out
 
@@ -249,14 +268,16 @@ fused_attention_bwd_stored.launches = 0
 
 
 def fused_attention_bwd_recompute(q, k, v, bias, g, num_heads: int,
-                                  head_size: int, rate: float, seed: int):
+                                  head_size: int, rate: float, seed: int,
+                                  row0: int = 0, head0: int = 0):
     """dq, dk, dv with p rebuilt from q, k and the bias."""
     if q.device.type == "cpu":
         p = probs_residual(q, k, bias, num_heads, head_size)
         return fused_attention_bwd_reference(q, k, v, p, g, num_heads,
-                                             head_size, rate, seed)
+                                             head_size, rate, seed, row0,
+                                             head0)
     out = _launch_bwd(q, k, v, None, bias, g, num_heads, head_size, rate,
-                      seed)
+                      seed, row0, head0)
     fused_attention_bwd_recompute.launches += 1
     return out
 
@@ -267,20 +288,23 @@ fused_attention_bwd_recompute.launches = 0
 class FusedAttentionFunction(torch.autograd.Function):
     """Forward for grad + backward kernel (`_fas_fwd` / `_fas_bwd` of the
     JAX package). Saves (q, k, v, p) for the stored backward or (q, k, v,
-    bias) for the recompute one; seed and rate ride as non-tensor state.
-    The bias gets no gradient."""
+    bias) for the recompute one; seed, rate and the offsets ride as
+    non-tensor state. The bias gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed):
+    def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed,
+                row0=0, head0=0):
         impl = BWD_IMPL
         if impl not in _BWD_IMPLS:
             raise ValueError(f"fused_attention: BWD_IMPL {impl!r} is not one "
                              f"of {_BWD_IMPLS}")
         out, p = fused_attention_fwd_train(q, k, v, bias, num_heads,
                                            head_size, rate, seed,
-                                           residual=impl == "stored")
+                                           residual=impl == "stored",
+                                           row0=row0, head0=head0)
         ctx.save_for_backward(q, k, v, p if impl == "stored" else bias)
-        ctx.impl, ctx.args = impl, (num_heads, head_size, rate, seed)
+        ctx.impl = impl
+        ctx.args = (num_heads, head_size, rate, seed, row0, head0)
         return out
 
     @staticmethod
@@ -290,7 +314,7 @@ class FusedAttentionFunction(torch.autograd.Function):
         fn = (fused_attention_bwd_stored if ctx.impl == "stored"
               else fused_attention_bwd_recompute)
         dq, dk, dv = fn(q, k, v, saved, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 # ------------------------------------------------------------------ checks
@@ -408,7 +432,8 @@ def _fwd_library() -> ctypes.CDLL:
         lib.fused_attention_fwd.restype = ctypes.c_int
         lib.fused_attention_fwd_train.argtypes = [
             _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _f32, _p]
+            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _u32, _u32,
+            _f32, _p]
         lib.fused_attention_fwd_train.restype = ctypes.c_int
         lib.fused_attention_fwd_error_string.argtypes = [ctypes.c_int]
         lib.fused_attention_fwd_error_string.restype = ctypes.c_char_p
@@ -421,7 +446,7 @@ def _bwd_library() -> ctypes.CDLL:
         lib.fused_attention_bwd.argtypes = [
             _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
             _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i,
-            _u32, _u32, _f32, _p]
+            _u32, _u32, _u32, _u32, _f32, _p]
         lib.fused_attention_bwd.restype = ctypes.c_int
         lib.fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fused_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -458,8 +483,17 @@ def _launch_primal(q, k, v, bias, num_heads, head_size):
     return out
 
 
+def _offsets(row0: int, head0: int, sk: int) -> tuple[int, int]:
+    """(batch0, col0) as the kernels take them: the first global batch row
+    and lane-blocked column (head0 * Sk), as uint32."""
+    if row0 < 0 or head0 < 0:
+        raise ValueError(f"fused_attention: offsets row0 {row0}, head0 "
+                         f"{head0} must be >= 0")
+    return row0 & _MASK32, (head0 * sk) & _MASK32
+
+
 def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
-                      residual):
+                      residual, row0=0, head0=0):
     b, sq, d = q.shape
     sk = k.shape[1]
     seed_u, threshold, keep_scale = _dropout_args(rate, seed)
@@ -473,14 +507,16 @@ def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
             out.data_ptr(), None if p is None else p.data_ptr(),
             b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v),
-            int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
+            int(q.dtype == torch.bfloat16), seed_u,
+            *_offsets(row0, head0, sk), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_fwd")
     fused_attention_fwd_train.launches += 1
     return out, p
 
 
-def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed):
+def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed,
+                row0=0, head0=0):
     """The backward kernel, stored (p given) or recompute (bias given)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _check_cuda(q, k, v, bias, head_size, g)
@@ -507,7 +543,8 @@ def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed):
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-            int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
+            int(q.dtype == torch.bfloat16), seed_u,
+            *_offsets(row0, head0, sk), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_bwd")
     return dq, dk, dv

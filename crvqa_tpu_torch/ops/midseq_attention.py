@@ -90,13 +90,18 @@ def supported(batch: int, sq: int, sk: int, num_heads: int, head_size: int,
 # ----------------------------------------------------------- plain version
 
 def drop_factor(b: int, num_heads: int, sq: int, sk: int, rate: float,
-                seed: int, device) -> torch.Tensor:
+                seed: int, device, row0: int = 0, head0: int = 0
+                ) -> torch.Tensor:
     """[B, H, Sq, Sk] fp32: 1/(1-rate) where kept, 0 where dropped (1 at
-    rate 0), the mask keyed on (b, absolute head h, row i, key j)."""
+    rate 0), the mask keyed on (global row row0 + b, absolute head
+    head0 + h, row i, key j): a data- or tensor-parallel rank draws its
+    slice of the whole batch's mask."""
     if rate == 0.0:
         return torch.ones((), device=device)
-    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
-    heads = torch.arange(num_heads, dtype=torch.int64, device=device)[None]
+    rows = torch.arange(row0, row0 + b, dtype=torch.int64,
+                        device=device)[:, None]
+    heads = torch.arange(head0, head0 + num_heads, dtype=torch.int64,
+                         device=device)[None]
     keep = keep_mask(rows, sq, sk, rate, seed, head=heads)
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).float()
 
@@ -104,7 +109,8 @@ def drop_factor(b: int, num_heads: int, sq: int, sk: int, rate: float,
 def midseq_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, bias: torch.Tensor,
                                num_heads: int, head_size: int,
-                               rate: float = 0.0, seed: int = 0
+                               rate: float = 0.0, seed: int = 0,
+                               row0: int = 0, head0: int = 0
                                ) -> torch.Tensor:
     """Plain PyTorch version of the TPU kernel's forward, step by step: fp32
     scores and full-row softmax, dropout from the counter-hash mask, p
@@ -114,7 +120,8 @@ def midseq_attention_reference(q: torch.Tensor, k: torch.Tensor,
     q [B, Sq, H*D]; k, v [B, Sk, H*D]; bias [B, Sk] additive fp32."""
     b, sq, _ = q.shape
     p = _probs(q, k, bias, num_heads, head_size)
-    p = p * drop_factor(b, num_heads, sq, k.shape[1], rate, seed, q.device)
+    p = p * drop_factor(b, num_heads, sq, k.shape[1], rate, seed, q.device,
+                        row0, head0)
     ctx = torch.matmul(p.to(q.dtype), _split(v, num_heads, head_size))
     return _merge(ctx)
 
@@ -123,23 +130,28 @@ def midseq_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def midseq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, num_heads: int, head_size: int,
-                     rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                     rate: float = 0.0, seed: int = 0, row0: int = 0,
+                     head0: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + bias) (dropout) @ v per head, in the
     projection layout: q [B, Sq, H*D], k and v [B, Sk, H*D], bias [B, Sk]
     fp32 (0 for live keys, -10000 for padding). Returns [B, Sq, H*D] in q's
-    dtype. `seed` (int32 range) keys the dropout mask; unused at rate 0."""
+    dtype. `seed` (int32 range) keys the dropout mask; unused at rate 0.
+    `row0` / `head0`: the global batch row and head of this slice's first
+    (a data- or tensor-parallel rank's)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _dropout_args(rate, seed)  # validates the rate
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cpu":
         return midseq_attention_reference(q, k, v, bias, num_heads,
-                                          head_size, rate, seed)
+                                          head_size, rate, seed, row0, head0)
     _check_cuda(q, k, v, bias, head_size)
     if needs_grad:
         return MidseqAttentionFunction.apply(q, k, v, bias, num_heads,
-                                             head_size, rate, seed)
-    return _launch(q, k, v, bias, num_heads, head_size, rate, seed)
+                                             head_size, rate, seed, row0,
+                                             head0)
+    return _launch(q, k, v, bias, num_heads, head_size, rate, seed, row0,
+                   head0)
 
 
 midseq_attention.launches = 0
@@ -147,7 +159,8 @@ midseq_attention.launches = 0
 
 def midseq_attention_bwd_reference(q, k, v, bias, g, num_heads: int,
                                    head_size: int, rate: float = 0.0,
-                                   seed: int = 0
+                                   seed: int = 0, row0: int = 0,
+                                   head0: int = 0
                                    ) -> tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """Plain PyTorch version of the TPU kernel's recompute backward, step
@@ -161,7 +174,8 @@ def midseq_attention_bwd_reference(q, k, v, bias, g, num_heads: int,
     sk = k.shape[1]
     dt = q.dtype
     p = _probs(q, k, bias, num_heads, head_size)
-    drop = drop_factor(b, num_heads, sq, sk, rate, seed, q.device)
+    drop = drop_factor(b, num_heads, sq, sk, rate, seed, q.device, row0,
+                       head0)
     gh = _split(g.to(dt), num_heads, head_size).float()
     qh, kh, vh = (_split(t, num_heads, head_size).float() for t in (q, k, v))
     dv = torch.matmul((p * drop).to(dt).float().transpose(-1, -2), gh)
@@ -174,7 +188,8 @@ def midseq_attention_bwd_reference(q, k, v, bias, g, num_heads: int,
 
 
 def midseq_attention_bwd(q, k, v, bias, g, num_heads: int, head_size: int,
-                         rate: float = 0.0, seed: int = 0):
+                         rate: float = 0.0, seed: int = 0, row0: int = 0,
+                         head0: int = 0):
     """(dq, dk, dv) of `midseq_attention` for the output cotangent g
     [B, Sq, H*D], recomputed from q, k, v, the bias and the seed. CPU
     tensors take the plain version; CUDA tensors launch the kernel or
@@ -187,9 +202,11 @@ def midseq_attention_bwd(q, k, v, bias, g, num_heads: int, head_size: int,
                          f"{q.device}")
     if q.device.type == "cpu":
         return midseq_attention_bwd_reference(q, k, v, bias, g, num_heads,
-                                              head_size, rate, seed)
+                                              head_size, rate, seed, row0,
+                                              head0)
     _check_cuda(q, k, v, bias, head_size, g)
-    return _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed)
+    return _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed,
+                       row0, head0)
 
 
 midseq_attention_bwd.launches = 0
@@ -203,12 +220,14 @@ class MidseqAttentionFunction(torch.autograd.Function):
     halves take their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed):
+    def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed,
+                row0=0, head0=0):
         forward = (midseq_attention_reference if q.device.type == "cpu"
                    else _launch)
-        out = forward(q, k, v, bias, num_heads, head_size, rate, seed)
+        out = forward(q, k, v, bias, num_heads, head_size, rate, seed, row0,
+                      head0)
         ctx.save_for_backward(q, k, v, bias)
-        ctx.args = (num_heads, head_size, rate, seed)
+        ctx.args = (num_heads, head_size, rate, seed, row0, head0)
         return out
 
     @staticmethod
@@ -217,7 +236,7 @@ class MidseqAttentionFunction(torch.autograd.Function):
         dq, dk, dv = midseq_attention_bwd(q, k, v, bias,
                                           g.to(q.dtype).contiguous(),
                                           *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 # ------------------------------------------------------------------ checks
@@ -327,14 +346,24 @@ def _library() -> ctypes.CDLL:
     if lib.midseq_attention_fwd.argtypes is None:
         lib.midseq_attention_fwd.argtypes = [
             _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _f32, _p]
+            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _u32, _u32,
+            _f32, _p]
         lib.midseq_attention_fwd.restype = ctypes.c_int
         lib.midseq_attention_fwd_error_string.argtypes = [ctypes.c_int]
         lib.midseq_attention_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
+def _offsets(row0: int, head0: int) -> tuple[int, int]:
+    """(batch0, head0) as the kernels take them, uint32."""
+    if row0 < 0 or head0 < 0:
+        raise ValueError(f"midseq_attention: offsets row0 {row0}, head0 "
+                         f"{head0} must be >= 0")
+    return row0 & 0xFFFFFFFF, head0 & 0xFFFFFFFF
+
+
+def _launch(q, k, v, bias, num_heads, head_size, rate, seed, row0=0,
+            head0=0):
     b, sq, d = q.shape
     sk = k.shape[1]
     seed_u, threshold, keep_scale = _dropout_args(rate, seed)
@@ -346,7 +375,7 @@ def _launch(q, k, v, bias, num_heads, head_size, rate, seed):
             out.data_ptr(), b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v),
             int(q.dtype == torch.bfloat16),
-            seed_u, threshold, keep_scale,
+            seed_u, *_offsets(row0, head0), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = lib.midseq_attention_fwd_error_string(rc).decode()
@@ -362,14 +391,15 @@ def _bwd_library() -> ctypes.CDLL:
         lib.midseq_attention_bwd.argtypes = [
             _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
             _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i,
-            _u32, _u32, _f32, _p]
+            _u32, _u32, _u32, _u32, _f32, _p]
         lib.midseq_attention_bwd.restype = ctypes.c_int
         lib.midseq_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.midseq_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed):
+def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed, row0=0,
+                head0=0):
     b, sq, d = q.shape
     sk = k.shape[1]
     seed_u, threshold, keep_scale = _dropout_args(rate, seed)
@@ -387,7 +417,8 @@ def _launch_bwd(q, k, v, bias, g, num_heads, head_size, rate, seed):
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats.data_ptr(), b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-            int(q.dtype == torch.bfloat16), seed_u, threshold, keep_scale,
+            int(q.dtype == torch.bfloat16), seed_u,
+            *_offsets(row0, head0), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = lib.midseq_attention_bwd_error_string(rc).decode()

@@ -40,14 +40,105 @@ def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         split: Optional[list[bool]] = None, tp=None) -> None:
     """optax.clip_by_global_norm in place: every gradient scaled by
     max_norm / ||g|| when the global norm ||g|| (over all of them) reaches
-    max_norm; on the device, with no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    max_norm; on the device, with no host sync. Under tensor parallelism
+    (`tp`, `parallel.tp.TensorParallel`) the gradients flagged in `split`
+    are this rank's slices: their squares are summed over the model group
+    and the replicated ones counted once, so ||g|| is the whole model's,
+    as the JAX package takes it over global arrays."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if tp is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        import torch.distributed as dist
+
+        squares = norms.float() ** 2
+        flags = torch.tensor(split, device=norms.device)
+        sharded = torch.where(flags, squares, 0.0).sum()
+        dist.all_reduce(sharded, group=tp.mesh.model_group)
+        norm = torch.sqrt(sharded + torch.where(flags, 0.0, squares).sum())
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     torch._foreach_mul_(grads, factor)
+
+
+# elements per all-reduce bucket: a flat copy of at most 256 MB in fp32
+_BUCKET_ELEMS = 1 << 26
+
+
+def _buckets(tensors: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    """`tensors` grouped by dtype, in their order, into buckets of at most
+    `_BUCKET_ELEMS` elements (a larger tensor is a bucket alone): the
+    same buckets on every rank, so reductions are deterministic."""
+    by_dtype: dict[torch.dtype, list[list[torch.Tensor]]] = {}
+    for t in tensors:
+        groups = by_dtype.setdefault(t.dtype, [[]])
+        if groups[-1] and (sum(x.numel() for x in groups[-1]) + t.numel()
+                           > _BUCKET_ELEMS):
+            groups.append([])
+        groups[-1].append(t)
+    return [b for groups in by_dtype.values() for b in groups if b]
+
+
+@torch.no_grad()
+def allreduce_mean_(tensors: list[torch.Tensor], mesh) -> None:
+    """Each tensor := its mean over `mesh`'s data group, in place, through
+    fixed-order flat buckets per dtype. A no-op without a process group; at
+    world 1 the sum over one rank and the division by 1 keep every bit."""
+    if mesh is None or not mesh.distributed or not tensors:
+        return
+    import torch.distributed as dist
+
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=mesh.data_group)
+        flat.div_(mesh.data)
+        for t, f in zip(bucket, flat.split([t.numel() for t in bucket])):
+            t.copy_(f.view_as(t))
+
+
+def allreduce_grads_(grads: dict[str, torch.Tensor], mesh) -> None:
+    """Data-parallel gradients: each := its mean over the data group (the
+    JAX loss is a mean over the global batch, and the mean of equal-sized
+    local means equals it). Call between the backward and the clip."""
+    allreduce_mean_(list(grads.values()), mesh)
+
+
+@torch.no_grad()
+def reduce_metrics(loss: torch.Tensor, score: torch.Tensor,
+                   batch_size: int, mesh
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The step's logged numbers over the data group: the loss a mean,
+    the summed score and the batch size sums. The inputs themselves
+    without a process group."""
+    if mesh is None or not mesh.distributed:
+        return loss, score, batch_size
+    import torch.distributed as dist
+
+    both = torch.stack([loss.float(), score.float()])
+    dist.all_reduce(both, group=mesh.data_group)
+    return both[0] / mesh.data, both[1], batch_size * mesh.data
+
+
+def hidden_dropout_generator(rng: "TrainRNG", step: int, mesh
+                             ) -> torch.Generator:
+    """The generator of the hidden (and eager attention) dropout masks at
+    `step`. At data 1 it is the state's device generator itself, so a run
+    keeps its single-process masks. With several data ranks each rank
+    draws from its own generator, seeded from the device generator's seed,
+    the step and its `data_index`: data ranks draw independent masks for
+    their different rows, tensor-parallel partners the same, and the
+    device generator (MaskedLinear3's bernoulli, Hutchinson's probe) stays
+    in step on every rank. The attention kernels' masks need no such
+    generator: their counter hash is keyed on the global row."""
+    if mesh is None or mesh.data == 1:
+        return rng.device
+    seed = rng.device.initial_seed()
+    mixed = ((seed * 1000003 + step) * 1000003 + mesh.data_index) % 2 ** 63
+    return torch.Generator(device=rng.device.device).manual_seed(mixed)
 
 
 @dataclasses.dataclass

@@ -40,7 +40,8 @@ from ..models.mplug import MPlug, momentum_update_
 from ..models.mplug.generator import (beam_generate, init_self_caches,
                                       precompute_cross_kv)
 from .common import (AdamWState, GroupAdamW, Schedule, TrainRNG,
-                     clip_by_global_norm_)
+                     allreduce_grads_, allreduce_mean_,
+                     clip_by_global_norm_, hidden_dropout_generator)
 from .optim import OptState, TwoGroupOptimizer, base_name, is_second_order
 
 
@@ -417,7 +418,8 @@ _BATCH_KEYS = ("images", "question_ids", "question_mask", "answer_ids",
 
 
 def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
-                        masker: Optional[Masker] = None) -> Callable:
+                        masker: Optional[Masker] = None,
+                        mesh=None) -> Callable:
     """fn(state, batch) -> (loss, grads keyed as `trainable`): with
     `distill`, the twins' EMA update and their soft labels first; then the
     forward on the (masked) model in training mode, dropout drawing from
@@ -428,7 +430,11 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
     Under adahessian (`config.opt`) fn(state, batch, z=None) -> (loss,
     grads, hess): the Hutchinson diagonal z * (H @ z) from one Rademacher
     probe per trainable leaf (`timm_optim.hutchinson`), drawn from the
-    state's device generator before the forward unless `z` is given."""
+    state's device generator before the forward unless `z` is given.
+
+    With a data-parallel `mesh` the batch is this rank's block and the
+    results are local; the device generator (the probe) draws the same on
+    every rank, the hidden dropout from `hidden_dropout_generator`."""
     dtypes = param_dtypes(model)
     mask_mode = config.mode == "mask"
     if mask_mode and masker is None:
@@ -470,7 +476,9 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
         def loss_fn(_leaves: dict) -> torch.Tensor:
             # the leaves ARE the state's tensors: the forward reads them
             model.train()
-            set_generators(model, state.rng.device, state.rng.host)
+            set_generators(model, hidden_dropout_generator(
+                state.rng, state.step, mesh), state.rng.host,
+                mesh.data_index if mesh else 0)
             return functional_call(
                 model,
                 masked_params(model, masker if mask_mode else None, state),
@@ -492,30 +500,49 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
     return loss_and_grads
 
 
+def reduce_loss(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's loss: the mean of the data ranks' (mPLUG's
+    `sum(loss) / b` over equal blocks averages to the global one)."""
+    allreduce_mean_([loss], mesh)
+    return loss
+
+
 def make_train_step(model: torch.nn.Module, config: MPlugTrainConfig,
-                    masker: Optional[Masker] = None) -> Callable:
+                    masker: Optional[Masker] = None, mesh=None,
+                    zero=None) -> Callable:
     """fn(state, batch) -> (state, loss): one optimizer step, updating
     `state` in place: `make_loss_and_grads`, one global-norm clip over the
     whole trainable set, then the two-group optimizer (adahessian: the
     (grads, hess) pair to `AdaHessian`, which clips the gradients
-    itself)."""
-    loss_and_grads = make_loss_and_grads(model, config, masker)
+    itself). `mesh`: `batch` is this rank's block; gradients (and the
+    Hessian diagonal) are averaged over the data group and the returned
+    loss is the global batch's. `zero` (`parallel.zero.ZeroPartition`):
+    the optimizer state is sharded by it (`ZeroOptimizer`)."""
+    loss_and_grads = make_loss_and_grads(model, config, masker, mesh)
     second_order = is_second_order(config.opt)
     tx: list = []  # built at the first step, from its leaves
 
     def train_step(state: MPlugState, batch: dict):
         leaves = trainable(state, config)
         if not tx:
-            tx.append(make_two_group_adamw(config, leaves))
+            opt = make_two_group_adamw(config, leaves)
+            if zero is not None:
+                from ..parallel.zero import ZeroOptimizer
+
+                opt = ZeroOptimizer(opt, zero)
+            tx.append(opt)
         if second_order:
             loss, grads, hess = loss_and_grads(state, batch)
+            allreduce_grads_(grads, mesh)
+            allreduce_grads_(hess, mesh)
             tx[0].step(leaves, (grads, hess), state.opt_state)
         else:
             loss, grads = loss_and_grads(state, batch)
+            allreduce_grads_(grads, mesh)
             clip_by_global_norm_(list(grads.values()), config.max_grad_norm)
             tx[0].step(leaves, grads, state.opt_state)
         state.step += 1
-        return state, loss
+        return state, reduce_loss(loss, mesh)
 
     return train_step
 

@@ -26,8 +26,9 @@ from torch.func import functional_call
 
 from ..losses import dispatch_loss, learned_mixin_init
 from ..models.layers import set_generators
-from .common import (Adam, AdamWState, TrainMetrics, TrainRNG, batch_score,
-                     make_adam, model_inputs)
+from .common import (Adam, AdamWState, TrainMetrics, TrainRNG,
+                     allreduce_grads_, batch_score, hidden_dropout_generator,
+                     make_adam, model_inputs, reduce_metrics)
 from .stage2 import param_dtypes
 
 
@@ -114,11 +115,12 @@ def model_params(model_dtypes: dict[str, torch.dtype], state: Stage1State
     return out
 
 
-def make_loss_and_grads(model: torch.nn.Module, config: Stage1Config
-                        ) -> Callable:
+def make_loss_and_grads(model: torch.nn.Module, config: Stage1Config,
+                        mesh=None) -> Callable:
     """fn(state, batch) -> (loss, score, grads keyed as `trainable`): the
     forward in training mode (dropout from the state's generators) and the
-    backward, averaged over `grad_accum_steps` microbatches."""
+    backward, averaged over `grad_accum_steps` microbatches; local to this
+    rank's block of the batch under a data-parallel `mesh`."""
     dtypes = param_dtypes(model)
 
     def microbatch(state, batch):
@@ -141,7 +143,9 @@ def make_loss_and_grads(model: torch.nn.Module, config: Stage1Config
 
     def loss_and_grads(state: Stage1State, batch: dict):
         model.train()
-        set_generators(model, state.rng.device, state.rng.host)
+        set_generators(model, hidden_dropout_generator(state.rng, state.step,
+                                                       mesh),
+                       state.rng.host, mesh.data_index if mesh else 0)
         accum = config.grad_accum_steps
         if accum <= 1:
             return microbatch(state, batch)
@@ -165,19 +169,22 @@ def make_loss_and_grads(model: torch.nn.Module, config: Stage1Config
     return loss_and_grads
 
 
-def make_train_step(model: torch.nn.Module, config: Stage1Config, tx: Adam
-                    ) -> Callable:
+def make_train_step(model: torch.nn.Module, config: Stage1Config, tx: Adam,
+                    mesh=None) -> Callable:
     """fn(state, batch) -> (state, TrainMetrics): one clipped Adam step,
     updating `state` in place. Stage 3 is the same step on a state that
-    carries masks."""
-    loss_and_grads = make_loss_and_grads(model, config)
+    carries masks. `mesh`: `batch` is this rank's block; the gradients are
+    averaged over the data group before Adam clips them."""
+    loss_and_grads = make_loss_and_grads(model, config, mesh)
 
     def train_step(state: Stage1State, batch: dict):
         loss, score, grads = loss_and_grads(state, batch)
+        allreduce_grads_(grads, mesh)
         tx.step(trainable(state, config), grads, state.opt_state)
         state.step += 1
-        return state, TrainMetrics(loss=loss, score=score,
-                                   batch_size=int(batch["labels"].shape[0]))
+        loss, score, size = reduce_metrics(
+            loss, score, int(batch["labels"].shape[0]), mesh)
+        return state, TrainMetrics(loss=loss, score=score, batch_size=size)
 
     return train_step
 

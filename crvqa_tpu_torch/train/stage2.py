@@ -27,8 +27,9 @@ from ..masking.binarizers import clamp_scores_sign_
 from ..masking.masker import Masker, bias_key, weight_name
 from ..models.layers import set_generators
 from .common import (HfAdamW, HfAdamWState, TrainMetrics, TrainRNG,
-                     batch_score, clip_by_global_norm_,
-                     linear_warmup_schedule, model_inputs)
+                     allreduce_grads_, batch_score, clip_by_global_norm_,
+                     hidden_dropout_generator, linear_warmup_schedule,
+                     model_inputs, reduce_metrics)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,12 +162,14 @@ def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
 
 
 def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
-                        config: Stage2Config) -> Callable:
+                        config: Stage2Config, mesh=None) -> Callable:
     """fn(state, batch) -> (loss, score, grads keyed as `trainable`): the
     forward on the masked model in training mode (dropout on, from the
     state's generators) and the backward, averaged over
     `grad_accum_steps` microbatches (`_training_step`,
-    mask_trainer_Robust_VQA.py:656-676, 801-886)."""
+    mask_trainer_Robust_VQA.py:656-676, 801-886). With a data-parallel
+    `mesh` the batch is this rank's block and everything is local: the
+    caller reduces over the data group."""
     dtypes = param_dtypes(model)
 
     def microbatch(state, batch):
@@ -192,7 +195,9 @@ def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
 
     def loss_and_grads(state: Stage2State, batch: dict):
         model.train()
-        set_generators(model, state.rng.device, state.rng.host)
+        set_generators(model, hidden_dropout_generator(state.rng, state.step,
+                                                       mesh),
+                       state.rng.host, mesh.data_index if mesh else 0)
         accum = config.grad_accum_steps
         if accum <= 1:
             return microbatch(state, batch)
@@ -217,16 +222,24 @@ def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
 
 
 def make_train_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
-                    config: Stage2Config) -> Callable:
+                    config: Stage2Config, mesh=None, tp=None) -> Callable:
     """fn(state, batch) -> (state, TrainMetrics): one optimizer step,
-    updating `state` in place."""
-    loss_and_grads = make_loss_and_grads(model, masker, config)
+    updating `state` in place. `mesh` (`parallel.make_mesh`): `batch` is
+    this rank's block of the global batch; the gradients are averaged over
+    the data group before the clip and the metrics are the global batch's.
+    `tx` may be `parallel.zero.ZeroOptimizer` (`--zero_opt`). `tp`
+    (`parallel.tp.TensorParallel`): the state holds this rank's slices
+    (`shard_state_tp`) and the model runs its local heads (`enable_tp`)."""
+    loss_and_grads = make_loss_and_grads(model, masker, config, mesh)
 
     def train_step(state: Stage2State, batch: dict):
         loss, score, grads = loss_and_grads(state, batch)
         params = trainable(state, config)
+        allreduce_grads_(grads, mesh)
         clip_by_global_norm_([grads[k] for k in params],
-                             config.max_grad_norm)
+                             config.max_grad_norm,
+                             None if tp is None
+                             else [tp.is_split(k) for k in params], tp)
         tx.step(params, grads, state.opt_state)
         if masker.binarizer_name == "MaskedLinear2":
             # scheme 2's in-place clamp after every optimizer step
@@ -234,22 +247,43 @@ def make_train_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
                 for s in state.scores.values():
                     clamp_scores_sign_(s)
         state.step += 1
-        return state, TrainMetrics(loss=loss, score=score,
-                                   batch_size=int(batch["labels"].shape[0]))
+        loss, score, size = reduce_metrics(
+            loss, score, int(batch["labels"].shape[0]), mesh)
+        return state, TrainMetrics(loss=loss, score=score, batch_size=size)
 
     return train_step
 
 
-def make_threshold_reset(masker: Masker) -> Callable:
+def make_threshold_reset(masker: Masker, tp=None) -> Callable:
     """fn(state) -> state: per-module k-th value thresholds, applied every
     logging_steps and before each export (mask_trainer_Robust_VQA.py:
-    700-701, 726-733)."""
+    700-701, 726-733). Under tensor parallelism (`tp`) from the gathered
+    scores: every rank gets the whole matrix's threshold, ties included."""
 
     def reset(state: Stage2State) -> Stage2State:
-        state.thresholds = masker.reset_thresholds(state.scores)
+        state.thresholds = masker.reset_thresholds(full_scores(state, tp))
         return state
 
     return reset
+
+
+def full_scores(state: Stage2State, tp=None) -> dict[str, torch.Tensor]:
+    """The whole score matrices: gathered over the model group under
+    tensor parallelism (a collective), else the state's."""
+    return state.scores if tp is None else tp.gather(state.scores)
+
+
+def shard_state_tp(state: Stage2State, tp) -> Stage2State:
+    """Keep this rank's slices of the split leaves (frozen weights, scores,
+    the moments and |grad| sums over them), in place; call after any
+    resume, which loads whole leaves."""
+    state.frozen = tp.shard(state.frozen)
+    state.scores = tp.shard(state.scores)
+    opt = state.opt_state
+    opt.mu, opt.nu = tp.shard(opt.mu), tp.shard(opt.nu)
+    if opt.abs_grad_sum is not None:
+        opt.abs_grad_sum = tp.shard(opt.abs_grad_sum)
+    return state
 
 
 def make_eval_step(model: torch.nn.Module, masker: Masker,

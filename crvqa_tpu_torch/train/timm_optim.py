@@ -212,16 +212,30 @@ class AdaHessian:
                                             for k, p in params.items()}})
 
     @torch.no_grad()
+    def clip_grads(self, grads: dict[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+        """The gradients scaled by min(1, max_grad_norm / ||g||) over all
+        of them (a new dict; the same dict when clipping is off)."""
+        if self.max_grad_norm <= 0.0:
+            return grads
+        keys = list(grads)
+        g = [grads[k] for k in keys]
+        gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        scale = torch.clamp(self.max_grad_norm / torch.clamp(gn, min=1e-12),
+                            max=1.0)
+        return dict(zip(keys, torch._foreach_mul(g, scale)))
+
+    @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor], pair,
-             state: OptState) -> None:
+             state: OptState, clipped: bool = False) -> None:
+        """`clipped`: the gradients were already clipped over the whole
+        trainable set (`clip_grads`; ZeRO hands each rank its own
+        leaves)."""
         grads, hess = pair
         keys = list(params)
+        if not clipped:
+            grads = self.clip_grads({k: grads[k] for k in keys})
         g = [grads[k] for k in keys]
-        if self.max_grad_norm > 0.0:
-            gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-            scale = torch.clamp(self.max_grad_norm / torch.clamp(gn, min=1e-12),
-                                max=1.0)
-            g = torch._foreach_mul(g, scale)
         lrs = {n: float(fn(state.count)) for n, fn in self.schedules.items()}
         state.count += 1
         bc1 = bias_correction(self.b1, state.count)

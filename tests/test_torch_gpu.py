@@ -232,7 +232,8 @@ def test_lxmert_forward_kernel_matches_plain():
         logits, _ = model(**inputs)
     assert fa.fused_attention.launches == before + 6
 
-    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+              row0=0, head0=0):
         return fa.fused_attention_reference(q, k, v, bias, num_heads,
                                             head_size)
 
@@ -282,9 +283,10 @@ def test_train_step_kernels_match_plain_versions():
     state.rng.device.set_state(rng[0])
     state.rng.host.set_state(rng[1])
 
-    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
-        return fa.fused_attention_train_reference(q, k, v, bias, num_heads,
-                                                  head_size, rate, seed)[0]
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+              row0=0, head0=0):
+        return fa.fused_attention_train_reference(
+            q, k, v, bias, num_heads, head_size, rate, seed, row0, head0)[0]
 
     saved = layers.fused_attention
     layers.fused_attention = plain
@@ -740,10 +742,11 @@ def test_mplug_encode_launch_counts_and_plain_agreement():
         got, _ = model.encode(images, ids, mask)
     saved = (layers.midseq_attention, layers.fused_attention)
     layers.midseq_attention = (
-        lambda q, k, v, b, h, d, rate=0.0, seed=0:
-        ma.midseq_attention_reference(q, k, v, b, h, d, rate, seed))
+        lambda q, k, v, b, h, d, rate=0.0, seed=0, row0=0, head0=0:
+        ma.midseq_attention_reference(q, k, v, b, h, d, rate, seed, row0,
+                                      head0))
     layers.fused_attention = (
-        lambda q, k, v, b, h, d, rate=0.0, seed=0:
+        lambda q, k, v, b, h, d, rate=0.0, seed=0, row0=0, head0=0:
         fa.fused_attention_reference(q, k, v, b, h, d))
     try:
         with torch.inference_mode():
@@ -1333,7 +1336,8 @@ def test_visualbert_forward_kernel_matches_plain():
         logits, _ = model(**inputs)
     assert fa.fused_attention.launches == before + 2
 
-    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+              row0=0, head0=0):
         return fa.fused_attention_reference(q, k, v, bias, num_heads,
                                             head_size)
 
@@ -1380,9 +1384,10 @@ def test_visualbert_train_step_kernels_match_plain_versions():
     state.rng.device.set_state(rng[0])
     state.rng.host.set_state(rng[1])
 
-    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0):
-        return fa.fused_attention_train_reference(q, k, v, bias, num_heads,
-                                                  head_size, rate, seed)[0]
+    def plain(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
+              row0=0, head0=0):
+        return fa.fused_attention_train_reference(
+            q, k, v, bias, num_heads, head_size, rate, seed, row0, head0)[0]
 
     saved = layers.fused_attention
     layers.fused_attention = plain
@@ -1471,3 +1476,70 @@ def test_profile_window_traces_the_active_steps_kernels(tmp_path):
     kernels = [e for e in events if e.get("cat") == "kernel"
                and "fused_attention" in e.get("name", "")]
     assert len(kernels) == 2
+
+
+# ------------------------------------------ the runtime's mask offsets
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_offset_kernels_are_the_global_kernels_sliced(dtype):
+    """A data-parallel rank's rows (row0) and a tensor-parallel rank's
+    heads (head0), run alone through the training kernels: the forward's
+    output and residual, and both backwards, equal the same slice of the
+    whole batch's run (every (row, head) block is computed alone, so bit
+    for bit), the short kernels at LXMERT's (36, 36) and the mid-length
+    ones at (577, 577), dropout 0.1."""
+    _need_card()
+    from crvqa_tpu_torch.ops import midseq_attention as ma
+
+    rows, cols = slice(4, 8), slice(6 * 64, 12 * 64)  # rows 4-7, heads 6-11
+    part = lambda t: t[rows, :, cols].contiguous()
+    for sq, sk, fwd, bwd in (
+            (36, 36, lambda *a, **o: fa.fused_attention_fwd_train(*a, **o),
+             fa.fused_attention_bwd_recompute),
+            (577, 577, lambda *a, **o: (ma.midseq_attention(*a, **o), None),
+             ma.midseq_attention_bwd)):
+        q, k, v, bias = _inputs(8, sq, sk, dtype, seed=sq)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                        ).cuda().to(dtype)
+        out, p = fwd(q, k, v, bias, 12, 64, 0.1, -99)
+        grads = bwd(q, k, v, bias, g, 12, 64, 0.1, -99)
+        pq, pk, pv, pg = part(q), part(k), part(v), part(g)
+        out2, p2 = fwd(pq, pk, pv, bias[rows].contiguous(), 6, 64, 0.1, -99,
+                       row0=4, head0=6)
+        grads2 = bwd(pq, pk, pv, bias[rows].contiguous(), pg, 6, 64, 0.1,
+                     -99, row0=4, head0=6)
+        assert torch.equal(out2, out[rows, :, cols])
+        if p is not None:
+            whole = p.view(8, sq, 12, sk)[rows, :, 6:]
+            assert torch.equal(p2.view(4, sq, 6, sk), whole)
+        for a, b in zip(grads2, grads):
+            assert torch.equal(a, b[rows, :, cols])
+        # and against the plain versions with the same offsets
+        ref = (fa.fused_attention_train_reference(
+            pq, pk, pv, bias[rows], 6, 64, 0.1, -99, 4, 6)[0] if p is not None
+            else ma.midseq_attention_reference(pq, pk, pv, bias[rows], 6, 64,
+                                               0.1, -99, 4, 6))
+        tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
+               else dict(atol=2e-2, rtol=2e-2))
+        torch.testing.assert_close(out2.float(), ref.float(), **tol)
+
+
+def test_offset_keep_bits_are_the_global_keep_mask():
+    """The short forward-for-grad kernel's keep bits with row0 and head0,
+    read out through one-hot v (output column h*64 + k is the dropped
+    probability of key k; bias 0, so nonzero iff kept), equal the plain
+    `keep_mask` of those global rows and heads bit for bit."""
+    _need_card()
+    b, sq, sk, heads, row0, head0 = 4, 36, 36, 6, 12, 6
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(b, sq, heads * 64, generator=g).cuda()
+    k = torch.randn(b, sk, heads * 64, generator=g).cuda()
+    v = (torch.eye(sk, 64)[None].repeat(1, 1, heads).expand(b, sk, -1)
+         .contiguous().cuda())
+    out, _ = fa.fused_attention_fwd_train(q, k, v, torch.zeros(b, sk).cuda(),
+                                          heads, 64, 0.1, 1234, row0=row0,
+                                          head0=head0)
+    keep = out.view(b, sq, heads, 64)[..., :sk] != 0
+    want = fa.keep_mask(torch.arange(row0, row0 + b).cuda(), sq, heads * sk,
+                        0.1, 1234, col0=head0 * sk).view(b, sq, heads, sk)
+    assert torch.equal(keep, want)

@@ -1,5 +1,6 @@
-"""The port stands alone: `crvqa_tpu_torch`, `chip_smoke.py` and
-`chip_times.py` import neither JAX (jax, flax, optax), nor the msgpack and
+"""The port stands alone: `crvqa_tpu_torch`, `chip_smoke.py`,
+`chip_times.py` and the multi-process tests' rank bodies
+(tests/torch_parallel_worker.py) import neither JAX (jax, flax, optax), nor the msgpack and
 ml_dtypes packages behind flax's checkpoints (the port reads and writes
 them with its own codec), nor anything of the JAX package."""
 import ast
@@ -70,7 +71,11 @@ def test_every_module_is_found():
                      "crvqa_tpu_torch.evals.scoring",
                      "crvqa_tpu_torch.evals.compare_mask",
                      "crvqa_tpu_torch.native.wordpiece",
-                     "crvqa_tpu_torch.data.build_vqacp_ocr"):
+                     "crvqa_tpu_torch.data.build_vqacp_ocr",
+                     "crvqa_tpu_torch.parallel",
+                     "crvqa_tpu_torch.parallel.mesh",
+                     "crvqa_tpu_torch.parallel.zero",
+                     "crvqa_tpu_torch.parallel.dryrun"):
         assert expected in mods
 
 
@@ -97,7 +102,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
-                         + [REPO / "chip_smoke.py", REPO / "chip_times.py"],
+                         + [REPO / "chip_smoke.py", REPO / "chip_times.py",
+                            REPO / "tests" / "torch_parallel_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -131,7 +131,8 @@ def test_vit_mid_length_matches_jax_kernel(monkeypatch):
     calls = []
     real = tlayers.midseq_attention
     monkeypatch.setattr(tlayers, "midseq_attention",
-                        lambda q, k, *a: calls.append(1) or real(q, k, *a))
+                        lambda q, k, *a, **kw: calls.append(1)
+                        or real(q, k, *a, **kw))
     with torch.inference_mode():
         got = tm.eval()(torch.from_numpy(imgs))
     assert len(calls) == 2
@@ -284,9 +285,9 @@ def _spy_torch(monkeypatch, calls):
                       ("fused_attention", "fused")):
         real = getattr(tlayers, name)
 
-        def spy(q, k, *a, _real=real, _tag=tag):
+        def spy(q, k, *a, _real=real, _tag=tag, **kw):
             calls.append((_tag, q.shape[1], k.shape[1]))
-            return _real(q, k, *a)
+            return _real(q, k, *a, **kw)
 
         monkeypatch.setattr(tlayers, name, spy)
 

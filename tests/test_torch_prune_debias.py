@@ -4,7 +4,9 @@ to end on the fabricated VQA-CP files of tests/test_dress_rehearsal.py
 writes `mask.pt`, `classifier4masker.bin` and `test.json` that the JAX
 package's readers load and that the port's `serve_vqa --device cpu` serves
 without an error response; `--resume_from` continues the step count; the
-flags of paths not yet ported raise; without a card the CLI raises unless
+flags of paths not yet ported raise (the runtime's, in one process, raise
+the mesh's and the launcher's own errors or, `--zero_opt`, run); without a
+card the CLI raises unless
 given `--device cpu`.
 """
 import json
@@ -123,14 +125,32 @@ def test_resume_continues_the_step_count(run, tmp_path):
     assert raw["step"] == 4 and raw["opt_state"]["count"] == 4
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--scan_layers", "true"), ("--steps_per_dispatch", "4"),
-    ("--zero_opt", "true"), ("--mesh_model", "2"), ("--multihost", "true")])
-def test_unported_flags_raise(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        prune_debias_vqa.main(["--output_dir", str(tmp_path), "--tiny",
-                               "--device", "cpu", "--synthetic", "8",
-                               flag, value])
+@pytest.mark.parametrize("flag,value,error,match", [
+    pytest.param("--scan_layers", "true", NotImplementedError,
+                 "not yet ported", id="--scan_layers-true"),
+    pytest.param("--steps_per_dispatch", "4", NotImplementedError,
+                 "not yet ported", id="--steps_per_dispatch-4"),
+    # ported: ZeRO over one data rank runs (and shards nothing)
+    pytest.param("--zero_opt", "true", None, None, id="--zero_opt-true"),
+    # ported (tensor parallelism): a model axis of 2 over one process is
+    # the mesh's own error
+    pytest.param("--mesh_model", "2", ValueError, "does not cover 1 devices",
+                 id="--mesh_model-2"),
+    # ported: without a world to join it raises instead of training alone
+    pytest.param("--multihost", "true", ValueError, "torchrun",
+                 id="--multihost-true")])
+def test_unported_flags_raise(tmp_path, monkeypatch, flag, value, error,
+                              match):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--output_dir", str(tmp_path), "--tiny", "--device", "cpu",
+            "--synthetic", "8", "--train_batch_size", "4",
+            "--num_train_epochs", "1", "--do_train", flag, value]
+    if error is None:
+        assert prune_debias_vqa.main(argv)["step"] == 2
+        return
+    with pytest.raises(error, match=match):
+        prune_debias_vqa.main(argv)
 
 
 def test_without_a_card_the_default_device_raises(tmp_path):

@@ -3,7 +3,8 @@ the CPU at tiny widths, on the files the JAX package's mPLUG rehearsal
 fabricates (real JPEGs, a toy WordPiece vocab, an answer list): responses
 in arrival order, answers invariant to the serve batch size (padding
 cannot change a real row), an unreadable image errors only its own
-request, rank mode, and --init_ckpt / --use_checkpoint parsed and not read,
+request, rank mode, and --init_ckpt / --use_checkpoint / the runtime's
+flags parsed and not read,
 as the JAX server does (`--ckpt` is served: tests/test_torch_vqa_mplug.py).
 The same checks as tests/test_serving_mplug.py makes of the JAX server."""
 import json
@@ -88,12 +89,15 @@ def test_serve_rank_mode(root, k_test):
 
 
 @pytest.mark.parametrize("flag", [["--init_ckpt", "mplug_base.pth"],
-                                  ["--use_checkpoint", "true"]])
+                                  ["--use_checkpoint", "true"],
+                                  ["--mesh_data", "2"],
+                                  ["--multihost", "true"]])
 def test_training_flags_are_parsed_and_not_read(root, flag, caplog):
-    """As the JAX server parses --init_ckpt and --use_checkpoint and never
-    reads them (crvqa_tpu/cli/serve_mplug.py:55-95): the same answers as
-    without the flag (the .pth named here does not even exist), and a
-    logged line says the flag is not read."""
+    """As the JAX server parses --init_ckpt, --use_checkpoint and the
+    runtime's flags and never reads them (crvqa_tpu/cli/serve_mplug.py:
+    41-95): the same answers as without the flag (the .pth named here does
+    not even exist; no process group comes up), and a logged line says the
+    flag is not read."""
     reqs = _requests(root, 3)
     default = _serve(root, reqs, 3, "default")
     with caplog.at_level("INFO", logger="crvqa_tpu_torch"):

@@ -181,11 +181,20 @@ def test_stage1_resume_continues_the_step_count(chain, tmp_path):
 
 
 @pytest.mark.parametrize("cli", [run_vqa_stage1, run_vqa_stage3])
-@pytest.mark.parametrize("flag,value", [
-    ("--model_type", "visualbert"), ("--mesh_data", "2"),
-    ("--multihost", "true")])
-def test_unported_flags_raise(tmp_path, cli, flag, value):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("flag,value,error,match", [
+    pytest.param("--model_type", "visualbert", NotImplementedError,
+                 "not yet ported", id="--model_type-visualbert"),
+    # the runtime's flags are ported; in one process they raise the
+    # mesh's and the launcher's own errors instead of training alone
+    pytest.param("--mesh_data", "2", ValueError, "does not cover 1 devices",
+                 id="--mesh_data-2"),
+    pytest.param("--multihost", "true", ValueError, "torchrun",
+                 id="--multihost-true")])
+def test_unported_flags_raise(tmp_path, monkeypatch, cli, flag, value, error,
+                              match):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(error, match=match):
         cli.main(["--output_dir", str(tmp_path), "--tiny", "--device", "cpu",
                   "--synthetic", "8", flag, value])
 

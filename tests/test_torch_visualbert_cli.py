@@ -171,9 +171,12 @@ def test_without_a_card_the_default_device_raises(runs, tmp_path, cli):
             tserve.main(_serve_argv(runs["root"], tmp_path / "never.jsonl"))
 
 
-@pytest.mark.parametrize("extra", [["--model_type", "lxmert"],
-                                   ["--mesh_data", "2"]])
-def test_stage2_cli_refuses_what_it_does_not_run(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("extra,error", [
+    pytest.param(["--model_type", "lxmert"], NotImplementedError,
+                 id="extra0"),
+    # a mesh of 2 data ranks over one process: the mesh's own error
+    pytest.param(["--mesh_data", "2"], ValueError, id="extra1")])
+def test_stage2_cli_refuses_what_it_does_not_run(tmp_path, extra, error):
+    with pytest.raises(error):
         tcli.main(["--output_dir", str(tmp_path), "--tiny", "--device",
                    "cpu", "--synthetic", "8"] + extra)

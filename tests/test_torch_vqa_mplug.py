@@ -6,7 +6,9 @@ fabricates (annotation JSONs, JPEGs, a toy vocab), whose loaders are held
 against the JAX package's; `mask.pt` carries the JAX CLI's keys; `serve_mplug
 --ckpt` serves what the trainer wrote; every `--opt`, `--use_checkpoint`
 and `--augment true` on files run (the augmented batches equal the JAX
-CLI's); only `--mesh_*` and `--multihost` raise; the reset's k against
+CLI's); `--mesh_*` and `--multihost` raise in one process without a
+world to cover (their runs are tests/test_torch_parallel_mplug.py); the
+reset's k against
 the JAX package's, where the two differ by one.
 """
 import json
@@ -342,11 +344,19 @@ def test_serve_ckpt_loads_what_training_changed(root):
 
 # ------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("flag", [
-    ["--mesh_data", "2"], ["--mesh_model", "2"], ["--multihost", "true"]],
-    ids=lambda f: f[0].strip("-") + "_" + f[1])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("flag,match", [
+    pytest.param(["--mesh_data", "2"], "does not cover 1 devices",
+                 id="mesh_data_2"),
+    pytest.param(["--mesh_model", "2"], "does not cover 1 devices",
+                 id="mesh_model_2"),
+    pytest.param(["--multihost", "true"], "torchrun", id="multihost_true")])
+def test_unported_flags_raise(tmp_path, monkeypatch, flag, match):
+    """The runtime's flags are ported; in one process a mesh that does not
+    cover it, or --multihost without a world to join, raises before any
+    training."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match=match):
         vqa_mplug.main(_argv(tmp_path, ["--do_train", *flag]))
     assert not (tmp_path / "ckpt_final").exists()
 
