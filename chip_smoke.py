@@ -219,6 +219,18 @@ Phases (each one's seconds are logged):
               H'); one fp32 structured step at batch 8 with dropout on
               through the kernels against the plain versions
               (`_close_to`); timed bf16 structured steps at batch 256.
+ 21a. stage2-flags  `prune_debias_vqa` at full LXMERT width, batch 256,
+              bf16, phase train's configuration over phase serve's files,
+              8 steps each (resets at 4 and 8, ckpt_8, the export, no
+              eval) from one --seed: (a) plain, (b) `--steps_per_dispatch
+              4`, (c) `--scan_layers true`. (b)'s losses, mask.pt,
+              classifier4masker.bin and ckpt_8 byte-identical to (a)'s;
+              (c)'s losses and mask.pt too, and its per-layer thresholds
+              at every reset equal to (a)'s per matrix; 8 x (34 + 32)
+              launches in each; (c)'s ckpt_8 resumed (`--resume_from`)
+              for one more step. Each run's synchronised step time (a
+              window's over its 4 steps) and one threshold reset of each
+              layout (per matrix, and stacked per layer), timed.
  22. mplug-files  the mPLUG trainer as users start it, at full width
               (`MPlugConfig()`, ViT-B-16 at 384 px, mask mode, bf16, batch
               16): a pretraining-format `.pth` written at 224 px (197
@@ -4343,6 +4355,244 @@ def phase_structured(torch, device, rehearse: bool, seed: int,
     return out
 
 
+# ---------------------------------------------------------------- phase 21a
+
+FLAGS_WINDOW = 4               # --steps_per_dispatch of run (b)
+FLAGS_LOGGING, FLAGS_SAVE = 4, 8
+FLAGS_RESUME_RATIO = 0.125     # 256 of the 2048 questions: 1 step
+FLAGS_RESETS = 3               # timed resets of each layout
+
+
+class _FlagsProbe:
+    """Patches the stage-2 builders the CLI calls: each train step and
+    each window the CLI runs is timed on the host clock between two
+    synchronises (the window's own steps are not timed apart), and every
+    threshold reset's thresholds are copied to the host."""
+
+    def __init__(self, torch, rehearse: bool):
+        from crvqa_tpu_torch.train import stage2
+
+        self.stage2, self.torch = stage2, torch
+        self.sync = (lambda: None) if rehearse else torch.cuda.synchronize
+        self.saved = (stage2.make_train_step, stage2.make_multi_step,
+                      stage2.make_threshold_reset)
+        self.calls: list[tuple[str, float]] = []
+        self.resets: list[dict] = []
+        self._inside = 0
+
+    def _timed(self, kind, fn):
+        def run(*a, **kw):
+            if self._inside:
+                return fn(*a, **kw)
+            self._inside += 1
+            self.sync()
+            t0 = time.monotonic()
+            try:
+                out = fn(*a, **kw)
+                self.sync()
+            finally:
+                self._inside -= 1
+            self.calls.append((kind, time.monotonic() - t0))
+            return out
+        return run
+
+    def __enter__(self):
+        make_step, make_multi, make_reset = self.saved
+
+        def reset_recorded(*a, **kw):
+            reset = make_reset(*a, **kw)
+
+            def run(state):
+                state = reset(state)
+                self.resets.append({k: v.detach().cpu().clone()
+                                    for k, v in state.thresholds.items()})
+                return state
+            return run
+
+        self.stage2.make_train_step = (
+            lambda *a, **kw: self._timed("step", make_step(*a, **kw)))
+        self.stage2.make_multi_step = (
+            lambda *a, **kw: self._timed("window", make_multi(*a, **kw)))
+        self.stage2.make_threshold_reset = reset_recorded
+        return self
+
+    def __exit__(self, *exc):
+        (self.stage2.make_train_step, self.stage2.make_multi_step,
+         self.stage2.make_threshold_reset) = self.saved
+
+    def step_ms(self) -> float:
+        """The median synchronised time of a step (a window's over its
+        steps), the first call (warm-up) left out."""
+        import numpy as np
+
+        per = [dt / (FLAGS_WINDOW if kind == "window" else 1)
+               for kind, dt in self.calls]
+        return 1e3 * float(np.median(per[1:] if len(per) > 1 else per))
+
+
+def phase_stage2_flags(torch, device, rehearse: bool, seed: int,
+                       data_root: str, keep_dir: str) -> dict:
+    """The stage-2 CLI's window and scan layout at full width (module
+    docstring, phase 21a): (a) the plain run, (b) `--steps_per_dispatch
+    4`, (c) `--scan_layers true`, 8 steps each from one --seed; (b)'s
+    artifacts and losses byte-identical to (a)'s, (c)'s mask.pt and
+    per-layer thresholds at every reset equal to (a)'s, the launches of
+    all three 8 x (34 + 32); (c)'s ckpt_8 resumed for one more step; each
+    run's step time and one threshold reset of each layout, timed."""
+    import numpy as np
+
+    from crvqa_tpu_torch.cli import prune_debias_vqa
+    from crvqa_tpu_torch.masking.spec import (lxmert_mask_specs,
+                                              lxmert_scan_mask_specs)
+    from crvqa_tpu_torch.models import LxmertConfig
+    from crvqa_tpu_torch.train import stage2
+
+    on_card = not rehearse
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    fwd_mult, bwd_mult = launch_mult(config)
+    per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    steps = N_TRAIN // TRAIN_BATCH
+    root = os.path.join(keep_dir, "stage2_flags")
+
+    def argv(out_dir, *extra):
+        return ["--output_dir", out_dir, "--dataroot", data_root,
+                "--img_root", os.path.join(data_root, "features.bin"),
+                "--vocab_file", os.path.join(data_root, "vocab.txt"),
+                "--device", str(device), "--dtype", "bfloat16",
+                "--train_batch_size", str(TRAIN_BATCH),
+                "--eval_batch_size", str(TRAIN_BATCH),
+                "--num_train_epochs", "1",
+                "--logging_steps", str(FLAGS_LOGGING),
+                "--save_steps", str(FLAGS_SAVE), "--Lang_comp", "0.3",
+                "--Vis_comp", "0.3", "--Fus_comp", "0.3",
+                "--zero_rate", "0.7", "--controlled_init", "magnitude",
+                "--Masker_type", "lmh", "--name_of_masker", "MaskedLinear1",
+                "--do_train", "--seed", str(seed), *extra] + (
+                    ["--tiny"] if rehearse else [])
+
+    def time_resets(state, specs_tag):
+        """One threshold reset of the run's final state, FLAGS_RESETS
+        times, on the host clock to a synchronise: the median ms."""
+        reset = stage2.make_threshold_reset(masker_of[specs_tag])
+        sync = (lambda: None) if rehearse else torch.cuda.synchronize
+        times = []
+        for _ in range(FLAGS_RESETS):
+            sync()
+            t0 = time.monotonic()
+            reset(state)
+            sync()
+            times.append(1e3 * (time.monotonic() - t0))
+        return float(np.median(times))
+
+    from crvqa_tpu_torch.masking.masker import Masker
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+
+    rates = ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7)
+    dims = (config.l_layers, config.r_layers, config.x_layers)
+    masker_of = {"unrolled": Masker.create(lxmert_mask_specs(*dims), rates),
+                 "scan": Masker.create(lxmert_scan_mask_specs(*dims), rates)}
+    want = _launch_counts(on_card, fused_attention_fwd_train=per_fwd * steps,
+                          fused_attention_bwd_stored=per_bwd * steps)
+    out: dict = {}
+    runs = (("plain", ()), ("window", ("--steps_per_dispatch",
+                                       str(FLAGS_WINDOW))),
+            ("scan", ("--scan_layers", "true")))
+    for name, extra in runs:
+        out_dir = os.path.join(root, name)
+        t0 = time.monotonic()
+        with _FlagsProbe(torch, rehearse) as probe:
+            summary, launches = _run_counted(
+                lambda: prune_debias_vqa.main(argv(out_dir, *extra)))
+        wall_s = time.monotonic() - t0
+        state = summary.pop("state")
+        losses = summary["losses"]
+        layout = "scan" if name == "scan" else "unrolled"
+        reset_ms = time_resets(state, layout)
+        out[name] = {"losses": losses, "launches": launches,
+                     "wall_s": wall_s, "step_ms": probe.step_ms(),
+                     "calls": [(k, round(1e3 * dt, 3))
+                               for k, dt in probe.calls],
+                     "resets": len(probe.resets),
+                     "reset_ms": reset_ms, "layout": layout}
+        out[name]["thresholds"] = probe.resets
+        log(f"stage2-flags {name}: {len(losses)} steps in {wall_s:.1f} s "
+            f"(set-up and the checkpoint included); synchronised step "
+            f"{out[name]['step_ms']:.2f} ms; a threshold reset of the "
+            f"{layout} layout {reset_ms:.2f} ms; losses "
+            f"{[round(x, 4) for x in losses]}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"stage2-flags {name}: losses {losses}")
+        check(launches == want,
+              f"stage2-flags {name}: launches {launches} != {want}")
+        check(len(probe.resets) == steps // FLAGS_LOGGING + 1,
+              f"stage2-flags {name}: {len(probe.resets)} resets")
+        del state, summary
+        _free(torch, rehearse)
+    plain, window, scan = (os.path.join(root, n) for n in
+                           ("plain", "window", "scan"))
+    names = ("mask.pt", "classifier4masker.bin", f"ckpt_{FLAGS_SAVE}",
+             f"ckpt_{FLAGS_SAVE}.meta.json")
+    out["window_vs_plain"] = _files_bit_equal(torch, plain, window, names)
+    log("stage2-flags window vs plain: "
+        + json.dumps(out["window_vs_plain"]))
+    check(out["window"]["losses"] == out["plain"]["losses"]
+          and all(v["bytes_equal"] for v in out["window_vs_plain"].values()),
+          f"stage2-flags: the window's losses or artifacts differ from the "
+          f"plain run's: {out['window_vs_plain']}")
+    out["scan_vs_plain"] = _files_bit_equal(torch, plain, scan, ["mask.pt"])
+    log("stage2-flags scan vs plain: " + json.dumps(out["scan_vs_plain"]))
+    check(out["scan_vs_plain"]["mask.pt"]["bytes_equal"],
+          f"stage2-flags: the scan run's mask.pt differs: "
+          f"{out['scan_vs_plain']}")
+    # (c)'s per-layer thresholds at every reset are (a)'s per matrix
+    by_name = {s.torch_name: s.key for s in masker_of["unrolled"].specs}
+    mismatched = []
+    for i, (a, c) in enumerate(zip(out["plain"].pop("thresholds"),
+                                   out["scan"].pop("thresholds"))):
+        for s in masker_of["scan"].specs:
+            layers = ([by_name[s.torch_name.format(j)]
+                       for j in range(s.stacked)] if s.stacked
+                      else [by_name[s.torch_name]])
+            if not torch.equal(c[s.key].reshape(-1),
+                               torch.stack([a[k] for k in layers])):
+                mismatched.append((i, s.key))
+    out["window"].pop("thresholds")
+    out["threshold_mismatches"] = mismatched
+    check(not mismatched, f"stage2-flags: the scan run's thresholds differ "
+                          f"from the plain run's at {mismatched[:5]}")
+    check(out["scan"]["losses"] == out["plain"]["losses"],
+          "stage2-flags: the scan run's losses differ from the plain run's")
+    log(f"stage2-flags: one threshold reset, per matrix "
+        f"{out['plain']['reset_ms']:.2f} ms, stacked per layer "
+        f"{out['scan']['reset_ms']:.2f} ms")
+
+    # (d) (c)'s ckpt_8 read back by resume_any (the CLI's --resume_from)
+    # and one more step
+    resumed, rlaunches = _run_counted(lambda: prune_debias_vqa.main(argv(
+        os.path.join(root, "resume"), "--scan_layers", "true",
+        "--resume_from", os.path.join(scan, f"ckpt_{FLAGS_SAVE}"),
+        "--data_ratio", str(FLAGS_RESUME_RATIO), "--save_steps", "1000"))
+        )
+    resumed.pop("state")
+    log(f"stage2-flags resume: step {resumed['step']}, losses "
+        f"{resumed['losses']}, launches "
+        f"{ {k: v for k, v in rlaunches.items() if v} }")
+    check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1
+          and all(np.isfinite(resumed["losses"])),
+          f"stage2-flags resume: step {resumed['step']}, losses "
+          f"{resumed['losses']}")
+    check(rlaunches == _launch_counts(on_card,
+                                      fused_attention_fwd_train=per_fwd,
+                                      fused_attention_bwd_stored=per_bwd),
+          f"stage2-flags resume: launches {rlaunches}")
+    out["resume"] = {"step": resumed["step"], "losses": resumed["losses"],
+                     "launches": rlaunches}
+    shutil.rmtree(root, ignore_errors=True)
+    _free(torch, rehearse)
+    return out
+
+
 def _visualbert_entry(rows, prefix, err_keys, library, layers, launches,
                       basis) -> dict:
     """A short kernel's numbers on VisualBERT's path: its (50,50) row
@@ -5012,7 +5262,7 @@ def phase_parallel(torch, device, rehearse: bool, seed: int) -> dict:
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
                    vb_train, vqavs, stage3, structured, resume,
-                   parallel) -> list[dict]:
+                   parallel, flags) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -5026,7 +5276,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     visualbert-train) to LXMERT's, and those of phase vqavs and of phase
     stage3's serving of its .msgpack, phase structured's runs, phase
     resume's and phase parallel's runtime runs (every kernel those phases
-    run counts its launches there; "resumes" in `basis` counts both); their
+    run counts its launches there; "resumes" in `basis` counts both), and
+    the training kernels add phase stage2-flags' four runs; their
     `visualbert` entry gives one VisualBERT forward (batch 32) or step
     (batch 256) at (50,50), their `trained_heads` entry one stage-3 step
     (forward) at the kept head count of phase structured's head mask."""
@@ -5042,6 +5293,10 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     # phase resume's runs and phase parallel's runtime runs
     resume_launches = lambda name: (resume["launches"].get(name, 0)
                                     + parallel["launches"].get(name, 0))
+    # phase stage2-flags' plain, window, scan and resumed runs
+    flags_launches = lambda name: sum(
+        flags[run]["launches"].get(name, 0)
+        for run in ("plain", "window", "scan", "resume"))
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -5141,7 +5396,7 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
             "launches": (launches + vb_train["launches"][name]
                          + vqavs["launches"][name]
                          + struct_launches(name)
-                         + resume_launches(name)),
+                         + resume_launches(name) + flags_launches(name)),
             "max_abs_err": max(r[k] for r in main for k in err_keys),
             "ms": tot(f"{kind}_ms"), "plain_ms": tot(f"{kind}_plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -5155,7 +5410,8 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                        f"{vb_train['launches'][name]}, VQA-VS stage 2 "
                        f"{vqavs['launches'][name]}, structured stage 2 "
                        f"and 3 {struct_launches(name)}, resumes and "
-                       f"the runtime runs {resume_launches(name)}",
+                       f"the runtime runs {resume_launches(name)}, the "
+                       f"stage2-flags runs {flags_launches(name)}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
@@ -5374,6 +5630,8 @@ def main(argv=None) -> int:
         structured = phase("structured", phase_structured, torch, device,
                            rehearse, seed, serve["root"], stage1["bin"],
                            keep.name)
+        flags = phase("stage2-flags", phase_stage2_flags, torch, device,
+                      rehearse, seed, serve["root"], keep.name)
         mplug_files = phase("mplug-files", phase_mplug_files, torch, device,
                             rehearse, seed)
         resume = phase("resume", phase_resume, torch, device, rehearse, seed,
@@ -5393,7 +5651,7 @@ def main(argv=None) -> int:
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
                              compact, vb_serve, vb_train, vqavs, stage3,
-                             structured, resume, parallel)
+                             structured, resume, parallel, flags)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -5409,7 +5667,7 @@ def main(argv=None) -> int:
                        "stage1": stage1, "stage3": stage3,
                        "visualbert_train": vb_train,
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
-                       "structured": structured,
+                       "structured": structured, "stage2_flags": flags,
                        "mplug_files": mplug_files, "resume": resume,
                        "offset_kernel_rows": offset_rows,
                        "parallel": parallel,

@@ -2,9 +2,7 @@
 training argv, data assembly, logging and the step-cadence helpers.
 
 The argv is the JAX CLIs' (`add_common_args`), so one command line drives
-either package. Flags of paths the port has not reached yet are parsed and
-raise "not yet ported" when set away from their defaults
-(`reject_unported`); the JAX-only switches that select nothing here
+either package. The JAX-only switches that select nothing here
 (`--prng_impl`, `--fused_attention`, `--midseq_attention`) are accepted
 and ignored: on the card the short and the mid-length attention kernels
 always run where their scope admits the shape.
@@ -217,15 +215,6 @@ def reject_model_type(args: argparse.Namespace, cli: str) -> None:
             f"crvqa_tpu_torch.cli.prune_debias_vqa_visualbert")
 
 
-def reject_unported(args: argparse.Namespace, defaults: dict) -> None:
-    for name, default in defaults.items():
-        value = getattr(args, name)
-        if value != default:
-            raise NotImplementedError(
-                f"--{name} {value}: not yet ported to crvqa_tpu_torch "
-                f"(ROADMAP); leave it at {default!r}")
-
-
 def init_distributed(args: argparse.Namespace) -> None:
     """--multihost: bring up the process group (`parallel.
     initialize_multihost`; the reference's `utils.init_distributed_mode`,
@@ -312,19 +301,22 @@ class ProfileWindow:
 
     Two departures from the JAX trace:
 
-    - warm-up step: CUPTI loses what launches while a session starts, so
-      the session opens one tick earlier (the tick whose step plus the
-      last stride reaches the start) and that step is traced and
-      discarded (`schedule(wait=0, warmup=1, active=1)`, the active
-      window one profiler step); the active steps are exactly the JAX
-      package's. A window that opens at the first tick has no earlier
-      tick and so no warm-up step.
+    - warm-up: CUPTI loses what launches while a session starts (and, in
+      a process that ran earlier sessions, can drop a session's first
+      records), so the session opens one tick earlier (the tick whose
+      step plus the last stride reaches the start), spends its first
+      records on tiny kernels (`utils.profiling.warm_session`), traces
+      that step and discards all of it (`schedule(wait=0, warmup=1,
+      active=1)`, the active window one profiler step); the active steps
+      are exactly the JAX package's. A window that opens at the first
+      tick has no earlier tick: its warm-up holds the tiny kernels alone.
     - synchronised edges: on a CUDA device the window synchronises before
       it turns active and before it stops, so the trace holds the active
       steps' kernels and no others.
 
     The Chrome trace goes into `profile_dir` when the window stops; rank 0
-    alone traces."""
+    alone traces. A CUDA window whose trace holds no device record (CUPTI
+    can lose a whole session in a long process) logs a warning."""
 
     def __init__(self, args: argparse.Namespace):
         self.dir = (getattr(args, "profile_dir", None) if is_main_process()
@@ -341,17 +333,22 @@ class ProfileWindow:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _open(self, warmup: int) -> None:
+    def _open(self) -> None:
         from torch.profiler import profile, schedule
 
-        from ..utils.profiling import activities
+        from ..utils.profiling import activities, warm_session
 
         # the whole active window is one profiler step
-        sched = (schedule(wait=0, warmup=1, active=1, repeat=1)
-                 if warmup else None)
         self._prof = profile(activities=activities(self.device),
-                             schedule=sched)
+                             schedule=schedule(wait=0, warmup=1, active=1,
+                                               repeat=1))
         self._prof.start()
+        warm_session(self.device)
+
+    def _activate(self) -> None:
+        self._sync()
+        self._prof.step()  # warm-up -> active
+        self.active = True
 
     def tick(self, step: int) -> None:
         if self.dir is None:
@@ -360,15 +357,13 @@ class ProfileWindow:
         self._last = step
         if self._prof is None:
             if step >= self.start:  # no earlier tick: no warm-up step
-                self._open(warmup=0)
-                self.active = True
+                self._open()
+                self._activate()
             elif step + stride >= self.start:
-                self._open(warmup=1)
+                self._open()
         elif not self.active:
             if step >= self.start:
-                self._sync()
-                self._prof.step()  # warm-up -> active
-                self.active = True
+                self._activate()
         elif step >= self.stop_at:
             self.close()
 
@@ -380,9 +375,14 @@ class ProfileWindow:
         self._sync()
         self._prof.stop()
         if self.active:
-            from ..utils.profiling import export_trace
+            from ..utils.profiling import device_kernels, export_trace
 
             self.path = export_trace(self._prof, self.dir)
+            if self.device.type == "cuda" and not device_kernels(self._prof):
+                logger.warning("--profile_dir: the trace %s holds no device "
+                               "kernel (the profiler lost the session's "
+                               "device records); it shows host activity "
+                               "only", self.path)
         self._prof = None
         self.active = False
         self.dir = None  # one-shot
@@ -455,6 +455,19 @@ def scheduler_horizon(n_train: int, batch_size: int, epochs: float) -> int:
 def crossed(step: int, prev: int, every) -> bool:
     """True when (prev, step] contains a multiple of `every`."""
     return bool(every) and step // every > prev // every
+
+
+def stack_window(batches: list[dict]) -> dict:
+    """`--steps_per_dispatch` batches as one window: each entry stacked
+    along a new leading axis (on the batches' device; host-side numpy
+    entries stay numpy), the JAX CLI's `np.stack` of each key. A rank
+    stacks its own block of every batch (they arrive as that block)."""
+    out = {}
+    for k, v in batches[0].items():
+        parts = [b[k] for b in batches]
+        out[k] = (torch.stack(parts) if isinstance(v, torch.Tensor)
+                  else np.stack(parts))
+    return out
 
 
 def transfer_dtype(args) -> Optional[torch.dtype]:

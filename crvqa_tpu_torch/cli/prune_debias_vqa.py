@@ -35,15 +35,31 @@ with the gradients averaged over them; `--zero_opt true` shards the Adam
 state over them (`parallel/zero.py`); `--mesh_model` > 1 splits the
 attention heads, the FFN units and their mask scores over that many
 ranks (`parallel/tp.py`, Megatron-style, as the JAX CLI applies
-`shard_params_tp`). Checkpoints and exports are collective and written
-by rank 0.
+`shard_params_tp`); `--structured_masking` gates stay whole on every
+rank, as the JAX rule replicates them. Checkpoints and exports are
+collective and written by rank 0.
 
-Not yet ported (raise when set away from their defaults): `--scan_layers`,
-`--steps_per_dispatch` > 1, and `--structured_masking` with
-`--mesh_model` > 1; a JAX `ckpt_<step>` written under `--scan_layers`.
-`--model_type`
-other than lxmert raises too: the JAX CLI parses it and never reads it,
-building LXMERT whatever it says (`common.reject_model_type`).
+`--steps_per_dispatch N` > 1 trains in windows of N batches
+(`stage2.make_multi_step`; each rank stacks its own block of each): the
+step count advances by N, resets, logs and checkpoints fire once for each
+multiple of their interval a window crosses, a window logs its last
+step's loss, `--profile_dir` ticks once a window, a preemption drops the
+batches of an unfinished window, and at the end of each epoch the
+batches left over go through single steps. Every step's loss is kept.
+
+`--scan_layers true` trains the scan layout (`models/lxmert_scan.py`):
+the stage-1 weights load in the unrolled layout and are stacked, and the
+state holds stacked weights, scores and moments and per-layer thresholds,
+as the JAX scan state does, so either package's `ckpt_<step>` of such a
+run resumes. As in the JAX CLI, `--layers_to_mask` is ignored under it
+and every layer is masked. `--structured_masking` with it raises as the
+JAX CLI does (a TypeError before the first step: a gate's threshold over
+a stacked group). Under `--mesh_model` > 1 its stacked leaves stay whole
+on every rank, as the JAX rule replicates 3-D leaves: each model rank
+runs the whole model.
+
+`--model_type` other than lxmert raises: the JAX CLI parses it and never
+reads it, building LXMERT whatever it says (`common.reject_model_type`).
 """
 from __future__ import annotations
 
@@ -59,7 +75,7 @@ from ..core import torch_compat
 from ..device import resolve_device
 from ..masking.masker import Masker
 from ..masking.sparsity_control import ModalSparsity
-from ..masking.spec import lxmert_mask_specs
+from ..masking.spec import lxmert_mask_specs, lxmert_scan_mask_specs
 from ..masking.structured import (StructuredMasker, lang_head_mask,
                                   weight_masks)
 from ..models import LxmertConfig
@@ -67,8 +83,6 @@ from ..parallel.mesh import is_main_process
 from ..train import stage2
 from ..train.evaluation import dump_predictions, predict, vqa_accuracy
 from . import common
-
-UNPORTED = dict(scan_layers=False, steps_per_dispatch=1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,11 +125,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="integrate |grad| per step (the reference AdamW's "
                         "state['sum']); dumped as grad_abs_sum.npz")
     p.add_argument("--scan_layers", type=common.str2bool, default=False,
-                   help="not yet ported")
+                   help="the scan layout: stacked layer groups, per-layer "
+                        "thresholds (models/lxmert_scan.py); every layer "
+                        "is masked")
     p.add_argument("--layers_to_mask", type=str,
                    default="0,1,2,3,4,5,6,7,8,9,10,11")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="not yet ported (values > 1)")
+                   help=">1 trains in windows of N steps "
+                        "(stage2.make_multi_step); logging granularity "
+                        "becomes N steps")
     p.add_argument("--zero_opt", type=common.str2bool, default=False,
                    help="shard the Adam state of the trainable leaves over "
                         "the data-parallel ranks (parallel/zero.py)")
@@ -144,7 +162,6 @@ def run(args) -> dict:
     `--profile_dir` wrote (`trace`) and the final state (`state`)."""
     common.init_distributed(args)
     common.reject_model_type(args, "prune_debias_vqa")
-    common.reject_unported(args, UNPORTED)
     device = resolve_device(args.device)
     mesh = common.make_run_mesh(args, device)
     common.setup_logging(args.output_dir)
@@ -158,9 +175,18 @@ def run(args) -> dict:
               else LxmertConfig(ans_num=args.ans_num, dtype=dtype,
                                 **overrides))
     params = initial_params(args, config)
-    layers = [int(x) for x in args.layers_to_mask.split(",") if x.strip()]
-    specs = lxmert_mask_specs(config.l_layers, config.r_layers,
-                              config.x_layers, layers_to_mask=layers)
+    if args.scan_layers:
+        from ..models.lxmert_scan import stack_params
+
+        # the stage-1 weights load unrolled, then stack
+        params = stack_params(params, config)
+        specs = lxmert_scan_mask_specs(config.l_layers, config.r_layers,
+                                       config.x_layers)
+    else:
+        layers = [int(x) for x in args.layers_to_mask.split(",")
+                  if x.strip()]
+        specs = lxmert_mask_specs(config.l_layers, config.r_layers,
+                                  config.x_layers, layers_to_mask=layers)
     sparsity = ModalSparsity.from_compression(
         args.Lang_comp, args.Vis_comp, args.Fus_comp, args.zero_rate)
     masker_kw = dict(
@@ -191,7 +217,7 @@ def run(args) -> dict:
         grad_accum_steps=args.gradient_accumulation_steps,
         accumulate_abs_grad=args.accumulate_grads,
         backbone_dtype=args.backbone_dtype, moment_dtype=args.moment_dtype)
-    model = stage2.lxmert_meta_model(config)
+    model = stage2.lxmert_meta_model(config, scan=args.scan_layers)
     state, tx = stage2.init_state(model, masker, params, cfg, args.seed,
                                   device)
     del params
@@ -202,12 +228,8 @@ def run(args) -> dict:
     from ..parallel.tp import enable_tp, tensor_parallel
 
     tp = tensor_parallel(mesh, state.frozen, masker.specs,
-                         config.num_attention_heads)
+                         config.num_attention_heads, state.scores)
     if tp is not None:
-        if args.structured_masking != "none":
-            raise NotImplementedError(
-                "--structured_masking with --mesh_model > 1: not yet "
-                "ported to crvqa_tpu_torch (ROADMAP)")
         # after the resume: the file holds whole leaves
         enable_tp(model, tp)
         stage2.shard_state_tp(state, tp)
@@ -217,9 +239,13 @@ def run(args) -> dict:
 
         tx, zero = zero_optimizer(tx, stage2.trainable(state, cfg), mesh)
         state.opt_state = zero.shard_state(state.opt_state)
+    spd = max(args.steps_per_dispatch, 1)
+    if spd > 1:
+        multi_fn = stage2.make_multi_step(model, masker, tx, cfg, spd, mesh,
+                                          tp)
     step_fn = stage2.make_train_step(model, masker, tx, cfg, mesh, tp)
     reset_fn = stage2.make_threshold_reset(masker, tp)
-    eval_fn = stage2.make_eval_step(model, masker)
+    eval_fn = stage2.make_eval_step(model, masker, tp=tp)
     summary: dict = {"losses": [], "best_acc": None, "zero_rates": None,
                      "trace": None}
 
@@ -235,10 +261,12 @@ def run(args) -> dict:
         scores = stage2.full_scores(state, tp)
         masks = masker.binary_masks(scores, state.thresholds)
         # mask.pt carries weight-shaped masks: structured gates expanded
+        # over the whole weights
+        shapes = ({n: t.shape for n, t in state.frozen.items()}
+                  if tp is None else tp.whole_shapes(state.frozen))
         torch_compat.export_mask_pt(
             os.path.join(args.output_dir, "mask.pt"),
-            masks if tp is not None
-            else weight_masks(masker, masks, state.frozen), masker.specs)
+            weight_masks(masker, masks, shapes), masker.specs)
         if args.structured_masking == "heads":
             hm = lang_head_mask(masker, masks, config.l_layers,
                                 config.num_attention_heads)
@@ -282,13 +310,28 @@ def run(args) -> dict:
             common.logger.info("pre-train eval acc %.2f (expected LOW right "
                                "after mask patching)", acc0)
         step = state.step
+        pending: list = []
         t_last, s_last = time.perf_counter(), step
         guard = common.PreemptionGuard(mesh)
         profiler = common.ProfileWindow(args)
         for epoch in range(int(args.num_train_epochs)):
             for batch in train_batches(epoch):
-                state, metrics = step_fn(state, batch)
-                losses.append(metrics.loss)
+                if spd > 1:
+                    # a partial window goes through single steps at the
+                    # epoch's end (the flush below)
+                    pending.append(batch)
+                    if len(pending) < spd:
+                        continue
+                    state, wlosses, wscores = multi_fn(
+                        state, common.stack_window(pending))
+                    pending = []
+                    losses.extend(wlosses.unbind(0))
+                    metrics = stage2.TrainMetrics(
+                        loss=wlosses[-1], score=wscores[-1],
+                        batch_size=args.train_batch_size)
+                else:
+                    state, metrics = step_fn(state, batch)
+                    losses.append(metrics.loss)
                 prev, step = step, state.step
                 profiler.tick(step)
                 if common.crossed(step, prev, args.logging_steps):
@@ -322,10 +365,19 @@ def run(args) -> dict:
                                 out["logits"], out["question_id"], label2ans)
                             state = export_best(state)
                 if guard.save_and_stop(args, step, save):
+                    # the batches of an unfinished window are dropped; the
+                    # resumed run iterates the epoch again
                     profiler.close()
                     summary.update(step=step, losses=[float(x)
                                                       for x in losses])
                     return summary
+            # the epoch's partial window, through single steps
+            for leftover in pending:
+                state, m = step_fn(state, leftover)
+                losses.append(m.loss)
+                step = state.step
+                profiler.tick(step)
+            pending = []
         profiler.close()
         summary["trace"] = profiler.path
         if best < 0:

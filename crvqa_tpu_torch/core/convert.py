@@ -8,7 +8,8 @@ the same mapping, written without flax, over a nested dict of numpy arrays
 
 - a path element `name_N` with a numeric suffix becomes `name.N`
   (`layer_3` -> `layer.3`, `main_0` -> `main.0`);
-- Dense `kernel` [in, out] -> `weight` [out, in] (transposed);
+- Dense `kernel` [in, out] -> `weight` [out, in] (transposed; a stacked
+  kernel of the scan layout [L, in, out] -> [L, out, in]);
 - Embed `embedding` and LayerNorm `scale` -> `weight`;
 - WeightNormDense `v` [in, out] -> `weight_v` [out, in], `g` [1] ->
   `weight_g` [].
@@ -42,9 +43,15 @@ def _torch_parts(path: tuple[str, ...]) -> list[str]:
     return parts
 
 
+def _swap(arr):
+    """The last two axes swapped: a kernel [in, out] <-> a weight [out,
+    in], layer by layer for a stacked one (numpy or torch)."""
+    return arr.swapaxes(-1, -2)
+
+
 def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "kernel":
-        return "weight", arr.T
+        return "weight", _swap(arr)
     if name in ("embedding", "scale"):
         return "weight", arr
     if name == "v":
@@ -86,7 +93,7 @@ def _jax_leaf(owner: torch.nn.Module, name: str, t: torch.Tensor
     an `embedding`, a LayerNorm's a `scale`."""
     if name == "weight":
         if isinstance(owner, torch.nn.Linear):
-            return "kernel", t.T
+            return "kernel", _swap(t)
         if isinstance(owner, torch.nn.Embedding):
             return "embedding", t
         if isinstance(owner, torch.nn.LayerNorm):
@@ -441,13 +448,15 @@ def _out(t: torch.Tensor):
 
 
 def _reject_scan(tree: Mapping[str, Any], path: str) -> None:
+    """A stage-1/3 state in the scan layout raises: only the stage-2 CLIs
+    take --scan_layers, so no JAX CLI writes one."""
     def walk(node, where):
         for k, v in node.items():
             if k in SCAN_LAYERS:
-                raise NotImplementedError(
-                    f"{path}: a --scan_layers state (stacked layers at "
-                    f"{where}/{k}): the scan layout is not yet ported to "
-                    "crvqa_tpu_torch (ROADMAP queue 1 item 8)")
+                raise ValueError(
+                    f"{path}: stacked layers at {where}/{k}, the scan "
+                    "layout of a stage-1/3 state; no CLI of the JAX package "
+                    "writes one (only stage 2 takes --scan_layers)")
             if isinstance(v, Mapping):
                 walk(v, f"{where}/{k}")
     walk(tree, "")
@@ -490,16 +499,17 @@ def _tree_to_jax(leaves: Mapping[str, torch.Tensor], model: torch.nn.Module,
 
 def _by_spec(tree: Mapping[str, Any], specs, rename=None
              ) -> dict[str, torch.Tensor]:
-    """Leaves keyed by spec key ([in, out] kernels) -> the port's layout
-    ([out, in]; embeddings and the () / (H,) gates as they are), keyed by
-    `rename(spec)` (default: the spec key). The map is its own inverse."""
+    """Leaves keyed by spec key ([in, out] kernels, [L, in, out] stacked)
+    -> the port's layout ([out, in], [L, out, in]; embeddings and the () /
+    (H,) gates as they are), keyed by `rename(spec)` (default: the spec
+    key). The map is its own inverse."""
     by_key = {s.key: s for s in specs or ()}
     out = {}
     for key, value in tree.items():
         t = value if isinstance(value, torch.Tensor) else _t(value)
         spec = by_key.get(key)
-        if spec is not None and t.dim() == 2 and not spec.is_embedding:
-            t = t.T
+        if spec is not None and t.dim() >= 2 and not spec.is_embedding:
+            t = _swap(t)
         out[rename(spec) if rename and spec else key] = t.contiguous()
     return out
 
@@ -559,7 +569,6 @@ def stage2_state_from_jax(state, tree: Mapping[str, Any], specs, config
     scores, classifier and, when stepped, LMH), the key and the step."""
     if "frozen_params" not in tree:
         raise _kind_error(tree, "stage-2 state")
-    _reject_scan(tree["frozen_params"], "frozen_params")
     _copy_leaves(state.frozen, _leaves_from_jax(tree["frozen_params"]),
                  "frozen_params")
     train = tree["train_params"]

@@ -44,6 +44,14 @@ def import_mask_pt(path: str, specs: Sequence[MaskSpec]
     return {n: raw[n].to(torch.bool) for n in names}
 
 
+def _mask_names(spec: MaskSpec) -> list[str]:
+    """A spec's mask.pt keys: one per layer of a stacked spec."""
+    if spec.stacked:
+        return [f"{spec.torch_name.format(i)}.weight"
+                for i in range(spec.stacked)]
+    return [f"{spec.torch_name}.weight"]
+
+
 def load_mask_dict_bool(path: str) -> dict[str, np.ndarray]:
     """mask.pt -> {torch_name: bool ndarray}, every key it holds (what
     `evals.compare_mask` compares)."""
@@ -55,12 +63,19 @@ def export_mask_pt(path: str, masks: dict[str, torch.Tensor],
                    specs: Sequence[MaskSpec]) -> None:
     """Write bool masks keyed by spec key, already in the torch orientation,
     as a reference-format `mask.pt`: {`<torch_name>.weight`: BoolTensor}
-    (mask_trainer_Robust_VQA.py:943-991). Rank 0 writes."""
+    (mask_trainer_Robust_VQA.py:943-991). A stacked spec (the scan layout)
+    writes each layer under its unrolled name, a tensor of its own
+    (crvqa_tpu/core/torch_compat.py:50-71), so both layouts write the same
+    file. Rank 0 writes."""
     if not is_main_process():
         return
-    torch.save({f"{spec.torch_name}.weight":
-                masks[spec.key].detach().to("cpu", torch.bool).contiguous()
-                for spec in specs}, path)
+    out = {}
+    for spec in specs:
+        m = masks[spec.key].detach().to("cpu", torch.bool)
+        layers = m.unbind(0) if spec.stacked else (m,)
+        for name, layer in zip(_mask_names(spec), layers):
+            out[name] = layer.clone(memory_format=torch.contiguous_format)
+    torch.save(out, path)
 
 
 def twin_mask_specs(specs: Sequence[MaskSpec]) -> list[MaskSpec]:

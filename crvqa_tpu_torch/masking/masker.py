@@ -10,7 +10,11 @@ merge into the frozen param tree. Gradients reach the scores through the
 straight-through binarizer (`binarizers.py`).
 
 Parameters are addressed by state_dict name: `<spec.torch_name>.weight`
-and, with `mask_biases`, `<spec.torch_name>.bias`.
+and, with `mask_biases`, `<spec.torch_name>.bias`. A stacked spec (the
+scan layout, `models/lxmert_scan.py`) names its group's stacked weight
+[L, out, in] (`lxmert.encoder.layers_l.body.attention.self.query.weight`)
+and carries one threshold per layer, [L]: every k-th value, init and
+report is the one each layer's own matrix gets in the unrolled layout.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..ops.kthvalue import kth_smallest, sparsity_threshold
+from ..ops.kthvalue import kth_smallest, kth_smallest_rows, sparsity_threshold
 from .binarizers import get_binarizer
 from .prune import prune_state_dict
 from .spec import MaskSpec
@@ -31,7 +35,10 @@ Thresholds = dict[str, torch.Tensor]
 def weight_name(spec: MaskSpec) -> str:
     """The masked weight's state_dict name. A momentum-only spec names the
     twin's module (`text_decoder_m.`); its scores come from the live
-    module's weight, as the JAX package reads them from the live path."""
+    module's weight, as the JAX package reads them from the live path. A
+    stacked spec names its group's stacked weight, by its JAX path."""
+    if spec.stacked:
+        return ".".join(spec.path[:-1]) + ".weight"
     if spec.momentum_only:
         tower, rest = spec.torch_name.split(".", 1)
         return f"{tower.removesuffix('_m')}.{rest}.weight"
@@ -46,6 +53,23 @@ def bias_name(spec: MaskSpec) -> str:
 def bias_key(spec: MaskSpec) -> str:
     """Score key of a spec's bias mask (the JAX package's key)."""
     return "/".join(spec.path[:-1] + ("bias",))
+
+
+def layer_thresholds(spec: MaskSpec, t: torch.Tensor, ndim: int
+                     ) -> torch.Tensor:
+    """A stacked spec's [L] thresholds shaped to broadcast over its [L,
+    ...] scores; an unstacked spec's threshold as it is. Another number
+    of thresholds than L raises TypeError, where the JAX package's
+    reshape raises it (`_bthr`, crvqa_tpu/masking/masker.py:39-46): a
+    structured gate's single threshold over a stacked group."""
+    if not spec.stacked:
+        return t
+    if t.numel() != spec.stacked:
+        raise TypeError(
+            f"{spec.key}: {tuple(t.shape)} threshold for a stacked spec of "
+            f"{spec.stacked} layers (structured gates over the scan layout "
+            "fail here in the JAX package too)")
+    return t.reshape((spec.stacked,) + (1,) * (ndim - 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +131,10 @@ class Masker:
         for spec in self.specs:
             w = params[weight_name(spec)]
             key = spec.key
+            if spec.stacked:
+                scores[key], thresholds[key] = self._stacked_init(
+                    spec, w, generator)
+                continue
             if self.controlled_init == "magnitude_soft":
                 # mPLUG variant: scores := |w|, threshold := kth(|w|)
                 scores[key] = w.abs().float()
@@ -121,12 +149,40 @@ class Masker:
             # the same controlled init on each module's bias; embeddings
             # carry none (maskers_Robust.py:193-199)
             for spec in self.specs:
+                if spec.stacked:
+                    raise NotImplementedError(
+                        "mask_biases with stacked (scan-layout) specs")
                 b = params.get(bias_name(spec))
                 if spec.is_embedding or b is None:
                     continue
                 scores[bias_key(spec)] = self._controlled_scores(
                     b, self.spec_sparsity(spec), generator, global_thr)
         return scores, thresholds
+
+    def _stacked_init(self, spec: MaskSpec, w: torch.Tensor,
+                      generator: Optional[torch.Generator]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scores, [L] thresholds) of a stacked weight, layer by layer as
+        the unrolled init sets each matrix: magnitude, magnitude_soft or
+        the random init (the stacked branch of crvqa_tpu/masking/
+        masker.py:152-173; other inits raise there too)."""
+        thr = self.threshold
+        k = max(int(w[0].numel() * self.spec_sparsity(spec)), 1)
+        full = torch.full((spec.stacked,), thr, dtype=torch.float32,
+                          device=w.device)
+        init = self.controlled_init
+        if init == "magnitude":
+            kth = layer_thresholds(spec, kth_smallest_rows(w.abs(), k),
+                                   w.dim())
+            return torch.where(w.abs() > kth, 2.0 * thr, 0.0).float(), full
+        if init == "magnitude_soft":
+            scores = w.abs().float()
+            return scores, kth_smallest_rows(scores, k).float()
+        if init is None:
+            return self._controlled_scores(
+                w, self.spec_sparsity(spec), generator), full
+        raise NotImplementedError(
+            f"controlled_init={init!r} with stacked specs")
 
     def _controlled_scores(self, x: torch.Tensor, sp: float,
                            generator: Optional[torch.Generator],
@@ -189,7 +245,7 @@ class Masker:
                 continue
             name = weight_name(spec)
             w = params[name]
-            t = thresholds[spec.key]
+            t = layer_thresholds(spec, thresholds[spec.key], w.dim())
             out[name] = w * binarize(scores[spec.key], t).to(w.dtype)
             bk = bias_key(spec)
             bname = bias_name(spec)
@@ -206,26 +262,34 @@ class Masker:
         """Each module's threshold := the k-th value of its scores at its
         modality's target (`Trainer.reset_threshold`,
         mask_trainer_Robust_VQA.py:467-482); with `global_prune` one k-th
-        value over all scores (`global_mask_trainer_VQA`)."""
+        value over all scores (`global_mask_trainer_VQA`). A stacked spec
+        takes one k-th value per layer, in one batched call."""
         if self.global_prune:
             all_scores = torch.cat([scores[s.key].reshape(-1)
                                     for s in self.specs])
             sp = (sparsity_override if sparsity_override is not None
                   else next(iter(self.zerorate_dict.values())))
             t = sparsity_threshold(all_scores, sp).float()
-            return {s.key: t for s in self.specs}
-        return {s.key: sparsity_threshold(
-                    scores[s.key], sparsity_override
-                    if sparsity_override is not None
-                    else self.spec_sparsity(s)).float()
-                for s in self.specs}
+            return {s.key: t.expand(s.stacked).clone() if s.stacked else t
+                    for s in self.specs}
+        out: Thresholds = {}
+        for s in self.specs:
+            sp = (sparsity_override if sparsity_override is not None
+                  else self.spec_sparsity(s))
+            sc = scores[s.key]
+            out[s.key] = (kth_smallest_rows(
+                sc, max(int(sc[0].numel() * sp), 1)) if s.stacked
+                else sparsity_threshold(sc, sp)).float()
+        return out
 
     # ----------------------------------------------------------------- reports
     @torch.no_grad()
     def binary_masks(self, scores: Scores, thresholds: Thresholds
                      ) -> dict[str, torch.Tensor]:
         """Bool masks keyed by spec key (True = kept weight), torch layout."""
-        return {s.key: scores[s.key] > thresholds[s.key] for s in self.specs}
+        return {s.key: scores[s.key] > layer_thresholds(
+                    s, thresholds[s.key], scores[s.key].dim())
+                for s in self.specs}
 
     @torch.no_grad()
     def sparsity_report(self, scores: Scores, thresholds: Thresholds
@@ -235,7 +299,8 @@ class Masker:
         zeros: dict[str, torch.Tensor] = {}
         elems: dict[str, int] = {}
         for s in self.specs:
-            z = (scores[s.key] <= thresholds[s.key]).sum()
+            z = (scores[s.key] <= layer_thresholds(
+                s, thresholds[s.key], scores[s.key].dim())).sum()
             n = scores[s.key].numel()
             for m in (s.modality, "all"):
                 zeros[m] = zeros.get(m, 0) + z
@@ -259,7 +324,8 @@ class Masker:
         changed = 0
         total = 0
         for s in self.specs:
-            cur = scores[s.key] > thresholds[s.key]
+            cur = scores[s.key] > layer_thresholds(s, thresholds[s.key],
+                                                   scores[s.key].dim())
             changed = changed + (cur != ref_masks[s.key]).sum()
             total += cur.numel()
         return float(changed) / total
@@ -271,12 +337,17 @@ def magnitude_masks(params: dict[str, torch.Tensor], specs: Sequence[MaskSpec],
     """Per-matrix magnitude pruning over every masked weight at its
     modality's rate: keep |w| above its k-th smallest, k = max(int(n *
     rate), 1) (`magnitude_masks`, crvqa_tpu/masking/masker.py:397; the
-    stage-3 `--rand_scope all` baseline). Bool masks by weight name."""
+    stage-3 `--rand_scope all` baseline), per layer for a stacked spec.
+    Bool masks by weight name."""
     masks = {}
     for spec in specs:
         w = params[weight_name(spec)].abs()
-        kth = kth_smallest(w, max(int(w.numel() * zerorate[spec.modality]),
-                                  1))
+        rate = zerorate[spec.modality]
+        if spec.stacked:
+            kth = layer_thresholds(spec, kth_smallest_rows(
+                w, max(int(w[0].numel() * rate), 1)), w.dim())
+        else:
+            kth = kth_smallest(w, max(int(w.numel() * rate), 1))
         masks[weight_name(spec)] = w > kth
     return masks
 

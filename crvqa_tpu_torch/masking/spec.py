@@ -3,7 +3,8 @@
 
 A copy of the LXMERT and VisualBERT tables of `crvqa_tpu/masking/spec.py`
 (itself the name tables of the reference's `masking/maskers_Robust.py:
-24-95` and `masking/maskers_visualBert.py:24-95`). The port
+24-95` and `masking/maskers_visualBert.py:24-95`), and of its stacked
+table for the scan layout (`lxmert_scan_mask_specs`). The port
 reads `mask.pt` by `torch_name`, its own parameter names; `path` keeps the
 JAX package's param path so the two tables can be compared line by line.
 """
@@ -22,6 +23,10 @@ class MaskSpec:
     weight_type: str  # abbrev like 'lK', 'vlVQ', 'E', 'P'
     modality: str  # 'Lang' | 'Vis' | 'Fus' | 'P' | 'Uni'
     is_embedding: bool = False
+    # >0: the weight carries a leading layer axis of this length (the scan
+    # layout, `models/lxmert_scan.py`); torch_name is then a '{}' template
+    # over the layer index
+    stacked: int = 0
     # masks only the momentum twin (mPLUG's `mask_classifier` quirk):
     # `apply_masks` skips it on the live parameters
     momentum_only: bool = False
@@ -181,4 +186,39 @@ def visualbert_mask_specs(
                 path=(ptl, "encoder", f"layer_{l}") + subpath + ("kernel",),
                 torch_name=f"{ptl}.encoder.layer.{l}." + ".".join(subpath),
                 weight_type=wt, modality="Uni"))
+    return specs
+
+
+def lxmert_scan_mask_specs(
+    l_layers: int = 9,
+    r_layers: int = 5,
+    x_layers: int = 5,
+    ptl: str = "lxmert",
+) -> list[MaskSpec]:
+    """The masked weights of the scan layout (`models/lxmert_scan.py`):
+    one stacked spec per weight type and layer group, its weight [L, out,
+    in], plus E, VV, VB and P unstacked (`lxmert_scan_mask_specs`,
+    crvqa_tpu/masking/spec.py:224-255). Every layer is masked. The order
+    of the per-layer names (`torch_name.format(i)`) is `lxmert_mask_specs`'
+    order, so both layouts export the same mask.pt."""
+    specs: list[MaskSpec] = []
+    for wt in ("E", "VV", "VB"):
+        subpath_fn, modality, tname, is_emb = _LXMERT_TYPES[wt]
+        specs.append(MaskSpec(
+            path=(ptl,) + subpath_fn(None) + (("embedding",) if is_emb
+                                              else ("kernel",)),
+            torch_name=f"{ptl}.{tname}", weight_type=wt, modality=modality,
+            is_embedding=is_emb))
+    group_info = {"layer": ("layers_l", l_layers),
+                  "r_layers": ("layers_r", r_layers),
+                  "x_layers": ("layers_x", x_layers)}
+    for wt, (group, subpath, modality) in _LXMERT_LAYER_TYPES.items():
+        scan_name, length = group_info[group]
+        specs.append(MaskSpec(
+            path=(ptl, "encoder", scan_name, "body") + subpath + ("kernel",),
+            torch_name=f"{ptl}.encoder.{group}.{{}}." + ".".join(subpath),
+            weight_type=wt, modality=modality, stacked=length))
+    specs.append(MaskSpec(
+        path=(ptl, "pooler", "dense", "kernel"),
+        torch_name=f"{ptl}.pooler.dense", weight_type="P", modality="P"))
     return specs

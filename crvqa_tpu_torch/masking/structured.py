@@ -9,6 +9,11 @@ Gates live in the same flat dict as unstructured scores, keyed by
 "heads". A train step expands each binarized gate onto its weight in the
 TORCH layout `[out, in]`: a head owns a block of `head_size` ROWS (the JAX
 package's `[in, out]` kernels give it a block of columns).
+
+The unstructured specs keep the base masker's semantics, the per-layer
+thresholds of stacked specs (the scan layout) included. A structured gate
+over a stacked spec fails as the JAX package's does: its single threshold
+cannot broadcast over the group's layers (`masker.layer_thresholds`).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from ..ops.kthvalue import kth_smallest
 from .binarizers import binarize_ste, get_binarizer
-from .masker import Masker, Scores, Thresholds, weight_name
+from .masker import Masker, Scores, Thresholds, layer_thresholds, weight_name
 from .spec import MaskSpec
 
 
@@ -128,9 +133,12 @@ class StructuredMasker(Masker):
                 continue
             name = weight_name(spec)
             w = params[name]
-            m = binarize(scores[spec.key], thresholds[spec.key])
             if self._is_structured(spec):
-                m = expand_gate(m, w.shape)
+                m = expand_gate(binarize(scores[spec.key],
+                                         thresholds[spec.key]), w.shape)
+            else:
+                m = binarize(scores[spec.key], layer_thresholds(
+                    spec, thresholds[spec.key], w.dim()))
             out[name] = w * m.to(w.dtype)
         return out
 
@@ -169,7 +177,8 @@ class StructuredMasker(Masker):
         elems: dict[str, float] = {}
         for s in self.specs:
             sc = scores[s.key]
-            z = float((sc <= thresholds[s.key]).sum())
+            z = float((sc <= layer_thresholds(s, thresholds[s.key],
+                                              sc.dim())).sum())
             n = float(max(sc.numel(), 1))
             if self._is_structured(s) and params is not None:
                 per_gate = params[weight_name(s)].numel() / n
@@ -189,13 +198,12 @@ def expand_gate(gate: torch.Tensor, weight_shape) -> torch.Tensor:
 
 
 def weight_masks(masker: Masker, masks: dict[str, torch.Tensor],
-                 params: dict[str, torch.Tensor]
-                 ) -> dict[str, torch.Tensor]:
+                 shapes: dict[str, torch.Size]) -> dict[str, torch.Tensor]:
     """Binary masks by spec key with every reduced gate expanded to its
-    weight's shape: what `mask.pt` carries."""
+    weight's shape (`shapes`, by weight name): what `mask.pt` carries."""
     out = {}
     for spec in masker.specs:
-        shape = params[weight_name(spec)].shape
+        shape = shapes[weight_name(spec)]
         m = masks[spec.key]
         out[spec.key] = m if m.shape == shape else expand_gate(m, shape)
     return out

@@ -190,12 +190,14 @@ class LxmertPooler(nn.Module):
 
 
 class LxmertModel(nn.Module):
-    """embeddings + encoder + pooler, additive -10000 attention masks."""
+    """embeddings + encoder + pooler, additive -10000 attention masks.
+    `encoder`: the encoder's class (the scan layout's,
+    `lxmert_scan.ScanLxmertEncoder`)."""
 
-    def __init__(self, c: LxmertConfig):
+    def __init__(self, c: LxmertConfig, encoder=LxmertEncoder):
         super().__init__()
         self.embeddings = LxmertEmbeddings(c)
-        self.encoder = LxmertEncoder(c)
+        self.encoder = encoder(c)
         self.pooler = LxmertPooler(c)
 
     def forward(self, input_ids, visual_feats, visual_pos,
@@ -213,10 +215,10 @@ class LxmertForVQA(nn.Module):
     """LxmertModel + SimpleClassifier(hidden -> 2*hidden -> ans_num) on the
     pooled output. Returns (logits, pooled), both fp32."""
 
-    def __init__(self, config: LxmertConfig):
+    def __init__(self, config: LxmertConfig, encoder=LxmertEncoder):
         super().__init__()
         self.config = config
-        self.lxmert = LxmertModel(config)
+        self.lxmert = LxmertModel(config, encoder)
         self.classifier = SimpleClassifier(config.hidden_size,
                                            2 * config.hidden_size,
                                            config.ans_num,

@@ -23,6 +23,20 @@ replicated and are reset from the gathered scores, so every rank gets
 the threshold of the whole matrix. Unlike the JAX package, a split leaf
 whose dim does not divide by `model` raises: a block of local heads needs
 every one of its leaves split.
+
+Structured gates (`--structured_masking`: a (H,) head gate or a ()
+layer gate) stay whole on every rank, as the JAX rule replicates every
+1-D score leaf that is not a bias (crvqa_tpu/parallel/tp.py:33-41). A
+rank applies this rank's part of each gate (`local_gates`: the gate's
+entries of its heads over a column-split weight, the whole gate
+otherwise), the gates' gradients are summed over the model group
+before the clip (`sum_gate_grads_`), and their clip, moments and
+exports are those of replicated leaves.
+
+The scan layout's stacked [L, ...] leaves are 3-D and replicate under
+the JAX rule. With nothing left to split, `tensor_parallel` returns None:
+every model rank runs the whole model, as each device of the JAX mesh
+does.
 """
 from __future__ import annotations
 
@@ -97,6 +111,8 @@ class TensorParallel:
 
     mesh: Mesh
     dims: dict[str, int]
+    # structured gate key -> the split dim of the weight it gates
+    gates: dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -146,13 +162,52 @@ class TensorParallel:
     def is_split(self, key: str) -> bool:
         return key in self.dims
 
+    def whole_shapes(self, tree: dict) -> dict[str, torch.Size]:
+        """The whole leaves' shapes of a sharded name-keyed dict."""
+        out = {}
+        for k, t in tree.items():
+            shape = list(t.shape)
+            if k in self.dims:
+                shape[self.dims[k]] *= self.size
+            out[k] = torch.Size(shape)
+        return out
+
+    # -------------------------------------------------- structured gates
+    def local_gates(self, scores: dict) -> dict:
+        """`scores` with each head gate of a column-split weight cut to
+        this rank's heads (differentiably: the gradient reaches the whole
+        gate, zero outside them); every other leaf as it is."""
+        out = dict(scores)
+        for k, dim in self.gates.items():
+            g = scores[k]
+            if dim == 0 and g.dim() == 1:
+                out[k] = g.chunk(self.size)[self.index]
+        return out
+
+    @torch.no_grad()
+    def sum_gate_grads_(self, grads: dict) -> None:
+        """Each gate's gradient := its sum over the model group (every
+        rank saw its own part of the weight), in place, in one fixed-order
+        flat all-reduce."""
+        keys = [f"scores/{k}" for k in self.gates]
+        if not keys:
+            return
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        dist.all_reduce(flat, group=self.mesh.model_group)
+        for k, f in zip(keys, flat.split([grads[k].numel() for k in keys])):
+            grads[k].copy_(f.view_as(grads[k]))
+
 
 def tensor_parallel(mesh: Mesh, params: dict[str, torch.Tensor], specs=(),
-                    num_heads: int = 0) -> Optional[TensorParallel]:
+                    num_heads: int = 0, scores: Optional[dict] = None
+                    ) -> Optional[TensorParallel]:
     """The split of a stage-2 run over `mesh`'s model group (None at model
-    1): parameter names of `params`, the masker `specs`' score keys (and
-    their bias keys), and the optimizer's 'scores/<key>'. Raises when a
-    split dim, or the head count, does not divide by `model`."""
+    1, or when no leaf splits): parameter names of `params`, the masker
+    `specs`' score keys (and their bias keys), and the optimizer's
+    'scores/<key>'. A score of another shape than its weight (in
+    `scores`, the state's) is a structured gate: whole, listed in
+    `gates`. Raises when a split dim, or the head count, does not divide
+    by `model`."""
     if mesh.model == 1:
         return None
     from ..masking.masker import bias_key, bias_name, weight_name
@@ -166,15 +221,23 @@ def tensor_parallel(mesh: Mesh, params: dict[str, torch.Tensor], specs=(),
             raise ValueError(f"--mesh_model {mesh.model}: {name} "
                              f"{tuple(t.shape)} does not split on dim {dim}")
         dims[name] = dim
+    if not dims:
+        return None
     if num_heads % mesh.model:
         raise ValueError(f"--mesh_model {mesh.model} does not divide "
                          f"{num_heads} heads")
+    gates = {}
     for spec in specs:
         for key, name in ((spec.key, weight_name(spec)),
                           (bias_key(spec), bias_name(spec))):
-            if name in dims:
+            if name not in dims:
+                continue
+            if (scores is not None and key in scores
+                    and scores[key].shape != params[name].shape):
+                gates[key] = dims[name]
+            else:
                 dims[key] = dims[f"scores/{key}"] = dims[name]
-    return TensorParallel(mesh, dims)
+    return TensorParallel(mesh, dims, gates)
 
 
 def enable_tp(model: torch.nn.Module, tp: TensorParallel) -> None:

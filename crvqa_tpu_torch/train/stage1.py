@@ -13,8 +13,9 @@ gradient, so Adam never moves them off zero.
 
 The state is updated IN PLACE by the step (the JAX package returns a new
 one): the optimizer writes parameters and moments where they are; the
-step counter and the generators advance. `make_multi_step` (several steps
-in one dispatch) has no counterpart yet: no CLI calls it.
+step counter and the generators advance. `make_multi_step` runs a window
+of steps as a loop of that step (the JAX package's one-dispatch window);
+neither package's stage-1/3 CLI calls it.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from ..models.layers import set_generators
 from .common import (Adam, AdamWState, TrainMetrics, TrainRNG,
                      allreduce_grads_, batch_score, hidden_dropout_generator,
                      make_adam, model_inputs, reduce_metrics)
-from .stage2 import param_dtypes
+from .stage2 import param_dtypes, step_window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +188,16 @@ def make_train_step(model: torch.nn.Module, config: Stage1Config, tx: Adam,
         return state, TrainMetrics(loss=loss, score=score, batch_size=size)
 
     return train_step
+
+
+def make_multi_step(model: torch.nn.Module, config: Stage1Config, tx: Adam,
+                    n_steps: int, mesh=None) -> Callable:
+    """fn(state, window) -> (state, losses [n_steps], scores [n_steps]):
+    `n_steps` stage-1/3 steps over a window of stacked batches
+    (`make_multi_step`, crvqa_tpu/train/stage1.py:162-178), a loop of
+    `make_train_step` that updates `state` in place. Stage 3's masks ride
+    in the state, so the JAX function's `masker` has no counterpart."""
+    return step_window(make_train_step(model, config, tx, mesh), n_steps)
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

@@ -12,7 +12,13 @@ every `logging_steps` by the driver.
 
 The state is updated IN PLACE by the step (the JAX package returns a new
 state): the optimizer writes scores, classifier and moments where they
-are, and the step counter and generators advance.
+are, and the step counter and generators advance. `make_multi_step` runs
+a window of steps (`--steps_per_dispatch`) as a loop of that step, so a
+window draws and computes exactly what its steps taken one by one do.
+
+In the scan layout (`--scan_layers`, `lxmert_meta_model(scan=True)`)
+the state holds each layer group's weights, scores and moments stacked
+[L, ...] and per-layer [L] thresholds, as the JAX scan state does.
 """
 from __future__ import annotations
 
@@ -147,12 +153,14 @@ def init_state(model: torch.nn.Module, masker: Masker,
 
 def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
                   state: Stage2State, generator=None,
-                  classifier_key: str = "classifier"
+                  classifier_key: str = "classifier", tp=None
                   ) -> dict[str, torch.Tensor]:
     """The model's full parameter dict: frozen backbone with the masks
     applied (cast to the model's dtypes) plus the trainable classifier
-    under `classifier_key`."""
-    masked = masker.apply_masks(state.frozen, state.scores, state.thresholds,
+    under `classifier_key`. Under tensor parallelism (`tp`) the whole
+    structured gates apply this rank's part (`tp.local_gates`)."""
+    scores = state.scores if tp is None else tp.local_gates(state.scores)
+    masked = masker.apply_masks(state.frozen, scores, state.thresholds,
                                 generator=generator)
     out = {n: (t if t.dtype == model_dtypes[n] else t.to(model_dtypes[n]))
            for n, t in masked.items()}
@@ -162,20 +170,22 @@ def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
 
 
 def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
-                        config: Stage2Config, mesh=None) -> Callable:
+                        config: Stage2Config, mesh=None, tp=None
+                        ) -> Callable:
     """fn(state, batch) -> (loss, score, grads keyed as `trainable`): the
     forward on the masked model in training mode (dropout on, from the
     state's generators) and the backward, averaged over
     `grad_accum_steps` microbatches (`_training_step`,
     mask_trainer_Robust_VQA.py:656-676, 801-886). With a data-parallel
     `mesh` the batch is this rank's block and everything is local: the
-    caller reduces over the data group."""
+    caller reduces over the data group, and under tensor parallelism
+    (`tp`) over the model group."""
     dtypes = param_dtypes(model)
 
     def microbatch(state, batch):
         leaves = trainable(state, config)
         params = masked_params(dtypes, masker, state, state.rng.device,
-                               config.classifier_key)
+                               config.classifier_key, tp)
         logits, pooled = functional_call(model, params, (),
                                          model_inputs(batch), strict=True)
         loss = dispatch_loss(
@@ -229,17 +239,26 @@ def make_train_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
     the data group before the clip and the metrics are the global batch's.
     `tx` may be `parallel.zero.ZeroOptimizer` (`--zero_opt`). `tp`
     (`parallel.tp.TensorParallel`): the state holds this rank's slices
-    (`shard_state_tp`) and the model runs its local heads (`enable_tp`)."""
-    loss_and_grads = make_loss_and_grads(model, masker, config, mesh)
+    (`shard_state_tp`) and the model runs its local heads (`enable_tp`);
+    the whole structured gates' gradients are summed over the model
+    group."""
+    loss_and_grads = make_loss_and_grads(model, masker, config, mesh, tp)
+    stacked = {f"scores/{s.key}" for s in masker.specs if s.stacked}
 
     def train_step(state: Stage2State, batch: dict):
         loss, score, grads = loss_and_grads(state, batch)
         params = trainable(state, config)
         allreduce_grads_(grads, mesh)
-        clip_by_global_norm_([grads[k] for k in params],
-                             config.max_grad_norm,
+        if tp is not None:
+            tp.sum_gate_grads_(grads)
+        # the clip's norm over each layer of a stacked gradient apart, in
+        # the unrolled layout's order: the scan layout's global norm is
+        # then the unrolled one's, bit for bit
+        keys = [(k, g) for k in params for g in (
+            grads[k].unbind(0) if k in stacked else (grads[k],))]
+        clip_by_global_norm_([g for _, g in keys], config.max_grad_norm,
                              None if tp is None
-                             else [tp.is_split(k) for k in params], tp)
+                             else [tp.is_split(k) for k, _ in keys], tp)
         tx.step(params, grads, state.opt_state)
         if masker.binarizer_name == "MaskedLinear2":
             # scheme 2's in-place clamp after every optimizer step
@@ -252,6 +271,40 @@ def make_train_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
         return state, TrainMetrics(loss=loss, score=score, batch_size=size)
 
     return train_step
+
+
+def make_multi_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
+                    config: Stage2Config, n_steps: int, mesh=None, tp=None
+                    ) -> Callable:
+    """fn(state, window) -> (state, losses [n_steps], scores [n_steps]):
+    `n_steps` train steps over a window whose every entry is `n_steps`
+    batches stacked on a leading axis (`make_multi_step`,
+    crvqa_tpu/train/stage2.py:261-282, where the window is one
+    `lax.scan` dispatch). Here it is a loop of `make_train_step` over the
+    window's batches, updating `state` in place: the same draws from the
+    same generators, in the same order, as the steps taken one by one.
+    `mesh` and `tp` as `make_train_step`: each rank's window stacks its
+    own block of every batch."""
+    step = make_train_step(model, masker, tx, config, mesh, tp)
+    return step_window(step, n_steps)
+
+
+def step_window(step: Callable, n_steps: int) -> Callable:
+    """A loop of `step` over the leading axis of a stacked window (tensors
+    or, for host-side keys, numpy arrays)."""
+
+    def multi(state, window: dict):
+        n = len(next(iter(window.values())))
+        if n != n_steps:
+            raise ValueError(f"a window of {n} batches, not {n_steps}")
+        losses, scores = [], []
+        for i in range(n_steps):
+            state, m = step(state, {k: v[i] for k, v in window.items()})
+            losses.append(m.loss)
+            scores.append(m.score)
+        return state, torch.stack(losses), torch.stack(scores)
+
+    return multi
 
 
 def make_threshold_reset(masker: Masker, tp=None) -> Callable:
@@ -287,10 +340,11 @@ def shard_state_tp(state: Stage2State, tp) -> Stage2State:
 
 
 def make_eval_step(model: torch.nn.Module, masker: Masker,
-                   config: Optional[Stage2Config] = None) -> Callable:
+                   config: Optional[Stage2Config] = None, tp=None
+                   ) -> Callable:
     """fn(state, batch) -> fp32 logits: the masked model in eval mode, no
     dropout and no randomness (`_prediction_loop`,
-    mask_trainer_Robust_VQA.py:1096-1245)."""
+    mask_trainer_Robust_VQA.py:1096-1245); `tp` as `make_train_step`."""
     dtypes = param_dtypes(model)
     key = (config or Stage2Config()).classifier_key
 
@@ -301,7 +355,7 @@ def make_eval_step(model: torch.nn.Module, masker: Masker,
         # scheme 3's bernoulli binarizer draws from it)
         gen = torch.Generator(device=state.rng.device.device).manual_seed(0)
         params = masked_params(dtypes, masker, state, generator=gen,
-                               classifier_key=key)
+                               classifier_key=key, tp=tp)
         logits, _ = functional_call(model, params, (), model_inputs(batch),
                                     strict=True)
         return logits
@@ -309,13 +363,17 @@ def make_eval_step(model: torch.nn.Module, masker: Masker,
     return eval_step
 
 
-def lxmert_meta_model(config) -> torch.nn.Module:
+def lxmert_meta_model(config, scan: bool = False) -> torch.nn.Module:
     """The LXMERT module on the meta device: structure and dtypes only; its
-    parameters always come from the dict handed to functional_call."""
+    parameters always come from the dict handed to functional_call.
+    `scan`: the scan layout (`models/lxmert_scan.ScanLxmertForVQA`),
+    whose parameters are `lxmert_scan.stack_params` of the unrolled
+    model's."""
     from ..models import LxmertForVQA
+    from ..models.lxmert_scan import ScanLxmertForVQA
 
     with torch.device("meta"):
-        return LxmertForVQA(config)
+        return (ScanLxmertForVQA if scan else LxmertForVQA)(config)
 
 
 

@@ -1,8 +1,9 @@
 """The port stands alone: `crvqa_tpu_torch`, `chip_smoke.py`,
-`chip_times.py` and the multi-process tests' rank bodies
-(tests/torch_parallel_worker.py) import neither JAX (jax, flax, optax), nor the msgpack and
-ml_dtypes packages behind flax's checkpoints (the port reads and writes
-them with its own codec), nor anything of the JAX package."""
+`chip_times.py`, `chip_profile_sessions.py` and the multi-process tests'
+rank bodies (tests/torch_parallel_worker.py) import neither JAX (jax,
+flax, optax), nor the msgpack and ml_dtypes packages behind flax's
+checkpoints (the port reads and writes them with its own codec), nor
+anything of the JAX package."""
 import ast
 import pathlib
 import pkgutil
@@ -103,6 +104,7 @@ def _imported_roots(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
                          + [REPO / "chip_smoke.py", REPO / "chip_times.py",
+                            REPO / "chip_profile_sessions.py",
                             REPO / "tests" / "torch_parallel_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):

@@ -8,6 +8,15 @@ model=2` (each rank on half of every attention's heads and FFN's units,
 the JAX side placed by `shard_params_tp` / `shard_scores_tp`), with
 `--zero_opt` off and on (the JAX side shards its moments with
 `shard_opt_state`), from one state carried across (`core/convert.py`).
+On the same ranks the port's steps also run as one window
+(`make_multi_step`, `--steps_per_dispatch`), equal to the steps one by one
+bit for bit, and with `--structured_masking heads` from a JAX
+`StructuredMasker` state, held to the JAX mesh's structured steps at data
+1 x model 2: under tensor parallelism every rank keeps the whole (4,)
+head gates, as the JAX rule replicates them. The scan layout
+(`--scan_layers`, stacked [L, ...] leaves) runs on the same ranks from a
+JAX `ScanLxmertForVQA` state: nothing splits, each rank of the model
+group runs the whole model, and both ranks end alike.
 
 Setup: the tiny LXMERT (4 heads, hidden 32, intermediate 64) in fp32 with
 every dropout 0, the LMH loss at 0.3/0.3/0.3 and zero rate 0.7.
@@ -16,7 +25,8 @@ Tolerances, fp32 (as tests/test_torch_stage2.py): losses rtol 1e-4;
 scores, classifier and thresholds atol 2 * lr * steps (AdamW moves a score
 whose gradient is within rounding of zero by about lr either way); first
 moments atol 1e-7 + rtol 1e-3 and second moments atol 1e-10 + rtol 1e-3
-(gradients agree to 1e-4 relative). The port's ZeRO run equals its
+(gradients agree to 1e-4 relative), for every leaf, structured gates
+included. The port's ZeRO run equals its
 unsharded run bit for bit: whole-leaf ownership runs each leaf's own
 arithmetic.
 """
@@ -33,8 +43,12 @@ from crvqa_tpu.data import synthetic_batch
 from crvqa_tpu.masking import Masker as JaxMasker
 from crvqa_tpu.masking import ModalSparsity as JaxSparsity
 from crvqa_tpu.masking import lxmert_mask_specs as jax_specs
+from crvqa_tpu.masking.spec import lxmert_scan_mask_specs as jax_scan_specs
+from crvqa_tpu.masking.structured import StructuredMasker as JaxStructured
 from crvqa_tpu.models import LxmertConfig as JaxConfig
 from crvqa_tpu.models import LxmertForVQA as JaxLxmert
+from crvqa_tpu.models.lxmert_scan import ScanLxmertForVQA as JaxScan
+from crvqa_tpu.models.lxmert_scan import stack_params as jax_stack
 from crvqa_tpu.parallel import (MeshConfig, make_mesh, replicated_sharding,
                                 shard_batch)
 from crvqa_tpu.parallel.tp import shard_params_tp, shard_scores_tp
@@ -44,7 +58,10 @@ from crvqa_tpu_torch.core import checkpoint as tckpt
 from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.masking.masker import Masker
 from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
-from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+from crvqa_tpu_torch.masking.spec import (lxmert_mask_specs,
+                                          lxmert_scan_mask_specs)
+from crvqa_tpu_torch.masking.structured import (StructuredMasker,
+                                                lang_head_mask)
 from crvqa_tpu_torch.models import LxmertConfig
 from crvqa_tpu_torch.parallel.dryrun import free_port
 from crvqa_tpu_torch.train import stage2
@@ -83,68 +100,135 @@ def setup():
     jsc = jstage2.Stage2Config(**kw)
     jstate, tx = jstage2.init_state(jmodel, jmasker, params, jsc,
                                     jax.random.PRNGKey(1))
-    carried = convert.stage2_from_jax(
-        jax.tree.map(np.asarray, jstate.frozen_params),
-        jax.tree.map(np.asarray, jstate.train_params),
-        jax.tree.map(np.asarray, jstate.scores),
-        jax.tree.map(np.asarray, jstate.thresholds), jmasker.specs)
-    tcfg = LxmertConfig.tiny(**NO_DROPOUT)
-    masker = Masker.create(
-        lxmert_mask_specs(tcfg.l_layers, tcfg.r_layers, tcfg.x_layers),
-        ModalSparsity.from_compression(*SPARSITY),
+    jsmasker = JaxStructured.create(
+        jax_specs(jcfg.l_layers, jcfg.r_layers, jcfg.x_layers),
+        JaxSparsity.from_compression(*SPARSITY), controlled_init="magnitude",
+        structured_masking="heads", num_heads=jcfg.num_attention_heads)
+    jsstate, _ = jstage2.init_state(jmodel, jsmasker, params, jsc,
+                                    jax.random.PRNGKey(1))
+    dims = (jcfg.l_layers, jcfg.r_layers, jcfg.x_layers)
+    jscan = JaxScan(jcfg)
+    jscan_masker = JaxMasker.create(
+        jax_scan_specs(*dims), JaxSparsity.from_compression(*SPARSITY),
         controlled_init="magnitude")
-    tsc = stage2.Stage2Config(**kw)
-    model = stage2.lxmert_meta_model(tcfg)
+    jscan_state, _ = jstage2.init_state(jscan, jscan_masker,
+                                        jax_stack(params, jcfg), jsc,
+                                        jax.random.PRNGKey(1))
 
-    def jax_as_port(tree):
-        state, _ = stage2.init_state(model, masker, carried["params"], tsc,
-                                     seed=0, device="cpu")
+    def carry(st, specs):
+        return convert.stage2_from_jax(
+            jax.tree.map(np.asarray, st.frozen_params),
+            jax.tree.map(np.asarray, st.train_params),
+            jax.tree.map(np.asarray, st.scores),
+            jax.tree.map(np.asarray, st.thresholds), specs)
+
+    carried = {"plain": carry(jstate, jmasker.specs),
+               "structured": carry(jsstate, jsmasker.specs),
+               "scan": carry(jscan_state, jscan_masker.specs)}
+    tcfg = LxmertConfig.tiny(**NO_DROPOUT)
+    rates = ModalSparsity.from_compression(*SPARSITY)
+    maskers = {
+        "plain": Masker.create(lxmert_mask_specs(*dims), rates,
+                               controlled_init="magnitude"),
+        "structured": StructuredMasker.create(
+            lxmert_mask_specs(*dims), rates, controlled_init="magnitude",
+            structured_masking="heads",
+            num_heads=tcfg.num_attention_heads),
+        "scan": Masker.create(lxmert_scan_mask_specs(*dims), rates,
+                              controlled_init="magnitude")}
+    tsc = stage2.Stage2Config(**kw)
+
+    def jax_as_port(tree, kind="plain"):
+        """A JAX `kind` state (a file's tree) in the port's layout."""
+        model = stage2.lxmert_meta_model(tcfg, scan=kind == "scan")
+        masker = maskers[kind]
+        state, _ = stage2.init_state(model, masker, carried[kind]["params"],
+                                     tsc, seed=0, device="cpu")
         convert.stage2_state_from_jax(state, tree, masker.specs, tsc)
         return state
 
     return dict(jmodel=jmodel, jmasker=jmasker, jsc=jsc, jstate=jstate,
-                tx=tx, batches=batches, carried=carried, kw=kw,
-                jax_as_port=jax_as_port)
+                tx=tx, batches=batches, carried=carried["plain"], kw=kw,
+                jax_as_port=jax_as_port, jsmasker=jsmasker, jsstate=jsstate,
+                structured=carried["structured"], jscan=jscan,
+                jscan_masker=jscan_masker, jscan_state=jscan_state,
+                scan=carried["scan"], tcfg=tcfg)
+
+
+def _jax_steps(setup, mesh, model, jmasker, jstate, zero=False,
+               jmodel=None):
+    """The JAX steps of `jmodel` (the unrolled model by default) on `mesh`
+    (tensor-parallel placement at model > 1, ZeRO with `zero`) and a
+    threshold reset: (losses, final state)."""
+    js = jax.device_put(jax.tree.map(jnp.array, jstate),
+                        replicated_sharding(mesh))
+    if model > 1:
+        js = js.replace(
+            frozen_params=shard_params_tp(
+                jax.device_get(js.frozen_params), mesh),
+            scores=shard_scores_tp(jax.device_get(js.scores),
+                                   jmasker.specs, mesh))
+    if zero:
+        js = js.replace(opt_state=shard_opt_state(js.opt_state, mesh))
+    step = jstage2.make_train_step(jmodel or setup["jmodel"], jmasker,
+                                   setup["tx"],
+                                   setup["jsc"], mesh=mesh if zero else None)
+    losses = []
+    for b in setup["batches"]:
+        js, m = step(js, shard_batch(mesh, {k: v for k, v in b.items()
+                                            if k != "valid"}))
+        losses.append(float(m.loss))
+    return losses, jstage2.make_threshold_reset(jmasker)(js)
+
+
+def _as_port(setup, js, path, kind):
+    """A JAX state written to `path` and read back in the port's layout."""
+    jckpt.save_checkpoint(path, js)
+    return setup["jax_as_port"](tckpt.load_jax_training_state(path), kind)
+
+
+@pytest.fixture(scope="module")
+def jax_structured(setup, tmp_path_factory):
+    """The JAX mesh's structured steps at data 1 x model 2: the losses,
+    gates and scores, thresholds and binary masks after the reset, and
+    the whole state in the port's layout (its Adam moments)."""
+    mesh = make_mesh(MeshConfig(data=1, model=2), jax.devices()[:2])
+    losses, js = _jax_steps(setup, mesh, 2, setup["jsmasker"],
+                            setup["jsstate"])
+    state = _as_port(setup, js, str(tmp_path_factory.mktemp("jstruct")
+                                    / "ckpt"), "structured")
+    return (losses, jax.device_get(js.scores), jax.device_get(js.thresholds),
+            jax.device_get(setup["jsmasker"].binary_masks(js.scores,
+                                                          js.thresholds)),
+            state)
 
 
 def _run(setup, tmp, data, model):
-    """The JAX steps on its (data, model) mesh, without and with ZeRO, and
-    the port's on 2 gloo ranks laid out alike."""
+    """The JAX steps on its (data, model) mesh, without and with ZeRO and
+    in the scan layout, and the port's on 2 gloo ranks laid out alike."""
     mesh = make_mesh(MeshConfig(data=data, model=model), jax.devices()[:2])
-    jmasker, jstate = setup["jmasker"], setup["jstate"]
     jax_runs = {}
     for name, zero in (("plain", False), ("zero", True)):
-        js = jax.device_put(jax.tree.map(jnp.array, jstate),
-                            replicated_sharding(mesh))
-        if model > 1:
-            js = js.replace(
-                frozen_params=shard_params_tp(
-                    jax.device_get(js.frozen_params), mesh),
-                scores=shard_scores_tp(jax.device_get(js.scores),
-                                       jmasker.specs, mesh))
-        if zero:
-            js = js.replace(opt_state=shard_opt_state(js.opt_state, mesh))
-        step = jstage2.make_train_step(setup["jmodel"], jmasker, setup["tx"],
-                                       setup["jsc"],
-                                       mesh=mesh if zero else None)
-        losses = []
-        for b in setup["batches"]:
-            js, m = step(js, shard_batch(mesh, {k: v for k, v in b.items()
-                                                if k != "valid"}))
-            losses.append(float(m.loss))
-        js = jstage2.make_threshold_reset(jmasker)(js)
-        path = str(tmp / f"jax_{name}")
-        jckpt.save_checkpoint(path, js)
-        jax_runs[name] = (losses, setup["jax_as_port"](
-            tckpt.load_jax_training_state(path)))
+        losses, js = _jax_steps(setup, mesh, model, setup["jmasker"],
+                                setup["jstate"], zero)
+        jax_runs[name] = (losses, _as_port(setup, js, str(tmp / f"jax_{name}"),
+                                           "plain"))
+    losses, js = _jax_steps(setup, mesh, model, setup["jscan_masker"],
+                            setup["jscan_state"], jmodel=setup["jscan"])
+    jax_runs["scan"] = (losses, _as_port(setup, js, str(tmp / "jax_scan"),
+                                         "scan"))
     torch.save({"carried": setup["carried"], "batches": setup["batches"],
+                "structured": setup["structured"], "scan": setup["scan"],
                 "config": NO_DROPOUT, "sparsity": SPARSITY,
                 "stage2": setup["kw"], "mesh": (data, model)},
                tmp / "inputs.pt")
     port = free_port()
     run_ranks(lambda r: [sys.executable, "-m", "tests.torch_parallel_worker",
                          "stage2_steps", str(r), "2", str(port), str(tmp)], 2)
-    return jax_runs, torch.load(tmp / "result.pt", weights_only=False)
+    result = torch.load(tmp / "result.pt", weights_only=False)
+    result["scan_rank1"] = torch.load(tmp / "scan_rank1.pt",
+                                      weights_only=False)
+    return jax_runs, result
 
 
 @pytest.fixture(scope="module", params=[(2, 1), (1, 2)], ids=["dp", "tp"])
@@ -152,26 +236,13 @@ def runs(request, setup, tmp_path_factory):
     data, model = request.param
     jax_runs, result = _run(setup, tmp_path_factory.mktemp("mesh"), data,
                             model)
-    return model, jax_runs, result
+    return model, jax_runs, result, setup
 
 
-@pytest.mark.parametrize("name", ["plain", "zero"])
-def test_two_ranks_match_the_jax_mesh(runs, name):
-    _, jax_runs, result = runs
-    jlosses, want = jax_runs[name]
-    got = result[name]
-    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-4)
-    atol = 2 * LR * STEPS
-    for k, t in want.scores.items():
-        np.testing.assert_allclose(got["scores"][k].detach().numpy(),
-                                   t.detach().numpy(), atol=atol, rtol=0,
-                                   err_msg=k)
-        assert float(got["thresholds"][k]) == pytest.approx(
-            float(want.thresholds[k]), abs=atol)
-    for k, t in want.train_params["classifier"].items():
-        np.testing.assert_allclose(got["classifier"][k].detach().numpy(),
-                                   t.detach().numpy(), atol=atol, rtol=0,
-                                   err_msg=k)
+def _assert_moments_match(got, want):
+    """The port's gathered Adam moments against a JAX state's, every leaf
+    (scores, gates, classifier) at the moments' tolerances."""
+    assert sorted(got["mu"]) == sorted(want.opt_state.mu)
     for k, t in want.opt_state.mu.items():
         np.testing.assert_allclose(got["mu"][k].numpy(), t.numpy(),
                                    atol=1e-7, rtol=1e-3, err_msg=k)
@@ -180,8 +251,49 @@ def test_two_ranks_match_the_jax_mesh(runs, name):
                                    atol=1e-10, rtol=1e-3, err_msg=k)
 
 
+@pytest.mark.parametrize("name", ["plain", "zero", "scan"])
+def test_two_ranks_match_the_jax_mesh(runs, name):
+    """The unrolled runs without and with ZeRO, and the scan layout's
+    (stacked [L, ...] leaves and [L] thresholds, whole on every rank
+    under tensor parallelism as the JAX rule replicates 3-D leaves)."""
+    _, jax_runs, result, _ = runs
+    jlosses, want = jax_runs[name]
+    got = result[name]
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-4)
+    atol = 2 * LR * STEPS
+    for k, t in want.scores.items():
+        np.testing.assert_allclose(got["scores"][k].detach().numpy(),
+                                   t.detach().numpy(), atol=atol, rtol=0,
+                                   err_msg=k)
+        np.testing.assert_allclose(got["thresholds"][k].numpy(),
+                                   want.thresholds[k].numpy(), atol=atol,
+                                   rtol=0, err_msg=k)
+    for k, t in want.train_params["classifier"].items():
+        np.testing.assert_allclose(got["classifier"][k].detach().numpy(),
+                                   t.detach().numpy(), atol=atol, rtol=0,
+                                   err_msg=k)
+    _assert_moments_match(got, want)
+
+
+def test_scan_ranks_run_the_whole_model_alike(runs):
+    """In the scan layout no leaf splits (`tensor_parallel` is None at
+    model 2 too): each rank trains the whole stacked leaves, and both
+    ranks end with the same state bit for bit."""
+    _, _, result, setup = runs
+    scan, other = result["scan"], result["scan_rank1"]
+    assert scan["tp"] is None and other["tp"] is None
+    assert scan["local_shapes"] == {k: tuple(v.shape) for k, v in
+                                    setup["scan"]["scores"].items()}
+    assert any(len(shape) == 3 for shape in scan["local_shapes"].values())
+    assert scan["losses"] == other["losses"]
+    for part in ("scores", "classifier", "mu", "nu", "thresholds"):
+        assert list(scan[part]) == list(other[part])
+        for k in scan[part]:
+            assert torch.equal(scan[part][k], other[part][k]), (part, k)
+
+
 def test_zero_state_equals_the_unsharded_state(runs):
-    model, _, result = runs
+    model, _, result, _ = runs
     plain, zero = result["plain"], result["zero"]
     assert zero["losses"] == plain["losses"]
     for part in ("scores", "classifier", "mu", "nu", "thresholds"):
@@ -200,7 +312,7 @@ def test_tensor_parallel_ranks_hold_their_slices(runs):
     """Under tensor parallelism rank 0 trains half of every score matrix of
     an attention or FFN projection and the whole of the others; the data-
     parallel mesh splits nothing."""
-    model, _, result = runs
+    model, _, result, _ = runs
     local, whole = result["plain"]["local_shapes"], result["plain"]["scores"]
     for k, shape in local.items():
         full = tuple(whole[k].shape)
@@ -210,3 +322,59 @@ def test_tensor_parallel_ranks_hold_their_slices(runs):
             assert shape == full, k
         else:
             assert 2 * np.prod(shape) == np.prod(full), k
+
+
+def test_window_equals_the_steps_one_by_one(runs):
+    """The same two steps as one window (`make_multi_step` over each
+    rank's stacked blocks) on the same ranks: bit for bit."""
+    _, _, result, _ = runs
+    plain, window = result["plain"], result["window"]
+    assert window["losses"] == plain["losses"]
+    for part in ("scores", "classifier", "mu", "nu", "thresholds"):
+        assert list(window[part]) == list(plain[part])
+        for k in plain[part]:
+            assert torch.equal(window[part][k], plain[part][k]), (part, k)
+
+
+def test_structured_heads_match_the_jax_mesh(runs, jax_structured):
+    """`--structured_masking heads` on the 2 ranks (data 2, and data 1 x
+    model 2) against the JAX mesh at data 1 x model 2: the losses, the
+    (4,) head gates (whole on every rank under tensor parallelism: the
+    rank keeps its own heads' part of each, and the gates' gradients are
+    summed over the model group), the unstructured scores, the Adam
+    moments of both, the thresholds, and the language layers' head mask
+    (the stage-3 `head_mask.npy`); the masks expand over the whole
+    weights."""
+    _, _, result, setup = runs
+    jlosses, jscores, jthresholds, jmasks, jstate = jax_structured
+    got = result["structured"]
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-4)
+    heads = setup["tcfg"].num_attention_heads
+    atol = 2 * LR * STEPS
+    gates = 0
+    for k, t in got["scores"].items():
+        want = np.asarray(jscores[k])
+        want = want.T if want.ndim == 2 and "embedding" not in k else want
+        assert t.shape == want.shape, k
+        np.testing.assert_allclose(t.detach().numpy(), want, atol=atol,
+                                   rtol=0, err_msg=k)
+        if tuple(t.shape) == (heads,):
+            gates += 1
+            assert got["local_shapes"][k] == (heads,), k  # whole
+        assert float(got["thresholds"][k]) == pytest.approx(
+            float(jthresholds[k]), abs=atol)
+    assert gates > 0
+    # every gate's and score's Adam moments: a gate stepped from only this
+    # rank's heads' part of its gradient leaves the others' moments at 0
+    _assert_moments_match(got, jstate)
+    assert sum(k.startswith("scores/") and tuple(t.shape) == (heads,)
+               for k, t in jstate.opt_state.mu.items()) == gates
+    masker = StructuredMasker.create(
+        lxmert_mask_specs(2, 1, 1), ModalSparsity.from_compression(
+            *SPARSITY), structured_masking="heads", num_heads=heads)
+    want = lang_head_mask(masker, {k: torch.from_numpy(np.asarray(v))
+                                   for k, v in jmasks.items()}, 2, heads)
+    np.testing.assert_array_equal(got["head_mask"], want)
+    assert got["whole_shapes"] == {
+        k: tuple(v.shape) for k, v in setup["carried"]["params"].items()
+        if not k.startswith("classifier.")}

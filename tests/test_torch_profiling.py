@@ -253,6 +253,31 @@ def test_profile_window_traces_exactly_the_active_steps(tmp_path):
     assert os.path.dirname(w.path) == str(tmp_path)
 
 
+def test_profile_window_warns_when_a_cuda_trace_has_no_kernel(
+        tmp_path, monkeypatch, caplog):
+    """A window on a CUDA device whose session recorded no device kernel
+    (here: a CPU session relabelled as CUDA before it stops) writes its
+    trace and logs a warning naming it; a CPU window does not warn."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    windows = {}
+    for device in ("cpu", "cuda"):
+        args = argparse.Namespace(profile_dir=str(tmp_path / device),
+                                  device="cpu", profile_start_step=2,
+                                  profile_steps=1)
+        w = windows[device] = tcommon.ProfileWindow(args)
+        for step in (1, 2):
+            torch.ones(4).sum()
+            w.tick(step)
+        w.device = torch.device(device)
+        with caplog.at_level("WARNING", logger="crvqa_tpu_torch"):
+            w.close()
+    warned = [r.getMessage() for r in caplog.records
+              if r.levelname == "WARNING"]
+    assert all(os.path.exists(w.path) for w in windows.values())
+    assert len(warned) == 1 and windows["cuda"].path in warned[0]
+    assert "no device kernel" in warned[0]
+
+
 def test_trace_context_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path)):
         with torch.profiler.record_function("inside"):

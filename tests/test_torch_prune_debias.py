@@ -4,10 +4,10 @@ to end on the fabricated VQA-CP files of tests/test_dress_rehearsal.py
 writes `mask.pt`, `classifier4masker.bin` and `test.json` that the JAX
 package's readers load and that the port's `serve_vqa --device cpu` serves
 without an error response; `--resume_from` continues the step count; the
-flags of paths not yet ported raise (the runtime's, in one process, raise
-the mesh's and the launcher's own errors or, `--zero_opt`, run); without a
-card the CLI raises unless
-given `--device cpu`.
+flags that once raised as not yet ported run (`--scan_layers`,
+`--steps_per_dispatch`, `--zero_opt`) or, the runtime's in one process,
+raise the mesh's and the launcher's own errors; without a card the CLI
+raises unless given `--device cpu`.
 """
 import json
 
@@ -126,10 +126,13 @@ def test_resume_continues_the_step_count(run, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,error,match", [
-    pytest.param("--scan_layers", "true", NotImplementedError,
-                 "not yet ported", id="--scan_layers-true"),
-    pytest.param("--steps_per_dispatch", "4", NotImplementedError,
-                 "not yet ported", id="--steps_per_dispatch-4"),
+    # ported: the scan layout trains
+    pytest.param("--scan_layers", "true", None, None,
+                 id="--scan_layers-true"),
+    # ported: a window of 4 over an epoch of 2 batches, which the flush
+    # takes one by one
+    pytest.param("--steps_per_dispatch", "4", None, None,
+                 id="--steps_per_dispatch-4"),
     # ported: ZeRO over one data rank runs (and shards nothing)
     pytest.param("--zero_opt", "true", None, None, id="--zero_opt-true"),
     # ported (tensor parallelism): a model axis of 2 over one process is

@@ -253,3 +253,25 @@ def test_adam_matches_make_adam(moment_dtype):
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=0,
                                    atol=5e-4 if moment_dtype else 1e-6,
                                    err_msg=k)
+
+
+def test_window_equals_its_steps_one_by_one(both):
+    """`make_multi_step` over a window of 3 stacked batches against the
+    same 3 steps one by one, from two copies of one state: the losses,
+    scores, parameters, moments and step bit for bit."""
+    _, _, one, step, cfg = _pair(both, "lmh", warmup_steps=0)
+    _, _, win, _, _ = _pair(both, "lmh", warmup_steps=0)
+    tx = stage1.init_state(win.params, cfg, seed=0, device="cpu")[1]
+    batches = [_torch_batch(b) for b in _batches(both["jcfg"], 3, seed0=50)]
+    single = [step(one, b)[1] for b in batches]
+    window = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    win, losses, scores = stage1.make_multi_step(both["model"], cfg, tx,
+                                                 3)(win, window)
+    assert torch.equal(losses, torch.stack([m.loss for m in single]))
+    assert torch.equal(scores, torch.stack([m.score for m in single]))
+    assert win.step == one.step == 3
+    for name, p in one.params.items():
+        assert torch.equal(win.params[name], p), name
+    for k, m in one.opt_state.mu.items():
+        assert torch.equal(win.opt_state.mu[k], m), k
+        assert torch.equal(win.opt_state.nu[k], one.opt_state.nu[k]), k

@@ -16,13 +16,21 @@ reset at least 99.5% of the mask entries agree.
 
 With dropout on, two runs from the same --seed give identical losses
 (every draw comes from generators seeded by it).
+
+A window of steps (`make_multi_step`, `--steps_per_dispatch`) equals its
+steps taken one by one bit for bit, matches the JAX window at the
+trajectory's tolerances, and the CLI's windows log, reset and checkpoint
+at the JAX CLI's steps.
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from crvqa_tpu.cli import prune_debias_vqa as jax_cli
 from crvqa_tpu.data import synthetic_batch
 from crvqa_tpu.losses import dispatch_loss as jax_loss
 from crvqa_tpu.masking import Masker as JaxMasker
@@ -228,3 +236,91 @@ def test_grad_accumulation_and_bf16_moments_run(tmp_path):
                                    "--name_of_masker", "MaskedLinear2",
                                    "--Masker_type", "poe"])
     assert len(out["losses"]) == 6 and all(np.isfinite(out["losses"]))
+
+
+def _window(batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def test_window_equals_its_steps_one_by_one(both):
+    """A window of 3 against the same 3 steps one by one, from two copies
+    of one state, fp32: the losses, scores, scores and moments after the
+    window, the thresholds of a reset after it, and the step, bit for
+    bit."""
+    batches = [_torch_batch(b) for b in _batches(both["jcfg"], 3, seed0=60)]
+    one, opt = both["port_state"]()
+    win, _ = both["port_state"]()
+    step = stage2.make_train_step(both["model"], both["masker"], opt,
+                                  both["tsc"])
+    single = [step(one, b)[1] for b in batches]
+    multi = stage2.make_multi_step(both["model"], both["masker"], opt,
+                                   both["tsc"], 3)
+    win, losses, scores = multi(win, _window(batches))
+    assert torch.equal(losses, torch.stack([m.loss for m in single]))
+    assert torch.equal(scores, torch.stack([m.score for m in single]))
+    assert win.step == one.step == 3
+    reset = stage2.make_threshold_reset(both["masker"])
+    one, win = reset(one), reset(win)
+    for k, v in one.scores.items():
+        assert torch.equal(win.scores[k], v), k
+        assert torch.equal(win.thresholds[k], one.thresholds[k]), k
+    for k, v in one.opt_state.mu.items():
+        assert torch.equal(win.opt_state.mu[k], v), k
+        assert torch.equal(win.opt_state.nu[k], one.opt_state.nu[k]), k
+
+
+def test_window_matches_the_jax_window(both):
+    """A window of 3 against the JAX package's `make_multi_step` (one
+    `lax.scan`) over the same stacked batches, at the trajectory's
+    tolerances."""
+    batches = _batches(both["jcfg"], 3, seed0=70)
+    jmulti = jstage2.make_multi_step(both["jmodel"], both["jmasker"],
+                                     both["tx"], both["jsc"], 3)
+    js = jax.tree.map(jnp.array, both["jstate"])  # the window donates
+    js, jlosses, jscores = jmulti(js, {
+        k: jnp.stack([jnp.asarray(b[k]) for b in batches])
+        for k in batches[0] if k != "valid"})
+    state, opt = both["port_state"]()
+    multi = stage2.make_multi_step(both["model"], both["masker"], opt,
+                                   both["tsc"], 3)
+    state, losses, scores = multi(state, _window(
+        [_torch_batch(b) for b in batches]))
+    assert state.step == int(js.step) == 3
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
+                               rtol=1e-4)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(jscores),
+                               rtol=1e-5)
+    atol = 2 * LR * len(batches)
+    for spec in both["masker"].specs:
+        want = np.asarray(js.scores[spec.key])
+        _close(state.scores[spec.key].detach().numpy(),
+               want if spec.is_embedding else want.T, spec.key, atol=atol,
+               rtol=0)
+
+
+def _logged(out):
+    with open(out / "metrics.jsonl") as f:
+        lines = [json.loads(x) for x in f]
+    return ([x["step"] for x in lines if "loss" in x],
+            [x["step"] for x in lines if "final_eval_acc" in x])
+
+
+def test_cli_windows_log_and_save_at_the_jax_cli_steps(tmp_path):
+    """--steps_per_dispatch 2 --logging_steps 3 --save_steps 3 over 5
+    batches, in both packages' CLIs: the windows end at steps 2 and 4, so
+    the reset, the log and ckpt_4 fire at 4 only; the fifth batch is a
+    single step with no log; the final step is 5."""
+    argv = ["--tiny", "--synthetic", "40", "--train_batch_size", "8",
+            "--eval_batch_size", "8", "--num_train_epochs", "1",
+            "--steps_per_dispatch", "2", "--logging_steps", "3",
+            "--save_steps", "3", "--dtype", "float32", "--do_train",
+            "--do_eval", "--seed", "1"]
+    jax_cli.main(["--output_dir", str(tmp_path / "jax"), *argv])
+    out = prune_debias_vqa.main(["--output_dir", str(tmp_path / "port"),
+                                 "--device", "cpu", *argv])
+    assert _logged(tmp_path / "port") == _logged(tmp_path / "jax") == (
+        [4], [5])
+    ckpts = lambda d: sorted(p.name for p in d.glob("ckpt_*")
+                             if not p.name.endswith(".json"))
+    assert ckpts(tmp_path / "port") == ckpts(tmp_path / "jax") == ["ckpt_4"]
+    assert out["step"] == 5 and len(out["losses"]) == 5

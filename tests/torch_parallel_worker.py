@@ -174,17 +174,27 @@ def units(rank: int, world: int, port: int, out_dir: str) -> None:
 def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     """The stage-2 steps of test_torch_parallel_jax.py over `world` ranks
     laid out as `inputs.pt`'s mesh (data x model), without and with ZeRO,
-    from the state the test carried over from the JAX package; rank 0
-    writes `result.pt`: per run the losses, the whole trained leaves, the
-    gathered Adam moments and the thresholds after a reset."""
+    from the state the test carried over from the JAX package; then
+    through one window of the steps (`make_multi_step`), with structured
+    head gates from their own carried state, and in the scan layout
+    (`--scan_layers`) from its own. Rank 0 writes `result.pt`: per run the
+    losses, the whole trained leaves, the gathered Adam moments, the
+    thresholds after a reset and the split leaves' keys (`tp`, None where
+    nothing splits); the structured run also its language head mask and
+    the whole weights' shapes. Every rank writes its scan run to
+    `scan_rank<r>.pt`."""
     import datetime
 
     import torch
 
+    from crvqa_tpu_torch.cli.common import stack_window
     from crvqa_tpu_torch.core.convert import carry_into_state
     from crvqa_tpu_torch.masking.masker import Masker
     from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
-    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.masking.spec import (lxmert_mask_specs,
+                                              lxmert_scan_mask_specs)
+    from crvqa_tpu_torch.masking.structured import (StructuredMasker,
+                                                    lang_head_mask)
     from crvqa_tpu_torch.models import LxmertConfig
     from crvqa_tpu_torch.parallel import mesh as pm
     from crvqa_tpu_torch.parallel.tp import enable_tp, tensor_parallel
@@ -198,19 +208,34 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     mesh = pm.make_mesh(pm.MeshConfig(data=data, model=model_size),
                         torch.device("cpu"))
     config = LxmertConfig.tiny(**inp["config"])
-    masker = Masker.create(
-        lxmert_mask_specs(config.l_layers, config.r_layers, config.x_layers),
-        ModalSparsity.from_compression(*inp["sparsity"]),
-        controlled_init="magnitude")
+    dims = (config.l_layers, config.r_layers, config.x_layers)
+    specs = lxmert_mask_specs(*dims)
+    rates = ModalSparsity.from_compression(*inp["sparsity"])
     cfg = stage2.Stage2Config(**inp["stage2"])
+    runs = {"plain": (False, False), "zero": (True, False),
+            "window": (False, True), "structured": (False, False),
+            "scan": (False, False)}
     result = {}
-    for zero_on in (False, True):
-        model = stage2.lxmert_meta_model(config)
-        state, tx = stage2.init_state(model, masker, inp["carried"]["params"],
-                                      cfg, seed=0, device="cpu")
-        carry_into_state(state, inp["carried"])
+    for name, (zero_on, window) in runs.items():
+        if name == "structured":
+            masker = StructuredMasker.create(
+                specs, rates, controlled_init="magnitude",
+                structured_masking="heads",
+                num_heads=config.num_attention_heads)
+            carried = inp["structured"]
+        elif name == "scan":
+            masker = Masker.create(lxmert_scan_mask_specs(*dims), rates,
+                                   controlled_init="magnitude")
+            carried = inp["scan"]
+        else:
+            masker = Masker.create(specs, rates, controlled_init="magnitude")
+            carried = inp["carried"]
+        model = stage2.lxmert_meta_model(config, scan=name == "scan")
+        state, tx = stage2.init_state(model, masker, carried["params"], cfg,
+                                      seed=0, device="cpu")
+        carry_into_state(state, carried)
         tp = tensor_parallel(mesh, state.frozen, masker.specs,
-                             config.num_attention_heads)
+                             config.num_attention_heads, state.scores)
         if tp is not None:
             enable_tp(model, tp)
             stage2.shard_state_tp(state, tp)
@@ -218,23 +243,39 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
         if zero_on:
             tx, zero = zero_optimizer(tx, stage2.trainable(state, cfg), mesh)
             state.opt_state = zero.shard_state(state.opt_state)
-        step = stage2.make_train_step(model, masker, tx, cfg, mesh, tp)
-        losses = []
-        for b in inp["batches"]:
-            state, m = step(state, pm.shard_batch(mesh, b))
-            losses.append(float(m.loss))
+        local = [pm.shard_batch(mesh, b) for b in inp["batches"]]
+        if window:
+            multi = stage2.make_multi_step(model, masker, tx, cfg,
+                                           len(local), mesh, tp)
+            state, losses, _ = multi(state, stack_window(local))
+            losses = [float(x) for x in losses]
+        else:
+            step = stage2.make_train_step(model, masker, tx, cfg, mesh, tp)
+            losses = [float(step(state, b)[1].loss) for b in local]
         state = stage2.make_threshold_reset(masker, tp)(state)
         opt = state.opt_state if zero is None else zero.gather_state(
             state.opt_state)
         whole = (lambda d: d) if tp is None else tp.gather
-        result["zero" if zero_on else "plain"] = {
+        result[name] = {
             "losses": losses, "scores": whole(state.scores),
             "classifier": state.train_params["classifier"],
             "mu": whole(opt.mu), "nu": whole(opt.nu),
             "thresholds": state.thresholds,
             "owned": sorted(state.opt_state.mu),
+            "tp": None if tp is None else sorted(tp.dims),
             "local_shapes": {k: tuple(v.shape)
                              for k, v in state.scores.items()}}
+        if name == "structured":
+            masks = masker.binary_masks(whole(state.scores),
+                                        state.thresholds)
+            result[name]["head_mask"] = lang_head_mask(
+                masker, masks, config.l_layers, config.num_attention_heads)
+            shapes = ({k: v.shape for k, v in state.frozen.items()}
+                      if tp is None else tp.whole_shapes(state.frozen))
+            result[name]["whole_shapes"] = {k: tuple(v)
+                                            for k, v in shapes.items()}
+    torch.save(result["scan"], os.path.join(out_dir,
+                                            f"scan_rank{rank}.pt"))
     if rank == 0:
         torch.save(result, os.path.join(out_dir, "result.pt"))
     pm.barrier()
