@@ -44,7 +44,12 @@ Phases (each one's seconds are logged):
               (1,1) and (85,85), and at 6 heads; bf16 stored and recompute
               gradients bit-identical; timed beside the plain versions and
               `scaled_dot_product_attention` forward and forward + backward
-              under autograd.
+              under autograd. At batch 256, rate 0.1, the four (Sq, Sk) and
+              (50,50), fp32 and bf16, also with `P_RESIDUAL_DTYPE =
+              bfloat16`: the stored p bit-equal to the same kernel's fp32
+              residual rounded to bf16 and within one bf16 ulp of the
+              plain fp32 p, the output and the stored backward on that
+              residual against their plain versions, timed (bf16).
  5a. offset-kernels  the training attention kernels with the runtime's
               keep-mask offsets (row0 = the first global row of data rank 1
               of 2, head0 = 6, the first head of tensor-parallel rank 1 of
@@ -77,7 +82,9 @@ Phases (each one's seconds are logged):
               responses, 18 mid-length and 11 short launches per encoded
               batch (42 and 23 when ranking), string answers, fp32 answers
               equal to the plain attentions' and the fp32 fused memory and
-              first decode step's logits within tolerance of them; profiles
+              first decode step's logits within tolerance of them, a cached
+              greedy decode (`greedy_generate`) of those 8 requests in fp32
+              with ids equal to the plain attentions'; profiles
               one bf16 batch-8 beam request batch (device time by kernel,
               idle share).
   9. train    `crvqa_tpu_torch.cli.prune_debias_vqa.main` at full width,
@@ -94,6 +101,17 @@ Phases (each one's seconds are logged):
               and one full-width fp32 step with dropout on through the
               kernels against the same step through the plain versions from
               the same generators.
+ 10a. stage2-variants  `train.stage2.make_train_step` at full LXMERT width,
+              batch 256, bf16, phase step's configuration: the plain step,
+              KD 'pooled' and 'layerwise' (`Stage2Config.use_kd`),
+              `JOINT_CROSS_ATTENTION` and `P_RESIDUAL_DTYPE = bfloat16`,
+              each with one counted step (34 + 32 launches; KD + 34 primal
+              for the dense teacher; joint 34 + 33), then 3 warm-up and 5
+              timed steps in two rounds (the second in reverse order),
+              finite losses; each variant's fp32 step at batch 64 with
+              dropout on through the kernels against the plain versions
+              (the stored pair's, so the bf16 residual rounds on both
+              sides), at phase step's tolerances.
  11. midseq-bwd-kernel  the mid-length recompute backward against its plain
               version at mPLUG's training shapes ((577,577) ViT, (25,577)
               fusion cross, (602,602) stride joint, (40,602) decoder cross
@@ -174,7 +192,8 @@ Phases (each one's seconds are logged):
               stored-backward launches per step and 12 primal per eval
               batch, the zero rate after the reset; then 3 warm-up and 10
               timed steps on one batch kept on the card (examples per
-              second, device time of two profiled steps), and one fp32
+              second, device time of two profiled steps), 2 layer-wise KD
+              steps (12 + 12 + 12 launches each), and one fp32
               step with dropout on through the kernels against the plain
               versions (`_close_to`).
  19. visualbert-serve  `serve_vqa --model_type visualbert` at that width:
@@ -249,7 +268,10 @@ Phases (each one's seconds are logged):
               checkpointed and not, bit-equal.
  23. resume   the JAX package's training states on the card
               (`core/convert.py`, `cli/common.resume_any`): (a) stage 2
-              at full LXMERT width, batch 256, compression 0.3/0.3/0.3 at
+              at full LXMERT width cut in depth to `RESUME_DEPTH` (3
+              language, 2 relational, 2 cross layers, the CLI's own
+              config so cut inside the phase), batch 256, compression
+              0.3/0.3/0.3 at
               zero rate 0.7, LMH, dropout 0, on two synthetic batches
               cycled: 2 fp32 steps of the CLI, its step-2 state written in
               the JAX package's layout (`save_jax_training_state`; bytes,
@@ -707,15 +729,16 @@ def launch_mult(config) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def _train_bound_terms(b, sq, sk, dtype, kind, heads=12):
+def _train_bound_terms(b, sq, sk, dtype, kind, heads=12, resid_item=4):
     """(bytes ms, FLOPs ms) of one training-kernel call, each input read
     once and each output written once: the forward for grad reads q, k, v
-    and the bias and writes out and the fp32 residual; the stored backward
+    and the bias and writes out and the residual (`resid_item` bytes an
+    element: 4 fp32, 2 with `P_RESIDUAL_DTYPE` bf16); the stored backward
     reads q, g, k, v and the residual and writes dq, dk, dv; the recompute
     backward reads the bias instead of the residual."""
     item = 2 if dtype == "bfloat16" else 4
     d, h = heads * 64, heads
-    resid = 4 * b * sq * h * sk
+    resid = resid_item * b * sq * h * sk
     if kind == "fwd":
         nbytes = item * b * d * (2 * sq + 2 * sk) + 4 * b * sk + resid
         flops = 4 * b * h * sq * sk * 64
@@ -788,6 +811,14 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
             row.update(probe)
             ok = ok and probe["keep_exact"] and (dtype != "bfloat16"
                                                   or probe["p_bit_equal"])
+        if heads == 12 and rate == MAIN_RATE and b == (
+                2 if rehearse else TRAIN_BATCH):
+            # P_RESIDUAL_DTYPE = bf16: the residual rounded, the stored
+            # backward reading it
+            row.update(_bf16_residual_point(torch, fa, q, k, v, bias, g,
+                                            args, ref_out, ref_p, p, dtype,
+                                            rehearse))
+            ok = ok and row["p16_ok"]
         for kind in ("fwd", "stored", "recompute"):
             t_bytes, t_ops = _train_bound_terms(b, sq, sk, dtype, kind,
                                                 heads)
@@ -833,6 +864,65 @@ def phase_train_kernels(torch, device, rehearse: bool, seed: int
                   f"{VISUALBERT_SHAPE} the keep masks exact and bf16 p "
                   "bit-equal)")
     return rows
+
+
+def _bf16_residual_point(torch, fa, q, k, v, bias, g, args, ref_out, ref_p,
+                        p32, dtype, rehearse) -> dict:
+    """The forward for grad and the stored backward with the bf16
+    residual (`P_RESIDUAL_DTYPE`) at one point: the output against the
+    plain version's (`TOL`), the stored p bit-equal to the same kernel's
+    fp32 residual `p32` (same inputs, same fp32 sums) rounded to nearest
+    even by `.to(bfloat16)`, which a truncating or otherwise wrong
+    rounding fails, and within one bf16 ulp of the plain fp32 p (2^-7 of
+    its magnitude), the stored backward on that
+    residual against the plain backward on the same residual
+    (`TOL_BWD`), and (bf16 activations, on the card) their times beside
+    the plain versions' and the bound with the halved residual bytes."""
+    with _variant(torch, {"P_RESIDUAL_DTYPE": "bfloat16"}):
+        return _bf16_residual_run(torch, fa, q, k, v, bias, g, args,
+                                  ref_out, ref_p, p32, dtype, rehearse)
+
+
+def _bf16_residual_run(torch, fa, q, k, v, bias, g, args, ref_out, ref_p,
+                       p32, dtype, rehearse) -> dict:
+    """`_bf16_residual_point` under `P_RESIDUAL_DTYPE = bfloat16`."""
+    bf16 = torch.bfloat16
+    out, p = fa.fused_attention_fwd_train(q, k, v, bias, *args)
+    grads = fa.fused_attention_bwd_stored(q, k, v, p, g, *args)
+    ref_g = fa.fused_attention_bwd_reference(q, k, v, p, g, *args)
+    if not rehearse:
+        torch.cuda.synchronize()
+    ulp = ref_p.abs() * 2.0 ** -7
+    row = {"p16_dtype": str(p.dtype),
+           "p16_fwd_err": _max_err(torch, [out], [ref_out]),
+           "p16_p_err": _max_err(torch, [p], [ref_p]),
+           "p16_p_ulps": ((p.float() - ref_p).abs() / ulp.clamp_min(
+               1e-30)).max().item(),
+           "p16_bwd_err": _max_err(torch, grads, ref_g),
+           "p16_bits_equal_rounded_p32": bool(torch.equal(p,
+                                                         p32.to(bf16)))}
+    row["p16_ok"] = bool(
+        p.dtype == bf16
+        and row["p16_bits_equal_rounded_p32"]
+        and torch.allclose(out.float(), ref_out.float(), **TOL[dtype])
+        and bool(((p.float() - ref_p).abs() <= ulp).all())
+        and all(torch.allclose(x.float(), y.float(), **TOL_BWD[dtype])
+                for x, y in zip(grads, ref_g)))
+    b, sq = q.shape[:2]
+    sk, heads = k.shape[1], args[0]
+    for kind in ("fwd", "stored"):
+        row[f"p16_{kind}_bytes_ms"], row[f"p16_{kind}_ops_ms"] = (
+            _train_bound_terms(b, sq, sk, dtype, kind, heads, resid_item=2))
+    if dtype == "bfloat16" and not rehearse:
+        row["p16_fwd_ms"] = _graph_ms(torch, lambda: (
+            fa.fused_attention_fwd_train(q, k, v, bias, *args)))
+        row["p16_fwd_plain_ms"] = _graph_ms(torch, lambda: (
+            fa.fused_attention_train_reference(q, k, v, bias, *args)))
+        row["p16_stored_ms"] = _graph_ms(torch, lambda: (
+            fa.fused_attention_bwd_stored(q, k, v, p, g, *args)))
+        row["p16_stored_plain_ms"] = _graph_ms(torch, lambda: (
+            fa.fused_attention_bwd_reference(q, k, v, p, g, *args)))
+    return row
 
 
 def _keep_and_p_probe(torch, fa, b, sq, sk, dtype, device, seed, heads=12
@@ -1559,15 +1649,23 @@ def _serve_mplug(torch, root, images, args, device, tag, expect,
     return responses, summary
 
 
-def _mplug_direct(torch, args, images, requests, device) -> dict:
+def _mplug_direct(torch, args, images, requests, device, encode: dict
+                  ) -> dict:
     """The served model's fp32 fused memory and first decode step's logits
     for the first batch of requests, through the kernels and through the
-    plain versions (`_PlainAttention`), on one state."""
+    plain versions (`_PlainAttention`), on one state; then a greedy decode
+    of that batch (`greedy_generate`, cached: the self-attention KV caches
+    and the cross-attention K/V projected once, as a server decodes),
+    through the kernels and the plain versions, whose launches are the
+    encode's (`encode`: the decode's attentions take the eager path)."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import serve_mplug, vqa_mplug
     from crvqa_tpu_torch.data.mplug_data import (_tokenize_fixed,
                                                  question_token_len)
+    from crvqa_tpu_torch.models.mplug.generator import (greedy_generate,
+                                                        init_self_caches,
+                                                        precompute_cross_kv)
     from crvqa_tpu_torch.train import mplug_train
 
     config, tokenizer, model = vqa_mplug.build_model(args)
@@ -1606,6 +1704,48 @@ def _mplug_direct(torch, args, images, requests, device) -> dict:
            "argmax_equal": bool(torch.equal(logits_k.argmax(-1),
                                             logits_p.argmax(-1))),
            "launches": launches}
+
+    def greedy(m, images_, ids_, mask_):
+        bc = config.bert
+        states, state_mask = m.encode(images_, ids_, mask_)
+        cross_kv = precompute_cross_kv(m.text_decoder, states,
+                                       bc.text_decode_layers,
+                                       bc.num_attention_heads, bc.head_size,
+                                       dtype=bc.dtype)
+
+        def step(ids, st, st_mask, position, caches):
+            return m.decode_logits_step(ids, st, st_mask, position, caches,
+                                        cross_kv=cross_kv)
+
+        return greedy_generate(
+            m.decode_logits, states, state_mask, max_len=args.max_answer_len,
+            bos=config.bos_token_id, eos=config.eos_token_id,
+            pad=config.pad_token_id, decode_step=step,
+            init_caches=init_self_caches(
+                states.shape[0], bc.text_decode_layers, args.max_answer_len,
+                bc.num_attention_heads, bc.head_size, dtype=bc.dtype,
+                device=states.device))
+
+    t0 = time.monotonic()
+    ids_k, greedy_launches = _run_counted(lambda: mplug_train.run_masked(
+        model, masker, state, greedy, *batch))
+    greedy_s = time.monotonic() - t0
+    with _PlainAttention():
+        ids_p = mplug_train.run_masked(model, masker, state, greedy, *batch)
+    out["greedy"] = {"ids_equal": bool(torch.equal(ids_k, ids_p)),
+                     "shape": list(ids_k.shape), "seconds": greedy_s,
+                     "launches": greedy_launches,
+                     "ids": ids_k.tolist()}
+    check(out["greedy"]["ids_equal"] and ids_k.shape == (
+        len(reqs), args.max_answer_len) and bool(
+            (ids_k[:, 0] == config.bos_token_id).all()),
+        f"mplug greedy: ids {ids_k.tolist()} through the kernels, "
+        f"{ids_p.tolist()} through the plain attentions (want equal, "
+        f"[{len(reqs)}, {args.max_answer_len}], bos first)")
+    want = _launch_counts(True, **encode)
+    check(greedy_launches == want,
+          f"mplug greedy: launches {greedy_launches} != the encode's "
+          f"{want} (the decode's attentions take the eager path)")
     del state, model
     gc.collect()
     return out
@@ -1677,7 +1817,7 @@ def phase_mplug_serve(torch, device, rehearse: bool, seed: int) -> dict:
         with open(os.path.join(root, "requests.jsonl")) as f:
             requests = [json.loads(line) for line in f]
         direct = _mplug_direct(torch, args("float32", 8, "direct"), images,
-                               requests, device)
+                               requests, device, beam)
     log("mplug-serve: fp32 direct, kernels vs plain: " + json.dumps(direct))
     # fp32 through 24 encoder layers and the decoder; the kernels sum in
     # another order than the plain versions' cuBLAS products
@@ -1888,10 +2028,13 @@ def _stage2_setup(torch, config, device, seed, batch_size,
     return model, masker, cfg, state, tx, batch
 
 
-def phase_step(torch, device, rehearse: bool, seed: int) -> dict:
+def phase_step(torch, device, rehearse: bool, seed: int,
+               keep: dict | None = None) -> dict:
     """Timed steps and a profiled step at full width, batch 256, bf16; then
     one full-width fp32 step with dropout on through the kernels and through
-    the plain versions from the same generators."""
+    the plain versions from the same generators. `keep`: the two set-ups
+    (`_stage2_setup`'s tuples) are left in it under "bf16" and "fp32" for
+    phase stage2-variants, which starts from the same ones."""
     import numpy as np
 
     from crvqa_tpu_torch.models import LxmertConfig, layers
@@ -1925,6 +2068,8 @@ def phase_step(torch, device, rehearse: bool, seed: int) -> dict:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out["profile"] = _profile_steps(torch, lambda: step(state, batch))
     log("step: " + json.dumps(out))
+    if keep is not None:
+        keep["bf16"] = (model, masker, cfg, state, tx, batch)
     del model, state, tx, batch, step
     if not rehearse:
         torch.cuda.empty_cache()
@@ -1961,6 +2106,210 @@ def phase_step(torch, device, rehearse: bool, seed: int) -> dict:
           f"{check_out} (tolerances: loss 1e-4 relative, score gradients "
           f"1e-3 of their largest)")
     out["check"] = check_out
+    if keep is not None:
+        keep["fp32"] = (model, masker, cfg, state, tx, batch)
+    return out
+
+
+# stage2-variants: each variant's settings (Stage2Config fields, module
+# globals) at the canonical configuration; 3 warm-up and 5 timed steps
+VARIANTS = {"plain": {}, "kd-pooled": {"kd_mode": "pooled"},
+            "kd-layerwise": {"kd_mode": "layerwise"},
+            "joint": {"JOINT_CROSS_ATTENTION": True},
+            "p-bf16": {"P_RESIDUAL_DTYPE": "bfloat16"}}
+VARIANT_STEPS = 5
+
+
+@contextlib.contextmanager
+def _variant(torch, settings: dict):
+    """The module globals of a variant (`layers.JOINT_CROSS_ATTENTION`,
+    `fused_attention.P_RESIDUAL_DTYPE`) set inside the block, restored
+    after."""
+    from crvqa_tpu_torch.models import layers
+    from crvqa_tpu_torch.ops import fused_attention as fa
+
+    saved = (layers.JOINT_CROSS_ATTENTION, fa.P_RESIDUAL_DTYPE)
+    layers.JOINT_CROSS_ATTENTION = settings.get("JOINT_CROSS_ATTENTION",
+                                                False)
+    fa.P_RESIDUAL_DTYPE = getattr(torch, settings.get("P_RESIDUAL_DTYPE",
+                                                      "float32"))
+    try:
+        yield
+    finally:
+        layers.JOINT_CROSS_ATTENTION, fa.P_RESIDUAL_DTYPE = saved
+
+
+def _variant_config(cfg, settings: dict):
+    """The variant's `Stage2Config`: KD on where it names a `kd_mode`."""
+    if "kd_mode" not in settings:
+        return cfg
+    return dataclasses.replace(cfg, use_kd=True,
+                               kd_mode=settings["kd_mode"])
+
+
+def _variant_launches(name: str, settings: dict, fwd: int, bwd: int
+                      ) -> dict:
+    """A variant's attention launches per step: the forward for grad on
+    every attention, the stored backward on those that reach the loss;
+    the joint layout's last cross attention (visn -> lang) gets a zero
+    cotangent through the concatenation instead of none, so one more
+    backward; KD adds the dense teacher's primal forward."""
+    counts = {"fused_attention_fwd_train": fwd,
+              "fused_attention_bwd_stored": bwd + (name == "joint")}
+    if "kd_mode" in settings:
+        counts["fused_attention_fwd"] = fwd
+    return counts
+
+
+def _plain_stored_attention(q, k, v, bias, num_heads, head_size, rate=0.0,
+                            seed=0, row0=0, head0=0):
+    """The model's attention on the plain versions of the stored pair:
+    the forward for grad's plain version (its residual in
+    `P_RESIDUAL_DTYPE`) and the plain backward on that residual, so the
+    plain step rounds p where the kernels do; the primal's plain version
+    without autograd."""
+    import torch
+
+    from crvqa_tpu_torch.ops import fused_attention as fa
+
+    if not (torch.is_grad_enabled() and q.requires_grad):
+        return _plain_attention(q, k, v, bias, num_heads, head_size, rate,
+                                seed, row0, head0)
+
+    class Stored(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, p = fa.fused_attention_train_reference(
+                q, k, v, bias, num_heads, head_size, rate, seed, row0, head0)
+            ctx.save_for_backward(q, k, v, p)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, p = ctx.saved_tensors
+            return fa.fused_attention_bwd_reference(
+                q, k, v, p, g.to(q.dtype), num_heads, head_size, rate, seed,
+                row0, head0)
+
+    return Stored.apply(q, k, v)
+
+
+def phase_stage2_variants(torch, device, rehearse: bool, seed: int,
+                          keep: dict | None = None) -> dict:
+    """The stage-2 step's reachable settings at full LXMERT width, batch
+    256, bf16, the canonical configuration (`_stage2_setup`), through
+    `train.stage2.make_train_step`: the plain step, KD 'pooled' and
+    'layerwise' (`Stage2Config.use_kd`), `JOINT_CROSS_ATTENTION` and
+    `P_RESIDUAL_DTYPE = bfloat16`. Each: one step's launches counted,
+    then in two rounds (the second in reverse order) WARMUP_STEPS and
+    VARIANT_STEPS timed steps (host clock to a synchronise), finite
+    losses. Then each variant's fp32 step (dropout
+    on) at CHECK_BATCH through the kernels against the same step through
+    the plain versions, as phase step checks the plain one. `keep`: phase
+    step's two set-ups (the same `_stage2_setup` calls), taken from it
+    instead of building them again."""
+    import numpy as np
+
+    from crvqa_tpu_torch.models import LxmertConfig, layers
+    from crvqa_tpu_torch.train import stage2
+
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    on_card = not rehearse
+    config = (LxmertConfig.tiny(dtype=torch.bfloat16) if rehearse
+              else LxmertConfig(dtype=torch.bfloat16))
+    fwd_mult, bwd_mult = launch_mult(config)
+    fwd, bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
+    keep = {} if keep is None else keep
+    model, masker, cfg, state, tx, batch = keep.pop("bf16", None) or (
+        _stage2_setup(torch, config, device, seed, TRAIN_BATCH))
+    out: dict = {"batch": TRAIN_BATCH, "timed_steps": VARIANT_STEPS,
+                 "variants": {name: {"step_ms": [], "losses": []}
+                              for name in VARIANTS}}
+    total = {}
+    # two rounds, the second in reverse order, so that each variant's
+    # times bracket the host's drift over the phase
+    for rnd, names in enumerate((list(VARIANTS), list(VARIANTS)[::-1])):
+        for name in names:
+            settings, res = VARIANTS[name], out["variants"][name]
+            with _variant(torch, settings):
+                step = stage2.make_train_step(model, masker, tx,
+                                              _variant_config(cfg, settings))
+                if rnd == 0:
+                    (_, m), launches = _run_counted(lambda: step(state,
+                                                                 batch))
+                    _add_launches(total, launches)
+                    want = _launch_counts(on_card, **_variant_launches(
+                        name, settings, fwd, bwd))
+                    check(launches == want, f"stage2-variants {name}: "
+                                            f"launches {launches} != {want}")
+                    res["launches"] = launches
+                    res["losses"].append(float(m.loss))
+                for _ in range(WARMUP_STEPS):
+                    step(state, batch)
+                sync()
+                t0 = time.monotonic()
+                losses = [step(state, batch)[1].loss
+                          for _ in range(VARIANT_STEPS)]
+                sync()
+                dt = time.monotonic() - t0
+            res["losses"] += [float(x) for x in losses]
+            res["step_ms"].append(1e3 * dt / VARIANT_STEPS)
+            check(all(np.isfinite(res["losses"])),
+                  f"stage2-variants {name}: losses {res['losses']}")
+    out["launches"] = total
+    plain_ms = min(out["variants"]["plain"]["step_ms"])
+    log("stage2-variants: synchronised step ms at batch "
+        f"{TRAIN_BATCH} (bf16; rounds 1 and 2): " + ", ".join(
+            f"{k} {v['step_ms'][0]:.2f} / {v['step_ms'][1]:.2f} "
+            f"({min(v['step_ms']) / plain_ms:.3f}x plain's best)"
+            for k, v in out["variants"].items()))
+    del model, state, tx, batch, step
+    _free(torch, rehearse)
+
+    # each variant's fp32 step with dropout on: kernels vs plain versions
+    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    model, masker, cfg, state, tx, batch = keep.pop("fp32", None) or (
+        _stage2_setup(torch, config, device, seed + 1, CHECK_BATCH))
+    out["checks"] = {}
+    for name, settings in VARIANTS.items():
+        fn = stage2.make_loss_and_grads(model, masker,
+                                        _variant_config(cfg, settings))
+        rng = (state.rng.device.get_state(), state.rng.host.get_state())
+        with _variant(torch, settings):
+            (loss_k, _, grads_k), launches = _run_counted(
+                lambda: fn(state, batch))
+            state.rng.device.set_state(rng[0])
+            state.rng.host.set_state(rng[1])
+            saved = layers.fused_attention
+            layers.fused_attention = _plain_stored_attention
+            try:
+                loss_p, _, grads_p = fn(state, batch)
+            finally:
+                layers.fused_attention = saved
+        sync()
+        check(launches == _launch_counts(on_card, **_variant_launches(
+            name, settings, fwd, bwd)),
+            f"stage2-variants {name} check: launches {launches}")
+        scores = [k for k in grads_k if k.startswith("scores/")]
+        gmax = max(grads_p[k].abs().max().item() for k in scores)
+        dmax = max((grads_k[k] - grads_p[k]).abs().max().item()
+                   for k in scores)
+        dloss = abs(loss_k.item() - loss_p.item())
+        got = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+               "loss_abs_diff": dloss, "score_grad_max": gmax,
+               "score_grad_max_abs_diff": dmax}
+        out["checks"][name] = got
+        log(f"stage2-variants {name} check: " + json.dumps(got))
+        # phase step's tolerances: fp32 throughout, the kernels sum in
+        # another order than cuBLAS, over 19 layers; with the bf16
+        # residual both sides round p to bf16, each its own fp32 p
+        check(dloss <= 1e-4 * abs(loss_p.item()) and dmax <= 1e-3 * gmax,
+              f"stage2-variants {name}: one fp32 step, kernels vs plain "
+              f"versions differ: {got} (tolerances: loss 1e-4 relative, "
+              f"score gradients 1e-3 of their largest)")
+    out["check_batch"] = CHECK_BATCH
+    del model, state, tx, batch
+    _free(torch, rehearse)
     return out
 
 
@@ -3648,7 +3997,23 @@ def phase_visualbert_train(torch, device, rehearse: bool, seed: int,
     result["step_launches"] = step_launches
     result["timed"] = _timed_steps(torch, step, state, batch, rehearse,
                                    "visualbert-step")
-    del model, state, tx, batch, step
+    # 2 layer-wise KD steps: the dense teacher adds its primal forward
+    kd_step = stage2.make_train_step(model, masker, tx, dataclasses.replace(
+        cfg, use_kd=True, kd_mode="layerwise"))
+    kd_losses, kd_launches = _run_counted(lambda: [
+        float(kd_step(state, batch)[1].loss) for _ in range(2)])
+    log(f"visualbert-step kd: 2 layer-wise KD steps, losses {kd_losses}, "
+        f"launches {kd_launches}")
+    check(all(np.isfinite(kd_losses)),
+          f"visualbert-step kd: losses {kd_losses}")
+    check(kd_launches == _launch_counts(
+        on_card, fused_attention_fwd_train=2 * per_step,
+        fused_attention_bwd_stored=2 * per_step,
+        fused_attention_fwd=2 * per_step),
+        f"visualbert-step kd: launches {kd_launches} (want {per_step} "
+        f"forward for grad, stored backward and primal a step)")
+    result["kd"] = {"losses": kd_losses, "launches": kd_launches}
+    del model, state, tx, batch, step, kd_step
     _free(torch, rehearse)
 
     # one fp32 step with dropout on: kernels vs plain versions
@@ -4636,6 +5001,10 @@ def _trained_heads_entry(structured, prefix, err_keys, library, mult,
 # ----------------------------------------------------------------- phase 23
 
 RESUME_LR = 5e-5  # the CLI's default: the parity tolerance is 2 * lr * steps
+# phase resume's stage 2 at this depth (full width): the smoke's time limit
+# (a rehearsal cuts the tiny config's 2 language layers to 1)
+RESUME_DEPTH = dict(l_layers=3, r_layers=2, x_layers=2)
+RESUME_DEPTH_TINY = dict(l_layers=1)
 NO_DROPOUT = ("--hidden_dropout_prob", "0", "--attention_probs_dropout_prob",
               "0", "--classifier_dropout", "0")
 
@@ -4689,8 +5058,38 @@ def _add_launches(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+@contextlib.contextmanager
+def _lxmert_depth(module, depth: dict):
+    """Inside the block `module.LxmertConfig` (a CLI's) builds its
+    configs, `.tiny` ones too, cut to `depth`."""
+    from crvqa_tpu_torch.models import LxmertConfig
+
+    def cut(*args, **kwargs):
+        return dataclasses.replace(LxmertConfig(*args, **kwargs), **depth)
+
+    cut.tiny = lambda *args, **kwargs: dataclasses.replace(
+        LxmertConfig.tiny(*args, **kwargs), **depth)
+    module.LxmertConfig = cut
+    try:
+        yield
+    finally:
+        module.LxmertConfig = LxmertConfig
+
+
 def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
-    """Phase resume (a): LXMERT stage 2 at full width."""
+    """Phase resume (a): LXMERT stage 2 at full width, `RESUME_DEPTH`
+    deep."""
+    from crvqa_tpu_torch.cli import prune_debias_vqa
+
+    depth = RESUME_DEPTH_TINY if rehearse else RESUME_DEPTH
+    with _lxmert_depth(prune_debias_vqa, depth):
+        return _resume_stage2_at(torch, device, rehearse, seed, root, total,
+                                 depth)
+
+
+def _resume_stage2_at(torch, device, rehearse, seed, root, total, depth
+                      ) -> dict:
+    """`_resume_stage2` with the CLI's config cut to `depth`."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import common as cli_common
@@ -4704,9 +5103,11 @@ def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
     from crvqa_tpu_torch.train import stage2
 
     on_card = not rehearse
-    fp32 = (LxmertConfig.tiny if rehearse else LxmertConfig)(
-        dtype=torch.float32, hidden_dropout_prob=0.0,
-        attention_probs_dropout_prob=0.0, classifier_dropout=0.0)
+    fp32 = dataclasses.replace(
+        (LxmertConfig.tiny if rehearse else LxmertConfig)(
+            dtype=torch.float32, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, classifier_dropout=0.0),
+        **depth)
     fwd_mult, bwd_mult = launch_mult(fp32)
     per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
     specs = lxmert_mask_specs(fp32.l_layers, fp32.r_layers, fp32.x_layers)
@@ -4739,7 +5140,7 @@ def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
               f"resume {tag}: losses {losses} (want {steps}, finite)")
         return summary, launches
 
-    out: dict = {"per_step": [per_fwd, per_bwd]}
+    out: dict = {"per_step": [per_fwd, per_bwd], "depth": depth}
     # the port's own run: 2 fp32 steps, ckpt_2 in its format
     first, _ = counted("stage2 first", lambda: prune_debias_vqa.main(
         argv("first", "float32", 2)), 2)
@@ -4777,7 +5178,7 @@ def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
 
     # timed bf16 steps (dropout 0.1, the main path's) from the file
     out.update(_resume_timed_bf16(torch, device, rehearse, seed, masker,
-                                  params, jax_path, specs, cfg))
+                                  params, jax_path, specs, cfg, depth))
     del params
     _free(torch, rehearse)
 
@@ -4821,7 +5222,7 @@ def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
 
 
 def _resume_timed_bf16(torch, device, rehearse, seed, masker, params,
-                       jax_path, specs, cfg) -> dict:
+                       jax_path, specs, cfg, depth) -> dict:
     """A bf16 stage-2 state at the main path's configuration (dropout
     0.1) resumed from the JAX-layout file, then timed train steps on one
     synthetic batch kept on the device (2 warm-up, 4 timed, synchronised;
@@ -4834,8 +5235,9 @@ def _resume_timed_bf16(torch, device, rehearse, seed, masker, params,
     from crvqa_tpu_torch.models import LxmertConfig
     from crvqa_tpu_torch.train import stage2
 
-    config = (LxmertConfig.tiny if rehearse else LxmertConfig)(
-        dtype=torch.bfloat16)
+    config = dataclasses.replace((LxmertConfig.tiny if rehearse
+                                  else LxmertConfig)(dtype=torch.bfloat16),
+                                 **depth)
     model = stage2.lxmert_meta_model(config)
     state, tx = stage2.init_state(model, masker, params, cfg, seed, device)
     cli_common.resume_any(jax_path, state, "stage2", cfg, specs)
@@ -5262,7 +5664,7 @@ def phase_parallel(torch, device, rehearse: bool, seed: int) -> dict:
 def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    midseq_bwd_rows, mplug_train, masked, compact, vb_serve,
                    vb_train, vqavs, stage3, structured, resume,
-                   parallel, flags) -> list[dict]:
+                   parallel, flags, variants) -> list[dict]:
     """One entry per kernel at its main path's shapes. The primal: one bf16
     forward at batch 32, summed over its 34 launches ((14,14) x l+x,
     (36,36) x r+x, (14,36) and (36,14) x x). The mid-length forward: one
@@ -5277,10 +5679,15 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     stage3's serving of its .msgpack, phase structured's runs, phase
     resume's and phase parallel's runtime runs (every kernel those phases
     run counts its launches there; "resumes" in `basis` counts both), and
-    the training kernels add phase stage2-flags' four runs; their
-    `visualbert` entry gives one VisualBERT forward (batch 32) or step
-    (batch 256) at (50,50), their `trained_heads` entry one stage-3 step
-    (forward) at the kept head count of phase structured's head mask."""
+    the training kernels add phase stage2-flags' four runs and phase
+    stage2-variants' counted steps (the primal's launches too: the KD
+    teacher's); their `visualbert` entry gives one VisualBERT forward
+    (batch 32) or step (batch 256) at (50,50), their `trained_heads` entry
+    one stage-3 step (forward) at the kept head count of phase
+    structured's head mask, and the forward for grad's and the stored
+    backward's `bf16_residual` entry the same step with
+    `P_RESIDUAL_DTYPE = bfloat16` (the residual's bytes halved in the
+    bound)."""
     from crvqa_tpu_torch.models import LxmertConfig
 
     fwd_mult, bwd_mult = launch_mult(LxmertConfig())
@@ -5294,9 +5701,10 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
     resume_launches = lambda name: (resume["launches"].get(name, 0)
                                     + parallel["launches"].get(name, 0))
     # phase stage2-flags' plain, window, scan and resumed runs
-    flags_launches = lambda name: sum(
+    flags_launches = lambda name: (sum(
         flags[run]["launches"].get(name, 0)
         for run in ("plain", "window", "scan", "resume"))
+        + variants["launches"].get(name, 0))
     main = [r for r in rows if r["batch"] == SERVE_BATCH
             and r["dtype"] == "bfloat16" and r["heads"] == 12
             and (r["sq"], r["sk"]) in fwd_mult]
@@ -5309,10 +5717,12 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
         "source": src + "fused_attention_fwd.cu",
         "replaces": "crvqa_tpu/ops/fused_attention.py:153",
         "launches": (serve["launches"] + vb_serve["launches"]
+                     + vb_train["kd"]["launches"]["fused_attention_fwd"]
                      + vqavs["launches"]["fused_attention_fwd"]
                      + msgpack_launches
                      + struct_launches("fused_attention_fwd")
-                     + resume_launches("fused_attention_fwd")),
+                     + resume_launches("fused_attention_fwd")
+                     + variants["launches"].get("fused_attention_fwd", 0)),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -5321,13 +5731,18 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                  f"{sum(fwd_mult.values())} launches over (Sq,Sk) "
                  + ", ".join(f"{k}x{v}" for k, v in fwd_mult.items())
                  + f"; launches: LXMERT serving {serve['launches']}, "
-                   f"VisualBERT serving {vb_serve['launches']}, VQA-VS "
+                   f"VisualBERT serving {vb_serve['launches']}, its KD "
+                   f"teacher "
+                   f"{vb_train['kd']['launches']['fused_attention_fwd']}, "
+                   f"VQA-VS "
                    f"stage-2 evals {vqavs['launches']['fused_attention_fwd']}"
                    f", serving stage 3's .msgpack {msgpack_launches}, "
                    f"structured stage 2 and 3 "
                    f"{struct_launches('fused_attention_fwd')}, resumes, "
                    f"their serving and the runtime runs "
-                   f"{resume_launches('fused_attention_fwd')}",
+                   f"{resume_launches('fused_attention_fwd')}, the KD "
+                   f"teachers of phase stage2-variants "
+                   f"{variants['launches'].get('fused_attention_fwd', 0)}",
         "trained_heads": _trained_heads_entry(
             structured, "primal", ("primal_err",), "library_primal_ms",
             fwd_mult, structured["stage3"]["launches"][
@@ -5394,6 +5809,7 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                              else "fused_attention_bwd.cu"),
             "replaces": replaces,
             "launches": (launches + vb_train["launches"][name]
+                         + vb_train["kd"]["launches"].get(name, 0)
                          + vqavs["launches"][name]
                          + struct_launches(name)
                          + resume_launches(name) + flags_launches(name)),
@@ -5407,17 +5823,24 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                                              for k, v in mult.items())
                      + f"; library_ms: {what}; launches: LXMERT stage 2 "
                        f"{launches}, VisualBERT stage 2 "
-                       f"{vb_train['launches'][name]}, VQA-VS stage 2 "
-                       f"{vqavs['launches'][name]}, structured stage 2 "
+                       f"{vb_train['launches'][name]} and its KD steps "
+                       f"{vb_train['kd']['launches'].get(name, 0)}, "
+                       f"VQA-VS stage 2 {vqavs['launches'][name]}, "
+                       f"structured stage 2 "
                        f"and 3 {struct_launches(name)}, resumes and "
                        f"the runtime runs {resume_launches(name)}, the "
-                       f"stage2-flags runs {flags_launches(name)}",
+                       f"stage2-flags runs and the stage2-variants "
+                       f"steps {flags_launches(name)}",
             "visualbert": _visualbert_entry(
                 vb_rows, f"{kind}_", err_keys, library, vb_layers,
                 vb_train["launches"][name],
                 f"one bf16 VisualBERT train step at batch {TRAIN_BATCH}, "
                 f"dropout {MAIN_RATE}"),
         })
+        if kind != "recompute":  # the bf16 residual's variant
+            out[-1]["bf16_residual"] = _bf16_residual_entry(
+                main, kind, mult, library,
+                variants["variants"]["p-bf16"]["launches"][name])
         if kind != "recompute":  # stage 3 runs the stored backward
             out[-1]["trained_heads"] = _trained_heads_entry(
                 structured, kind, ("fwd_err", "p_err") if kind == "fwd"
@@ -5454,6 +5877,29 @@ def kernel_summary(rows, midseq_rows, train_rows, serve, mplug, train,
                    f"ms, their bound {fwd_step('fwd_bound_ms'):.4f} ms",
     })
     return out + matmul_kernel_summary(masked, compact, MM_SHAPES[0])
+
+
+def _bf16_residual_entry(main, kind, mult, library, launches) -> dict:
+    """The forward for grad (`kind` "fwd") or the stored backward with
+    `P_RESIDUAL_DTYPE = bfloat16` over one bf16 train step's launches at
+    batch 256 (`main`, phase train-kernels' rows), beside the plain
+    versions with the same residual and the fp32 residual's library
+    call."""
+    tot = lambda key: sum(r[key] * mult[(r["sq"], r["sk"])] for r in main)
+    bound_ms, bound_by = _bound(tot(f"p16_{kind}_bytes_ms"),
+                                tot(f"p16_{kind}_ops_ms"))
+    return {"launches": launches,
+            "max_abs_err": max(r[f"p16_{'fwd' if kind == 'fwd' else 'bwd'}"
+                                 "_err"] for r in main),
+            "p_max_ulps": max(r["p16_p_ulps"] for r in main),
+            "ms": tot(f"p16_{kind}_ms"),
+            "plain_ms": tot(f"p16_{kind}_plain_ms"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": tot(library),
+            "basis": "the same step with P_RESIDUAL_DTYPE = bfloat16: the "
+                     "residual's bytes halved in the bound; launches: one "
+                     "counted step of phase stage2-variants' p-bf16 "
+                     "variant"}
 
 
 def matmul_kernel_summary(masked, compact, shape) -> list[dict]:
@@ -5604,7 +6050,11 @@ def main(argv=None) -> int:
                       rehearse, seed)
         train = phase("train", phase_train, torch, device, rehearse, seed,
                       keep.name)
-        step = phase("step", phase_step, torch, device, rehearse, seed)
+        shared: dict = {}  # phase step's two set-ups, for the variants
+        step = phase("step", phase_step, torch, device, rehearse, seed,
+                     shared)
+        variants = phase("stage2-variants", phase_stage2_variants, torch,
+                         device, rehearse, seed, shared)
         midseq_bwd_rows = phase("midseq-bwd-kernel", phase_midseq_bwd_kernel,
                                 torch, device, rehearse, seed)
         mplug_train = phase("mplug-train", phase_mplug_train, torch, device,
@@ -5651,7 +6101,7 @@ def main(argv=None) -> int:
     kernels = kernel_summary(rows, midseq_rows, train_rows, serve, mplug,
                              train, midseq_bwd_rows, mplug_train, masked,
                              compact, vb_serve, vb_train, vqavs, stage3,
-                             structured, resume, parallel, flags)
+                             structured, resume, parallel, flags, variants)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -5668,6 +6118,7 @@ def main(argv=None) -> int:
                        "visualbert_train": vb_train,
                        "visualbert_serve": vb_serve, "vqavs": vqavs,
                        "structured": structured, "stage2_flags": flags,
+                       "stage2_variants": variants,
                        "mplug_files": mplug_files, "resume": resume,
                        "offset_kernel_rows": offset_rows,
                        "parallel": parallel,

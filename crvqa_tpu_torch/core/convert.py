@@ -654,7 +654,7 @@ def jax_from_stage2_state(state, model: torch.nn.Module, specs, config
 
     opt = state.opt_state
     return {
-        "step": np.int32(state.step),
+        "step": np.asarray(state.step, np.int32),
         "frozen_params": _tree_to_jax(frozen, model),
         "train_params": train,
         "scores": {k: _out(v) for k, v in _by_spec(state.scores,
@@ -662,7 +662,7 @@ def jax_from_stage2_state(state, model: torch.nn.Module, specs, config
         "thresholds": {k: _out(v.float()) for k, v in
                        state.thresholds.items()},
         "opt_state": {"0": {}, "1": {
-            "count": np.int32(opt.count), "mu": moments(opt.mu),
+            "count": np.asarray(opt.count, np.int32), "mu": moments(opt.mu),
             "nu": moments(opt.nu),
             "abs_grad_sum": (None if opt.abs_grad_sum is None
                              else moments(opt.abs_grad_sum))}},
@@ -759,7 +759,7 @@ def jax_from_stage1_state(state, model: torch.nn.Module, config, specs=()
         return m
 
     opt = state.opt_state
-    count = np.int32(opt.count)
+    count = np.asarray(opt.count, np.int32)
     adam = {"count": count, "mu": moments(opt.mu), "nu": moments(opt.nu)}
     inner = (adam if config.moment_dtype == "bfloat16"
              else {"0": adam, "1": {"count": count}})
@@ -769,7 +769,7 @@ def jax_from_stage1_state(state, model: torch.nn.Module, config, specs=()
         masks = {by_name[k]: v for k, v in state.masks.items()}
         masks = {k: _out(v.bool()) for k, v in
                  _by_spec(masks, specs).items()}
-    return {"step": np.int32(state.step),
+    return {"step": np.asarray(state.step, np.int32),
             "params": _tree_to_jax(state.params, model),
             "lmh_params": None if lmh is None else _lmh_to_jax(lmh),
             "masks": masks,
@@ -880,7 +880,7 @@ def write_opt_layout(layout: Any, count: int, slots: Mapping[str, Any]
     if isinstance(layout, _Slot):
         return slots[str(layout)]
     if layout is _COUNT:
-        return np.int32(count)
+        return np.asarray(count, np.int32)
     if layout is None:
         return None
     return {k: write_opt_layout(v, count, slots) for k, v in layout.items()}
@@ -908,14 +908,54 @@ def _mplug_leaf(tree_key: tuple[str, ...], t: torch.Tensor, specs
     return f"{group}/{name}", t.contiguous()
 
 
-def _mplug_trainable_from_jax(trees, mode: str, specs
+def _mplug_transposes(tree_key: tuple[str, ...], specs) -> bool:
+    """Whether the port stores the trainable leaf at `tree_key` (a path as
+    `_mplug_leaf` takes it) as the transpose of the JAX package's 2-D
+    leaf: a score of a dense layer's mask, or a kernel."""
+    if tree_key[0] == "scores":
+        spec = {s.key: s for s in specs or ()}.get(tree_key[1])
+        return spec is not None and not spec.is_embedding
+    return _mplug_name_layout(tree_key[1:])[1] == (1, 0)
+
+
+def _swap_square_factors(slots: Mapping[str, Any], transposed
+                         ) -> dict[str, Any]:
+    """Adafactor's factored second moment carried between the layouts:
+    optax's `_factored_dims` breaks the tie of a square leaf's two dims
+    the same way in both packages (rows d1 = 0, columns d0 = 1), so where
+    the port's [out, in] leaf is the JAX [in, out] leaf transposed, the
+    port's v_row (indexed by `out`) is the JAX v_col and its v_col the
+    JAX v_row. `slots` (slot -> {name: tensor}) with those two swapped for
+    every square factored leaf whose name `transposed` holds; a new dict,
+    the map being its own inverse. A leaf the JAX package leaves
+    unfactored holds (1,) placeholders, a non-square one vectors of two
+    sizes: neither is touched."""
+    if "v_row" not in slots:
+        return dict(slots)
+    rows, cols = dict(slots["v_row"]), dict(slots["v_col"])
+    for name in set(rows) & set(cols) & set(transposed):
+        if rows[name].numel() > 1 and rows[name].shape == cols[name].shape:
+            rows[name], cols[name] = cols[name], rows[name]
+    return dict(slots, v_row=rows, v_col=cols)
+
+
+def _mplug_trainable_from_jax(trees, mode: str, specs, transposed=None
                               ) -> dict[str, torch.Tensor]:
     """Trees over the JAX trainable tree (mask mode {"scores": {key: ...},
     "head": {'/'-path: ...}}, full mode the param tree), one per
     optimizer group, whose leaves of the other group are empty (optax's
     MaskedNode) or None -> one flat dict keyed like
-    `mplug_train.trainable`."""
+    `mplug_train.trainable`. `transposed` (a set): collects the names of
+    the leaves the port stores transposed (`_mplug_transposes`)."""
     out: dict[str, torch.Tensor] = {}
+
+    def put(here, value):
+        name, t = _mplug_leaf(here, _t(value), specs)
+        if name in out:
+            raise KeyError(f"{name}: in both optimizer groups")
+        out[name] = t
+        if transposed is not None and _mplug_transposes(here, specs):
+            transposed.add(name)
 
     def walk(node, path):
         for key, value in node.items():
@@ -923,19 +963,13 @@ def _mplug_trainable_from_jax(trees, mode: str, specs
             if isinstance(value, Mapping):
                 walk(value, here)
             elif value is not None:
-                name, t = _mplug_leaf(here, _t(value), specs)
-                if name in out:
-                    raise KeyError(f"{name}: in both optimizer groups")
-                out[name] = t
+                put(here, value)
 
     for tree in trees:
         if mode == "mask":
             for key, value in tree["scores"].items():
                 if value is not None and not isinstance(value, Mapping):
-                    name, t = _mplug_leaf(("scores", key), _t(value), specs)
-                    if name in out:
-                        raise KeyError(f"{name}: in both optimizer groups")
-                    out[name] = t
+                    put(("scores", key), value)
             walk({"head": tree["head"]}, ())
         else:
             walk({"params": tree}, ())
@@ -977,17 +1011,6 @@ def _mplug_trainable_to_jax(flat: Mapping[str, torch.Tensor], mode: str,
     if mode == "mask":
         return {"head": _sorted_tree(head), "scores": _sorted_tree(scores)}
     return _sorted_tree(params)
-
-
-def _square_factored(flat_slots) -> list[str]:
-    """Adafactor leaves the port factors over two dims of one size: the
-    JAX package factors the transposed leaf the other way round."""
-    out = []
-    for name, t in flat_slots.get("v_row", {}).items():
-        col = flat_slots["v_col"][name]
-        if t.numel() == col.numel():
-            out.append(name)
-    return out
 
 
 @torch.no_grad()
@@ -1065,15 +1088,10 @@ def mplug_opt_state_from_jax(port, opt: Mapping[str, Any], name: str,
             raise ValueError(f"opt_state: group counts {sorted(counts)}")
     dst_slots = (port.slots if hasattr(port, "slots")
                  else {"mu": port.mu, "nu": port.nu})
-    flat = {k: _mplug_trainable_from_jax(v, mode, specs)
-            for k, v in trees.items()}
-    square = _square_factored(dst_slots)
-    if square:
-        raise NotImplementedError(
-            f"--opt {name}: the JAX package factors the second moment of "
-            f"{square[0]} (and {len(square) - 1} more square leaves) over "
-            "the other axis of the transposed layout: carrying it across is "
-            "not yet ported to crvqa_tpu_torch (ROADMAP)")
+    transposed: set[str] = set()
+    flat = _swap_square_factors(
+        {k: _mplug_trainable_from_jax(v, mode, specs, transposed)
+         for k, v in trees.items()}, transposed)
     for slot, dst in dst_slots.items():
         src = flat[slot]
         if slot in ("v_row", "v_col", "v"):
@@ -1088,6 +1106,16 @@ def mplug_opt_state_from_jax(port, opt: Mapping[str, Any], name: str,
     port.count = count
 
 
+def _port_tree_key(name: str, model: torch.nn.Module) -> tuple[str, ...]:
+    """A port trainable name ("scores/<key>", "params/<name>",
+    "head/<name>") -> its path in the JAX trainable tree, as
+    `_mplug_leaf` takes it."""
+    group, rest = name.split("/", 1)
+    if group == "scores":
+        return ("scores", rest)
+    return (group,) + mplug_jax_path(rest, model)
+
+
 def jax_from_mplug_state(state, model: torch.nn.Module, config, specs=None
                          ) -> dict[str, Any]:
     """A port `MPlugState` (training) -> the JAX package's `MPlugState`
@@ -1099,21 +1127,21 @@ def jax_from_mplug_state(state, model: torch.nn.Module, config, specs=None
             {f"params/{n}": t.float() if t.dtype == torch.bfloat16 else t
              for n, t in p.items()}, "full", specs, model)
 
-    def scores(d):
-        return None if d is None else {
-            k: _out(v) for k, v in _by_spec(d, specs or ()).items()}
+    def scores(d):  # in the key order of the JAX package's files
+        return None if d is None else _sorted_tree({
+            k: _out(v) for k, v in _by_spec(d, specs or ()).items()})
 
     def thresholds(d):
-        return None if d is None else {k: _out(v.float())
-                                       for k, v in d.items()}
+        return None if d is None else _sorted_tree({
+            k: _out(v.float()) for k, v in d.items()})
 
     layout = mplug_opt_layout(config.opt)
     port = state.opt_state
     slots = (port.slots if hasattr(port, "slots")
              else {"mu": port.mu, "nu": port.nu})
-    if _square_factored(slots):
-        raise NotImplementedError(f"--opt {config.opt}: square factored "
-                                  "leaves (see mplug_state_from_jax)")
+    slots = _swap_square_factors(slots, {
+        name for name in slots.get("v_row", ())
+        if _mplug_transposes(_port_tree_key(name, model), specs)})
     names = list(trainable(state, config))
     groups = two_group_labels(names)
 
@@ -1134,7 +1162,7 @@ def jax_from_mplug_state(state, model: torch.nn.Module, config, specs=None
             k: filled(v, lambda n, g=g: groups[n] == g)
             for k, v in slots.items()})} for g in ("body", "visual")}
         opt = {"0": {}, "1": {"inner_states": inner}}
-    return {"step": np.int32(state.step),
+    return {"step": np.asarray(state.step, np.int32),
             "params": params_tree(state.params),
             "scores": scores(state.scores),
             "thresholds": thresholds(state.thresholds),

@@ -4,8 +4,13 @@
 // Replaces two TPU kernels of `crvqa_tpu/ops/fused_attention.py`, reached
 // from `_fas_bwd` -> `_fa_bwd`:
 //
-// - `_bwd_kernel_stored` (the default, BWD_IMPL = "stored"): p is the
-//   forward's fp32 residual [B, Sq, H*Sk] (fused_attention_fwd_train);
+// - `_bwd_kernel_stored` (the default, BWD_IMPL = "stored", and
+//   "stored_folddot", which only spells the TPU's fold of the head blocks
+//   of dk and dv otherwise: here each block sums its own head's rows, so
+//   both are this kernel): p is the forward's residual [B, Sq, H*Sk]
+//   (fused_attention_fwd_train), fp32 or, with `p_bf16` (P_RESIDUAL_DTYPE
+//   = bf16), bf16 widened to fp32 on load, all math in fp32 as the TPU
+//   kernel's `p_ref[b].astype(jnp.float32)`;
 // - `_bwd_kernel` (BWD_IMPL = "recompute"): p is rebuilt from q, k and the
 //   key bias with the forward's own score and softmax code
 //   (fused_attention_common.cuh), so it equals the stored p bit for bit.
@@ -22,7 +27,8 @@
 // what make bf16 agree. The key bias gets no gradient.
 //
 // What bounds it on this card: memory. A call reads q, g, k, v (activation
-// dtype) and, for the stored variant, the fp32 residual, and writes dq, dk,
+// dtype) and, for the stored variant, the residual (4 or 2 bytes an
+// element), and writes dq, dk,
 // dv: at batch 256, (36, 36), bf16 about 115 MB against 8*B*H*Sq*Sk*D =
 // 0.16 GFLOP, far under the H100's ~295 FLOP per HBM byte. The recompute
 // variant reads the [B, Sk] bias instead of the residual and does
@@ -37,10 +43,14 @@
 // 1. Staging: q, g (Sq rows) and k, v (Sk rows) by 16-byte cp.async into
 //    bf16 rows padded to 144 bytes (28 KB at (36, 36), against 53 KB of
 //    fp32 tiles before), zero-filled to whole 16-row tiles; the stored
-//    variant's fp32 p rows by 16-byte cp.async when Sk % 4 == 0, else 8-
-//    or 4-byte, into a [Sq][Sk + 8] plane; the recompute variant's bias.
+//    variant's p rows by 16-byte cp.async when a row is whole 16-byte
+//    units (Sk % 4 == 0 in fp32, % 8 in bf16), else 8- or 4-byte (a
+//    single bf16 by a plain load when Sk is odd), into a [Sq][Sk + 8]
+//    plane of the residual's type (the bf16 plane fills half the fp32
+//    plane's room); the recompute variant's bias.
 // 2. Rows (one warp per 16 query rows, in chunks of 8 NT keys, NT 2 or 6):
-//    p from the plane, or S = Q K^T and the forward's `fa::RowSoftmax` /
+//    p from the plane (widened to fp32), or S = Q K^T and the forward's
+//    `fa::RowSoftmax` /
 //    `fa::prob`; dP = G V^T (`fa::abt_tile`), times drop; rowsum(dp * p)
 //    in registers and by quad shuffles; then ds and p_t rounded to bf16
 //    into two shared [Sq][Sk + 8] planes. A row longer than 48 keys (Sk
@@ -101,11 +111,13 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
   }
 }
 
-template <bool kStored>
+// P: the stored residual's element type (float, or bf16 for the bf16
+// residual; float for the recompute variant, which has none).
+template <bool kStored, typename P>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_bwd_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ p_in,
+        const float* __restrict__ v, const P* __restrict__ p_in,
         const float* __restrict__ bias, const float* __restrict__ g,
         float* __restrict__ dq, float* __restrict__ dk,
         float* __restrict__ dv, int sq, int sk, int heads, int64_t q_sb,
@@ -133,7 +145,8 @@ __global__ void __launch_bounds__(kThreads)
   if (kStored) {
     for (int idx = tid; idx < sq * sk; idx += kThreads) {
       const int i = idx / sk, j = idx % sk;
-      ps[idx] = p_in[((int64_t)b * sq + i) * heads * sk + (int64_t)h * sk + j];
+      ps[idx] = fa::load_p(p_in + ((int64_t)b * sq + i) * heads * sk +
+                           (int64_t)h * sk + j);
     }
   }
   __syncthreads();
@@ -212,17 +225,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kStored>
+template <bool kStored, typename P>
 int launch_typed(const void* q, const void* k, const void* v,
-                 const float* p_in, const float* bias, const void* g,
-                 void* dq, void* dk, void* dv, int batch, int sq, int sk,
+                 const P* p_in, const float* bias, const void* g, void* dq, void* dk, void* dv, int batch, int sq, int sk,
                  int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                  int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t g_sb,
                  int64_t g_ss, uint32_t seed, uint32_t batch0, uint32_t col0,
                      uint32_t threshold,
                  float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(sq, sk);
-  auto kernel = fused_attention_bwd_kernel<kStored>;
+  auto kernel = fused_attention_bwd_kernel<kStored, P>;
   // once per instantiation, at the first launch (not inside a CUDA graph
   // capture of a later one): allow up to the 227 KB a block may use
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -249,7 +261,8 @@ constexpr int kSlot = 16 * kMmaPitch;  // a warp's output staging, in bf16
 // The bf16 block's shared memory at (Sq, Sk), in bytes from its start:
 // q, g ([sqp][kMmaPitch] bf16), k, the ds and p_t planes ([sqp][pd] bf16),
 // then the row phase's V ([skp][kMmaPitch]) and the stored p plane
-// ([sqp][pd] fp32) or the recompute bias ([skp] fp32), which the product
+// ([sqp][pd] fp32; a bf16 residual's plane fills the first half) or the
+// recompute bias ([skp] fp32), which the product
 // phase reuses as one output slot per warp. sqp and skp are Sq and Sk
 // padded to whole 16-row tiles; pd = skp + 8 keeps each plane's rows 16-
 // byte aligned and its `ldmatrix` and 8-byte reads free of bank conflicts.
@@ -280,16 +293,20 @@ __host__ __device__ inline BwdPlan bwd_plan(int sq, int sk, bool stored) {
   return pl;
 }
 
-// `p_vec` (stored): floats per cp.async of the p rows, 4 when Sk % 4 == 0
-// and the residual starts 16-byte aligned, else 2 or 1. Rate 0 is
-// threshold 0 with keep_scale 1: every bit kept, drop == 1.
-template <bool kStored, int NT>
+// `p_vec` (stored): residual elements per copy of the p rows, as many as
+// fill 16 bytes (4 fp32, 8 bf16) when a row is whole 16-byte units and the
+// residual starts 16-byte aligned, else 8 or 4 bytes' worth, else 1 (a
+// bf16 row of odd length: plain 2-byte copies). P: the residual's and its
+// plane's element type (float, or bf16; float for the recompute variant).
+// Rate 0 is threshold 0 with keep_scale 1: every bit kept, drop == 1.
+template <bool kStored, int NT, typename P>
 __global__ void __launch_bounds__(kMmaMaxWarps * 32)
     fused_attention_bwd_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const float* __restrict__ p_in,
-        const float* __restrict__ bias, const bf16* __restrict__ g,
-        bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+        const bf16* __restrict__ v, const P* __restrict__ p_in,
+        const float* __restrict__ bias,
+        const bf16* __restrict__ g, bf16* __restrict__ dq,
+        bf16* __restrict__ dk, bf16* __restrict__ dv,
         int sq, int sk, int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
         int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t g_sb,
         int64_t g_ss, float scale, uint32_t seed, uint32_t batch0,
@@ -305,7 +322,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   bf16* ds_s = reinterpret_cast<bf16*>(mma_smem + pl.ds);
   bf16* pt_s = reinterpret_cast<bf16*>(mma_smem + pl.pt);
   bf16* vs = reinterpret_cast<bf16*>(mma_smem + pl.v);
-  float* ps = reinterpret_cast<float*>(mma_smem + pl.p);  // p plane or bias
+  float* ps = reinterpret_cast<float*>(mma_smem + pl.p);  // the bias
+  P* pp = reinterpret_cast<P*>(mma_smem + pl.p);          // or the p plane
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -323,19 +341,22 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   fa::stage_rows(vs, v + b * v_sb + h * kHeadDim, v_ss, 0, pl.skp, sk, tid,
                  nthreads);
   if (kStored) {
+    const int bytes = p_vec * (int)sizeof(P);  // 16, 8, 4, or 2 (one bf16)
     const int per_row = pl.skp / p_vec;
     for (int x = tid; x < pl.sqp * per_row; x += nthreads) {
       const int r = x / per_row, col = (x - r * per_row) * p_vec;
       const bool in = r < sq && col < sk;
-      const float* src = p_in + ((int64_t)(b * sq + (in ? r : 0)) * heads + h) *
-                                    sk + (in ? col : 0);
-      float* dst = ps + r * pl.pd + col;
-      if (p_vec == 4)
+      const P* src = p_in + ((int64_t)(b * sq + (in ? r : 0)) * heads + h) *
+                                sk + (in ? col : 0);
+      P* dst = pp + r * pl.pd + col;
+      if (bytes == 16)
         fa::cp_async_16(dst, src, in ? 16 : 0);
-      else if (p_vec == 2)
+      else if (bytes == 8)
         fa::cp_async_8(dst, src, in ? 8 : 0);
-      else
+      else if (sizeof(P) == 4 || bytes == 4)
         fa::cp_async_4(dst, src, in ? 4 : 0);
+      else if constexpr (sizeof(P) == 2)  // one bf16 (Sk odd)
+        *dst = in ? *src : __float2bfloat16(0.f);
     }
   } else {
     for (int x = tid; x < pl.skp; x += nthreads) {
@@ -386,8 +407,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
           for (int r = 0; r < 2; ++r) {
             float2 x = make_float2(0.f, 0.f);
             if (j0 + 8 * n < sk)
-              x = *reinterpret_cast<const float2*>(
-                  ps + (r0 + gr + 8 * r) * pl.pd + j0 + 8 * n + 2 * c);
+              x = fa::load_p2(pp + (r0 + gr + 8 * r) * pl.pd + j0 + 8 * n +
+                              2 * c);
             p[n][2 * r] = x.x;
             p[n][2 * r + 1] = x.y;
           }
@@ -509,9 +530,9 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   }
 }
 
-template <bool kStored, int NT>
+template <bool kStored, int NT, typename P>
 int launch_mma(const void* q, const void* k, const void* v,
-               const float* p_in, const float* bias, const void* g, void* dq,
+               const P* p_in, const float* bias, const void* g, void* dq,
                void* dk, void* dv, int batch, int sq, int sk, int heads,
                int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                int64_t v_sb, int64_t v_ss, int64_t g_sb, int64_t g_ss,
@@ -520,16 +541,19 @@ int launch_mma(const void* q, const void* k, const void* v,
                cudaStream_t stream) {
   const BwdPlan pl = bwd_plan(sq, sk, kStored);
   if (pl.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_attention_bwd_mma_kernel<kStored, NT>;
+  auto kernel = fused_attention_bwd_mma_kernel<kStored, NT, P>;
   // once per instantiation, at the first launch (not inside a CUDA graph
   // capture of a later one): allow up to the 227 KB a block may use
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
+  // the widest copy that whole rows and the start's alignment allow
   const uintptr_t p_addr = reinterpret_cast<uintptr_t>(p_in);
-  const int p_vec = sk % 4 == 0 && p_addr % 16 == 0   ? 4
-                    : sk % 2 == 0 && p_addr % 8 == 0 ? 2
-                                                      : 1;
+  constexpr int per16 = 16 / sizeof(P);  // elements in 16 bytes
+  const int p_vec = sk % per16 == 0 && p_addr % 16 == 0             ? per16
+                    : sk % (per16 / 2) == 0 && p_addr % 8 == 0      ? per16 / 2
+                    : per16 == 8 && sk % 2 == 0 && p_addr % 4 == 0  ? 2
+                                                                    : 1;
   const float scale = 1.0f / sqrtf((float)kHeadDim);
   kernel<<<dim3(heads, batch), pl.warps * 32, pl.total, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -545,20 +569,21 @@ int launch_mma(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launches the backward on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted). `p_in` (stored: the forward's contiguous fp32
-// residual [B, Sq, H*Sk]) or `bias` (recompute: contiguous fp32 [B, Sk])
-// selects the variant: exactly one of them is non-null. q, k, v and g are
+// the launch was accepted). `p_in` (stored: the forward's contiguous
+// residual [B, Sq, H*Sk], fp32 or, when `p_bf16` is 1, bf16) or `bias`
+// (recompute: contiguous fp32 [B, Sk]) selects the variant: exactly one of
+// them is non-null. q, k, v and g are
 // read through batch and row strides (elements; last dimension
 // contiguous); dq [B, Sq, H*D] and dk, dv [B, Sk, H*D] are contiguous.
 // `seed`, `batch0`, `col0`, `threshold` and `keep_scale` are the forward's
 // dropout arguments.
 int fused_attention_bwd(const void* q, const void* k, const void* v,
-                        const float* p_in, const float* bias, const void* g,
+                        const void* p_in, const float* bias, const void* g,
                         void* dq, void* dk, void* dv, int batch, int sq,
                         int sk, int heads, int head_dim, int64_t q_sb,
                         int64_t q_ss, int64_t k_sb, int64_t k_ss,
                         int64_t v_sb, int64_t v_ss, int64_t g_sb,
-                        int64_t g_ss, int is_bf16, uint32_t seed,
+                        int64_t g_ss, int is_bf16, int p_bf16, uint32_t seed,
                         uint32_t batch0, uint32_t col0, uint32_t threshold,
                         float keep_scale, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
@@ -566,9 +591,12 @@ int fused_attention_bwd(const void* q, const void* k, const void* v,
       heads * sk > kMaxHeadsTimesSeq || (p_in == nullptr) == (bias == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool stored = p_in != nullptr;
-#define FA_BWD_ARGS                                                          \
-  q, k, v, p_in, bias, g, dq, dk, dv, batch, sq, sk, heads, q_sb, q_ss,     \
+  // the residual's type is a template parameter, so the fp32 kernels carry
+  // no per-element branch on it
+  const float* p32 = p_bf16 ? nullptr : static_cast<const float*>(p_in);
+  const bf16* p16 = p_bf16 ? static_cast<const bf16*>(p_in) : nullptr;
+#define FA_BWD_ARGS(P_IN)                                                    \
+  q, k, v, P_IN, bias, g, dq, dk, dv, batch, sq, sk, heads, q_sb, q_ss,     \
       k_sb, k_ss, v_sb, v_ss, g_sb, g_ss, seed, batch0, col0, threshold,   \
       keep_scale, s
   if (is_bf16) {
@@ -576,14 +604,17 @@ int fused_attention_bwd(const void* q, const void* k, const void* v,
         !fa::aligned16(v, v_sb, v_ss) || !fa::aligned16(g, g_sb, g_ss))
       return (int)cudaErrorMisalignedAddress;
     if (fa::row_tiles(sk, 6) == 2)
-      return stored ? launch_mma<true, 2>(FA_BWD_ARGS)
-                    : launch_mma<false, 2>(FA_BWD_ARGS);
-    return stored ? launch_mma<true, 6>(FA_BWD_ARGS)
-                  : launch_mma<false, 6>(FA_BWD_ARGS);
+      return p16   ? launch_mma<true, 2, bf16>(FA_BWD_ARGS(p16))
+             : p32 ? launch_mma<true, 2, float>(FA_BWD_ARGS(p32))
+                   : launch_mma<false, 2, float>(FA_BWD_ARGS(p32));
+    return p16   ? launch_mma<true, 6, bf16>(FA_BWD_ARGS(p16))
+           : p32 ? launch_mma<true, 6, float>(FA_BWD_ARGS(p32))
+                 : launch_mma<false, 6, float>(FA_BWD_ARGS(p32));
   }
   if (smem_bytes(sq, sk) > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return stored ? launch_typed<true>(FA_BWD_ARGS)
-                : launch_typed<false>(FA_BWD_ARGS);
+  return p16   ? launch_typed<true, bf16>(FA_BWD_ARGS(p16))
+         : p32 ? launch_typed<true, float>(FA_BWD_ARGS(p32))
+               : launch_typed<false, float>(FA_BWD_ARGS(p32));
 #undef FA_BWD_ARGS
 }
 

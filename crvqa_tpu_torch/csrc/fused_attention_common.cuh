@@ -136,6 +136,32 @@ constexpr int kMmaPitch = kHeadDim + 8;  // staged bf16 row pitch: 144 bytes,
                                          // so the 8 rows of an ldmatrix hit
                                          // 32 different banks
 
+// The probability residual p [B, Sq, H*Sk] as its element type P, a
+// template parameter of the kernels that store or load it: fp32, or bf16
+// (the P_RESIDUAL_DTYPE bf16 variant) rounded to nearest even, which the
+// backward widens back to fp32 exactly. `*_p2` move two adjacent elements
+// (8-byte fp32 or 4-byte bf16 pairs).
+__device__ __forceinline__ void store_p(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_p(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_p2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_p2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ float load_p(const float* p) { return *p; }
+__device__ __forceinline__ float load_p(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float2 load_p2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_p2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // ------------------------------------------------------------------- PTX
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -8,10 +8,13 @@
 //   `fused_attention_seeded` -> `_fa_primal` -> `pallas_call`);
 // - the forward for grad (`fused_attention_fwd_train`; `_fas_fwd` ->
 //   `_fa_fwd`): it also writes the pre-dropout probabilities p
-//   [B, Sq, H*Sk] fp32 as the stored backward's residual (when given a
-//   residual pointer) and applies dropout with the counter-hash keep mask of
-//   `_keep_mask` (fused_attention_common.cuh), kept values scaled by
-//   1 / (1 - rate), before p is rounded to the activation dtype.
+//   [B, Sq, H*Sk] as the stored backward's residual (when given a
+//   residual pointer), fp32 or, with `p_bf16` (the JAX package's
+//   P_RESIDUAL_DTYPE = bf16, `fused_attention.py:54-59`), rounded to bf16,
+//   half the residual's bytes; and it applies dropout with the
+//   counter-hash keep mask of `_keep_mask` (fused_attention_common.cuh),
+//   kept values scaled by 1 / (1 - rate), before p is rounded to the
+//   activation dtype. The context product always takes the unrounded p.
 //
 // Per batch row b and head h:
 //
@@ -57,7 +60,8 @@
 //   context; the statistics do not depend on the chunking, so the
 //   backward, which cuts rows into chunks of 48, rebuilds p bit for bit;
 // - forward for grad: p goes from the registers to the residual as 8-byte
-//   stores (4-byte when Sk is odd), and the keep bit is
+//   fp32 pairs or 4-byte bf16 pairs (single elements when Sk is odd),
+//   and the keep bit is
 //   `fa::keep_bit(keep_key_at(seed, b + batch0, col0), i, h*Sk + j,
 //   threshold)`: batch0 and col0 place a rank's rows and heads in the
 //   global mask (0 on one device);
@@ -109,9 +113,10 @@ __device__ __forceinline__ void stage_tile(float* tile, const float* src,
 
 // kTrain = false: the primal (no residual, no dropout). kTrain = true: the
 // forward for grad; `p_out` may be null (the recompute backward keeps no
-// residual), and rate 0 is threshold 0 with keep_scale 1 (every bit kept,
-// p * 1 == p).
-template <bool kTrain>
+// residual), P is its element type (float, or bf16 for the bf16 residual),
+// and rate 0 is threshold 0 with keep_scale 1 (every bit kept, p * 1 ==
+// p).
+template <bool kTrain, typename P>
 __global__ void __launch_bounds__(kRows * 32)
     fused_attention_fwd_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
@@ -121,10 +126,9 @@ __global__ void __launch_bounds__(kRows * 32)
                                int heads,
                                int64_t q_sb, int64_t q_ss, int64_t k_sb,
                                int64_t k_ss, int64_t v_sb, int64_t v_ss,
-                               float scale, float* __restrict__ p_out,
+                               float scale, P* __restrict__ p_out,
                                uint32_t seed, uint32_t batch0, uint32_t col0,
-                                   uint32_t threshold,
-                               float keep_scale) {
+                               uint32_t threshold, float keep_scale) {
   extern __shared__ float smem[];
   float* tile = smem;                        // [kKeyTile][kPitch]
   float* qs = tile + kKeyTile * kPitch;      // [kRows][D]
@@ -172,13 +176,13 @@ __global__ void __launch_bounds__(kRows * 32)
       // residual (pre-dropout p), then dropout keyed on the lane-blocked
       // column h * Sk + j, as crvqa_tpu/ops/fused_attention.py:205-211
       const uint32_t key = fa::keep_key_at(seed, (uint32_t)b + batch0, col0);
-      float* res = p_out == nullptr
-                       ? nullptr
-                       : p_out + ((int64_t)b * sq + row) * heads * sk +
-                             (int64_t)h * sk;
+      P* res = p_out == nullptr
+                   ? nullptr
+                   : p_out + ((int64_t)b * sq + row) * heads * sk +
+                         (int64_t)h * sk;
       for (int j = lane; j < sk; j += 32) {
         const float pf = p[j] / denom;
-        if (res != nullptr) res[j] = pf;
+        if (res != nullptr) fa::store_p(res + j, pf);
         const bool keep = fa::keep_bit(key, (uint32_t)row,
                                        (uint32_t)(h * sk + j), threshold);
         p[j] = keep ? pf * keep_scale : 0.f;
@@ -231,18 +235,19 @@ size_t mma_smem_bytes(int warps, int nt) {
 
 // kTrain = false: the primal (no residual, no dropout). kTrain = true: the
 // forward for grad; `p_out` may be null (the recompute backward keeps no
-// residual); `p_pairs` says the residual takes 8-byte stores (Sk even, an
-// 8-byte aligned start). Rate 0 is threshold 0 with keep_scale 1.
-template <bool kTrain, int NT>
+// residual), P is its element type (float, or bf16); `p_pairs` says the
+// residual takes stores of two elements (Sk even, a start aligned to a
+// pair). Rate 0 is threshold 0 with keep_scale 1.
+template <bool kTrain, int NT, typename P>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     fused_attention_fwd_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* __restrict__ v, const float* __restrict__ bias,
         bf16* __restrict__ out, int sq, int sk, int heads, int64_t q_sb,
         int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,
-        int64_t v_ss, float scale, float* __restrict__ p_out, int p_pairs,
+        int64_t v_ss, float scale, P* __restrict__ p_out, int p_pairs,
         uint32_t seed, uint32_t batch0, uint32_t col0, uint32_t threshold,
-            float keep_scale) {
+        float keep_scale) {
   constexpr int kKeys = 8 * NT;  // keys a chunk (the register row)
   extern __shared__ __align__(128) unsigned char mma_smem[];
   const int warps = blockDim.x >> 5;
@@ -335,18 +340,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       for (int r = 0; r < 2; ++r) {
         const int i = row0 + g + 8 * r;
         if (p_out != nullptr && i < sq) {
-          float* res = p_out + ((int64_t)b * sq + i) * heads * sk +
-                       (int64_t)h * sk + j0;
+          P* res = p_out + ((int64_t)b * sq + i) * heads * sk +
+                   (int64_t)h * sk + j0;
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
             const int j = 8 * n + 2 * c;  // in the chunk
             if (j0 + j >= sk) continue;
             if (p_pairs)  // Sk even: j + 1 < Sk too
-              *reinterpret_cast<float2*>(res + j) =
-                  make_float2(s[n][2 * r], s[n][2 * r + 1]);
+              fa::store_p2(res + j, s[n][2 * r], s[n][2 * r + 1]);
             else {
-              res[j] = s[n][2 * r];
-              if (j0 + j + 1 < sk) res[j + 1] = s[n][2 * r + 1];
+              fa::store_p(res + j, s[n][2 * r]);
+              if (j0 + j + 1 < sk) fa::store_p(res + j + 1, s[n][2 * r + 1]);
             }
           }
         }
@@ -380,15 +384,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-template <bool kTrain, int NT>
+template <bool kTrain, int NT, typename P>
 void launch_mma(dim3 grid, int warps, const void* q, const void* k,
                 const void* v, const float* bias, void* out, int sq, int sk,
                 int heads, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                 int64_t k_ss, int64_t v_sb, int64_t v_ss, float scale,
-                float* p_out, int p_pairs, uint32_t seed, uint32_t batch0,
-                uint32_t col0, uint32_t threshold,
-                float keep_scale, cudaStream_t stream) {
-  fused_attention_fwd_mma_kernel<kTrain, NT>
+                P* p_out, int p_pairs, uint32_t seed, uint32_t batch0,
+                uint32_t col0, uint32_t threshold, float keep_scale,
+                cudaStream_t stream) {
+  fused_attention_fwd_mma_kernel<kTrain, NT, P>
       <<<grid, warps * 32, mma_smem_bytes(warps, NT), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), sq, sk,
@@ -396,14 +400,14 @@ void launch_mma(dim3 grid, int warps, const void* q, const void* k,
           seed, batch0, col0, threshold, keep_scale);
 }
 
-template <bool kTrain>
+// P: the residual's element type (float for the primal, which has none).
+template <bool kTrain, typename P>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int batch, int sq, int sk, int heads, int head_dim,
            int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-           int64_t v_sb, int64_t v_ss, int is_bf16, float* p_out,
-           uint32_t seed, uint32_t batch0, uint32_t col0, uint32_t threshold,
-               float keep_scale,
-           void* stream) {
+           int64_t v_sb, int64_t v_ss, int is_bf16, P* p_out, uint32_t seed,
+           uint32_t batch0, uint32_t col0, uint32_t threshold,
+           float keep_scale, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || sq < 1 ||
       sk < 1 || heads < 1 || heads * sq > kMaxHeadsTimesSeq ||
       heads * sk > kMaxHeadsTimesSeq)
@@ -419,15 +423,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
     const dim3 grid((tiles + warps - 1) / warps, heads, batch);
     const int p_pairs =
         p_out != nullptr && sk % 2 == 0 &&
-        reinterpret_cast<uintptr_t>(p_out) % 8 == 0;
+        reinterpret_cast<uintptr_t>(p_out) % (2 * sizeof(P)) == 0;
 #define FA_FWD_MMA_ARGS                                                     \
   grid, warps, q, k, v, bias, out, sq, sk, heads, q_sb, q_ss, k_sb, k_ss,   \
       v_sb, v_ss, scale, p_out, p_pairs, seed, batch0, col0, threshold,   \
       keep_scale, s
     switch (fa::row_tiles(sk, 12)) {
-      case 2: launch_mma<kTrain, 2>(FA_FWD_MMA_ARGS); break;
-      case 6: launch_mma<kTrain, 6>(FA_FWD_MMA_ARGS); break;
-      default: launch_mma<kTrain, 12>(FA_FWD_MMA_ARGS); break;
+      case 2: launch_mma<kTrain, 2, P>(FA_FWD_MMA_ARGS); break;
+      case 6: launch_mma<kTrain, 6, P>(FA_FWD_MMA_ARGS); break;
+      default: launch_mma<kTrain, 12, P>(FA_FWD_MMA_ARGS); break;
     }
 #undef FA_FWD_MMA_ARGS
     return (int)cudaGetLastError();
@@ -436,12 +440,11 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const dim3 block(kRows * 32);
   const size_t smem = sizeof(float) * (kKeyTile * kPitch + kRows * kHeadDim +
                                        (size_t)kRows * sk);
-  fused_attention_fwd_kernel<kTrain><<<grid, block, smem, s>>>(
+  fused_attention_fwd_kernel<kTrain, P><<<grid, block, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(out), sq, sk,
       heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, p_out, seed, batch0,
-          col0,
-      threshold, keep_scale);
+      col0, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -458,29 +461,38 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
                         int64_t q_ss, int64_t k_sb, int64_t k_ss,
                         int64_t v_sb, int64_t v_ss, int is_bf16,
                         void* stream) {
-  return launch<false>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
-                       q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, nullptr,
-                       0u, 0u, 0u, 0u, 1.f, stream);
+  return launch<false, float>(q, k, v, bias, out, batch, sq, sk, heads,
+                              head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                              is_bf16, nullptr, 0u, 0u, 0u, 0u, 1.f, stream);
 }
 
-// The forward for grad: as above, plus the fp32 residual p_out
-// [B, Sq, H*Sk] (contiguous; null to skip it) and dropout from `seed` (the
+// The forward for grad: as above, plus the residual p_out [B, Sq, H*Sk]
+// (contiguous; fp32, or bf16 when `p_bf16` is 1; null to skip it) and
+// dropout from `seed` (the
 // int32 seed's bits), `threshold` and `keep_scale` = 1 / (1 - rate), the
 // keep mask keyed on global batch row b + `batch0` and lane-blocked column
 // `col0` + h*Sk + j (`batch0`, `col0`: the first global row and column of
 // a data- or tensor-parallel rank's slice; 0 on one device).
 int fused_attention_fwd_train(const void* q, const void* k, const void* v,
-                              const float* bias, void* out, float* p_out,
+                              const float* bias, void* out, void* p_out,
                               int batch, int sq, int sk, int heads,
                               int head_dim, int64_t q_sb, int64_t q_ss,
                               int64_t k_sb, int64_t k_ss, int64_t v_sb,
-                              int64_t v_ss, int is_bf16, uint32_t seed,
-                              uint32_t batch0, uint32_t col0,
+                              int64_t v_ss, int is_bf16, int p_bf16,
+                              uint32_t seed, uint32_t batch0, uint32_t col0,
                               uint32_t threshold, float keep_scale,
                               void* stream) {
-  return launch<true>(q, k, v, bias, out, batch, sq, sk, heads, head_dim,
-                      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, is_bf16, p_out,
-                      seed, batch0, col0, threshold, keep_scale, stream);
+  // the residual's type is a template parameter, so the fp32 kernels carry
+  // no per-element branch on it
+  if (p_bf16)
+    return launch<true, bf16>(q, k, v, bias, out, batch, sq, sk, heads,
+                              head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                              is_bf16, static_cast<bf16*>(p_out), seed,
+                              batch0, col0, threshold, keep_scale, stream);
+  return launch<true, float>(q, k, v, bias, out, batch, sq, sk, heads,
+                             head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                             is_bf16, static_cast<float*>(p_out), seed,
+                             batch0, col0, threshold, keep_scale, stream);
 }
 
 const char* fused_attention_fwd_error_string(int code) {

@@ -29,6 +29,13 @@ from ..ops.fused_attention import MAX_HEADS_TIMES_SEQ, fused_attention
 from ..ops.midseq_attention import midseq_attention
 from ..ops.midseq_attention import supported as midseq_supported
 
+# Bidirectional cross attention in one pass (`LxmertXLayer`): project q, k
+# and v and run the output block ONCE over the [lang; visn] concatenation
+# instead of calling the shared `visual_attention` twice; the same
+# parameters and the same two attention calls, lang first. Read at call
+# time (`JOINT_CROSS_ATTENTION` of crvqa_tpu/models/layers.py).
+JOINT_CROSS_ATTENTION = False
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf gelu in fp32 (the reference's F.gelu); the tanh form in
@@ -233,7 +240,16 @@ class MultiHeadAttention(nn.Module):
     - `self_cache` / `cache_position`: `hidden`/`context` is the one new
       row [N, 1, hidden]; its k and v are written into the caches
       [N, max_len, H, D] at `cache_position` (in place) and the row attends
-      the whole cache under the caller's key bias. Returns (out, caches)."""
+      the whole cache under the caller's key bias. Returns (out, caches).
+
+    And one for LXMERT's bidirectional cross attention
+    (`JOINT_CROSS_ATTENTION`): `joint_split` s and `joint_biases`
+    (lang_bias, visn_bias), `hidden` the [lang; visn] concatenation and
+    `context` unused: q, k and v are projected once over it, rows [:s]
+    attend keys [s:] under visn_bias and rows [s:] keys [:s] under
+    lang_bias. The attention calls take the projections' row slices as
+    views (their batch and row strides go to the kernels; a slice starts
+    on a whole row, so the bf16 kernels' 16-byte staging holds)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_size: int,
                  dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32,
@@ -254,14 +270,22 @@ class MultiHeadAttention(nn.Module):
         self.key = nn.Linear(hidden_size, d, dtype=dtype)
         self.value = nn.Linear(hidden_size, d, dtype=dtype)
 
-    def forward(self, hidden: torch.Tensor, context: torch.Tensor,
+    def forward(self, hidden: torch.Tensor, context: Optional[torch.Tensor],
                 attention_bias: Optional[torch.Tensor] = None, kv=None,
-                self_cache=None, cache_position: Optional[int] = None):
+                self_cache=None, cache_position: Optional[int] = None,
+                joint_split: Optional[int] = None, joint_biases=None):
         if self.tp is not None:
-            same = context is hidden
+            same = context is hidden or context is None
             hidden = self.tp.copy_to_model(hidden)
             context = hidden if same else self.tp.copy_to_model(context)
         q = self.query(hidden)
+        if joint_split is not None:
+            s = joint_split
+            k, v = self.key(hidden), self.value(hidden)
+            lang_bias, visn_bias = joint_biases
+            ctx_l = self._attend(q[:, :s], k[:, s:], v[:, s:], visn_bias)
+            ctx_v = self._attend(q[:, s:], k[:, :s], v[:, :s], lang_bias)
+            return torch.cat([ctx_l, ctx_v], dim=1)
         rate = self.dropout_rate if self.training else 0.0
         if self_cache is not None:
             k_cache, v_cache = self_cache
@@ -338,7 +362,10 @@ class SelfAttentionLayer(nn.Module):
 
 
 class CrossAttentionLayer(nn.Module):
-    """`LxmertCrossAttentionLayer`: attention (named `att`) + output."""
+    """`LxmertCrossAttentionLayer`: attention (named `att`) + output. In
+    joint mode (`joint_split`, see `MultiHeadAttention`) `x` is the
+    [lang; visn] concatenation and the output block runs once over it (its
+    ops act row by row)."""
 
     def __init__(self, num_heads: int, head_size: int, hidden_size: int,
                  attn_dropout: float = 0.1, hidden_dropout: float = 0.1,
@@ -349,8 +376,11 @@ class CrossAttentionLayer(nn.Module):
         self.output = AttentionOutput(hidden_size, hidden_dropout, dtype,
                                       num_heads * head_size)
 
-    def forward(self, x, context, ctx_attention_bias=None):
-        return self.output(self.att(x, context, ctx_attention_bias), x)
+    def forward(self, x, context, ctx_attention_bias=None, joint_split=None,
+                joint_biases=None):
+        return self.output(self.att(x, context, ctx_attention_bias,
+                                    joint_split=joint_split,
+                                    joint_biases=joint_biases), x)
 
 
 class Intermediate(nn.Module):

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import layers
 from .classifier import SimpleClassifier
 from .layers import (CrossAttentionLayer, Dropout, FFNOutput, Intermediate,
                      LayerNorm, PadFrozenEmbed, SelfAttentionLayer, TransformerLayer,
@@ -119,7 +120,8 @@ class LxmertVisualFeatureEncoder(nn.Module):
 class LxmertXLayer(nn.Module):
     """Cross-modality layer. ONE `visual_attention` serves both directions
     (language -> vision and vision -> language), sharing its weights as
-    the reference does (`modeling_lxmert.py:947-958`)."""
+    the reference does (`modeling_lxmert.py:947-958`): called twice, or
+    with `layers.JOINT_CROSS_ATTENTION` once over [lang; visn]."""
 
     def __init__(self, c: LxmertConfig):
         super().__init__()
@@ -137,8 +139,15 @@ class LxmertXLayer(nn.Module):
                                      c.hidden_dropout_prob, c.dtype)
 
     def forward(self, lang, lang_bias, visn, visn_bias):
-        lang_att = self.visual_attention(lang, visn, visn_bias)
-        visn_att = self.visual_attention(visn, lang, lang_bias)
+        if layers.JOINT_CROSS_ATTENTION:
+            s = lang.shape[1]
+            joint = self.visual_attention(
+                torch.cat([lang, visn], dim=1), None, joint_split=s,
+                joint_biases=(lang_bias, visn_bias))
+            lang_att, visn_att = joint[:, :s], joint[:, s:]
+        else:
+            lang_att = self.visual_attention(lang, visn, visn_bias)
+            visn_att = self.visual_attention(visn, lang, lang_bias)
         lang_att = self.lang_self_att(lang_att, lang_bias)
         visn_att = self.visn_self_att(visn_att, visn_bias)
         lang_out = self.lang_output(self.lang_inter(lang_att), lang_att)
@@ -167,15 +176,22 @@ class LxmertEncoder(nn.Module):
                                       for _ in range(c.x_layers))
 
     def forward(self, lang, lang_bias, visual_feats, visual_pos,
-                visn_bias=None):
+                visn_bias=None, collect_hidden=False):
+        """`collect_hidden`: also return the language branch's hidden
+        states (the embedding output, then after every language and every
+        cross layer), the reference encoder's `language_hidden_states`
+        (modeling_lxmert.py:1070-1117) that layer-wise KD reads."""
         visn = self.visn_fc(visual_feats, visual_pos)
+        hidden = [lang]
         for layer in self.layer:
             lang = layer(lang, lang_bias)
+            hidden.append(lang)
         for layer in self.r_layers:
             visn = layer(visn, visn_bias)
         for layer in self.x_layers:
             lang, visn = layer(lang, lang_bias, visn, visn_bias)
-        return lang, visn
+            hidden.append(lang)
+        return (lang, visn, hidden) if collect_hidden else (lang, visn)
 
 
 class LxmertPooler(nn.Module):
@@ -202,18 +218,23 @@ class LxmertModel(nn.Module):
 
     def forward(self, input_ids, visual_feats, visual_pos,
                 attention_mask=None, visual_attention_mask=None,
-                token_type_ids=None):
+                token_type_ids=None, collect_hidden=False):
+        """(lang, visn, pooled), and the hidden-state list last with
+        `collect_hidden` (`LxmertEncoder.forward`)."""
         lang_bias = extend_attention_mask(attention_mask)
         visn_bias = extend_attention_mask(visual_attention_mask)
         emb = self.embeddings(input_ids, token_type_ids)
-        lang, visn = self.encoder(emb, lang_bias, visual_feats, visual_pos,
-                                  visn_bias)
-        return lang, visn, self.pooler(lang)
+        out = self.encoder(emb, lang_bias, visual_feats, visual_pos,
+                           visn_bias, collect_hidden=collect_hidden)
+        return out[:2] + (self.pooler(out[0]),) + out[2:]
 
 
 class LxmertForVQA(nn.Module):
     """LxmertModel + SimpleClassifier(hidden -> 2*hidden -> ans_num) on the
-    pooled output. Returns (logits, pooled), both fp32."""
+    pooled output. Returns (logits, pooled), both fp32, and with
+    `collect_hidden` (logits, pooled, hidden): the language branch's
+    hidden states in the compute dtype, for layer-wise KD
+    (`Stage2Config.kd_mode`)."""
 
     def __init__(self, config: LxmertConfig, encoder=LxmertEncoder):
         super().__init__()
@@ -226,12 +247,13 @@ class LxmertForVQA(nn.Module):
 
     def forward(self, input_ids, visual_feats, visual_pos,
                 attention_mask=None, visual_attention_mask=None,
-                token_type_ids=None):
-        pooled = self.lxmert(input_ids, visual_feats, visual_pos,
-                             attention_mask, visual_attention_mask,
-                             token_type_ids)[2]
+                token_type_ids=None, collect_hidden=False):
+        out = self.lxmert(input_ids, visual_feats, visual_pos,
+                          attention_mask, visual_attention_mask,
+                          token_type_ids, collect_hidden)
+        pooled = out[2]
         logits = self.classifier(pooled)
-        return logits.float(), pooled.float()
+        return (logits.float(), pooled.float()) + out[3:]
 
 
 def build_lxmert(config: LxmertConfig, device: torch.device | str = "cpu",

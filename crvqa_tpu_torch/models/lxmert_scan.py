@@ -87,16 +87,21 @@ class ScanLxmertEncoder(nn.Module):
         self.layers_x = StackedLayers(LxmertXLayer(c), c.x_layers)
 
     def forward(self, lang, lang_bias, visual_feats, visual_pos,
-                visn_bias=None):
+                visn_bias=None, collect_hidden=False):
+        """`collect_hidden`: the unrolled encoder's hidden-state list too
+        (`LxmertEncoder.forward`)."""
         visn = self.visn_fc(visual_feats, visual_pos)
+        hidden = [lang]
         for p in self.layers_l.layers():
             lang = functional_call(self.layers_l.body, p, (lang, lang_bias))
+            hidden.append(lang)
         for p in self.layers_r.layers():
             visn = functional_call(self.layers_r.body, p, (visn, visn_bias))
         for p in self.layers_x.layers():
             lang, visn = functional_call(self.layers_x.body, p,
                                          (lang, lang_bias, visn, visn_bias))
-        return lang, visn
+            hidden.append(lang)
+        return (lang, visn, hidden) if collect_hidden else (lang, visn)
 
 
 class ScanLxmertForVQA(LxmertForVQA):

@@ -31,6 +31,56 @@ def _step_logits(decode_logits, decode_step, ids, states, state_mask, t,
                          position=t - 1)[:, 0], caches
 
 
+def _supports_position(decode_logits: Callable) -> bool:
+    """Whether a decode closure takes `position` (the LM head on that one
+    row, [N, 1, V]); others return [N, L, V] logits."""
+    import inspect
+
+    try:
+        return "position" in inspect.signature(decode_logits).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def greedy_generate(decode_logits: Callable, states, state_mask,
+                    max_len: int = 12, bos: int = 101, eos: int = 102,
+                    pad: int = 0, decode_step: Callable = None,
+                    init_caches=None) -> torch.Tensor:
+    """Greedy decoding (`greedy_generate` of the JAX package): each step
+    appends the argmax token (the lowest index on ties); a row that has
+    emitted eos appends `pad` from then on. Returns ids [B, max_len], bos
+    first. Three ways to get a step's logits, as in the JAX function:
+
+    - `decode_step(ids, states, state_mask, position, caches) -> (logits
+      [N, 1, V], caches)` with `init_caches`: incremental decoding with
+      per-layer self-attention KV caches (what a server runs);
+    - else a `decode_logits(ids, mask, states, state_mask, position)` that
+      takes `position`: [N, 1, V] at that row;
+    - else `decode_logits(ids, mask, states, state_mask)`: [N, L, V], the
+      step's row taken from it."""
+    b = states.shape[0]
+    ids = torch.full((b, max_len), pad, dtype=torch.long,
+                     device=states.device)
+    ids[:, 0] = bos
+    done = torch.zeros(b, dtype=torch.bool, device=states.device)
+    caches = init_caches
+    full = decode_step is None and not _supports_position(decode_logits)
+    for t in range(1, max_len):
+        if full:
+            mask = (torch.arange(max_len, device=ids.device)[None, :]
+                    < t).float().expand(b, max_len)
+            logits = decode_logits(ids, mask, states, state_mask)[:, t - 1]
+        else:
+            logits, caches = _step_logits(decode_logits, decode_step, ids,
+                                          states, state_mask, t, max_len,
+                                          caches)
+        tok = torch.argmax(logits, dim=-1)
+        tok = torch.where(done, torch.full_like(tok, pad), tok)
+        ids[:, t] = tok
+        done = done | (tok == eos)
+    return ids
+
+
 def beam_generate(decode_logits: Callable, states, state_mask,
                   beam_size: int = 5, max_len: int = 12, bos: int = 101,
                   eos: int = 102, pad: int = 0, lp_alpha: float = 0.6,

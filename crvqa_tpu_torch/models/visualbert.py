@@ -124,10 +124,14 @@ class VisualBertEncoder(nn.Module):
             hidden_dropout=c.hidden_dropout_prob, dtype=c.dtype)
             for _ in range(c.num_hidden_layers))
 
-    def forward(self, h, bias=None):
+    def forward(self, h, bias=None, collect_hidden=False):
+        """`collect_hidden`: (h, hidden), hidden the embedding output and
+        the output of every layer, for layer-wise KD."""
+        hidden = [h]
         for layer in self.layer:
             h = layer(h, bias)
-        return h
+            hidden.append(h)
+        return (h, hidden) if collect_hidden else h
 
 
 class VisualBertPooler(nn.Module):
@@ -153,7 +157,10 @@ class VisualBertModel(nn.Module):
         self.pooler = VisualBertPooler(c)
 
     def forward(self, input_ids, visual_embeds, attention_mask=None,
-                visual_attention_mask=None, token_type_ids=None):
+                visual_attention_mask=None, token_type_ids=None,
+                collect_hidden=False):
+        """(h, pooled), and the hidden-state list last with
+        `collect_hidden` (`VisualBertEncoder.forward`)."""
         h = self.embeddings(input_ids, visual_embeds, token_type_ids)
         bias = None
         if attention_mask is not None:
@@ -163,8 +170,11 @@ class VisualBertModel(nn.Module):
                     device=attention_mask.device)
             bias = extend_attention_mask(torch.cat(
                 [attention_mask, visual_attention_mask], dim=1))
-        h = self.encoder(h, bias)
-        return h, self.pooler(h)
+        out = self.encoder(h, bias, collect_hidden)
+        if collect_hidden:
+            h, hidden = out
+            return h, self.pooler(h), hidden
+        return out, self.pooler(out)
 
 
 class VisualBertForVQA(nn.Module):
@@ -172,7 +182,8 @@ class VisualBertForVQA(nn.Module):
     VisualBertModel, a hidden dropout on the pooled vector (:1146-1147),
     then SimpleClassifier(hidden -> 2*hidden -> ans_num) named `cls` (the
     stage-2 trainer saves `model.cls` as the classifier artifact). Returns
-    (logits, pooled), both fp32."""
+    (logits, pooled), both fp32, and with `collect_hidden` (logits,
+    pooled, hidden) for layer-wise KD."""
 
     def __init__(self, config: VisualBertConfig):
         super().__init__()
@@ -184,11 +195,14 @@ class VisualBertForVQA(nn.Module):
                                     config.classifier_dropout)
 
     def forward(self, input_ids, visual_embeds, attention_mask=None,
-                visual_attention_mask=None, token_type_ids=None):
-        pooled = self.visual_bert(input_ids, visual_embeds, attention_mask,
-                                  visual_attention_mask, token_type_ids)[1]
+                visual_attention_mask=None, token_type_ids=None,
+                collect_hidden=False):
+        out = self.visual_bert(input_ids, visual_embeds, attention_mask,
+                               visual_attention_mask, token_type_ids,
+                               collect_hidden)
+        pooled = out[1]
         logits = self.cls(self.dropout(pooled))
-        return logits.float(), pooled.float()
+        return (logits.float(), pooled.float()) + tuple(out[2:])
 
 
 def build_visualbert(config: VisualBertConfig,

@@ -18,8 +18,10 @@ Each wrapper counts its kernel launches (and nothing else) in `.launches`:
 
 `fused_attention(..., rate, seed)` is differentiable: when autograd needs
 it, the forward for grad runs and `BWD_IMPL` ("stored", the default, keeps
-the fp32 probability residual; "recompute" rebuilds it from q, k and the
-bias) selects the backward at call time, as in the JAX package. Dropout
+the probability residual; "recompute" rebuilds it from q, k and the
+bias) selects the backward at call time, as in the JAX package, and
+`P_RESIDUAL_DTYPE` (fp32, or bf16 at half the bytes) the stored
+residual's type. Dropout
 uses the JAX kernels' counter-hash keep mask (`keep_mask`), a pure function
 of (seed, batch row, row, lane-blocked column), so the backward regenerates
 it and the port's masks equal the JAX package's bit for bit.
@@ -50,9 +52,21 @@ _MMA_MAX_WARPS = 8
 
 # Backward implementation, read when the forward runs: "stored" (the
 # forward writes the pre-dropout probabilities as a residual) or
-# "recompute" (flash-style, from q, k and the bias).
+# "recompute" (flash-style, from q, k and the bias). "stored_folddot" is
+# the JAX package's stored backward with the tiled dk / dv head blocks
+# folded by one selector product on the TPU's matrix unit instead of H
+# adds: the same sum. The Hopper kernel has no tiled blocks to fold (a
+# block holds one head and sums its own rows), so it runs the stored one.
 BWD_IMPL = "stored"
-_BWD_IMPLS = ("stored", "recompute")
+_BWD_IMPLS = ("stored", "recompute", "stored_folddot")
+
+# Storage type of the stored backward's residual, read when the forward
+# runs (`P_RESIDUAL_DTYPE` of the JAX package): torch.float32 (exact) or
+# torch.bfloat16, half the residual's bytes; the backward widens it and
+# does its math in fp32, so only its softmax-gradient terms see the extra
+# rounding (the context product takes the unrounded p either way).
+P_RESIDUAL_DTYPE = torch.float32
+_P_RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -153,17 +167,19 @@ def fused_attention_train_reference(q, k, v, bias, num_heads: int,
                                     row0: int = 0, head0: int = 0
                                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward for grad: (out, p) with p the
-    pre-dropout fp32 probabilities in the residual layout [B, Sq, H*Sk]
-    (column h*Sk + k) and dropout applied from `keep_mask` before p is
-    rounded to the activation dtype (crvqa_tpu/ops/fused_attention.py:
-    205-211). Differentiable by autograd."""
+    pre-dropout probabilities in the residual layout [B, Sq, H*Sk]
+    (column h*Sk + k), fp32 rounded to `P_RESIDUAL_DTYPE`, and dropout
+    applied from `keep_mask` to the unrounded p before it is rounded to
+    the activation dtype (crvqa_tpu/ops/fused_attention.py:205-211).
+    Differentiable by autograd."""
     b, sq, _ = q.shape
     sk = k.shape[1]
     p = _probs(q, k, bias, num_heads, head_size)
     pd = p * _drop_factor(b, sq, num_heads, sk, rate, seed, q.device, row0,
                           head0)
     ctx = torch.matmul(pd.to(q.dtype), _split(v, num_heads, head_size))
-    return _merge(ctx), p.transpose(1, 2).reshape(b, sq, num_heads * sk)
+    res = p.transpose(1, 2).reshape(b, sq, num_heads * sk)
+    return _merge(ctx), res.to(_residual_dtype())
 
 
 def fused_attention_bwd_reference(q, k, v, p, g, num_heads: int,
@@ -173,7 +189,8 @@ def fused_attention_bwd_reference(q, k, v, p, g, num_heads: int,
                                              torch.Tensor]:
     """The backward step by step, with the TPU kernel's rounding points
     (`_bwd_kernel_stored`, crvqa_tpu/ops/fused_attention.py:536-566): p is
-    the fp32 residual [B, Sq, H*Sk]; returns (dq, dk, dv) in q's dtype."""
+    the residual [B, Sq, H*Sk] (fp32 or bf16, widened to fp32); returns
+    (dq, dk, dv) in q's dtype."""
     b, sq, _ = q.shape
     sk = k.shape[1]
     dt = q.dtype
@@ -230,8 +247,8 @@ def fused_attention_fwd_train(q, k, v, bias, num_heads: int, head_size: int,
                               rate: float, seed: int, residual: bool = True,
                               row0: int = 0, head0: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The forward for grad: (out, p residual [B, Sq, H*Sk] fp32, or None
-    when `residual` is False)."""
+    """The forward for grad: (out, p residual [B, Sq, H*Sk] in
+    `P_RESIDUAL_DTYPE`, read now, or None when `residual` is False)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _check_rate(rate)
     if q.device.type == "cpu":
@@ -241,7 +258,7 @@ def fused_attention_fwd_train(q, k, v, bias, num_heads: int, head_size: int,
         return out, (p if residual else None)
     _check_cuda(q, k, v, bias, head_size)
     return _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
-                             residual, row0, head0)
+                             residual, row0, head0, _residual_dtype())
 
 
 fused_attention_fwd_train.launches = 0
@@ -250,14 +267,16 @@ fused_attention_fwd_train.launches = 0
 def fused_attention_bwd_stored(q, k, v, p, g, num_heads: int, head_size: int,
                                rate: float, seed: int, row0: int = 0,
                                head0: int = 0):
-    """dq, dk, dv from the stored fp32 residual p [B, Sq, H*Sk]."""
+    """dq, dk, dv from the stored residual p [B, Sq, H*Sk]: fp32 or bf16,
+    whichever the forward wrote (`P_RESIDUAL_DTYPE` decides only that)."""
     if q.device.type == "cpu":
         return fused_attention_bwd_reference(q, k, v, p, g, num_heads,
                                              head_size, rate, seed, row0,
                                              head0)
-    if p.dtype != torch.float32 or not p.is_contiguous():
-        raise TypeError("fused_attention backward kernel: the residual must "
-                        "be a contiguous fp32 [B, Sq, H*Sk] tensor")
+    if p.dtype not in _P_RESIDUAL_DTYPES or not p.is_contiguous():
+        raise TypeError(f"fused_attention backward kernel: the residual must "
+                        f"be a contiguous [B, Sq, H*Sk] tensor of one of "
+                        f"{_P_RESIDUAL_DTYPES}, got {p.dtype}")
     out = _launch_bwd(q, k, v, p, None, g, num_heads, head_size, rate, seed,
                       row0, head0)
     fused_attention_bwd_stored.launches += 1
@@ -298,12 +317,13 @@ class FusedAttentionFunction(torch.autograd.Function):
         if impl not in _BWD_IMPLS:
             raise ValueError(f"fused_attention: BWD_IMPL {impl!r} is not one "
                              f"of {_BWD_IMPLS}")
+        stored = impl != "recompute"
         out, p = fused_attention_fwd_train(q, k, v, bias, num_heads,
                                            head_size, rate, seed,
-                                           residual=impl == "stored",
-                                           row0=row0, head0=head0)
-        ctx.save_for_backward(q, k, v, p if impl == "stored" else bias)
-        ctx.impl = impl
+                                           residual=stored, row0=row0,
+                                           head0=head0)
+        ctx.save_for_backward(q, k, v, p if stored else bias)
+        ctx.impl = "stored" if stored else impl
         ctx.args = (num_heads, head_size, rate, seed, row0, head0)
         return out
 
@@ -345,6 +365,15 @@ def _check_shapes(q, k, v, bias, num_heads, head_size):
     if len({t.device for t in (q, k, v, bias) if t is not None}) != 1:
         raise ValueError("fused_attention: q, k, v and bias must share a "
                          "device")
+
+
+def _residual_dtype() -> torch.dtype:
+    """`P_RESIDUAL_DTYPE`; raises on anything but fp32 and bf16."""
+    if P_RESIDUAL_DTYPE not in _P_RESIDUAL_DTYPES:
+        raise ValueError(f"fused_attention: residual dtype "
+                         f"{P_RESIDUAL_DTYPE} is not one of "
+                         f"{_P_RESIDUAL_DTYPES}")
+    return P_RESIDUAL_DTYPE
 
 
 def _check_rate(rate: float) -> None:
@@ -432,8 +461,8 @@ def _fwd_library() -> ctypes.CDLL:
         lib.fused_attention_fwd.restype = ctypes.c_int
         lib.fused_attention_fwd_train.argtypes = [
             _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-            _i64, _i64, _i64, _i64, _i64, _i64, _i, _u32, _u32, _u32, _u32,
-            _f32, _p]
+            _i64, _i64, _i64, _i64, _i64, _i64, _i, _i, _u32, _u32, _u32,
+            _u32, _f32, _p]
         lib.fused_attention_fwd_train.restype = ctypes.c_int
         lib.fused_attention_fwd_error_string.argtypes = [ctypes.c_int]
         lib.fused_attention_fwd_error_string.restype = ctypes.c_char_p
@@ -445,7 +474,7 @@ def _bwd_library() -> ctypes.CDLL:
     if lib.fused_attention_bwd.argtypes is None:
         lib.fused_attention_bwd.argtypes = [
             _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-            _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i,
+            _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i, _i,
             _u32, _u32, _u32, _u32, _f32, _p]
         lib.fused_attention_bwd.restype = ctypes.c_int
         lib.fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -493,12 +522,12 @@ def _offsets(row0: int, head0: int, sk: int) -> tuple[int, int]:
 
 
 def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
-                      residual, row0=0, head0=0):
+                      residual, row0, head0, p_dtype):
     b, sq, d = q.shape
     sk = k.shape[1]
     seed_u, threshold, keep_scale = _dropout_args(rate, seed)
     out = torch.empty((b, sq, d), dtype=q.dtype, device=q.device)
-    p = (torch.empty((b, sq, num_heads * sk), dtype=torch.float32,
+    p = (torch.empty((b, sq, num_heads * sk), dtype=p_dtype,
                      device=q.device) if residual else None)
     lib = _fwd_library()
     with torch.cuda.device(q.device):
@@ -507,8 +536,8 @@ def _launch_fwd_train(q, k, v, bias, num_heads, head_size, rate, seed,
             out.data_ptr(), None if p is None else p.data_ptr(),
             b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v),
-            int(q.dtype == torch.bfloat16), seed_u,
-            *_offsets(row0, head0, sk), threshold, keep_scale,
+            int(q.dtype == torch.bfloat16), int(p_dtype == torch.bfloat16),
+            seed_u, *_offsets(row0, head0, sk), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_fwd")
     fused_attention_fwd_train.launches += 1
@@ -543,7 +572,8 @@ def _launch_bwd(q, k, v, p, bias, g, num_heads, head_size, rate, seed,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, num_heads, head_size,
             *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-            int(q.dtype == torch.bfloat16), seed_u,
+            int(q.dtype == torch.bfloat16),
+            int(p is not None and p.dtype == torch.bfloat16), seed_u,
             *_offsets(row0, head0, sk), threshold, keep_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "fused_attention_bwd")

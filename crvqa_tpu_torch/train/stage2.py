@@ -28,7 +28,7 @@ from typing import Callable, Optional
 import torch
 from torch.func import functional_call
 
-from ..losses import dispatch_loss, learned_mixin_init
+from ..losses import cosine_rep_loss, dispatch_loss, learned_mixin_init
 from ..masking.binarizers import clamp_scores_sign_
 from ..masking.masker import Masker, bias_key, weight_name
 from ..models.layers import set_generators
@@ -61,6 +61,17 @@ class Stage2Config:
     # the head's name in the model; the state keeps it under
     # train_params["classifier"] whatever the model calls it
     classifier_key: str = "classifier"  # "cls" for VisualBERT
+    # KD: a cosine representation loss against the dense teacher, the
+    # unmasked frozen backbone with the current classifier, dropout off
+    # (CosineLoss, mask_trainer_Robust_VQA.py:95-97; off in every shipped
+    # script). 'pooled': one loss on the pooled vector, what the
+    # reference's KD block computes (its `outputs[-1][1:]` slices batch
+    # rows of the pooled tensor, :857-865). 'layerwise': the language
+    # branch's hidden states after every layer, their losses averaged,
+    # the per-layer distillation that code was written for.
+    use_kd: bool = False
+    kd_mode: str = "pooled"  # 'pooled' | 'layerwise'
+    kd_weight: float = 1.0
 
 
 Stage2RNG = TrainRNG  # device + host generators (train/common.py)
@@ -169,6 +180,32 @@ def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
     return out
 
 
+def dense_params(model_dtypes: dict[str, torch.dtype], state: Stage2State,
+                 classifier_key: str = "classifier"
+                 ) -> dict[str, torch.Tensor]:
+    """The KD teacher's parameter dict: the frozen backbone without masks
+    (this rank's slices under tensor parallelism) cast to the model's
+    dtypes, and the current classifier (the JAX package's
+    `merge_params`)."""
+    out = {n: (t if t.dtype == model_dtypes[n] else t.to(model_dtypes[n]))
+           for n, t in state.frozen.items()}
+    out.update({f"{classifier_key}.{k}": v.detach()
+                for k, v in state.train_params["classifier"].items()})
+    return out
+
+
+def kd_loss(student: tuple, teacher: tuple, mode: str) -> torch.Tensor:
+    """The KD term of `Stage2Config.kd_mode` from two forwards' outputs,
+    (logits, pooled) or, collecting hidden states, (logits, pooled,
+    hidden): 'layerwise' averages `cosine_rep_loss` over the hidden states
+    after every layer (the embedding output dropped), any other mode is
+    the pooled vector's (crvqa_tpu/train/stage2.py:182-195)."""
+    if mode == "layerwise":
+        pairs = list(zip(student[2][1:], teacher[2][1:]))
+        return sum(cosine_rep_loss(s, t) for s, t in pairs) / len(pairs)
+    return cosine_rep_loss(student[1], teacher[1])
+
+
 def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
                         config: Stage2Config, mesh=None, tp=None
                         ) -> Callable:
@@ -179,21 +216,42 @@ def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
     mask_trainer_Robust_VQA.py:656-676, 801-886). With a data-parallel
     `mesh` the batch is this rank's block and everything is local: the
     caller reduces over the data group, and under tensor parallelism
-    (`tp`) over the model group."""
+    (`tp`) over the model group.
+
+    With `use_kd` each microbatch also runs the dense teacher
+    (`dense_params`) in eval mode under no_grad: no dropout, so it draws
+    nothing from the generators and the student's masks stay the JAX
+    step's; on the card its attentions take the primal kernel."""
     dtypes = param_dtypes(model)
+    extra = ({"collect_hidden": True}
+             if config.use_kd and config.kd_mode == "layerwise" else {})
+
+    def teacher(state, inputs):
+        model.eval()
+        try:
+            with torch.no_grad():
+                return functional_call(
+                    model, dense_params(dtypes, state, config.classifier_key),
+                    (), inputs, strict=True)
+        finally:
+            model.train()
 
     def microbatch(state, batch):
         leaves = trainable(state, config)
         params = masked_params(dtypes, masker, state, state.rng.device,
                                config.classifier_key, tp)
-        logits, pooled = functional_call(model, params, (),
-                                         model_inputs(batch), strict=True)
+        inputs = dict(model_inputs(batch), **extra)
+        out = functional_call(model, params, (), inputs, strict=True)
+        logits, pooled = out[0], out[1]
         loss = dispatch_loss(
             config.masker_type, logits=logits, pooled=pooled,
             labels=batch["labels"], bias=batch.get("bias"),
             max_label=batch.get("max_label"),
             lmh_params=state.train_params.get("lmh"),
             gamma=config.gamma, lmh_w=config.lmh_w)
+        if config.use_kd:
+            loss = loss + config.kd_weight * kd_loss(
+                out, teacher(state, inputs), config.kd_mode)
         # the last cross layer's visual branch never reaches the logits:
         # its scores get zero gradients, as under jax.grad
         grads = torch.autograd.grad(loss, list(leaves.values()),

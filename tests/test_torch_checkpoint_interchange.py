@@ -65,7 +65,7 @@ def _data(root):
 
 def _lxmert_template():
     cfg = JaxConfig.tiny()
-    return JaxLxmert(cfg).init(
+    return jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(0), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
         visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))["params"]
@@ -73,7 +73,7 @@ def _lxmert_template():
 
 def _visualbert_params(seed):
     cfg = JaxVBConfig.tiny()
-    return JaxVisualBert(cfg).init(
+    return jax.jit(JaxVisualBert(cfg).init)(
         jax.random.PRNGKey(seed), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_embeds=jnp.zeros((2, 8, cfg.visual_embedding_dim)))["params"]
 

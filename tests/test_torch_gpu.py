@@ -208,8 +208,8 @@ def test_bwd_raises_on_what_it_does_not_take(case):
     _, p = fa.fused_attention_fwd_train(q, k, v, bias, 12, 64, 0.0, 0)
     g = torch.randn_like(q)
     heads, head_size = 12, 64
-    if case == "residual_dtype":
-        p = p.to(torch.bfloat16)
+    if case == "residual_dtype":  # fp32 and bf16 residuals are taken
+        p = p.to(torch.float16)
     elif case == "g_dtype":
         g = g.to(torch.bfloat16)
     elif case == "head_size":

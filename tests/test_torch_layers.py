@@ -51,7 +51,8 @@ def test_weight_norm_dense_matches_jax():
     rng = np.random.default_rng(1)
     x = rng.normal(size=(5, 24)).astype(np.float32)
     mod = jl.WeightNormDense(40)
-    params = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.jit(mod.init)(jax.random.PRNGKey(0),
+                               jnp.asarray(x))["params"]
     ours = tl.WeightNormDense(24, 40)
     ours.load_state_dict(state_dict_from_jax(_np_params(params)), strict=True)
     assert ours.weight_g.shape == ()
@@ -84,8 +85,8 @@ def test_transformer_layer_matches_jax(seq, fused, monkeypatch):
     jmod = jl.TransformerLayer(H, D, HID, FFN, attn_dropout=0.0,
                                hidden_dropout=0.0)
     jbias = jl.extend_attention_mask(jnp.asarray(mask))
-    params = jmod.init(jax.random.PRNGKey(seq), jnp.asarray(x), jbias)[
-        "params"]
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(seq), jnp.asarray(x),
+                                jbias)["params"]
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x), jbias))
 
     ours = tl.TransformerLayer(H, D, HID, FFN).eval()
@@ -101,7 +102,7 @@ def test_state_dict_from_jax_matches_flax_naming():
     `flax_to_torch_state_dict` on a whole tiny LXMERT."""
     cfg = JaxConfig.tiny()
     b = 2
-    params = JaxLxmert(cfg).init(
+    params = jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(0), input_ids=jnp.ones((b, 14), jnp.int32),
         visual_feats=jnp.zeros((b, 8, cfg.visual_feat_dim)),
         visual_pos=jnp.zeros((b, 8, cfg.visual_pos_dim)))["params"]

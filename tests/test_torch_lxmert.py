@@ -50,9 +50,10 @@ def _jax_and_torch(dtype_name, fused, monkeypatch, seed=0):
     jmodel = JaxLxmert(jcfg)
     inputs = _inputs(jcfg, seed)
     jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    params = jmodel.init(jax.random.PRNGKey(seed), **jin)["params"]
-    jlogits, jpooled = jmodel.apply({"params": params}, deterministic=True,
-                                    **jin)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
+                                  **jin)["params"]
+    apply = jax.jit(jmodel.apply, static_argnames="deterministic")
+    jlogits, jpooled = apply({"params": params}, deterministic=True, **jin)
 
     model = build_lxmert(LxmertConfig.tiny(dtype=getattr(torch, dtype_name)))
     model.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray,

@@ -67,7 +67,8 @@ def nets():
                         pos_dim=jcfg.visual_pos_dim)
     jb = {k: jnp.asarray(b[k]) for k in ("input_ids", "visual_feats",
                                           "visual_pos")}
-    params = JaxLxmert(jcfg).init(jax.random.PRNGKey(0), **jb)["params"]
+    params = jax.jit(JaxLxmert(jcfg).init)(jax.random.PRNGKey(0),
+                                           **jb)["params"]
     tcfg = LxmertConfig.tiny(**NO_DROPOUT)
     unrolled = convert.state_dict_from_jax(jax.tree.map(np.asarray, params))
     return dict(jcfg=jcfg, tcfg=tcfg, params=params, unrolled=unrolled,
@@ -78,8 +79,8 @@ def nets():
 def test_forward_matches_jax_and_the_unrolled_model(nets):
     jcfg, tcfg = nets["jcfg"], nets["tcfg"]
     stacked_jax = jax_stack(nets["params"], jcfg)
-    jlogits, jpooled = JaxScan(jcfg).apply({"params": stacked_jax},
-                                           **nets["jb"])
+    jlogits, jpooled = jax.jit(JaxScan(jcfg).apply)(
+        {"params": stacked_jax}, **nets["jb"])
     stacked = stack_params(nets["unrolled"], tcfg)
     # the JAX scan tree carried across names and lays out the same leaves
     carried = convert.state_dict_from_jax(jax.tree.map(np.asarray,
@@ -267,7 +268,7 @@ def test_port_scan_state_loads_in_the_jax_package(jax_run, tmp_path):
     path = tmp_path / "ckpt_4"
     ckpt.save_jax_training_state(str(path), tree, metadata={"step": 4})
     jcfg = JaxConfig.tiny(**NO_DROPOUT)
-    params = JaxLxmert(jcfg).init(
+    params = jax.jit(JaxLxmert(jcfg).init)(
         jax.random.PRNGKey(0), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_feats=jnp.zeros((2, 8, jcfg.visual_feat_dim)),
         visual_pos=jnp.zeros((2, 8, jcfg.visual_pos_dim)))["params"]

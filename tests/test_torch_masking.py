@@ -33,7 +33,7 @@ from crvqa_tpu_torch.ops import kthvalue as tkth
 @pytest.fixture(scope="module")
 def weights():
     cfg = JaxConfig.tiny()
-    params = JaxLxmert(cfg).init(
+    params = jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(0), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
         visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))["params"]

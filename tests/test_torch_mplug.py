@@ -81,9 +81,10 @@ def _models(name: str, seed=0):
     jm = JMPlug(jc)
     images, ids, mask = _batch(jc)
     a_ids = np.ones((2, 1, 3), np.int32)
-    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(images),
-                     jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(a_ids),
-                     jnp.ones((2, 1, 3)), jnp.ones((2, 1)))["params"]
+    params = jax.jit(jm.init)(
+        jax.random.PRNGKey(seed), jnp.asarray(images), jnp.asarray(ids),
+        jnp.asarray(mask), jnp.asarray(a_ids), jnp.ones((2, 1, 3)),
+        jnp.ones((2, 1)))["params"]
     tm = build_mplug(tc)
     tm.load_state_dict(mplug_state_dict_from_jax(
         jax.tree.map(np.asarray, params)), strict=True)
@@ -118,7 +119,8 @@ def test_vit_mid_length_matches_jax_kernel(monkeypatch):
     jm = JViT(JViTConfig(**c))
     rng = np.random.default_rng(0)
     imgs = rng.normal(size=(2, 192, 192, 3)).astype(np.float32)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(imgs))["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                              jnp.asarray(imgs))["params"]
     monkeypatch.setattr(jlayers, "MIDSEQ_ATTENTION", True)
     monkeypatch.setattr(jlayers, "FUSED_ATTENTION_INTERPRET", True)
     want = jm.apply({"params": params}, jnp.asarray(imgs))

@@ -43,9 +43,9 @@ def _sides(tmp, mode, extra=()):
                                uint8_images=True)
     jb = {k: jnp.asarray(v) for k, v in b0.items() if k != "qid"}
     rng = jax.random.PRNGKey(jargs.seed)
-    params = jmodel.init(rng, jb["images"], jb["question_ids"],
-                         jb["question_mask"], jb["answer_ids"],
-                         jb["answer_mask"], jb["weights"])["params"]
+    params = jax.jit(jmodel.init)(
+        rng, jb["images"], jb["question_ids"], jb["question_mask"],
+        jb["answer_ids"], jb["answer_mask"], jb["weights"])["params"]
     scores = thresholds = None
     if jmasker is not None:
         scores, thresholds = jmasker.init(params, rng)

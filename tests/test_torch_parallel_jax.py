@@ -16,7 +16,9 @@ bit for bit, and with `--structured_masking heads` from a JAX
 head gates, as the JAX rule replicates them. The scan layout
 (`--scan_layers`, stacked [L, ...] leaves) runs on the same ranks from a
 JAX `ScanLxmertForVQA` state: nothing splits, each rank of the model
-group runs the whole model, and both ranks end alike.
+group runs the whole model, and both ranks end alike. Layer-wise KD
+(`Stage2Config.use_kd`) runs on the same ranks and is held to the JAX
+mesh's KD steps at data 1 x model 2.
 
 Setup: the tiny LXMERT (4 heads, hidden 32, intermediate 64) in fp32 with
 every dropout 0, the LMH loss at 0.3/0.3/0.3 and zero rate 0.7.
@@ -88,10 +90,10 @@ def setup():
     jmodel = JaxLxmert(jcfg)
     batches = _batches(jcfg)
     b0 = batches[0]
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         input_ids=jnp.asarray(b0["input_ids"]),
-                         visual_feats=jnp.asarray(b0["visual_feats"]),
-                         visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), input_ids=jnp.asarray(b0["input_ids"]),
+        visual_feats=jnp.asarray(b0["visual_feats"]),
+        visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
     jmasker = JaxMasker.create(
         jax_specs(jcfg.l_layers, jcfg.r_layers, jcfg.x_layers),
         JaxSparsity.from_compression(*SPARSITY), controlled_init="magnitude")
@@ -156,10 +158,11 @@ def setup():
 
 
 def _jax_steps(setup, mesh, model, jmasker, jstate, zero=False,
-               jmodel=None):
+               jmodel=None, jsc=None):
     """The JAX steps of `jmodel` (the unrolled model by default) on `mesh`
-    (tensor-parallel placement at model > 1, ZeRO with `zero`) and a
-    threshold reset: (losses, final state)."""
+    (tensor-parallel placement at model > 1, ZeRO with `zero`) under `jsc`
+    (the setup's config by default) and a threshold reset: (losses, final
+    state)."""
     js = jax.device_put(jax.tree.map(jnp.array, jstate),
                         replicated_sharding(mesh))
     if model > 1:
@@ -171,8 +174,8 @@ def _jax_steps(setup, mesh, model, jmasker, jstate, zero=False,
     if zero:
         js = js.replace(opt_state=shard_opt_state(js.opt_state, mesh))
     step = jstage2.make_train_step(jmodel or setup["jmodel"], jmasker,
-                                   setup["tx"],
-                                   setup["jsc"], mesh=mesh if zero else None)
+                                   setup["tx"], jsc or setup["jsc"],
+                                   mesh=mesh if zero else None)
     losses = []
     for b in setup["batches"]:
         js, m = step(js, shard_batch(mesh, {k: v for k, v in b.items()
@@ -201,6 +204,19 @@ def jax_structured(setup, tmp_path_factory):
             jax.device_get(setup["jsmasker"].binary_masks(js.scores,
                                                           js.thresholds)),
             state)
+
+
+@pytest.fixture(scope="module")
+def jax_kd(setup, tmp_path_factory):
+    """The JAX mesh's layer-wise KD steps at data 1 x model 2: the losses
+    and the state in the port's layout."""
+    mesh = make_mesh(MeshConfig(data=1, model=2), jax.devices()[:2])
+    jsc = jstage2.Stage2Config(**setup["kw"], use_kd=True,
+                               kd_mode="layerwise")
+    losses, js = _jax_steps(setup, mesh, 2, setup["jmasker"],
+                            setup["jstate"], jsc=jsc)
+    return losses, _as_port(setup, js, str(tmp_path_factory.mktemp("jkd")
+                                           / "ckpt"), "plain")
 
 
 def _run(setup, tmp, data, model):
@@ -378,3 +394,29 @@ def test_structured_heads_match_the_jax_mesh(runs, jax_structured):
     assert got["whole_shapes"] == {
         k: tuple(v.shape) for k, v in setup["carried"]["params"].items()
         if not k.startswith("classifier.")}
+
+
+def test_layerwise_kd_matches_the_jax_mesh(runs, jax_kd):
+    """`Stage2Config(use_kd=True, kd_mode="layerwise")` on the 2 ranks
+    (data 2, and data 1 x model 2: the dense teacher runs the same
+    tensor-parallel forward on each rank's frozen slices) against the JAX
+    mesh's KD steps at data 1 x model 2: losses, scores, classifier,
+    thresholds and every Adam moment."""
+    _, _, result, _ = runs
+    jlosses, want = jax_kd
+    got = result["kd"]
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-4)
+    assert got["losses"] != result["plain"]["losses"]  # the KD term counts
+    atol = 2 * LR * STEPS
+    for k, t in want.scores.items():
+        np.testing.assert_allclose(got["scores"][k].detach().numpy(),
+                                   t.detach().numpy(), atol=atol, rtol=0,
+                                   err_msg=k)
+        np.testing.assert_allclose(got["thresholds"][k].numpy(),
+                                   want.thresholds[k].numpy(), atol=atol,
+                                   rtol=0, err_msg=k)
+    for k, t in want.train_params["classifier"].items():
+        np.testing.assert_allclose(got["classifier"][k].detach().numpy(),
+                                   t.detach().numpy(), atol=atol, rtol=0,
+                                   err_msg=k)
+    _assert_moments_match(got, want)

@@ -69,7 +69,7 @@ def test_run_writes_the_artifacts(run):
 def test_jax_readers_load_the_artifacts(run):
     _, out, _ = run
     cfg = JaxConfig.tiny()
-    params = JaxLxmert(cfg).init(
+    params = jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(0), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
         visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))["params"]

@@ -200,10 +200,10 @@ def _jax_stage2_template():
                          attention_probs_dropout_prob=0.0,
                          classifier_dropout=0.0)
     model = JaxLxmert(cfg)
-    params = model.init(jax.random.PRNGKey(0),
-                        input_ids=jnp.ones((2, 14), jnp.int32),
-                        visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
-                        visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(0), input_ids=jnp.ones((2, 14), jnp.int32),
+        visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
+        visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))
     masker = JaxMasker.create(
         jax_specs(cfg.l_layers, cfg.r_layers, cfg.x_layers),
         JaxSparsity.from_compression(0.3, 0.3, 0.3, 0.7))

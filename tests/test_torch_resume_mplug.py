@@ -144,10 +144,10 @@ def test_port_written_state_loads_in_the_jax_package(run, tmp_path):
     masker, _ = jvqa_mplug.build_masker(args, config)
     b0 = synthetic_mplug_batch(batch_size=1, image_res=config.vit.image_res,
                                vocab_size=config.bert.vocab_size)
-    params = jmodel.init(jax.random.PRNGKey(0), b0["images"],
-                         b0["question_ids"], b0["question_mask"],
-                         b0["answer_ids"], b0["answer_mask"],
-                         b0["weights"])["params"]
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), b0["images"], b0["question_ids"],
+        b0["question_mask"], b0["answer_ids"], b0["answer_mask"],
+        b0["weights"])["params"]
     template, _ = jtrain.init_state(jmodel, params,
                                     jtrain.MPlugTrainConfig(mode="mask"),
                                     jax.random.PRNGKey(1), masker=masker)

@@ -139,7 +139,7 @@ def test_port_written_state_loads_in_the_jax_package(run, tmp_path):
     ckpt.save_jax_training_state(str(path), convert.jax_from_stage1_state(
         state, _model(), _config(kind)))
     cfg = JaxConfig.tiny()
-    params = JaxLxmert(cfg).init(
+    params = jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(0), input_ids=np.ones((2, 14), np.int32),
         visual_feats=np.zeros((2, 8, cfg.visual_feat_dim), np.float32),
         visual_pos=np.zeros((2, 8, cfg.visual_pos_dim), np.float32)

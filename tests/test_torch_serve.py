@@ -35,7 +35,7 @@ from tests.test_dress_rehearsal import _fabricate
 
 def _jax_params(seed):
     cfg = JaxConfig.tiny()
-    return JaxLxmert(cfg).init(
+    return jax.jit(JaxLxmert(cfg).init)(
         jax.random.PRNGKey(seed), input_ids=jnp.ones((2, 14), jnp.int32),
         visual_feats=jnp.zeros((2, 8, cfg.visual_feat_dim)),
         visual_pos=jnp.zeros((2, 8, cfg.visual_pos_dim)))["params"]

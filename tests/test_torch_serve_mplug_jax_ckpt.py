@@ -42,10 +42,10 @@ def root(tmp_path_factory):
     masker, _ = jvqa_mplug.build_masker(args, config)
     b0 = synthetic_mplug_batch(batch_size=1, image_res=config.vit.image_res,
                                vocab_size=config.bert.vocab_size)
-    params = model.init(jax.random.PRNGKey(3), b0["images"],
-                        b0["question_ids"], b0["question_mask"],
-                        b0["answer_ids"], b0["answer_mask"],
-                        b0["weights"])["params"]
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(3), b0["images"], b0["question_ids"],
+        b0["question_mask"], b0["answer_ids"], b0["answer_mask"],
+        b0["weights"])["params"]
     state, _ = jtrain.init_state(model, params,
                                  jtrain.MPlugTrainConfig(mode="mask"),
                                  jax.random.PRNGKey(5), masker=masker)

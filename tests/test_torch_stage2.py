@@ -72,10 +72,10 @@ def both():
     jcfg = JaxConfig.tiny(**NO_DROPOUT)
     jmodel = JaxLxmert(jcfg)
     b0 = _batches(jcfg, 1)[0]
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         input_ids=jnp.asarray(b0["input_ids"]),
-                         visual_feats=jnp.asarray(b0["visual_feats"]),
-                         visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), input_ids=jnp.asarray(b0["input_ids"]),
+        visual_feats=jnp.asarray(b0["visual_feats"]),
+        visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
     sp = (0.3, 0.3, 0.3, 0.7)
     jmasker = JaxMasker.create(
         jax_specs(jcfg.l_layers, jcfg.r_layers, jcfg.x_layers),

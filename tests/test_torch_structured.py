@@ -81,10 +81,10 @@ def both(request):
     jcfg = JaxConfig.tiny(**NO_DROPOUT)
     jmodel = JaxLxmert(jcfg)
     b0 = _batch(jcfg, 0)
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         input_ids=jnp.asarray(b0["input_ids"]),
-                         visual_feats=jnp.asarray(b0["visual_feats"]),
-                         visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), input_ids=jnp.asarray(b0["input_ids"]),
+        visual_feats=jnp.asarray(b0["visual_feats"]),
+        visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
     jmasker, masker = _maskers(kind)
     jsc = jstage2.Stage2Config(masker_type="lmh", learning_rate=LR,
                                total_steps=20, hidden_size=jcfg.hidden_size)

@@ -67,9 +67,10 @@ def _jax_and_torch(dtype_name, fused, with_mask, monkeypatch, seed=0):
     if not with_mask:
         del inputs["attention_mask"]
     jin = {k: jnp.asarray(v) for k, v in inputs.items()}
-    params = jmodel.init(jax.random.PRNGKey(seed), **jin)["params"]
-    jlogits, jpooled = jmodel.apply({"params": params}, deterministic=True,
-                                    **jin)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
+                                  **jin)["params"]
+    apply = jax.jit(jmodel.apply, static_argnames="deterministic")
+    jlogits, jpooled = apply({"params": params}, deterministic=True, **jin)
 
     model = build_visualbert(VisualBertConfig.tiny(
         dtype=getattr(torch, dtype_name)))
@@ -164,10 +165,9 @@ def both():
     jcfg = JaxConfig.tiny(**NO_DROPOUT)
     jmodel = JaxVisualBert(jcfg)
     b0 = _batches(jcfg, 1)[0]
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         input_ids=jnp.asarray(b0["input_ids"]),
-                         visual_embeds=jnp.asarray(b0["visual_embeds"])
-                         )["params"]
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), input_ids=jnp.asarray(b0["input_ids"]),
+        visual_embeds=jnp.asarray(b0["visual_embeds"]))["params"]
     jmasker = JaxMasker.create(jax_specs(jcfg.num_hidden_layers),
                                JaxSparsity.uniform(0.7),
                                controlled_init="magnitude")

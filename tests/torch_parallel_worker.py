@@ -176,13 +176,16 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     laid out as `inputs.pt`'s mesh (data x model), without and with ZeRO,
     from the state the test carried over from the JAX package; then
     through one window of the steps (`make_multi_step`), with structured
-    head gates from their own carried state, and in the scan layout
-    (`--scan_layers`) from its own. Rank 0 writes `result.pt`: per run the
-    losses, the whole trained leaves, the gathered Adam moments, the
+    head gates from their own carried state, in the scan layout
+    (`--scan_layers`) from its own, and with layer-wise KD
+    (`Stage2Config(use_kd=True, kd_mode="layerwise")`). Rank 0 writes
+    `result.pt`: per run the losses, the whole trained leaves, the
+    gathered Adam moments, the
     thresholds after a reset and the split leaves' keys (`tp`, None where
     nothing splits); the structured run also its language head mask and
     the whole weights' shapes. Every rank writes its scan run to
     `scan_rank<r>.pt`."""
+    import dataclasses
     import datetime
 
     import torch
@@ -214,9 +217,11 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     cfg = stage2.Stage2Config(**inp["stage2"])
     runs = {"plain": (False, False), "zero": (True, False),
             "window": (False, True), "structured": (False, False),
-            "scan": (False, False)}
+            "scan": (False, False), "kd": (False, False)}
     result = {}
     for name, (zero_on, window) in runs.items():
+        run_cfg = (dataclasses.replace(cfg, use_kd=True, kd_mode="layerwise")
+                   if name == "kd" else cfg)
         if name == "structured":
             masker = StructuredMasker.create(
                 specs, rates, controlled_init="magnitude",
@@ -231,8 +236,8 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
             masker = Masker.create(specs, rates, controlled_init="magnitude")
             carried = inp["carried"]
         model = stage2.lxmert_meta_model(config, scan=name == "scan")
-        state, tx = stage2.init_state(model, masker, carried["params"], cfg,
-                                      seed=0, device="cpu")
+        state, tx = stage2.init_state(model, masker, carried["params"],
+                                      run_cfg, seed=0, device="cpu")
         carry_into_state(state, carried)
         tp = tensor_parallel(mesh, state.frozen, masker.specs,
                              config.num_attention_heads, state.scores)
@@ -241,16 +246,18 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
             stage2.shard_state_tp(state, tp)
         zero = None
         if zero_on:
-            tx, zero = zero_optimizer(tx, stage2.trainable(state, cfg), mesh)
+            tx, zero = zero_optimizer(tx, stage2.trainable(state, run_cfg),
+                                      mesh)
             state.opt_state = zero.shard_state(state.opt_state)
         local = [pm.shard_batch(mesh, b) for b in inp["batches"]]
         if window:
-            multi = stage2.make_multi_step(model, masker, tx, cfg,
+            multi = stage2.make_multi_step(model, masker, tx, run_cfg,
                                            len(local), mesh, tp)
             state, losses, _ = multi(state, stack_window(local))
             losses = [float(x) for x in losses]
         else:
-            step = stage2.make_train_step(model, masker, tx, cfg, mesh, tp)
+            step = stage2.make_train_step(model, masker, tx, run_cfg, mesh,
+                                          tp)
             losses = [float(step(state, b)[1].loss) for b in local]
         state = stage2.make_threshold_reset(masker, tp)(state)
         opt = state.opt_state if zero is None else zero.gather_state(
