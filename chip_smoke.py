@@ -238,14 +238,15 @@ Phases (each one's seconds are logged):
               H'); one fp32 structured step at batch 8 with dropout on
               through the kernels against the plain versions
               (`_close_to`); timed bf16 structured steps at batch 256.
- 21a. stage2-flags  `prune_debias_vqa` at full LXMERT width, batch 256,
+ 21a. stage2-flags  `prune_debias_vqa` at full LXMERT width cut in
+              depth to `RESUME_DEPTH` (3/2/2 layers), batch 256,
               bf16, phase train's configuration over phase serve's files,
               8 steps each (resets at 4 and 8, ckpt_8, the export, no
               eval) from one --seed: (a) plain, (b) `--steps_per_dispatch
               4`, (c) `--scan_layers true`. (b)'s losses, mask.pt,
               classifier4masker.bin and ckpt_8 byte-identical to (a)'s;
               (c)'s losses and mask.pt too, and its per-layer thresholds
-              at every reset equal to (a)'s per matrix; 8 x (34 + 32)
+              at every reset equal to (a)'s per matrix; 8 x (13 + 11)
               launches in each; (c)'s ckpt_8 resumed (`--resume_from`)
               for one more step. Each run's synchronised step time (a
               window's over its 4 steps) and one threshold reset of each
@@ -255,8 +256,10 @@ Phases (each one's seconds are logged):
               16): a pretraining-format `.pth` written at 224 px (197
               positions) and read by `vqa_mplug.load_init_ckpt` (every
               weight equal to what was written, the positional embedding
-              after its resize to 577; bytes and host seconds); then
-              `vqa_mplug` on PNG files with `--augment true`, `--init_ckpt`
+              after its resize to 577; bytes and host seconds); then,
+              cut in depth as phase resume cuts mPLUG (launches counted
+              at that depth), `vqa_mplug` on PNG files with `--augment
+              true`, `--init_ckpt`
               that .pth, `--use_checkpoint true` and `--data_workers 4`
               (2 steps; the launches of checkpointed steps); `--opt
               adahessian` (2 steps, 0 attention launches), `--opt lamb`
@@ -287,17 +290,21 @@ Phases (each one's seconds are logged):
               a 2-step mask-mode mPLUG state at full width as a JAX
               `ckpt_final`, served by `serve_mplug --ckpt` (bf16 beam at
               batch 8, 16 requests) with the answers and launches of the
-              port's own ckpt_final of the same state; (c) a stage-3
-              (FT_randMask from phase stage1's .bin, batch 64) and a
-              VisualBERT stage-2 (batch 256) state written in the JAX
-              layout after 2 steps and resumed for 2 (launches, finite
-              losses). Every file is deleted at the end of the phase.
+              port's own ckpt_final of the same state, at 4 ViT, 2 text,
+              4 fusion (the stride layer kept) and 4 decoder layers
+              (`RESUME_VIT_DEPTH`, `RESUME_BERT_DEPTH`); (c) a stage-3
+              (FT_randMask from phase stage1's .bin, batch 64, 3/2/2
+              layers) and a VisualBERT stage-2 (batch 256, 4 layers)
+              state written in the JAX layout after 2 steps and resumed
+              for 2 (launches, finite losses). Every file is deleted at
+              the end of the phase.
  23a. parallel  the multi-device runtime (`crvqa_tpu_torch/parallel/`) on
-              the one card: `prune_debias_vqa` at `LxmertConfig()`, batch
-              256, 0.3/0.3/0.3 at zero rate 0.7, LMH, 8 steps (resets at 4
-              and 8, ckpt_8), and `vqa_mplug --mode mask` at
-              `MPlugConfig()`, batch 16, 4 steps (resets at 2 and 4,
-              ckpt_final), each run twice in fresh processes side by side
+              the one card: `prune_debias_vqa` at `LxmertConfig()` cut
+              to `RESUME_DEPTH`, batch 256, 0.3/0.3/0.3 at zero rate 0.7,
+              LMH, 8 steps (resets at 4 and 8, ckpt_8), and `vqa_mplug
+              --mode mask` at `MPlugConfig()` cut as phase resume cuts it,
+              batch 16, 4 steps (resets at 2 and 4, ckpt_final), each
+              run twice in fresh processes side by side
               on the card: plain, and with `--multihost true
               --coordinator_address 127.0.0.1:<free port> --num_processes
               1 --process_id 0 --mesh_data 1` (and `--zero_opt true` for
@@ -316,6 +323,15 @@ The device-time profiles of the serving and training phases (phases 7,
 8, 10, 13, 16-19, 21) profile their work twice under one profiler and
 keep the second pass (`_warm_profile`): a session loses what launches
 while CUPTI starts.
+
+Every timed path also logs its FLOPs and MFU (`_mfu`): a training step's
+`flops_per_step`, a serving request batch's `flops_per_batch`, counted
+on the `meta` device through the plain versions by
+`crvqa_tpu_torch.utils.mfu.count_flops` (the model's work, once per
+distinct step, `_flops`), `mfu` against the wall time of a step or the
+batch p50, and `busy_mfu` against the profiled device time where the
+step or batch was profiled; the peaks are `utils.mfu.peak_flops` of the
+card's name. The summary logs the seconds the counts took.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -337,10 +353,28 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# One NVIDIA H100 SXM (NVIDIA's data sheet; dense, at the 700 W limit).
+# One NVIDIA H100 SXM (NVIDIA's data sheet; at the 700 W limit). The peak
+# FLOP/s come from `crvqa_tpu_torch.utils.mfu.peak_flops` by the card's
+# name, which phase device reads (`_peak`); the rehearsal keeps this one.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12,   # tensor cores
-              "float32": 67e12}     # outside the tensor cores (no TF32)
+CARD = {"name": "NVIDIA H100 80GB HBM3"}
+# `_flops` keys of the steps several phases time: LXMERT stage 2 at the
+# canonical configuration and batch 256 (phase step, the plain and bf16-
+# residual variants, phase structured), stages 1 and 3 at batch 64 (stage
+# 3's constant masks leave its products stage 1's), mPLUG mask training at
+# batch 16 (phase mplug-step; adamw, checkpointed, lamb, adamp in
+# mplug-files)
+STAGE2_KEY = ("stage2", "full depth", 256)
+# ... and cut to RESUME_DEPTH (phases stage2-flags and resume)
+STAGE2_CUT_KEY = ("stage2", "RESUME_DEPTH", 256)
+STAGE1_KEY = ("stage1", "full depth", 64)
+MPLUG_STEP_KEY = ("mplug mask", "full depth", 16)
+# the stage-2 variants': the bf16 residual stores p in another type; KD's
+# two modes add the same teacher forward (their cosine losses are
+# elementwise); joint cross attention is counted on its own
+VARIANT_KEYS = {"plain": STAGE2_KEY, "p-bf16": STAGE2_KEY,
+                "kd-pooled": ("stage2 kd", "full depth", 256),
+                "kd-layerwise": ("stage2 kd", "full depth", 256)}
 
 SERVE_SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
 # the bf16 short kernels' edge points beside the main path's: one query and
@@ -416,6 +450,97 @@ class SmokeFailure(Exception):
     pass
 
 
+def _peak(dtype: str) -> float:
+    """The card's dense peak FLOP/s for products in `dtype` ("bfloat16" on
+    the tensor cores, "float32" outside them)."""
+    import torch
+
+    from crvqa_tpu_torch.utils.mfu import peak_flops
+
+    return peak_flops(CARD["name"], getattr(torch, dtype))
+
+
+# FLOP counts by the work they count, and the seconds all counts took
+_FLOPS: dict = {}
+COUNT_S = {"s": 0.0, "counts": 0}
+
+
+def _flops(key, fn, *args) -> int:
+    """`utils/mfu.count_flops(fn, *args)` on the `meta` device through the
+    plain versions (the model's work, whatever the kernels do), once per
+    `key` (None: every time). A key names what sets the products: the
+    model, its depth and widths, the batch and the kind of step; the
+    optimizer, the dtype, activation checkpointing, structured gates and
+    the residual's storage type set none (the counter counts products)."""
+    from crvqa_tpu_torch.utils.mfu import count_flops
+
+    if key is None or key not in _FLOPS:
+        t0 = time.monotonic()
+        flops = count_flops(fn, *args)
+        COUNT_S["s"] += time.monotonic() - t0
+        COUNT_S["counts"] += 1
+        if key is None:
+            return flops
+        _FLOPS[key] = flops
+    return _FLOPS[key]
+
+
+def _mfu(torch, fn, args, seconds: float, dtype: str, busy_ms=None,
+         per: str = "step", key=None) -> dict:
+    """`flops_per_<per>`: the FLOPs of one call fn(*args) (`_flops`, once
+    per `key`); `mfu`: those FLOPs over `seconds`, the wall time of a
+    call, over the card's peak for `dtype`; `busy_mfu`: over `busy_ms`,
+    the profiled device time of a call, where the call was profiled."""
+    from crvqa_tpu_torch.utils.mfu import mfu
+
+    flops = _flops(key, fn, *args)
+    dt = getattr(torch, dtype)
+    out = {f"flops_per_{per}": flops,
+           "mfu": mfu(flops, 1, seconds, CARD["name"], dt)}
+    if busy_ms:
+        out["busy_mfu"] = mfu(flops, 1, busy_ms / 1e3, CARD["name"], dt)
+    return out
+
+
+def _serve_inputs(torch, config, visualbert: bool = False, device="cpu",
+                  seed: int = 0) -> dict:
+    """One serving batch at `config`'s widths from `seed`: SERVE_BATCH
+    questions of 14 tokens and BOXES boxes of features (`visual_embeds`
+    for VisualBERT; 2048-d at full width)."""
+    g = torch.Generator().manual_seed(seed)
+    inputs = dict(input_ids=torch.randint(
+        1, min(1000, config.vocab_size), (SERVE_BATCH, 14), generator=g),
+        attention_mask=torch.ones(SERVE_BATCH, 14))
+    if visualbert:
+        inputs["visual_embeds"] = torch.randn(
+            SERVE_BATCH, BOXES, config.visual_embedding_dim, generator=g)
+    else:
+        inputs.update(visual_feats=torch.randn(
+            SERVE_BATCH, BOXES, config.visual_feat_dim, generator=g),
+            visual_pos=torch.rand(SERVE_BATCH, BOXES, config.visual_pos_dim,
+                                  generator=g))
+    return {k: v.to(device) for k, v in inputs.items()}
+
+
+def _forward_mfu(torch, config, build, inputs: dict, seconds: float,
+                 busy_ms=None) -> dict:
+    """`_mfu` of one inference forward of the model `build(config,
+    "meta")` on `inputs` (a serving batch: its FLOPs depend on the shapes
+    alone) in the config's dtype, `per` "batch"; counted once per model
+    and batch."""
+    model = build(config, "meta").eval()
+
+    def forward(inputs):
+        with torch.inference_mode():
+            model(**inputs)
+
+    dtype = "bfloat16" if config.dtype == torch.bfloat16 else "float32"
+    key = (build.__name__, repr(dataclasses.replace(config, dtype=None)),
+           tuple(inputs["input_ids"].shape))
+    return _mfu(torch, forward, (inputs,), seconds, dtype, busy_ms, "batch",
+                key)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -444,6 +569,9 @@ def phase_device(torch, rehearse: bool) -> dict:
     smi_line = smi.stdout.strip().splitlines()[0]
     log(f"device: {name} (count {count}); nvidia-smi: {smi_line}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    CARD["name"] = name
+    log(f"device: dense peak {_peak('bfloat16') / 1e12:.0f} TFLOP/s bf16, "
+        f"{_peak('float32') / 1e12:.0f} fp32 (utils/mfu.peak_flops)")
     return {"name": name, "count": count, "smi": smi_line}
 
 
@@ -609,7 +737,7 @@ def _bound_terms(b, sq, sk, dtype, heads=12):
     d = heads * 64
     nbytes = item * b * d * (2 * sq + 2 * sk) + 4 * b * sk
     flops = 4 * b * heads * sq * sk * 64
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / _peak(dtype)
 
 
 def _bound(t_bytes, t_ops):
@@ -746,7 +874,7 @@ def _train_bound_terms(b, sq, sk, dtype, kind, heads=12, resid_item=4):
         nbytes = item * b * d * (2 * sq + 2 * sk) + item * b * d * (sq + 2 * sk)
         nbytes += resid if kind == "stored" else 4 * b * sk
         flops = (8 if kind == "stored" else 10) * b * h * sq * sk * 64
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / _peak(dtype)
 
 
 def _max_err(torch, got, want) -> float:
@@ -1295,13 +1423,27 @@ def _plain_attention(q, k, v, bias, num_heads, head_size, rate=0.0, seed=0,
                                               head0)[0]
 
 
+def _serve_mfu(torch, config, build, summaries, tag: str,
+               visualbert: bool = False) -> None:
+    """Each serve run's FLOPs per request batch and MFU against its batch
+    p50 (`_forward_mfu`, the run's dtype), into its summary."""
+    for summary in summaries:
+        dt = getattr(torch, summary["dtype"])
+        summary.update(_forward_mfu(
+            torch, dataclasses.replace(config, dtype=dt), build,
+            _serve_inputs(torch, config, visualbert),
+            summary["batch_ms_p50"] / 1e3))
+        log(f"{tag}: {summary['tag']}: " + json.dumps({k: summary[k] for k in (
+            "flops_per_batch", "mfu", "batch_ms_p50")}))
+
+
 def phase_serve(torch, device, rehearse: bool, seed: int, keep_dir: str
                 ) -> dict:
     """Full-width LXMERT serving (module docstring, phase 6); the
     fabricated files stay in `keep_dir`/serve for the VisualBERT phases."""
     import numpy as np
 
-    from crvqa_tpu_torch.models import LxmertConfig, layers
+    from crvqa_tpu_torch.models import LxmertConfig, build_lxmert, layers
     from crvqa_tpu_torch.ops.fused_attention import fused_attention
 
     config = LxmertConfig.tiny() if rehearse else LxmertConfig()
@@ -1351,6 +1493,8 @@ def phase_serve(torch, device, rehearse: bool, seed: int, keep_dir: str
     check(fused_attention.launches == 0, "plain run launched the kernel")
     log("serve: " + json.dumps(s_plain))
 
+    _serve_mfu(torch, config, build_lxmert, (s_bf16, s_fp32, s_plain),
+               "serve")
     same = sum(a["answer"] == b["answer"] for a, b in zip(fp32, plain))
     dprob = max(abs(a["prob"] - b["prob"]) for a, b in zip(fp32, plain))
     log(f"serve: fp32 kernel vs fp32 plain: {same}/{len(fp32)} answers "
@@ -1390,15 +1534,14 @@ def phase_profile(torch, device, seed: int) -> dict:
     config = LxmertConfig(dtype=torch.bfloat16)
     model = build_lxmert(config, "cpu",
                          torch.Generator().manual_seed(seed)).to(device).eval()
-    g = torch.Generator().manual_seed(seed)
-    inputs = dict(
-        input_ids=torch.randint(1, 1000, (SERVE_BATCH, 14), generator=g
-                                ).to(device),
-        visual_feats=torch.randn(SERVE_BATCH, BOXES, 2048, generator=g
-                                 ).to(device),
-        visual_pos=torch.rand(SERVE_BATCH, BOXES, 4, generator=g).to(device),
-        attention_mask=torch.ones(SERVE_BATCH, 14, device=device))
-    return _profile_forward(torch, model, inputs, "profile")
+    inputs = _serve_inputs(torch, config, device=device, seed=seed)
+    out = _profile_forward(torch, model, inputs, "profile")
+    if out["measured"]:
+        out.update(_forward_mfu(torch, config, build_lxmert, inputs,
+                                out["wall_ms"] / 1e3, out["busy_ms"]))
+        log("profile: " + json.dumps({k: out[k] for k in (
+            "flops_per_batch", "mfu", "busy_mfu")}))
+    return out
 
 
 def _profile_forward(torch, model, inputs, tag: str, forwards: int = 5
@@ -1566,6 +1709,33 @@ def _profile_categories(torch, prof, wall_ms: float, calls: int) -> dict:
             "top": top}
 
 
+def _mplug_batch_mfu(torch, run_batch, args, images, requests,
+                     batch_ms: float) -> dict:
+    """`flops_per_batch` of one request batch of the server `run_batch`
+    (its `model_fn` on the first request's row of a device batch, counted
+    on `meta` once per serving settings and model size, times the batch:
+    the beam search's and the ranking's loops and top-k have fixed sizes,
+    so their FLOPs are linear in the batch) and its `mfu` over
+    `batch_ms`."""
+    import numpy as np
+
+    from crvqa_tpu_torch.utils.mfu import mfu
+
+    first = requests[:1]
+    batch = run_batch.device_batch(
+        [r["question"] for r in first],
+        np.stack([images[r["image"]] for r in first]))
+    key = ("mplug-serve", args.eval_method, args.k_test, args.beam_size,
+           args.max_answer_len,
+           sum(t.numel() for t in run_batch.state.params.values()))
+    flops = args.serve_batch_size * _flops(
+        key, run_batch.model_fn, run_batch.state,
+        {k: v[:1] for k, v in batch.items()})
+    return {"flops_per_batch": flops,
+            "mfu": mfu(flops, 1, batch_ms / 1e3, CARD["name"],
+                       getattr(torch, args.dtype))}
+
+
 def _serve_mplug(torch, root, images, args, device, tag, expect,
                  plain=False, profile=False) -> tuple[list, dict]:
     """Build the server (`serve_mplug.build_server` on `images`), warm it
@@ -1621,6 +1791,8 @@ def _serve_mplug(torch, root, images, args, device, tag, expect,
                "requests_per_s": stats["requests"] / stats["wall_s"],
                "build_s": build_s, "warm_up_s": warm_s,
                "launches": launches}
+    summary.update(_mplug_batch_mfu(torch, run_batch, args, images,
+                                    requests, summary["batch_ms_p50"]))
     if profile and on_card:
         first = requests[:args.serve_batch_size]
         run_batch(first)
@@ -1630,6 +1802,9 @@ def _serve_mplug(torch, root, images, args, device, tag, expect,
         summary["profile"] = prof_out = _profile_categories(
             torch, prof, wall_ms, 1)
         if prof_out["measured"]:
+            summary["busy_mfu"] = _mplug_batch_mfu(
+                torch, run_batch, args, images, requests,
+                prof_out["busy_ms"])["mfu"]
             log(f"mplug-profile: one {args.dtype} batch-"
                 f"{args.serve_batch_size} beam request batch: host wall "
                 f"{prof_out['wall_ms']:.3f} ms (profiler on), device busy "
@@ -2067,6 +2242,9 @@ def phase_step(torch, device, rehearse: bool, seed: int,
     if not rehearse:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out["profile"] = _profile_steps(torch, lambda: step(state, batch))
+    out.update(_mfu(torch, step, (state, batch), dt / TIMED_STEPS,
+                    "bfloat16", out.get("profile", {}).get("busy_ms"),
+                    key=STAGE2_KEY))
     log("step: " + json.dumps(out))
     if keep is not None:
         keep["bf16"] = (model, masker, cfg, state, tx, batch)
@@ -2212,6 +2390,7 @@ def phase_stage2_variants(torch, device, rehearse: bool, seed: int,
 
     from crvqa_tpu_torch.models import LxmertConfig, layers
     from crvqa_tpu_torch.train import stage2
+    from crvqa_tpu_torch.utils.mfu import mfu
 
     sync = (lambda: None) if rehearse else torch.cuda.synchronize
     on_card = not rehearse
@@ -2244,6 +2423,8 @@ def phase_stage2_variants(torch, device, rehearse: bool, seed: int,
                                             f"launches {launches} != {want}")
                     res["launches"] = launches
                     res["losses"].append(float(m.loss))
+                    res["flops_per_step"] = _flops(
+                        VARIANT_KEYS.get(name), step, state, batch)
                 for _ in range(WARMUP_STEPS):
                     step(state, batch)
                 sync()
@@ -2254,6 +2435,8 @@ def phase_stage2_variants(torch, device, rehearse: bool, seed: int,
                 dt = time.monotonic() - t0
             res["losses"] += [float(x) for x in losses]
             res["step_ms"].append(1e3 * dt / VARIANT_STEPS)
+            res.setdefault("mfu", []).append(mfu(
+                res["flops_per_step"], VARIANT_STEPS, dt, CARD["name"]))
             check(all(np.isfinite(res["losses"])),
                   f"stage2-variants {name}: losses {res['losses']}")
     out["launches"] = total
@@ -2261,7 +2444,9 @@ def phase_stage2_variants(torch, device, rehearse: bool, seed: int,
     log("stage2-variants: synchronised step ms at batch "
         f"{TRAIN_BATCH} (bf16; rounds 1 and 2): " + ", ".join(
             f"{k} {v['step_ms'][0]:.2f} / {v['step_ms'][1]:.2f} "
-            f"({min(v['step_ms']) / plain_ms:.3f}x plain's best)"
+            f"({min(v['step_ms']) / plain_ms:.3f}x plain's best; "
+            f"{v['flops_per_step'] / 1e12:.3f} TFLOP, MFU "
+            f"{v['mfu'][0]:.4f} / {v['mfu'][1]:.4f})"
             for k, v in out["variants"].items()))
     del model, state, tx, batch, step
     _free(torch, rehearse)
@@ -2357,7 +2542,7 @@ def _midseq_bwd_bound_terms(b, sq, sk, dtype):
     d = 12 * 64
     nbytes = item * b * d * (3 * sq + 4 * sk) + 4 * b * sk
     flops = 10 * b * 12 * sq * sk * 64
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / _peak(dtype)
 
 
 def phase_midseq_bwd_kernel(torch, device, rehearse: bool, seed: int
@@ -2435,23 +2620,36 @@ def phase_midseq_bwd_kernel(torch, device, rehearse: bool, seed: int
 
 
 def _mplug_train_launches(steps, eval_batches=0, mode="mask", distill=False,
-                          on_card=True, checkpoint=False) -> dict:
+                          on_card=True, checkpoint=False, config=None
+                          ) -> dict:
     """Launches of `steps` mPLUG train steps and `eval_batches` beam
-    batches (`MIDSEQ_FWD_PER_STEP`, `MIDSEQ_BWD_PER_STEP`, `SHORT_PER_STEP`;
-    18 mid-length and 11 short per encoded eval batch). `checkpoint`
-    (`--use_checkpoint`): every attention of a training forward sits in a
-    checkpointed layer, so its forward runs again in the backward."""
-    fwd = sum(MIDSEQ_FWD_PER_STEP.values())
-    bwd = fwd if mode == "full" else sum(MIDSEQ_BWD_PER_STEP.values())
+    batches at the depths of `config` (`MPlugConfig()` by default): a
+    mid-length forward per ViT block, fusion and decoder layer (the
+    decoder's cross attention at (40, 602); `MIDSEQ_FWD_PER_STEP` at full
+    depth), the backward without the first ViT block's in mask mode
+    (`MIDSEQ_BWD_PER_STEP`), and the encode's of `_mplug_encode_launches`
+    per eval batch, its short ones per step (`SHORT_PER_STEP`).
+    `checkpoint` (`--use_checkpoint`): every attention of a training
+    forward sits in a checkpointed layer, so its forward runs again in
+    the backward."""
+    if config is None:
+        from crvqa_tpu_torch.models.mplug import MPlugConfig
+
+        config = MPlugConfig()
+    per = _mplug_encode_launches(config)
+    encode, short = per["midseq_attention_fwd"], per["fused_attention_fwd"]
+    fwd = encode + config.bert.text_decode_layers
+    bwd = fwd if mode == "full" else fwd - 1
     twin = steps if distill else 0  # the twins' forward, eval mode
     runs = 2 if checkpoint else 1
     return _launch_counts(
         on_card,
-        midseq_attention_fwd=fwd * (runs * steps + twin) + 18 * eval_batches,
+        midseq_attention_fwd=(fwd * (runs * steps + twin)
+                              + encode * eval_batches),
         midseq_attention_bwd=bwd * steps,
-        fused_attention_fwd=SHORT_PER_STEP * (twin + eval_batches),
-        fused_attention_fwd_train=SHORT_PER_STEP * runs * steps,
-        fused_attention_bwd_stored=SHORT_PER_STEP * steps)
+        fused_attention_fwd=short * (twin + eval_batches),
+        fused_attention_fwd_train=short * runs * steps,
+        fused_attention_bwd_stored=short * steps)
 
 
 def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
@@ -2479,10 +2677,20 @@ def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
                     "--logging_steps", "2", "--save_steps", "6",
                     *extra] + (["--tiny"] if rehearse else [])
 
-        def run(tag, epochs, *extra, **expect):
+        def run(tag, epochs, *extra, cut=False, **expect):
+            """The CLI; with `cut` (and at full width) cut in depth as
+            phase resume cuts it."""
             t0 = time.monotonic()
-            summary, launches = _run_counted(lambda: vqa_mplug.main(
-                argv(tag, epochs, *extra)))
+            with contextlib.ExitStack() as stack:
+                if cut and not rehearse:
+                    for name, depth in (("ViTConfig", RESUME_VIT_DEPTH), (
+                            "MPlugBertConfig", RESUME_BERT_DEPTH)):
+                        stack.enter_context(_cut_depth(vqa_mplug, name,
+                                                       depth))
+                config = vqa_mplug.build_model(vqa_mplug.build_parser(
+                    ).parse_args(argv(tag, epochs, *extra)))[0]
+                summary, launches = _run_counted(lambda: vqa_mplug.main(
+                    argv(tag, epochs, *extra)))
             wall_s = time.monotonic() - t0
             losses = summary["losses"]
             log(f"mplug-train {tag}: {len(losses)} steps at batch {bs} in "
@@ -2492,7 +2700,8 @@ def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
                 f"launches {launches}")
             check(all(np.isfinite(losses)),
                   f"mplug-train {tag}: losses {losses}")
-            want = _mplug_train_launches(on_card=on_card, **expect)
+            want = _mplug_train_launches(on_card=on_card, config=config,
+                                         **expect)
             if rehearse:  # tiny widths: every attention is short or eager
                 want = {k: 0 for k in want}
             check(launches == want,
@@ -2548,12 +2757,12 @@ def phase_mplug_train(torch, device, rehearse: bool, seed: int) -> dict:
                                  "ckpt", beam)
         out["served"] = served
 
-        # the other training modes, fewer steps
+        # the other training modes, fewer steps, cut in depth
         half = ("--synthetic", str(2 * bs), "--save_steps", "0")
         out["full"] = run("full", 1, "--do_train", "--mode", "full", *half,
-                          steps=2, mode="full")
+                          cut=True, steps=2, mode="full")
         out["distill"] = run("distill", 1, "--do_train", "--distill", "true",
-                             *half, steps=2, distill=True)
+                             *half, cut=True, steps=2, distill=True)
     return out
 
 
@@ -2641,6 +2850,9 @@ def phase_mplug_step(torch, device, rehearse: bool, seed: int) -> dict:
             for t in prof_out["top"]:
                 log(f"mplug-step profile: {t['ms']:9.4f} ms {t['calls']:5d} "
                     f"calls  {t['name'][:90]}")
+    out.update(_mfu(torch, step, (state, batch), dt / TIMED_STEPS,
+                    "bfloat16", out.get("profile", {}).get("busy_ms"),
+                    key=MPLUG_STEP_KEY))
     log("mplug-step: " + json.dumps(
         {k: v for k, v in out.items() if k != "profile"}))
     del model, state, batch, step
@@ -2796,8 +3008,17 @@ def phase_mplug_files(torch, device, rehearse: bool, seed: int) -> dict:
                     + (["--tiny"] if rehearse else []))
 
         def run(tag, argv, **expect):
+            """The CLI cut in depth as phase resume cuts it."""
             t0 = time.monotonic()
-            summary, launches = _run_counted(lambda: vqa_mplug.main(argv))
+            with contextlib.ExitStack() as cut:
+                if not rehearse:
+                    for name, depth in (("ViTConfig", RESUME_VIT_DEPTH), (
+                            "MPlugBertConfig", RESUME_BERT_DEPTH)):
+                        cut.enter_context(_cut_depth(vqa_mplug, name, depth))
+                config = vqa_mplug.build_model(
+                    vqa_mplug.build_parser().parse_args(argv))[0]
+                summary, launches = _run_counted(
+                    lambda: vqa_mplug.main(argv))
             wall_s = time.monotonic() - t0
             losses = summary["losses"]
             log(f"mplug-files {tag}: {len(losses)} steps at batch {bs} in "
@@ -2805,7 +3026,8 @@ def phase_mplug_files(torch, device, rehearse: bool, seed: int) -> dict:
                 f"{[round(x, 4) for x in losses]}; launches {launches}")
             check(len(losses) == MPLUG_OPT_STEPS and all(np.isfinite(losses)),
                   f"mplug-files {tag}: losses {losses}")
-            want = _mplug_train_launches(on_card=on_card, **expect)
+            want = _mplug_train_launches(on_card=on_card, config=config,
+                                         **expect)
             if rehearse:
                 want = {k: 0 for k in want}
             check(launches == want,
@@ -2926,6 +3148,9 @@ def _mplug_timed_steps(torch, device, rehearse, seed, out,
                "losses": losses, "launches": launches,
                "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                             if on_card else None)}
+        row.update(_mfu(torch, step, (state, batch_t),
+                        dt / MPLUG_TIMED["steps"], "bfloat16",
+                        key=None if adahessian else MPLUG_STEP_KEY))
         timed[tag] = row
         log(f"mplug-files timed {tag}: " + json.dumps(row))
         check(all(np.isfinite(losses)), f"mplug-files {tag}: {losses}")
@@ -3019,7 +3244,7 @@ def _mm_bound_terms(m, k, n, x_item, w_item, g_item=4) -> dict:
               + f32 * k * n,
               "ds_bf16g": x_item * m * k + 2 * m * n + w_item * k * n
               + f32 * k * n}
-    ops_ms = 1e3 * 2 * m * k * n / PEAK_FLOPS["bfloat16"]
+    ops_ms = 1e3 * 2 * m * k * n / _peak("bfloat16")
     out = {kind: (1e3 * b / HBM_BYTES_PER_S, ops_ms)
            for kind, b in nbytes.items()}
     out["pass"] = (1e3 * (w_item + f32 + 2) * k * n / HBM_BYTES_PER_S, 0.0)
@@ -3208,13 +3433,18 @@ def _device_kernel(torch, e) -> bool:
 def _warm_profile(torch, fn):
     """(profile, wall ms of the profiled pass) of `fn()` (which ends in a
     synchronise) run twice under one profiler, the first pass its warm-up,
-    traced and discarded: a session on the H100 can lose the kernels
-    CUPTI misses while it starts (the first launches, or all of them)."""
+    traced and discarded, after `utils.profiling.warm_session`'s tiny
+    kernels: a session on the H100 can lose the kernels CUPTI misses while
+    it starts (the first launches, or all of them; a fresh process's
+    masked-matmul profile once kept 5 of its 7)."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from crvqa_tpu_torch.utils.profiling import warm_session
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
+        warm_session(torch.device("cuda"))
         fn()
         prof.step()
         t0 = time.monotonic()
@@ -3365,7 +3595,7 @@ def phase_head_compact_kernel(torch, device, rehearse: bool, seed: int
             item = x.element_size()
             t_bytes = 1e3 * (item * (m * k + kept * hs * k + m * heads * hs)
                              + 4 * n_keep) / HBM_BYTES_PER_S
-            t_ops = 1e3 * 2 * m * k * kept * hs / PEAK_FLOPS["bfloat16"]
+            t_ops = 1e3 * 2 * m * k * kept * hs / _peak("bfloat16")
             row = {"case": tag, "dtype": dtype, "m": m, "k": k,
                    "heads": heads, "kept": kept, "n_keep": n_keep,
                    "max_abs_err": err, "masked_columns_zero": zero,
@@ -3475,10 +3705,12 @@ S3_SYNTHETIC = 256       # 4 steps, 4 eval batches
 S3_ZERO_RATE = 0.5       # the structured run's head and FFN masks
 
 
-def _timed_steps(torch, step, state, batch, rehearse, tag) -> dict:
+def _timed_steps(torch, step, state, batch, rehearse, tag, key=None
+                 ) -> dict:
     """WARMUP_STEPS, then TIMED_STEPS timed (host clock to a synchronise)
     and two profiled steps of fn(state, batch) on one batch kept on the
-    card."""
+    card (bf16); the step's FLOPs (once per `key`), MFU and busy MFU
+    (`_mfu`)."""
     import numpy as np
 
     sync = (lambda: None) if rehearse else torch.cuda.synchronize
@@ -3500,6 +3732,9 @@ def _timed_steps(torch, step, state, batch, rehearse, tag) -> dict:
     if not rehearse:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out["profile"] = _profile_steps(torch, lambda: step(state, batch))
+    out.update(_mfu(torch, step, (state, batch), dt / TIMED_STEPS,
+                    "bfloat16", out.get("profile", {}).get("busy_ms"),
+                    key=key))
     log(f"{tag}: " + json.dumps({k: v for k, v in out.items()
                                  if k != "profile"}))
     return out
@@ -3596,7 +3831,8 @@ def phase_stage1(torch, device, rehearse: bool, seed: int, keep_dir: str
     model, cfg, state, tx, batch = _stage1_setup(torch, bf16, device, seed,
                                                  S1_BATCH)
     step = stage1.make_train_step(model, cfg, tx)
-    timed = _timed_steps(torch, step, state, batch, rehearse, "stage1-step")
+    timed = _timed_steps(torch, step, state, batch, rehearse, "stage1-step",
+                         STAGE1_KEY)
     del model, state, tx, batch, step
     _free(torch, rehearse)
 
@@ -3824,7 +4060,7 @@ def phase_stage3(torch, device, rehearse: bool, seed: int, stage1_bin: str,
         params=masker.prune_params(params, masks), masks=masks)
     out["trained"]["timed"] = _timed_steps(
         torch, stage1.make_train_step(model, cfg, tx), state, batch,
-        rehearse, "stage3-step trained")
+        rehearse, "stage3-step trained", STAGE1_KEY)
     del model, state, tx, batch, masks
     _free(torch, rehearse)
     params, nh = compaction.compact_lang_heads(params, np.load(head_npy),
@@ -4102,6 +4338,8 @@ def phase_visualbert_serve(torch, device, rehearse: bool, seed: int,
     log("visualbert-serve: " + json.dumps(s_plain))
     check(plain_launches == _launch_counts(False),
           "visualbert-serve: the plain run launched a kernel")
+    _serve_mfu(torch, config, build_visualbert, (s_bf16, s_fp32, s_plain),
+               "visualbert-serve", visualbert=True)
     same = sum(a["answer"] == b["answer"] for a, b in zip(fp32, plain))
     dprob = max(abs(a["prob"] - b["prob"]) for a, b in zip(fp32, plain))
     agree = sum(a["answer"] == b["answer"] for a, b in zip(bf16, plain))
@@ -4116,18 +4354,17 @@ def phase_visualbert_serve(torch, device, rehearse: bool, seed: int,
            "bf16_agreement": agree / len(bf16)}
     if not rehearse:
         # device time by kernel of the served model's forward alone
+        bf16 = dataclasses.replace(config, dtype=torch.bfloat16)
         model = build_visualbert(
-            dataclasses.replace(config, dtype=torch.bfloat16), "cpu",
-            torch.Generator().manual_seed(seed)).to(device).eval()
-        g = torch.Generator().manual_seed(seed)
-        inputs = dict(
-            input_ids=torch.randint(1, 1000, (SERVE_BATCH, 14), generator=g
-                                    ).to(device),
-            visual_embeds=torch.randn(SERVE_BATCH, BOXES, 2048, generator=g
-                                      ).to(device),
-            attention_mask=torch.ones(SERVE_BATCH, 14, device=device))
-        out["profile"] = _profile_forward(torch, model, inputs,
-                                          "visualbert-serve profile")
+            bf16, "cpu", torch.Generator().manual_seed(seed)).to(device).eval()
+        inputs = _serve_inputs(torch, bf16, True, device, seed)
+        out["profile"] = prof = _profile_forward(torch, model, inputs,
+                                                 "visualbert-serve profile")
+        if prof["measured"]:
+            prof.update(_forward_mfu(torch, bf16, build_visualbert, inputs,
+                                     prof["wall_ms"] / 1e3, prof["busy_ms"]))
+            log("visualbert-serve profile: " + json.dumps({k: prof[k] for k in (
+                "flops_per_batch", "mfu", "busy_mfu")}))
         del model, inputs
         _free(torch, rehearse)
     return out
@@ -4704,7 +4941,7 @@ def phase_structured(torch, device, rehearse: bool, seed: int,
         fused_attention_bwd_stored=per_bwd),
         f"structured-step: one step's launches {step_launches}")
     out["timed"] = _timed_steps(torch, step, state, batch, rehearse,
-                                "structured-step")
+                                "structured-step", STAGE2_KEY)
     # one threshold reset of this state (the CLI's, every
     # --logging_steps), on the host clock to a synchronise
     sync = (lambda: None) if rehearse else torch.cuda.synchronize
@@ -4743,12 +4980,15 @@ class _FlagsProbe:
                       stage2.make_threshold_reset)
         self.calls: list[tuple[str, float]] = []
         self.resets: list[dict] = []
+        self.first = None  # (kind, fn, args) of the first call
         self._inside = 0
 
     def _timed(self, kind, fn):
         def run(*a, **kw):
             if self._inside:
                 return fn(*a, **kw)
+            if self.first is None:
+                self.first = (kind, fn, a)
             self._inside += 1
             self.sync()
             t0 = time.monotonic()
@@ -4794,16 +5034,34 @@ class _FlagsProbe:
                for kind, dt in self.calls]
         return 1e3 * float(np.median(per[1:] if len(per) > 1 else per))
 
+    def flops_per_step(self, key=None) -> int:
+        """The FLOPs of a step on the first call's state and batch
+        (`_flops`, once per `key`)."""
+        _, fn, args = self.first
+        return _flops(key, fn, *args)
+
 
 def phase_stage2_flags(torch, device, rehearse: bool, seed: int,
                        data_root: str, keep_dir: str) -> dict:
     """The stage-2 CLI's window and scan layout at full width (module
-    docstring, phase 21a): (a) the plain run, (b) `--steps_per_dispatch
-    4`, (c) `--scan_layers true`, 8 steps each from one --seed; (b)'s
-    artifacts and losses byte-identical to (a)'s, (c)'s mask.pt and
-    per-layer thresholds at every reset equal to (a)'s, the launches of
-    all three 8 x (34 + 32); (c)'s ckpt_8 resumed for one more step; each
-    run's step time and one threshold reset of each layout, timed."""
+    docstring, phase 21a), cut in depth to `RESUME_DEPTH`: (a) the plain
+    run, (b) `--steps_per_dispatch 4`, (c) `--scan_layers true`, 8 steps
+    each from one --seed; (b)'s artifacts and losses byte-identical to
+    (a)'s, (c)'s mask.pt and per-layer thresholds at every reset equal to
+    (a)'s, the launches of all three 8 x a step's; (c)'s ckpt_8 resumed
+    for one more step; each run's step time and one threshold reset of
+    each layout, timed."""
+    from crvqa_tpu_torch.cli import prune_debias_vqa
+
+    depth = RESUME_DEPTH_TINY if rehearse else RESUME_DEPTH
+    with _cut_depth(prune_debias_vqa, "LxmertConfig", depth):
+        return _stage2_flags_at(torch, device, rehearse, seed, data_root,
+                                keep_dir, depth)
+
+
+def _stage2_flags_at(torch, device, rehearse, seed, data_root, keep_dir,
+                     depth) -> dict:
+    """`phase_stage2_flags` with the CLI's config cut to `depth`."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import prune_debias_vqa
@@ -4813,7 +5071,8 @@ def phase_stage2_flags(torch, device, rehearse: bool, seed: int,
     from crvqa_tpu_torch.train import stage2
 
     on_card = not rehearse
-    config = LxmertConfig.tiny() if rehearse else LxmertConfig()
+    config = dataclasses.replace(
+        LxmertConfig.tiny() if rehearse else LxmertConfig(), **depth)
     fwd_mult, bwd_mult = launch_mult(config)
     per_fwd, per_bwd = sum(fwd_mult.values()), sum(bwd_mult.values())
     steps = N_TRAIN // TRAIN_BATCH
@@ -4851,6 +5110,7 @@ def phase_stage2_flags(torch, device, rehearse: bool, seed: int,
 
     from crvqa_tpu_torch.masking.masker import Masker
     from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.utils.mfu import mfu
 
     rates = ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7)
     dims = (config.l_layers, config.r_layers, config.x_layers)
@@ -4878,11 +5138,19 @@ def phase_stage2_flags(torch, device, rehearse: bool, seed: int,
                      "calls": [(k, round(1e3 * dt, 3))
                                for k, dt in probe.calls],
                      "resets": len(probe.resets),
-                     "reset_ms": reset_ms, "layout": layout}
+                     "reset_ms": reset_ms, "layout": layout,
+                     # a window of N counts N steps
+                     # (tests/test_torch_mfu.py): the plain step's count
+                     "flops_per_step": probe.flops_per_step(
+                         None if name == "scan" else STAGE2_CUT_KEY)}
+        out[name]["mfu"] = mfu(out[name]["flops_per_step"], 1,
+                               out[name]["step_ms"] / 1e3, CARD["name"])
         out[name]["thresholds"] = probe.resets
         log(f"stage2-flags {name}: {len(losses)} steps in {wall_s:.1f} s "
             f"(set-up and the checkpoint included); synchronised step "
-            f"{out[name]['step_ms']:.2f} ms; a threshold reset of the "
+            f"{out[name]['step_ms']:.2f} ms, "
+            f"{out[name]['flops_per_step'] / 1e12:.3f} TFLOP, MFU "
+            f"{out[name]['mfu']:.4f}; a threshold reset of the "
             f"{layout} layout {reset_ms:.2f} ms; losses "
             f"{[round(x, 4) for x in losses]}; launches "
             f"{ {k: v for k, v in launches.items() if v} }")
@@ -5005,6 +5273,14 @@ RESUME_LR = 5e-5  # the CLI's default: the parity tolerance is 2 * lr * steps
 # (a rehearsal cuts the tiny config's 2 language layers to 1)
 RESUME_DEPTH = dict(l_layers=3, r_layers=2, x_layers=2)
 RESUME_DEPTH_TINY = dict(l_layers=1)
+# phase resume's mPLUG (full width): 4 ViT blocks, 2 text, 4 fusion (the
+# stride layer at 3 kept: one (602, 602) joint attention) and 4 decoder
+# layers; its VisualBERT: 4 layers
+RESUME_VIT_DEPTH = dict(layers=4)
+RESUME_BERT_DEPTH = dict(text_encoder_layers=2, fusion_layers=4,
+                         text_decode_layers=4)
+RESUME_VISUALBERT_DEPTH = dict(num_hidden_layers=4)
+RESUME_VISUALBERT_DEPTH_TINY = dict(num_hidden_layers=1)
 NO_DROPOUT = ("--hidden_dropout_prob", "0", "--attention_probs_dropout_prob",
               "0", "--classifier_dropout", "0")
 
@@ -5059,21 +5335,21 @@ def _add_launches(total: dict, launches: dict) -> None:
 
 
 @contextlib.contextmanager
-def _lxmert_depth(module, depth: dict):
-    """Inside the block `module.LxmertConfig` (a CLI's) builds its
-    configs, `.tiny` ones too, cut to `depth`."""
-    from crvqa_tpu_torch.models import LxmertConfig
+def _cut_depth(module, name: str, depth: dict):
+    """Inside the block `module.<name>` (the config class a CLI builds its
+    configs from) builds them, `.tiny` ones too, cut to `depth`."""
+    cls = getattr(module, name)
 
     def cut(*args, **kwargs):
-        return dataclasses.replace(LxmertConfig(*args, **kwargs), **depth)
+        return dataclasses.replace(cls(*args, **kwargs), **depth)
 
     cut.tiny = lambda *args, **kwargs: dataclasses.replace(
-        LxmertConfig.tiny(*args, **kwargs), **depth)
-    module.LxmertConfig = cut
+        cls.tiny(*args, **kwargs), **depth)
+    setattr(module, name, cut)
     try:
         yield
     finally:
-        module.LxmertConfig = LxmertConfig
+        setattr(module, name, cls)
 
 
 def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
@@ -5082,7 +5358,7 @@ def _resume_stage2(torch, device, rehearse, seed, root, total) -> dict:
     from crvqa_tpu_torch.cli import prune_debias_vqa
 
     depth = RESUME_DEPTH_TINY if rehearse else RESUME_DEPTH
-    with _lxmert_depth(prune_debias_vqa, depth):
+    with _cut_depth(prune_debias_vqa, "LxmertConfig", depth):
         return _resume_stage2_at(torch, device, rehearse, seed, root, total,
                                  depth)
 
@@ -5260,12 +5536,42 @@ def _resume_timed_bf16(torch, device, rehearse, seed, masker, params,
     losses += [float(x) for x in timed]
     check(state.step == 2 + 6 and all(np.isfinite(losses)),
           f"resume stage2 bf16: step {state.step}, losses {losses}")
-    return {"bf16_losses": losses, "bf16_step_ms": step_ms}
+    out = {"bf16_losses": losses, "bf16_step_ms": step_ms}
+    out.update({f"bf16_{k}": v for k, v in _mfu(
+        torch, step_fn, (state, batch), step_ms / 1e3, "bfloat16",
+        key=STAGE2_CUT_KEY).items()})
+    return out
+
+
+def _mplug_encode_launches(config) -> dict:
+    """Attention launches per encoded mPLUG batch at `config`: a mid-length
+    one per ViT block and per fusion layer ((25, 577) cross, or (602,
+    602) joint at a stride layer), a short one per text layer and per
+    fusion layer that is no stride layer (18 and 11 at full depth)."""
+    c = config.bert
+    strides = sum(1 for rel in range(1, c.fusion_layers)
+                  if rel % c.stride_layer == 0)
+    return {"midseq_attention_fwd": config.vit.layers + c.fusion_layers,
+            "fused_attention_fwd": (c.text_encoder_layers + c.fusion_layers
+                                    - strides)}
 
 
 def _resume_mplug(torch, device, rehearse, seed, root, total) -> dict:
     """Phase resume (b): an mPLUG mask-mode state as a JAX ckpt_final,
-    served by serve_mplug --ckpt beside the port's own ckpt_final."""
+    served by serve_mplug --ckpt beside the port's own ckpt_final; at full
+    width cut in depth to `RESUME_VIT_DEPTH` / `RESUME_BERT_DEPTH` (every
+    attention shape of the full depth kept)."""
+    from crvqa_tpu_torch.cli import vqa_mplug
+
+    if rehearse:
+        return _resume_mplug_at(torch, device, rehearse, seed, root, total)
+    with _cut_depth(vqa_mplug, "ViTConfig", RESUME_VIT_DEPTH), \
+            _cut_depth(vqa_mplug, "MPlugBertConfig", RESUME_BERT_DEPTH):
+        return _resume_mplug_at(torch, device, rehearse, seed, root, total)
+
+
+def _resume_mplug_at(torch, device, rehearse, seed, root, total) -> dict:
+    """`_resume_mplug` with the CLI's configs as they stand."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import vqa_mplug
@@ -5297,8 +5603,7 @@ def _resume_mplug(torch, device, rehearse, seed, root, total) -> dict:
         summary["state"], model, cfg, masker.specs))}
     del summary
     _free(torch, rehearse)
-    beam = ({} if rehearse else
-            {"midseq_attention_fwd": 18, "fused_attention_fwd": 11})
+    beam = {} if rehearse else _mplug_encode_launches(config)
     answers = {}
     for tag, path in (("port", os.path.join(root, "train", "ckpt_final")),
                       ("jax", jax_final)):
@@ -5325,7 +5630,24 @@ def _resume_mplug(torch, device, rehearse, seed, root, total) -> dict:
 def _resume_other(torch, device, rehearse, seed, root, stage1_bin,
                   total) -> dict:
     """Phase resume (c): stage 3 and VisualBERT stage 2, 2 steps written in
-    the JAX layout and 2 more resumed from it."""
+    the JAX layout and 2 more resumed from it; cut in depth as the stage 2
+    of (a) (`RESUME_DEPTH`; stage 3 loads the cut model's keys of phase
+    stage1's full-depth .bin) and to `RESUME_VISUALBERT_DEPTH`."""
+    from crvqa_tpu_torch.cli import prune_debias_vqa_visualbert
+    from crvqa_tpu_torch.cli import run_vqa_stage1
+
+    lx = RESUME_DEPTH_TINY if rehearse else RESUME_DEPTH
+    vb = (RESUME_VISUALBERT_DEPTH_TINY if rehearse
+          else RESUME_VISUALBERT_DEPTH)
+    with _cut_depth(run_vqa_stage1, "LxmertConfig", lx), _cut_depth(
+            prune_debias_vqa_visualbert, "VisualBertConfig", vb):
+        return _resume_other_at(torch, device, rehearse, seed, root,
+                                stage1_bin, total, lx, vb)
+
+
+def _resume_other_at(torch, device, rehearse, seed, root, stage1_bin, total,
+                     lx_depth, vb_depth) -> dict:
+    """`_resume_other` with the CLIs' configs cut to the depths given."""
     import numpy as np
 
     from crvqa_tpu_torch.cli import common as cli_common
@@ -5337,8 +5659,11 @@ def _resume_other(torch, device, rehearse, seed, root, stage1_bin,
 
     on_card = not rehearse
     tiny = ["--tiny"] if rehearse else []
-    lx = (LxmertConfig.tiny if rehearse else LxmertConfig)()
-    vb = (VisualBertConfig.tiny if rehearse else VisualBertConfig)()
+    lx = dataclasses.replace(
+        (LxmertConfig.tiny if rehearse else LxmertConfig)(), **lx_depth)
+    vb = dataclasses.replace(
+        (VisualBertConfig.tiny if rehearse else VisualBertConfig)(),
+        **vb_depth)
     fwd_mult, bwd_mult = launch_mult(lx)
     runs = {
         "stage3": (run_vqa_stage3.main, S1_BATCH,
@@ -5489,6 +5814,7 @@ def parallel_child(seed: int, kind: str, out: str, port: str,
     from crvqa_tpu_torch.parallel.zero import ZeroPartition
     from crvqa_tpu_torch.train import mplug_train, stage2
     from crvqa_tpu_torch.train.common import allreduce_grads_
+    from crvqa_tpu_torch.utils.mfu import count_flops
 
     rehearse = rehearse == "1"
     on_card = not rehearse
@@ -5500,9 +5826,36 @@ def parallel_child(seed: int, kind: str, out: str, port: str,
         torch.cuda.reset_peak_memory_stats()
     port_n = int(port)
     cli = prune_debias_vqa if kind == "stage2" else vqa_mplug
+    # the CLI's first train step and its arguments, for the FLOP count
+    trainer = stage2 if kind == "stage2" else mplug_train
+    make_step, first = trainer.make_train_step, []
+
+    def recorded(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def run(*args):
+            if not first:
+                first.append((fn, args))
+            return fn(*args)
+        return run
+
+    trainer.make_train_step = recorded
     t0 = time.monotonic()
-    summary, launches = _run_counted(lambda: cli.main(_parallel_argv(
-        kind, out, seed, rehearse, port_n)))
+    try:
+        with contextlib.ExitStack() as cut:
+            # at full width cut in depth as phase resume cuts them
+            if kind == "stage2" and not rehearse:
+                cut.enter_context(_cut_depth(prune_debias_vqa, "LxmertConfig",
+                                             RESUME_DEPTH))
+            elif not rehearse:
+                cut.enter_context(_cut_depth(vqa_mplug, "ViTConfig",
+                                             RESUME_VIT_DEPTH))
+                cut.enter_context(_cut_depth(vqa_mplug, "MPlugBertConfig",
+                                             RESUME_BERT_DEPTH))
+            summary, launches = _run_counted(lambda: cli.main(
+                _parallel_argv(kind, out, seed, rehearse, port_n)))
+    finally:
+        trainer.make_train_step = make_step
     wall_s = time.monotonic() - t0
     with open(os.path.join(out, "metrics.jsonl")) as f:
         ex_s = [json.loads(x)["ex_s"] for x in f if '"ex_s"' in x]
@@ -5515,6 +5868,8 @@ def parallel_child(seed: int, kind: str, out: str, port: str,
               else None,
               "world": dist.get_world_size() if dist.is_initialized()
               else None}
+    if not port_n:  # the runtime's step has collectives: count the plain
+        result["flops_per_step"] = count_flops(first[0][0], *first[0][1])
     if port_n:
         state = summary["state"]
         leaves = (stage2.trainable(state, stage2.Stage2Config())
@@ -5605,6 +5960,8 @@ def phase_parallel(torch, device, rehearse: bool, seed: int) -> dict:
     the card (their set-up is host work); their artifacts bit-equal, the
     same launches, both step times (each pair sharing the card), the
     collectives' time alone and the peak memory."""
+    from crvqa_tpu_torch.utils.mfu import mfu
+
     on_card = not rehearse
     out = {"launches": {}}
     for kind in ("stage2", "mplug"):
@@ -5651,8 +6008,11 @@ def phase_parallel(torch, device, rehearse: bool, seed: int) -> dict:
         step_ms = {tag: (1e3 * batch / r["ex_s"][-1] if r["ex_s"]
                          and r["ex_s"][-1] > 0 else None)
                    for tag, r in runs.items()}
+        flops = plain["flops_per_step"]
         out[kind] = {"steps": steps, "batch": batch, "files": files,
-                     "step_ms": step_ms,
+                     "step_ms": step_ms, "flops_per_step": flops,
+                     "mfu": {tag: mfu(flops, 1, ms / 1e3, CARD["name"])
+                             for tag, ms in step_ms.items() if ms},
                      "step_overhead_ms": (
                          step_ms["runtime"] - step_ms["plain"]
                          if None not in step_ms.values() else None),
@@ -6044,8 +6404,8 @@ def main(argv=None) -> int:
                             device, rehearse, seed)
         serve = phase("serve", phase_serve, torch, device, rehearse, seed,
                       keep.name)
-        if not rehearse:
-            phase("profile", phase_profile, torch, device, seed)
+        profile = (None if rehearse else
+                   phase("profile", phase_profile, torch, device, seed))
         mplug = phase("mplug-serve", phase_mplug_serve, torch, device,
                       rehearse, seed)
         train = phase("train", phase_train, torch, device, rehearse, seed,
@@ -6094,7 +6454,9 @@ def main(argv=None) -> int:
     finally:
         keep.cleanup()
     log(f"chip_smoke: all phases in {time.monotonic() - t0:.1f} s "
-        f"({json.dumps({k: round(v, 1) for k, v in phase_s.items()})})")
+        f"({json.dumps({k: round(v, 1) for k, v in phase_s.items()})}); "
+        f"{COUNT_S['counts']} FLOP counts on meta took {COUNT_S['s']:.1f} s "
+        f"of it")
     if rehearse:
         log("chip_smoke: rehearsal finished (CPU, tiny widths): no result")
         return 3
@@ -6110,7 +6472,8 @@ def main(argv=None) -> int:
                        "kernel_rows": rows,
                        "midseq_kernel_rows": midseq_rows,
                        "train_kernel_rows": train_rows, "serve": serve,
-                       "mplug": mplug, "train": train, "step": step,
+                       "profile": profile, "mplug": mplug, "train": train,
+                       "step": step,
                        "midseq_bwd_kernel_rows": midseq_bwd_rows,
                        "mplug_train": mplug_train, "mplug_step": mplug_step,
                        "masked_matmul": masked, "head_compact": compact,
@@ -6121,7 +6484,7 @@ def main(argv=None) -> int:
                        "stage2_variants": variants,
                        "mplug_files": mplug_files, "resume": resume,
                        "offset_kernel_rows": offset_rows,
-                       "parallel": parallel,
+                       "parallel": parallel, "flop_counts": COUNT_S,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

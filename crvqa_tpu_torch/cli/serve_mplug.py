@@ -137,6 +137,26 @@ def build_server(args, device: torch.device,
             toks = toks[: toks.index(eos)]
         return tokenizer.decode(toks).strip()
 
+    def device_batch(texts: list, pixels: np.ndarray) -> dict:
+        """Questions and their images as the model's device batch, padded
+        to the one batch shape (pad rows are discarded)."""
+        n = len(texts)
+        if n < bs:
+            texts = texts + [""] * (bs - n)
+            pixels = np.concatenate(
+                [pixels, np.repeat(pixels[-1:], bs - n, axis=0)])
+        ids, mask = _tokenize_fixed(tokenizer, texts, q_len)
+        return {"images": torch.from_numpy(pixels).to(device),
+                "question_ids": torch.from_numpy(ids).to(device, torch.long),
+                "question_mask": torch.from_numpy(mask).to(device)}
+
+    def model_fn(state, batch: dict):
+        """The model's work on one device batch: the rank scores, or the
+        beam search's (ids, scores)."""
+        if rank_fn is not None:
+            return rank_fn(state, batch)
+        return gen_fn(state, batch)
+
     def run_batch(requests: list, pixels: Optional[np.ndarray] = None
                   ) -> list:
         responses: list = [None] * len(requests)
@@ -163,21 +183,14 @@ def build_server(args, device: torch.device,
                       if images is not None else
                       load_images(names, res, workers=args.data_workers,
                                   raw=args.device_normalize))
-        if n < bs:  # pad to the one batch shape; pad rows are discarded
-            texts += [""] * (bs - n)
-            pixels = np.concatenate(
-                [pixels, np.repeat(pixels[-1:], bs - n, axis=0)])
-        ids, mask = _tokenize_fixed(tokenizer, texts, q_len)
-        batch = {"images": torch.from_numpy(pixels).to(device),
-                 "question_ids": torch.from_numpy(ids).to(device, torch.long),
-                 "question_mask": torch.from_numpy(mask).to(device)}
+        batch = device_batch(texts, pixels)
         if rank_fn is not None:
-            best = best_index(rank_fn(state, batch))
+            best = best_index(model_fn(state, batch))
             for j, i in enumerate(live):
                 responses[i] = {"question_id": requests[i].get("question_id"),
                                 "answer": answers[int(best[j])]}
             return responses
-        out_ids, _ = gen_fn(state, batch)
+        out_ids, _ = model_fn(state, batch)
         out_ids = out_ids[:n].cpu().numpy()
         for j, i in enumerate(live):
             responses[i] = {"question_id": requests[i].get("question_id"),
@@ -185,6 +198,11 @@ def build_server(args, device: torch.device,
         return responses
 
     run_batch.image_res = res
+    # one device batch's model call, apart from the host work around it
+    # (`utils/mfu.count_flops` counts it): model_fn(state, device_batch(
+    # questions, images))
+    run_batch.device_batch, run_batch.model_fn = device_batch, model_fn
+    run_batch.state = state
     return run_batch
 
 

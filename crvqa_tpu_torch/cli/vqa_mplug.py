@@ -373,8 +373,10 @@ def build_rank_fn(args, config: MPlugConfig, tokenizer, model, masker,
     mask = masker if cfg.mode == "mask" else None
 
     def rank_fn(state, batch):
+        dev = batch["question_ids"].device  # the list follows the batch
         args_ = (batch["images"], batch["question_ids"],
-                 batch["question_mask"], alist_ids, alist_mask)
+                 batch["question_mask"], alist_ids.to(dev),
+                 alist_mask.to(dev))
         if use_topk:
             return mplug_train.run_masked(
                 model, mask, state,

@@ -327,6 +327,30 @@ def load_stage1_checkpoint(path: str, state):
     return state
 
 
+def load_metadata(path: str) -> Optional[dict]:
+    """The metadata saved beside a checkpoint (`<path>.meta.json`), or
+    None (the JAX package's `load_metadata`)."""
+    meta_path = path + ".meta.json"
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            return json.load(f)
+    return None
+
+
+def latest_checkpoint(directory: str, prefix: str = "ckpt_"
+                      ) -> Optional[str]:
+    """The path of the newest `<prefix><step>` checkpoint in `directory`,
+    or None (`_sorted_checkpoints`, mask_trainer_Robust_VQA.py:1022-1038;
+    the JAX package's `latest_checkpoint`): neither a `.meta.json` nor a
+    `.tmp` file counts."""
+    if not os.path.isdir(directory):
+        return None
+    cands = [(int(n[len(prefix):]), os.path.join(directory, n))
+             for n in os.listdir(directory)
+             if n.startswith(prefix) and n[len(prefix):].isdigit()]
+    return max(cands)[1] if cands else None
+
+
 def rotate_checkpoints(directory: str, keep: int, prefix: str = "ckpt_"
                        ) -> None:
     """Keep the newest `keep` checkpoints (`_rotate_checkpoints`,

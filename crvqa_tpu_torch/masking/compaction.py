@@ -112,6 +112,16 @@ def head_mask_from_scores(head_scores, num_to_mask: int) -> np.ndarray:
     return mask.reshape(scores.shape)
 
 
+
+def expand_head_mask_dense(head_mask_row, head_size: int, in_dim: int
+                           ) -> np.ndarray:
+    """[H] -> the dense mask of a [H*hs, in_dim] weight in the port's
+    [out, in] layout: each head's 0/1 repeated over its rows (the JAX
+    package's `expand_head_mask_dense` gives its [in, out] transpose; a
+    test and audit helper)."""
+    rows = np.repeat(np.asarray(head_mask_row), head_size)
+    return np.broadcast_to(rows[:, None], (rows.size, in_dim))
+
 def apply_dense_head_mask(state: dict[str, torch.Tensor], head_mask,
                           head_size: int, prefix: str = LANG_PREFIX
                           ) -> dict[str, torch.Tensor]:

@@ -189,6 +189,16 @@ def visualbert_mask_specs(
     return specs
 
 
+
+def specs_by_modality(specs: Sequence[MaskSpec]
+                      ) -> dict[str, list[MaskSpec]]:
+    """The specs grouped by modality, in first-seen order (the JAX
+    package's `specs_by_modality`)."""
+    out: dict[str, list[MaskSpec]] = {}
+    for s in specs:
+        out.setdefault(s.modality, []).append(s)
+    return out
+
 def lxmert_scan_mask_specs(
     l_layers: int = 9,
     r_layers: int = 5,

@@ -518,8 +518,12 @@ def checkpointed(module: nn.Module, *args, **kwargs):
 def maybe_checkpointed(enabled: bool, module: nn.Module, *args, **kwargs):
     """`checkpointed` when `enabled` and gradients are being recorded (a
     training forward), else a plain call: without a backward there is
-    nothing to recompute."""
-    if enabled and torch.is_grad_enabled():
+    nothing to recompute. On `meta` tensors a plain call too: they only
+    count the model's work (`utils/mfu.count_flops`), and a recompute is
+    not the model's."""
+    on_meta = any(isinstance(a, torch.Tensor) and a.device.type == "meta"
+                  for a in args)
+    if enabled and torch.is_grad_enabled() and not on_meta:
         return checkpointed(module, *args, **kwargs)
     return module(*args, **kwargs)
 

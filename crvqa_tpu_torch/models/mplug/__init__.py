@@ -9,7 +9,7 @@ import torch
 from ..layers import init_weights_
 from .bert import MPlugBertConfig
 from .mplug import MPlug, MPlugConfig, momentum_update_
-from .vit import ViTConfig
+from .vit import ViTConfig, interpolate_pos_embed
 
 
 def build_mplug(config: MPlugConfig, device: torch.device | str = "cpu",
@@ -30,4 +30,4 @@ def build_mplug(config: MPlugConfig, device: torch.device | str = "cpu",
 
 
 __all__ = ["MPlug", "MPlugBertConfig", "MPlugConfig", "ViTConfig",
-           "build_mplug", "momentum_update_"]
+           "build_mplug", "interpolate_pos_embed", "momentum_update_"]

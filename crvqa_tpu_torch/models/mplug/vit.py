@@ -220,6 +220,27 @@ class VisionTransformer(nn.Module):
             blk.attn.in_proj_bias.zero_()
 
 
+
+def interpolate_pos_embed(pos: torch.Tensor, new_num_patches: int
+                          ) -> torch.Tensor:
+    """The ViT's [1 + G*G, W] position embedding resized to a grid of
+    `new_num_patches` (the JAX package's `interpolate_pos_embed`:
+    `models/visual_transformers.py:resize_pos_embed`, `models/vit.py:
+    interpolate_pos_embed`): the class row kept, the grid resized
+    bicubically with `jax.image.resize`'s kernel (Keys, a = -0.5, half-pixel
+    centres, the taps inside the grid renormalised, widened when it
+    shrinks), which is torch's antialiased bicubic."""
+    cls, grid = pos[:1], pos[1:]
+    old = int(grid.shape[0] ** 0.5)
+    new = int(new_num_patches ** 0.5)
+    if old == new:
+        return pos
+    g = grid.reshape(old, old, -1).permute(2, 0, 1)[None].float()
+    g = nn.functional.interpolate(g, size=(new, new), mode="bicubic",
+                                  align_corners=False, antialias=True)
+    g = g[0].permute(1, 2, 0).reshape(new * new, -1).to(pos.dtype)
+    return torch.cat([cls, g], dim=0)
+
 class VisualEncoder(nn.Module):
     """`visual_encoder` of the reference: the CLIP model's `visual` tower."""
 

@@ -8,7 +8,9 @@ headers for what each replaces, its bound and its design. This module
 holds their ctypes bindings, their plain PyTorch versions, and the wrappers
 that choose between them by the tensor's device:
 
-- CPU tensors take the plain versions (the tests' path);
+- CPU tensors take the plain versions (the tests' path), and so do `meta`
+  tensors (`utils/mfu.count_flops`: there `fused_attention` is autograd of
+  the plain forward, the model's work whichever backward runs);
 - CUDA tensors launch the kernel or raise. There is no fallback.
 
 Each wrapper counts its kernel launches (and nothing else) in `.launches`:
@@ -41,7 +43,7 @@ import math
 
 import torch
 
-from . import _build
+from . import PLAIN_DEVICES, _build
 
 MAX_HEADS_TIMES_SEQ = 1024
 KERNEL_HEAD_SIZE = 64
@@ -225,6 +227,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`FusedAttentionFunction`)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _check_rate(rate)
+    if q.device.type == "meta":
+        # the model's work for `utils/mfu.count_flops`: autograd of the
+        # plain forward, whichever backward `BWD_IMPL` runs on the card
+        return fused_attention_train_reference(
+            q, k, v, bias, num_heads, head_size, rate, seed, row0, head0)[0]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FusedAttentionFunction.apply(q, k, v, bias, num_heads,
@@ -234,7 +241,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return fused_attention_fwd_train(q, k, v, bias, num_heads, head_size,
                                          rate, seed, residual=False,
                                          row0=row0, head0=head0)[0]
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return fused_attention_reference(q, k, v, bias, num_heads, head_size)
     _check_cuda(q, k, v, bias, head_size)
     return _launch_primal(q, k, v, bias, num_heads, head_size)
@@ -251,7 +258,7 @@ def fused_attention_fwd_train(q, k, v, bias, num_heads: int, head_size: int,
     `P_RESIDUAL_DTYPE`, read now, or None when `residual` is False)."""
     _check_shapes(q, k, v, bias, num_heads, head_size)
     _check_rate(rate)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out, p = fused_attention_train_reference(q, k, v, bias, num_heads,
                                                  head_size, rate, seed, row0,
                                                  head0)
@@ -269,7 +276,7 @@ def fused_attention_bwd_stored(q, k, v, p, g, num_heads: int, head_size: int,
                                head0: int = 0):
     """dq, dk, dv from the stored residual p [B, Sq, H*Sk]: fp32 or bf16,
     whichever the forward wrote (`P_RESIDUAL_DTYPE` decides only that)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return fused_attention_bwd_reference(q, k, v, p, g, num_heads,
                                              head_size, rate, seed, row0,
                                              head0)
@@ -290,7 +297,7 @@ def fused_attention_bwd_recompute(q, k, v, bias, g, num_heads: int,
                                   head_size: int, rate: float, seed: int,
                                   row0: int = 0, head0: int = 0):
     """dq, dk, dv with p rebuilt from q, k and the bias."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         p = probs_residual(q, k, bias, num_heads, head_size)
         return fused_attention_bwd_reference(q, k, v, p, g, num_heads,
                                              head_size, rate, seed, row0,

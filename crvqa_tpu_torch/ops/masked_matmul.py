@@ -19,10 +19,10 @@ On the card each call first rounds what the product's TMA cannot read in
 place (`_tma_ready`: anything but bf16 rows on the 16-byte grid) into a
 bf16 buffer, and packs bf16(w ⊙ m) once (`operand_pass`); ds splits its
 sum over M by `ds_plan`. Each wrapper chooses by the tensor's device: a CPU
-tensor takes the plain version (the same bf16-rounded operands, products in
-fp32), a CUDA tensor launches the kernels or raises. Each counts its calls
-on the card in `.launches`: `masked_matmul_fwd`, `masked_matmul_dx`,
-`masked_matmul_ds`, `operand_pass`.
+or `meta` tensor takes the plain version (the same bf16-rounded operands,
+products in fp32), a CUDA tensor launches the kernels or raises. Each
+counts its calls on the card in `.launches`: `masked_matmul_fwd`,
+`masked_matmul_dx`, `masked_matmul_ds`, `operand_pass`.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ import dataclasses
 
 import torch
 
-from . import _build
+from . import PLAIN_DEVICES, _build
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -168,7 +168,7 @@ def operand_pass(t: torch.Tensor, scores=None, threshold=None
     threshold a device fp32 value, as `_check_cuda` returns it) or bf16(t)
     (copy mode), as a [R, C] view of a [R, ceil(C / 8) * 8] buffer, so its
     rows start on the 16-byte grid (plain version on CPU tensors)."""
-    if t.device.type == "cpu":
+    if t.device.type in PLAIN_DEVICES:
         return operand_pass_reference(t, scores, threshold)
     threshold = _check_cuda((t,), scores, threshold)
     rows, cols = t.shape
@@ -212,7 +212,7 @@ def masked_matmul_fwd(x, w, scores, threshold) -> torch.Tensor:
     """The forward: the packed bf16(w ⊙ m), then x @ it on the product
     kernel (plain version on CPU tensors)."""
     _check_shapes(x, w, scores)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return masked_matmul_fwd_reference(x, w, scores, threshold)
     t = _check_cuda((x, w), scores, threshold)
     m, k = x.shape
@@ -232,7 +232,7 @@ def masked_matmul_dx(g, w, scores, threshold, x_dtype: torch.dtype
                      ) -> torch.Tensor:
     """dx: g [M, N] -> g @ (w ⊙ m)ᵀ [M, K] in `x_dtype` (g's dtype on the
     card, which is y's and so x's); the packed w ⊙ m read K-major."""
-    if g.device.type == "cpu":
+    if g.device.type in PLAIN_DEVICES:
         return masked_matmul_dx_reference(g, w, scores, threshold, x_dtype)
     if g.dtype != x_dtype:
         raise TypeError(f"masked_matmul dx kernel: g is {g.dtype}, x "
@@ -260,7 +260,7 @@ def masked_matmul_ds(x, g, w) -> torch.Tensor:
     """ds: (xᵀ g) ⊙ w [K, N] in fp32 (the scores' dtype), each value
     rounded to w's dtype first; x read MN-major, the M rows summed in
     `ds_plan`'s splits and added in split order."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return masked_matmul_ds_reference(x, g, w)
     _check_cuda((x, g, w), None, None)
     if x.dim() != 2 or g.dim() != 2 or g.shape[0] != x.shape[0] or (

@@ -11,7 +11,7 @@ PyTorch versions and the wrappers that choose between them by the tensor's
 device:
 
 - CPU tensors take the plain forward (the tests' path), differentiable by
-  autograd;
+  autograd, and so do `meta` tensors (`utils/mfu.count_flops`);
 - CUDA tensors launch the kernels or raise. There is no fallback.
 
 `midseq_attention.launches` and `midseq_attention_bwd.launches` count the
@@ -45,7 +45,7 @@ import math
 
 import torch
 
-from . import _build
+from . import PLAIN_DEVICES, _build
 from .fused_attention import (KERNEL_HEAD_SIZE, _dropout_args, _merge,
                               _probs, _split, keep_mask)
 
@@ -142,7 +142,7 @@ def midseq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _dropout_args(rate, seed)  # validates the rate
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return midseq_attention_reference(q, k, v, bias, num_heads,
                                           head_size, rate, seed, row0, head0)
     _check_cuda(q, k, v, bias, head_size)
@@ -200,7 +200,7 @@ def midseq_attention_bwd(q, k, v, bias, g, num_heads: int, head_size: int,
         raise ValueError(f"midseq_attention_bwd: g {tuple(g.shape)} on "
                          f"{g.device} does not match q {tuple(q.shape)} on "
                          f"{q.device}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return midseq_attention_bwd_reference(q, k, v, bias, g, num_heads,
                                               head_size, rate, seed, row0,
                                               head0)
@@ -222,7 +222,8 @@ class MidseqAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, num_heads, head_size, rate, seed,
                 row0=0, head0=0):
-        forward = (midseq_attention_reference if q.device.type == "cpu"
+        forward = (midseq_attention_reference
+                   if q.device.type in PLAIN_DEVICES
                    else _launch)
         out = forward(q, k, v, bias, num_heads, head_size, rate, seed, row0,
                       head0)

@@ -12,11 +12,11 @@ columns exactly zero:
 - `head_compact_matmul_pallas`: the kernel `csrc/head_compact_matmul.cu`
   (the TPU kernel's counterpart, on the TMA + `wgmma` product of
   `csrc/wgmma_gemm_common.cuh`; w given transposed as wt [N, K]; forward
-  only, as in the JAX package). A CPU tensor takes its plain version, a
-  CUDA tensor launches it or raises. An operand the kernel's TMA cannot
-  read in place (`_tma_ready`: anything but bf16 rows on the 16-byte grid)
-  is first rounded into a bf16 buffer by `operand_pass`, which is exact:
-  the kernel rounds both operands to bf16 anyway.
+  only, as in the JAX package). A CPU or `meta` tensor takes its plain
+  version, a CUDA tensor launches it or raises. An operand the kernel's
+  TMA cannot read in place (`_tma_ready`: anything but bf16 rows on the
+  16-byte grid) is first rounded into a bf16 buffer by `operand_pass`,
+  which is exact: the kernel rounds both operands to bf16 anyway.
   `head_compact_matmul_pallas.launches` and `operand_pass.launches` count
   the launches;
 - `dense_masked_matmul`: the baseline, x @ (w ⊙ expand(head_mask)).
@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import PLAIN_DEVICES, _build
 from .masked_matmul import _pitch, _tma_ready
 
 KERNEL_HEAD_SIZE = 64
@@ -145,7 +145,7 @@ def operand_pass_reference(t: torch.Tensor) -> torch.Tensor:
 def operand_pass(t: torch.Tensor) -> torch.Tensor:
     """bf16(t) as a [R, C] view of a [R, ceil(C / 8) * 8] buffer, so its rows
     start on the 16-byte grid (plain version on CPU tensors)."""
-    if t.device.type == "cpu":
+    if t.device.type in PLAIN_DEVICES:
         return operand_pass_reference(t)
     if t.dtype not in _KERNEL_DTYPES or t.dim() != 2:
         raise TypeError(f"head_compact_matmul operand pass: a 2-D fp32 or "
@@ -190,7 +190,8 @@ def head_compact_matmul_pallas(x: torch.Tensor, wt: torch.Tensor,
     if m % bm or k % bk:
         raise ValueError(f"head_compact_matmul: M={m}, K={k} are not "
                          f"multiples of bm={bm}, bk={bk}")
-    if x.device.type == wt.device.type == "cpu":
+    if (x.device.type in PLAIN_DEVICES
+            and wt.device.type == x.device.type):
         return head_compact_matmul_pallas_reference(x, wt, keep_idx,
                                                     num_heads, head_size)
     if x.device.type != "cuda" or wt.device != x.device:

@@ -40,6 +40,7 @@ from crvqa_tpu_torch.core import checkpoint as ckpt
 from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.train import mplug_train as ttrain
 from tests.test_torch_resume_interchange import _array, assert_bit_equal, flat
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 WIDTH = 128
 TRAIN_KW = dict(steps_per_epoch=2, epochs=2, warmup_epochs=1, total_steps=4,

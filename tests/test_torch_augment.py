@@ -19,6 +19,7 @@ from crvqa_tpu_torch.data import mplug_data as tdata
 from crvqa_tpu_torch.data.tokenization import WordPieceTokenizer
 from crvqa_tpu_torch.native import augment_native
 from tests.test_dress_rehearsal_mplug import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _img(seed, h=40, w=52):

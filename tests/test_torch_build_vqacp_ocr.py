@@ -9,6 +9,7 @@ import pytest
 
 from crvqa_tpu.data import build_vqacp_ocr as jbuild
 from crvqa_tpu_torch.data import build_vqacp_ocr as tbuild
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 OUTPUTS = ("train.json", "test.json", "val.json", "train_bias.json",
            "test_labels.json", "val_labels.json")

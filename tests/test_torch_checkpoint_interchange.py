@@ -1,7 +1,11 @@
 """Checkpoint interchange between the port and the JAX package through
 the JAX package's msgpack params files, on the fabricated VQA-CP files of
 tests/test_dress_rehearsal.py at the tiny config (fp32, the CLIs' default
-dropout; the JAX package writes its checkpoints inside the test):
+dropout). The JAX package writes its files inside the test, as its stage-1
+and stage-3 CLIs write them (`_jax_stage_files`: a jitted init, one jitted
+train step of each stage on a synthetic batch, the stage-3 one on the
+stage-1 params pruned by the fabricated mask.pt, and the CLIs' own save
+calls); the port's files come from its CLIs:
 
 - the JAX stage-1 CLI's `.msgpack` twin, read by the port's
   `load_params_any`, equals the port's read of the JAX `.bin`, bit for bit;
@@ -30,17 +34,17 @@ import torch
 from flax import serialization
 
 from crvqa_tpu.cli import common as jcommon
-from crvqa_tpu.cli import run_vqa_stage1 as jstage1
-from crvqa_tpu.cli import run_vqa_stage3 as jstage3
 from crvqa_tpu.cli import serve_vqa as jserve
 from crvqa_tpu.core import checkpoint as jckpt
 from crvqa_tpu.core import torch_compat as jcompat
+from crvqa_tpu.data import synthetic_batch
 from crvqa_tpu.masking import lxmert_mask_specs
 from crvqa_tpu.models import LxmertConfig as JaxConfig
 from crvqa_tpu.models import LxmertForVQA as JaxLxmert
 from crvqa_tpu.models.visualbert import VisualBertConfig as JaxVBConfig
 from crvqa_tpu.models.visualbert import VisualBertForVQA as JaxVisualBert
 from crvqa_tpu.native import feature_store as jstore
+from crvqa_tpu.train import stage1 as jtrain1
 from crvqa_tpu_torch.cli import common as tcommon
 from crvqa_tpu_torch.cli import prune_debias_vqa
 from crvqa_tpu_torch.cli import prune_debias_vqa_visualbert
@@ -51,6 +55,7 @@ from crvqa_tpu_torch.core.convert import (jax_tree_from_state_dict,
 from crvqa_tpu_torch.models import (LxmertConfig, VisualBertConfig,
                                     build_lxmert, build_visualbert)
 from tests.test_dress_rehearsal import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 TRAIN = ["--tiny", "--dtype", "float32", "--seed", "0",
          "--train_batch_size", "8", "--eval_batch_size", "8",
@@ -91,11 +96,48 @@ def _assert_trees_equal(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
 
 
+def _jax_stage_files(root):
+    """What the JAX stage-1 CLI writes (`jax_s1`: its best-eval save's
+    `.msgpack` twin and `.bin`, `save_checkpoint` and
+    `torch_compat.save_torch_state_dict` of the params, and the msgpack
+    `ckpt_1` of its training state) and what the JAX stage-3 CLI writes
+    from that twin and `root`/mask.pt (`jax_s3`: the params msgpack), each
+    after one jitted train step of its stage."""
+    cfg = JaxConfig.tiny()
+    model = JaxLxmert(cfg)
+    b = synthetic_batch(batch_size=8, seed=3, vocab_size=cfg.vocab_size,
+                        ans_num=cfg.ans_num, feat_dim=cfg.visual_feat_dim,
+                        pos_dim=cfg.visual_pos_dim)
+    batch = {k: jnp.asarray(v) for k, v in b.items() if k != "valid"}
+    scfg = jtrain1.Stage1Config(ft_type="lmh", total_steps=10,
+                                hidden_size=cfg.hidden_size)
+    state, tx = jtrain1.init_state(_lxmert_template(), scfg,
+                                   jax.random.PRNGKey(0))
+    state, _ = jtrain1.make_train_step(model, scfg, tx)(state, batch)
+    out = root / "jax_s1"
+    jckpt.save_checkpoint(str(out / "ckpt_1"), state, metadata={"step": 1})
+    params = jax.device_get(state.params)
+    jckpt.save_checkpoint(str(out / "run_FTlmh_only.bin.msgpack"), params)
+    jcompat.save_torch_state_dict(str(out / "run_FTlmh_only.bin"), params)
+    # stage 3: the twin read back, pruned by mask.pt, one masked step
+    params = jcommon.load_params_any(str(out / "run_FTlmh_only.bin.msgpack"),
+                                     _lxmert_template())
+    masker = jcommon.lxmert_uniform_masker(cfg, 0.7)
+    masks = {k: jnp.asarray(v) for k, v in jcompat.import_mask_pt(
+        str(root / "mask.pt"), masker.specs).items()}
+    state, tx = jtrain1.init_state(masker.prune_params(params, masks), scfg,
+                                   jax.random.PRNGKey(0), masks=masks)
+    state, _ = jtrain1.make_train_step(model, scfg, tx,
+                                       masker=masker)(state, batch)
+    jckpt.save_checkpoint(
+        str(root / "jax_s3" / "run_FT_trainedMask.bin.msgpack"),
+        jax.device_get(state.params))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX stage 1 (best-eval save at step 4, its `.bin`, `.msgpack`
-    and msgpack `ckpt_4`), the JAX stage 3 from its twin with a
-    fabricated mask.pt, the port's stage 1 and stage 3 on the same argv,
+    """The JAX stage-1 and stage-3 files (`_jax_stage_files`, with a
+    fabricated mask.pt), the port's stage 1 and stage 3 on the CLIs' argv,
     and the serving files."""
     root = tmp_path_factory.mktemp("interchange")
     _fabricate(root)
@@ -106,18 +148,15 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(5)
     masks = {s.key: rng.random(leaves[s.path].shape) > 0.7 for s in specs}
     jcompat.export_mask_pt(str(root / "mask.pt"), masks, specs)
+    _jax_stage_files(root)
     stage1 = TRAIN + _data(root) + ["--logging_steps", "2", "--save_steps",
                                     "4", "--do_train",
                                     "--evaluate_during_training"]
-    jstage1.main(["--output_dir", str(root / "jax_s1")] + stage1)
     run_vqa_stage1.main(["--output_dir", str(root / "port_s1"), "--device",
                          "cpu"] + stage1)
     stage3 = TRAIN + _data(root) + ["--mask_pt", str(root / "mask.pt"),
                                     "--logging_steps", "2", "--save_steps",
                                     "100", "--do_train"]
-    jstage3.main(["--output_dir", str(root / "jax_s3"), "--stage1_ckpt",
-                  str(root / "jax_s1" / "run_FTlmh_only.bin.msgpack")]
-                 + stage3)
     run_vqa_stage3.main(["--output_dir", str(root / "port_s3"), "--device",
                          "cpu", "--stage1_ckpt",
                          str(root / "port_s1" / "run_FTlmh_only.bin.msgpack")]
@@ -257,7 +296,7 @@ def test_resume_from_a_jax_ckpt_is_refused(runs, tmp_path, cli):
     tests/test_torch_resume_interchange.py)."""
     module, extra, kind = RESUME_CLIS[cli]
     if kind == "stage-1/3":
-        jax_ckpt = runs / "jax_s1" / "ckpt_4"
+        jax_ckpt = runs / "jax_s1" / "ckpt_1"
     else:
         jax_ckpt = tmp_path / "ckpt_2"
         jckpt.save_checkpoint(str(jax_ckpt), {

@@ -23,6 +23,7 @@ from crvqa_tpu.models import LxmertForVQA as JaxLxmert
 from crvqa_tpu_torch.core.convert import state_dict_from_jax
 from crvqa_tpu_torch.masking import compaction as tcomp
 from crvqa_tpu_torch.models import LxmertConfig, build_lxmert
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 HEAD_MASK = np.array([[1, 0, 1, 0], [0, 1, 0, 0]], np.float32)
 

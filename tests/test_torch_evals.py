@@ -28,6 +28,7 @@ from crvqa_tpu_torch.evals import vqa_eval as tve
 from crvqa_tpu_torch.masking.masker import weight_name
 from crvqa_tpu_torch.masking.prune import lxmert_specs_for
 from crvqa_tpu_torch.models import LxmertConfig, build_lxmert
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXED = ["Two", "two dogs", "2", "the dog", "A cat.", "an apple!",
          "dont know", "isnt it", "yes", "no", "Yes.", "10,000", "3.5",

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from crvqa_tpu.ops import fused_attention as jfa
 from crvqa_tpu_torch.ops import fused_attention as tfa
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(14, 14), (36, 36), (14, 36), (36, 14)]
 HEADS = [(12, 64), (4, 16)]

@@ -19,6 +19,7 @@ from crvqa_tpu_torch.models.mplug.generator import (greedy_generate,
                                                     init_self_caches)
 from crvqa_tpu_torch.train.mplug_train import run_masked
 from tests.test_torch_mplug_generate import _sides
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 MAX_LEN = 6
 

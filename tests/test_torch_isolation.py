@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "crvqa_tpu_torch"

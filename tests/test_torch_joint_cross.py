@@ -33,6 +33,7 @@ from crvqa_tpu_torch.models import layers as tl
 from crvqa_tpu_torch.models.layers import set_generators
 from tests.test_torch_kd import both_paths
 from tests.test_torch_lxmert import _inputs
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _port_inputs(inputs):

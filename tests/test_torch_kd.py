@@ -64,6 +64,7 @@ from crvqa_tpu_torch.masking.spec import (lxmert_mask_specs,
 from crvqa_tpu_torch.models import LxmertConfig, VisualBertConfig
 from crvqa_tpu_torch.models import layers as tl
 from crvqa_tpu_torch.train import stage2
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                   classifier_dropout=0.0)
@@ -93,6 +94,21 @@ def _torch_batch(b):
     return out
 
 
+_PARAMS: dict = {}  # the JAX initial params by model family
+
+
+def _init_params(jmodel, b0, inputs):
+    """The family's jitted init from PRNGKey(0), once per test process:
+    its params do not depend on the dropout rates, and the scan layout
+    stacks the unrolled model's."""
+    family = type(jmodel).__name__
+    if family not in _PARAMS:
+        _PARAMS[family] = jax.jit(jmodel.init)(
+            jax.random.PRNGKey(0),
+            **{k: jnp.asarray(b0[k]) for k in inputs})["params"]
+    return _PARAMS[family]
+
+
 class Kind:
     """One model family's two sides: the JAX model, masker and initial
     state (every dropout 0 unless `dropout` says otherwise), and the
@@ -108,21 +124,15 @@ class Kind:
         b0 = _batches(kind, jcfg, 1, 0)[0]
         if vb:
             jmodel = JaxVisualBert(jcfg)
-            params = jax.jit(jmodel.init)(
-                jax.random.PRNGKey(0),
-                input_ids=jnp.asarray(b0["input_ids"]),
-                visual_embeds=jnp.asarray(b0["visual_embeds"]))["params"]
+            params = _init_params(jmodel, b0, ("input_ids", "visual_embeds"))
             jspecs = jax_vb_specs(jcfg.num_hidden_layers)
             specs = visualbert_mask_specs(tcfg.num_hidden_layers)
             jrates = JaxSparsity.uniform(0.7)
             rates = ModalSparsity.uniform(0.7)
         else:
             jmodel = JaxLxmert(jcfg)
-            params = jax.jit(jmodel.init)(
-                jax.random.PRNGKey(0),
-                input_ids=jnp.asarray(b0["input_ids"]),
-                visual_feats=jnp.asarray(b0["visual_feats"]),
-                visual_pos=jnp.asarray(b0["visual_pos"]))["params"]
+            params = _init_params(jmodel, b0, ("input_ids", "visual_feats",
+                                               "visual_pos"))
             dims = (jcfg.l_layers, jcfg.r_layers, jcfg.x_layers)
             jspecs, specs = jax_lxmert_specs(*dims), lxmert_mask_specs(*dims)
             if kind == "scan":

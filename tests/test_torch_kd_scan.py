@@ -21,6 +21,7 @@ from tests.test_torch_kd import (  # noqa: F401 (a fixture)
     KERNEL_DROPOUT, SCAN_CASES, _assert_states_match, _batches, _jax_batch,
     _torch_batch, collect_hidden_lists_match_jax, joint_stage2_steps_match_jax,
     kd_steps_match_jax, kinds)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("case", SCAN_CASES)

@@ -18,6 +18,7 @@ from crvqa_tpu.models import LxmertForVQA as JaxLxmert
 from crvqa_tpu.models import layers as jl
 from crvqa_tpu_torch.core.convert import state_dict_from_jax
 from crvqa_tpu_torch.models import layers as tl
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, D, HID, FFN = 4, 8, 32, 64
 

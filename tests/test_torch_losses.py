@@ -21,6 +21,7 @@ from crvqa_tpu.train import common as jcommon
 from crvqa_tpu_torch import losses as tlosses
 from crvqa_tpu_torch.losses import vqa_losses as tvl
 from crvqa_tpu_torch.train import common as tcommon
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, A, H = 6, 11, 8
 

@@ -23,6 +23,7 @@ from crvqa_tpu.models import layers as jl
 from crvqa_tpu_torch.core.convert import state_dict_from_jax
 from crvqa_tpu_torch.models import LxmertConfig, build_lxmert
 from crvqa_tpu_torch.ops.fused_attention import fused_attention
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, BOXES = 3, 8
 

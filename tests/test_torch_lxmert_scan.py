@@ -44,6 +44,7 @@ from crvqa_tpu_torch.models.lxmert_scan import stack_params, unstack_params
 from crvqa_tpu_torch.train import stage2
 from tests.test_torch_resume_interchange import (_array, assert_bit_equal,
                                                  flat, moment_scale)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 SPARSITY = (0.3, 0.3, 0.3, 0.7)

@@ -11,6 +11,8 @@ keeps its weight, bit for bit.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 
 from crvqa_tpu.ops import masked_matmul as jmm
 from crvqa_tpu_torch.ops import masked_matmul as tmm
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(256, 256, 256), (300, 130, 520), (8, 500, 64)]
 DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
@@ -121,17 +124,38 @@ def test_bf16_threshold_boundary_matches_the_pallas_kernel():
                                        at, float(thr)).abs().max()) == 0.0
 
 
+@functools.cache
+def _fake_mode():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode()
+
+
+def off_cpu(device, *shape):
+    """A tensor that reports `device` and holds no memory (a fake tensor,
+    all of one fake mode): a device neither the CPU, `meta` nor a card."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return FakeTensor(_fake_mode(), torch.empty(*shape, device="meta"),
+                      torch.device(device))
+
+
 def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
-    """No fallback: only a CPU tensor takes the plain version; any other
-    device goes to the kernel path, which refuses what is not CUDA."""
-    x = torch.empty(4, 8, device="meta")
-    w = torch.empty(8, 16, device="meta")
+    """No fallback: only a CPU tensor takes the plain version, and a `meta`
+    tensor (`utils/mfu.count_flops` counts through it; it launches
+    nothing); any other device goes to the kernel path, which refuses what
+    is not CUDA."""
+    x = off_cpu("xpu", 4, 8)
+    w = off_cpu("xpu", 8, 16)
     for call in (lambda: tmm.masked_matmul_fwd(x, w, w, 0.5),
                  lambda: tmm.masked_matmul_dx(x @ w, w, w, 0.5, x.dtype),
                  lambda: tmm.masked_matmul_ds(x, x @ w, w),
                  lambda: tmm.operand_pass(w, w, 0.5)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+    xm, wm = (torch.empty(t.shape, device="meta") for t in (x, w))
+    assert tmm.masked_matmul_fwd(xm, wm, wm, 0.5).device.type == "meta"
+    assert tmm.masked_matmul_ds(xm, xm @ wm, wm).shape == wm.shape
     assert (tmm.masked_matmul_fwd.launches, tmm.masked_matmul_dx.launches,
             tmm.masked_matmul_ds.launches, tmm.operand_pass.launches) == (
                 0, 0, 0, 0)

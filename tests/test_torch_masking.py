@@ -28,6 +28,7 @@ from crvqa_tpu_torch.masking.masker import Masker, bias_key
 from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
 from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
 from crvqa_tpu_torch.ops import kthvalue as tkth
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from crvqa_tpu.ops import fused_attention as jfa
 from crvqa_tpu.ops import midseq_attention as jma
 from crvqa_tpu_torch.ops import midseq_attention as tma
+from tests.test_torch_masked_matmul import off_cpu
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 # (sq, sk, h, d): both TPU pad dims; (29, 77, 3, 40) has no 128-aligned
 # head group (the TPU kernel takes all heads in one program)
@@ -210,11 +212,12 @@ def test_column_slices_of_one_projection():
 
 
 def test_non_cpu_tensor_needing_a_gradient_raises():
-    """Off the CPU the wrapper never takes the plain version: with or
-    without a gradient to compute, the call goes to the kernel checks,
-    which refuse a device other than CUDA; so does the backward."""
-    q, k, v = (torch.empty(2, 30, 128, device="meta") for _ in range(3))
-    bias = torch.empty(2, 30, device="meta")
+    """Off the CPU (and `meta`, which `utils/mfu.count_flops` counts
+    through) the wrapper never takes the plain version: with or without a
+    gradient to compute, the call goes to the kernel checks, which refuse
+    a device other than CUDA; so does the backward."""
+    q, k, v = (off_cpu("xpu", 2, 30, 128) for _ in range(3))
+    bias = off_cpu("xpu", 2, 30)
     with pytest.raises(ValueError, match="unsupported device"):
         tma.midseq_attention(q.requires_grad_(), k, v, bias, 2, 64)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -37,6 +37,7 @@ from crvqa_tpu_torch.models.mplug import (MPlugBertConfig, MPlugConfig,
 from crvqa_tpu_torch.models.mplug.generator import (init_self_caches,
                                                     precompute_cross_kv)
 from crvqa_tpu_torch.models.mplug.vit import VisionTransformer
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 

@@ -36,6 +36,7 @@ from crvqa_tpu_torch.cli import vqa_mplug as tcli
 from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.core import torch_compat as ttc
 from crvqa_tpu_torch.train import mplug_train as ttrain
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NOISE = {"visual_encoder.visual.proj": (32, 16),
          "visual_encoder.token_embedding.weight": (7, 16),

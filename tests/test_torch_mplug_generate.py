@@ -22,6 +22,7 @@ from crvqa_tpu_torch.cli import vqa_mplug as tcli
 from crvqa_tpu_torch.core.convert import (mask_state_from_jax,
                                           mplug_state_dict_from_jax)
 from crvqa_tpu_torch.train import mplug_train as ttrain
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 BATCH = 3
 

@@ -41,6 +41,7 @@ from crvqa_tpu_torch.models.mplug import bert as tbert
 from crvqa_tpu_torch.train import mplug_train as ttrain
 from crvqa_tpu_torch.train.common import GroupAdamW
 from torch.func import functional_call
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 BATCH = 3
 # the distill modes' cases run in tests/test_torch_mplug_train_distill.py
@@ -98,10 +99,14 @@ def _carry(jstate, tstate, mode, specs):
         nu=_moments(jstate.opt_state, "nu")), mode, specs)
 
 
+_PARAMS: dict = {}  # the JAX initial params by model config
+
+
 class Side:
     """Both packages' model, masker, train config, jitted step and reset for
     one (mode, distill), and a JAX state two steps in (so the carried Adam
-    moments and step are not their initial zeros)."""
+    moments and step are not their initial zeros). Sides of one model
+    config share its jitted init's params."""
 
     def __init__(self, tmp, mode, distill, extra=()):
         argv = _argv(tmp, mode, distill, extra)
@@ -114,9 +119,12 @@ class Side:
         self.batches = [_batch(s, vocab) for s in (4, 5, 6, 7, 8, 9)]
         jb = self.batches[0][0]
         rng = jax.random.PRNGKey(3)
-        self.jparams = jax.jit(self.jmodel.init)(
-            rng, jb["images"], jb["question_ids"], jb["question_mask"],
-            jb["answer_ids"], jb["answer_mask"], jb["weights"])["params"]
+        key = repr(self.jconfig)  # the mode does not enter the model
+        if key not in _PARAMS:
+            _PARAMS[key] = jax.jit(self.jmodel.init)(
+                rng, jb["images"], jb["question_ids"], jb["question_mask"],
+                jb["answer_ids"], jb["answer_mask"], jb["weights"])["params"]
+        self.jparams = _PARAMS[key]
         kw = dict(mode=mode, distill=distill, **TRAIN_KW)
         self.jcfg = jtrain.MPlugTrainConfig(**kw)
         self.tcfg = ttrain.MPlugTrainConfig(**kw)

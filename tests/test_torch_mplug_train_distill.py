@@ -15,6 +15,7 @@ from crvqa_tpu_torch.train import mplug_train as ttrain
 from tests.test_torch_mplug_train import (  # noqa: F401 (a fixture)
     DISTILL_IDS, DISTILL_MODES, _np, four_step_trajectory_with_a_reset,
     one_step_from_a_carried_state, sides)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("mode,distill", DISTILL_MODES, ids=DISTILL_IDS)

@@ -19,6 +19,7 @@ from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.train import mplug_train as ttrain
 from tests.test_torch_mplug_train import (  # noqa: F401 (a fixture)
     BATCH, TRAIN_KW, _argv, _batch, _np, sides)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 # ------------------------------------------- checkpointing and AdaHessian

@@ -18,6 +18,7 @@ from flax import serialization
 
 from crvqa_tpu_torch.core import checkpoint as tckpt
 from crvqa_tpu_torch.core import msgpack as tmsgpack
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _tree():

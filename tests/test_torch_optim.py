@@ -33,6 +33,7 @@ from crvqa_tpu_torch.train import mplug_train as ttrain
 from crvqa_tpu_torch.train import optim as toptim
 from crvqa_tpu_torch.train import timm_optim as ttimm
 from crvqa_tpu_torch.train.common import clip_by_global_norm_
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = {"visual_encoder/a/kernel": (6, 5), "visual_encoder/a/bias": (5,),
           "b/kernel": (5, 4), "b/bias": (4,), "c/kernel": (128, 130),

@@ -31,6 +31,7 @@ import torch
 
 from crvqa_tpu.ops import fused_attention as jfa
 from crvqa_tpu_torch.ops import fused_attention as tfa
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SEED = 1234
 HEADS, HEAD_SIZE = 12, 64

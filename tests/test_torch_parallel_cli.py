@@ -13,7 +13,8 @@ Tolerances (fp32, as tests/test_torch_stage2.py): logged losses rtol 1e-4
 at least 99.5% of the mask.pt entries agree; test.json has the same
 question ids in the same order and at least 95% of its answers agree.
 Rank 1 writes nothing. The resumed state equals the checkpoint's leaves
-bit for bit, the ZeRO-gathered moments included."""
+bit for bit, the ZeRO-gathered moments included. The two 2-rank runs
+share one spawn of the ranks."""
 import json
 
 import numpy as np
@@ -22,7 +23,8 @@ import torch
 
 from crvqa_tpu_torch.cli import prune_debias_vqa
 from tests.torch_parallel_worker import (files_written, metric_lines,
-                                         run_cli_ranks)
+                                         run_clis_ranks)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 STEPS = 8  # 32 examples / 8 x 2 epochs
@@ -40,10 +42,11 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("s2dp")
     one = prune_debias_vqa.main(["--output_dir", str(root / "one"),
                                  "--device", "cpu", *ARGS])
-    run_cli_ranks("crvqa_tpu_torch.cli.prune_debias_vqa",
-                  [*ARGS, "--zero_opt", "true"], root / "two")
-    run_cli_ranks("crvqa_tpu_torch.cli.prune_debias_vqa",
-                  [*ARGS, "--mesh_model", "2"], root / "tp")
+    run_clis_ranks([
+        ("crvqa_tpu_torch.cli.prune_debias_vqa", [*ARGS, "--zero_opt", "true"],
+         root / "two"),
+        ("crvqa_tpu_torch.cli.prune_debias_vqa", [*ARGS, "--mesh_model", "2"],
+         root / "tp")])
     return root, one
 
 

@@ -18,7 +18,8 @@ head gates, as the JAX rule replicates them. The scan layout
 JAX `ScanLxmertForVQA` state: nothing splits, each rank of the model
 group runs the whole model, and both ranks end alike. Layer-wise KD
 (`Stage2Config.use_kd`) runs on the same ranks and is held to the JAX
-mesh's KD steps at data 1 x model 2.
+mesh's KD steps at data 1 x model 2. Both meshes run in one spawn of the
+ranks.
 
 Setup: the tiny LXMERT (4 heads, hidden 32, intermediate 64) in fp32 with
 every dropout 0, the LMH loss at 0.3/0.3/0.3 and zero rate 0.7.
@@ -68,6 +69,7 @@ from crvqa_tpu_torch.models import LxmertConfig
 from crvqa_tpu_torch.parallel.dryrun import free_port
 from crvqa_tpu_torch.train import stage2
 from tests.torch_parallel_worker import run_ranks
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                   classifier_dropout=0.0)
@@ -219,9 +221,12 @@ def jax_kd(setup, tmp_path_factory):
                                            / "ckpt"), "plain")
 
 
-def _run(setup, tmp, data, model):
+MESHES = {"dp": (2, 1), "tp": (1, 2)}
+
+
+def _jax_runs(setup, tmp, data, model):
     """The JAX steps on its (data, model) mesh, without and with ZeRO and
-    in the scan layout, and the port's on 2 gloo ranks laid out alike."""
+    in the scan layout, each end state in the port's layout."""
     mesh = make_mesh(MeshConfig(data=data, model=model), jax.devices()[:2])
     jax_runs = {}
     for name, zero in (("plain", False), ("zero", True)):
@@ -233,26 +238,39 @@ def _run(setup, tmp, data, model):
                             setup["jscan_state"], jmodel=setup["jscan"])
     jax_runs["scan"] = (losses, _as_port(setup, js, str(tmp / "jax_scan"),
                                          "scan"))
+    return jax_runs
+
+
+@pytest.fixture(scope="module")
+def spawned(setup, tmp_path_factory):
+    """The JAX runs on both meshes, and the port's on 2 gloo ranks laid
+    out alike, both meshes in one spawn of the ranks: {mesh id: (JAX
+    runs, the ranks' results)}."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    jax_runs = {k: _jax_runs(setup, tmp / k, *mesh)
+                for k, mesh in MESHES.items()}
     torch.save({"carried": setup["carried"], "batches": setup["batches"],
                 "structured": setup["structured"], "scan": setup["scan"],
                 "config": NO_DROPOUT, "sparsity": SPARSITY,
-                "stage2": setup["kw"], "mesh": (data, model)},
+                "stage2": setup["kw"], "meshes": list(MESHES.values())},
                tmp / "inputs.pt")
     port = free_port()
     run_ranks(lambda r: [sys.executable, "-m", "tests.torch_parallel_worker",
                          "stage2_steps", str(r), "2", str(port), str(tmp)], 2)
-    result = torch.load(tmp / "result.pt", weights_only=False)
-    result["scan_rank1"] = torch.load(tmp / "scan_rank1.pt",
-                                      weights_only=False)
-    return jax_runs, result
+    out = {}
+    for k, (data, model) in MESHES.items():
+        result = torch.load(tmp / f"result_{data}x{model}.pt",
+                            weights_only=False)
+        result["scan_rank1"] = torch.load(
+            tmp / f"scan_rank1_{data}x{model}.pt", weights_only=False)
+        out[k] = (jax_runs[k], result)
+    return out
 
 
-@pytest.fixture(scope="module", params=[(2, 1), (1, 2)], ids=["dp", "tp"])
-def runs(request, setup, tmp_path_factory):
-    data, model = request.param
-    jax_runs, result = _run(setup, tmp_path_factory.mktemp("mesh"), data,
-                            model)
-    return model, jax_runs, result, setup
+@pytest.fixture(scope="module", params=list(MESHES), ids=list(MESHES))
+def runs(request, setup, spawned):
+    jax_runs, result = spawned[request.param]
+    return MESHES[request.param][1], jax_runs, result, setup
 
 
 def _assert_moments_match(got, want):

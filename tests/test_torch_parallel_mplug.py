@@ -10,7 +10,8 @@ Tolerances (fp32): logged losses rtol 1e-4; the final checkpoint's scores
 and LM head atol 2 * max(lr) * steps; at least 99.5% of the mask.pt
 entries agree; vqa_result.json answers the same question ids in the same
 order, at least 90% of the answers alike (beam search over a random tiny
-model). Rank 1 writes nothing."""
+model). Rank 1 writes nothing. The three 2-rank runs share one spawn of
+the ranks."""
 import json
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch
 
 from crvqa_tpu_torch.cli import vqa_mplug
 from tests.torch_parallel_worker import (files_written, metric_lines,
-                                         run_cli_ranks)
+                                         run_clis_ranks)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEPS = 8  # 16 examples / 4 x 2 epochs
 ARGS = ["--tiny", "--dtype", "float32", "--synthetic", "16",
@@ -31,15 +33,28 @@ ARGS = ["--tiny", "--dtype", "float32", "--synthetic", "16",
         "--beam_size", "2", "--do_train", "--do_eval"]
 
 
-@pytest.fixture(scope="module", params=["adamw", "lamb", "adafactor"])
-def runs(request, tmp_path_factory):
-    root = tmp_path_factory.mktemp(request.param)
-    args = [*ARGS, "--opt", request.param]
-    one = vqa_mplug.main(["--output_dir", str(root / "one"), "--device",
-                          "cpu", *args])
-    assert one["step"] == STEPS
-    run_cli_ranks("crvqa_tpu_torch.cli.vqa_mplug", args, root / "two")
-    return root, one
+OPTS = ["adamw", "lamb", "adafactor"]
+
+
+@pytest.fixture(scope="module")
+def all_runs(tmp_path_factory):
+    """Each optimizer's one-process run, then their 2-rank runs in one
+    spawn of the ranks."""
+    roots, ones = {}, {}
+    for opt in OPTS:
+        roots[opt] = tmp_path_factory.mktemp(opt)
+        ones[opt] = vqa_mplug.main(["--output_dir", str(roots[opt] / "one"),
+                                    "--device", "cpu", *ARGS, "--opt", opt])
+        assert ones[opt]["step"] == STEPS
+    run_clis_ranks([("crvqa_tpu_torch.cli.vqa_mplug", [*ARGS, "--opt", opt],
+                     roots[opt] / "two") for opt in OPTS])
+    return roots, ones
+
+
+@pytest.fixture(scope="module", params=OPTS)
+def runs(request, all_runs):
+    roots, ones = all_runs
+    return roots[request.param], ones[request.param]
 
 
 def test_two_ranks_follow_the_one_rank_run(runs):

@@ -7,7 +7,8 @@ Tolerances (fp32): logged losses rtol 1e-4; stage 1's saved parameters
 atol 2 * lr * steps (Adam moves each by at most about lr a step);
 VisualBERT's classifier the same and at least 99.5% of its mask.pt
 entries agree; test.json has the same question ids in the same order and
-at least 95% of its answers agree. Rank 1 writes nothing."""
+at least 95% of its answers agree. Rank 1 writes nothing. The two CLIs'
+2-rank runs share one spawn of the ranks."""
 import json
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch
 
 from crvqa_tpu_torch.cli import prune_debias_vqa_visualbert, run_vqa_stage1
 from tests.torch_parallel_worker import (files_written, metric_lines,
-                                         run_cli_ranks)
+                                         run_clis_ranks)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 COMMON = ["--tiny", "--synthetic", "32", "--train_batch_size", "8",
@@ -35,15 +37,24 @@ CLIS = {
 }
 
 
+@pytest.fixture(scope="module")
+def roots(tmp_path_factory):
+    """Each CLI's one-process run, then their 2-rank runs in one spawn of
+    the ranks."""
+    roots = {}
+    for name, (cli, _, extra, steps) in CLIS.items():
+        roots[name] = tmp_path_factory.mktemp(name)
+        one = cli.main(["--output_dir", str(roots[name] / "one"), "--device",
+                        "cpu", *COMMON, *extra])
+        assert one["step"] == steps
+    run_clis_ranks([(module, [*COMMON, *extra], roots[name] / "two")
+                    for name, (_, module, extra, _) in CLIS.items()])
+    return roots
+
+
 @pytest.fixture(scope="module", params=sorted(CLIS))
-def runs(request, tmp_path_factory):
-    cli, module, extra, steps = CLIS[request.param]
-    root = tmp_path_factory.mktemp(request.param)
-    one = cli.main(["--output_dir", str(root / "one"), "--device", "cpu",
-                    *COMMON, *extra])
-    assert one["step"] == steps
-    run_cli_ranks(module, [*COMMON, *extra], root / "two")
-    return request.param, root, steps
+def runs(request, roots):
+    return request.param, roots[request.param], CLIS[request.param][3]
 
 
 def test_two_ranks_follow_the_one_rank_losses(runs):

@@ -20,6 +20,7 @@ from crvqa_tpu_torch.parallel import mesh as pm
 from crvqa_tpu_torch.parallel.dryrun import free_port
 from crvqa_tpu_torch.parallel.zero import partition
 from tests.torch_parallel_worker import REPO, TIMEOUT_S, rank_env, run_ranks
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from crvqa_tpu.utils import tb_events as jtb
 from crvqa_tpu_torch.cli import common as tcommon
 from crvqa_tpu_torch.utils import profiling as tprof
 from crvqa_tpu_torch.utils import tb_events as ttb
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SCALARS = [("loss", 1.5, 10), ("loss", -0.1234567, 20),
            ("eval/acc", 42.25, 20), ("ex_s", 3e38, 2 ** 40),

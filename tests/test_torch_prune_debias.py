@@ -23,6 +23,7 @@ from crvqa_tpu.models import LxmertConfig as JaxConfig
 from crvqa_tpu.models import LxmertForVQA as JaxLxmert
 from crvqa_tpu_torch.cli import prune_debias_vqa, serve_vqa
 from tests.test_dress_rehearsal import ANSWERS, _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _argv(root, out, *extra):

@@ -53,6 +53,7 @@ from crvqa_tpu_torch.masking.spec import (lxmert_mask_specs,
                                           visualbert_mask_specs)
 from crvqa_tpu_torch.models import LxmertConfig, VisualBertConfig
 from crvqa_tpu_torch.train import stage2
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 DROPOUT_0 = ["--hidden_dropout_prob", "0", "--attention_probs_dropout_prob",

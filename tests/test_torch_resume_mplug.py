@@ -8,9 +8,13 @@ twins and their scores; tests/test_torch_resume_mplug_distill.py) and
 `--opt` table; tests/test_torch_resume_mplug_full.py): one JAX run pair
 per file, so the three run on three test workers.
 
-The JAX CLI trains 2 steps and writes `ckpt_2`; the JAX CLI resumed from
-it trains 2 more (a resumed run replays its epochs' batches from the
-first, in either package) and writes `ckpt_final`. Then:
+The JAX package trains 2 steps and writes `ckpt_2`, then 2 more from it
+(a resumed run replays its epochs' batches from the first, in either
+package) and writes `ckpt_final`, as its CLI `crvqa_tpu.cli.vqa_mplug`
+does with this argv (`jax_runs`: the CLI's own model, masker and train
+config, a jitted init, one jitted train step on the CLI's synthetic batches,
+the threshold reset after the last step, and the JAX package's
+`save_checkpoint`). Then:
 
 - the port resumed from `ckpt_2`, before any step, written back in the
   JAX layout, equals the file bit for bit;
@@ -23,9 +27,8 @@ first, in either package) and writes `ckpt_final`. Then:
   `load_checkpoint` into its CLI's state template with the JAX file's
   leaves.
 """
-import json
-
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -39,6 +42,7 @@ from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.train import mplug_train
 from tests.test_torch_resume_interchange import (_array, assert_bit_equal,
                                                  flat, moment_scale)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 ARGV = ["--tiny", "--dtype", "float32", "--seed", "7", "--synthetic", "16",
@@ -52,14 +56,70 @@ KINDS = {"mask": [], "distill": ["--distill", "true"],
          "full": ["--mode", "full", "--opt", "lamb"]}
 
 
+def _jax_train_config(args, n_train):
+    """The JAX CLI's `MPlugTrainConfig` for `args` (vqa_mplug.py main)."""
+    steps_per_epoch = max(n_train // args.train_batch_size, 1)
+    return jtrain.MPlugTrainConfig(
+        mode=args.mode, lr1=args.lr1, lr2=args.lr2,
+        weight_decay=(0.02 if args.weight_decay is None
+                      else args.weight_decay),
+        warmup_steps=(steps_per_epoch if args.warmup_steps is None
+                      else args.warmup_steps),
+        total_steps=int(steps_per_epoch * args.num_train_epochs),
+        min_lr=args.min_lr, sched=args.sched, decay_rate=args.decay_rate,
+        decay_steps=args.decay_steps,
+        steps_per_epoch=(steps_per_epoch
+                         if args.sched_granularity == "epoch"
+                         and args.warmup_steps is None else 0),
+        epochs=int(args.num_train_epochs),
+        warmup_epochs=args.warmup_epochs, warmup_lr_init=args.warmup_lr,
+        decay_epochs=args.decay_epochs, opt=args.opt,
+        opt_momentum=args.opt_momentum, max_grad_norm=args.max_grad_norm,
+        use_bias_reweight=args.use_bias_reweight, distill=args.distill,
+        alpha=args.alpha,
+        alpha_warmup_steps=steps_per_epoch if args.alpha_warm_up else 0)
+
+
 def jax_runs(kind, tmp_path_factory):
-    """The JAX run of `kind` to `ckpt_2` and its resumed continuation."""
+    """The JAX run of `kind` to `ckpt_2` and its resumed continuation to
+    `jax_resumed/ckpt_final` (the module docstring); returns (kind, root,
+    the continuation's step-4 loss)."""
     root = tmp_path_factory.mktemp(kind)
-    argv = ARGV + KINDS[kind] + ["--do_train"]
-    jvqa_mplug.main(["--output_dir", str(root / "jax")] + argv)
-    jvqa_mplug.main(["--output_dir", str(root / "jax_resumed"),
-                     "--resume_from", str(root / "jax" / "ckpt_2")] + argv)
-    return kind, root
+    args = jvqa_mplug.build_parser().parse_args(
+        ARGV + KINDS[kind] + ["--do_train", "--output_dir", str(root)])
+    config, _, model = jvqa_mplug.build_model(args)
+    masker = (jvqa_mplug.build_masker(args, config)[0]
+              if args.mode == "mask" else None)
+    ql, al, apq = (int(x) for x in args.synthetic_shapes.split(","))
+    batches = [synthetic_mplug_batch(
+        batch_size=args.train_batch_size, image_res=config.vit.image_res,
+        q_len=ql, a_len=al, answers_per_question=apq,
+        uint8_images=args.device_normalize,
+        vocab_size=config.bert.vocab_size, seed=i)
+        for i in range(args.synthetic // args.train_batch_size)]
+    batches = [{k: jnp.asarray(v) for k, v in b.items()
+                if k not in ("qid", "valid")} for b in batches]
+    b0 = batches[0]
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(args.seed), b0["images"], b0["question_ids"],
+        b0["question_mask"], b0["answer_ids"], b0["answer_mask"],
+        b0["weights"])["params"]
+    cfg = _jax_train_config(args, args.synthetic)
+    state, tx = jtrain.init_state(model, params, cfg,
+                                  jax.random.PRNGKey(args.seed),
+                                  masker=masker)
+    step = jtrain.make_train_step(model, cfg, tx, masker=masker)
+    for b in batches:  # steps 1, 2 (one epoch)
+        state, _ = step(state, b)
+    jckpt.save_checkpoint(str(root / "jax" / "ckpt_2"), state,
+                          metadata={"step": 2})
+    # the file's values, as a resume reads them back
+    for b in batches:  # steps 3, 4: the resumed run's epoch from its start
+        state, loss = step(state, b)
+    if masker is not None:
+        state = jtrain.make_threshold_reset(masker)(state, None)
+    jckpt.save_checkpoint(str(root / "jax_resumed" / "ckpt_final"), state)
+    return kind, root, float(loss)
 
 
 @pytest.fixture(scope="module", params=["mask"])
@@ -86,7 +146,7 @@ def _port_state(kind, root, path):
 
 
 def test_resume_is_bit_equal_at_load(run):
-    kind, root = run
+    kind, root, _ = run
     state, model, cfg, specs = _port_state(kind, root,
                                            root / "jax" / "ckpt_2")
     assert state.step == 2 and state.opt_state.count == 2
@@ -96,7 +156,7 @@ def test_resume_is_bit_equal_at_load(run):
 
 
 def test_two_steps_match_the_jax_continuation(run):
-    kind, root = run
+    kind, root, jloss = run
     summary = vqa_mplug.main(
         ARGV + KINDS[kind] + ["--do_train", "--device", "cpu",
                               "--output_dir", str(root / "port"),
@@ -108,10 +168,7 @@ def test_two_steps_match_the_jax_continuation(run):
         str(root / "jax_resumed" / "ckpt_final")))
     start = flat(ckpt.load_jax_training_state(str(root / "jax" / "ckpt_2")))
     assert set(got) == set(want)
-    jloss = [m["loss"] for m in map(
-        json.loads, open(root / "jax_resumed" / "metrics.jsonl"))
-        if m.get("step") == 4 and "loss" in m]
-    np.testing.assert_allclose(summary["losses"][-1], jloss[0], rtol=1e-4)
+    np.testing.assert_allclose(summary["losses"][-1], jloss, rtol=1e-4)
     moved = 0
     for k, w in want.items():
         if k == "/rng" or w is None or isinstance(w, dict):
@@ -132,7 +189,7 @@ def test_two_steps_match_the_jax_continuation(run):
 
 @pytest.mark.parametrize("run", ["mask"], indirect=True)
 def test_port_written_state_loads_in_the_jax_package(run, tmp_path):
-    kind, root = run
+    kind, root, _ = run
     state, model, cfg, specs = _port_state(kind, root,
                                            root / "jax" / "ckpt_2")
     path = tmp_path / "ckpt_2"

@@ -8,6 +8,7 @@ import pytest
 from tests.test_torch_resume_mplug import (  # noqa: F401 (collected here)
     jax_runs, test_resume_is_bit_equal_at_load,
     test_two_steps_match_the_jax_continuation)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["distill"])

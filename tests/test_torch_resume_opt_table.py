@@ -26,6 +26,7 @@ from crvqa_tpu_torch.core import convert
 from crvqa_tpu_torch.train import mplug_train as ttrain
 from crvqa_tpu_torch.train.common import clip_by_global_norm_
 from crvqa_tpu_torch.train.optim import OPTAX_OPTS, TIMM_OPTS
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = {"visual_encoder/a/kernel": (6, 5), "visual_encoder/a/bias": (5,),
           "b/kernel": (5, 4), "b/bias": (4,), "c/kernel": (128, 130),

@@ -37,6 +37,7 @@ from crvqa_tpu_torch.train import stage1, stage2
 from tests.test_torch_resume_interchange import (DROPOUT_0, _array,
                                                  assert_bit_equal, flat,
                                                  moment_scale)
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 ARGV = ["--tiny", "--dtype", "float32", "--seed", "0", "--synthetic", "16",

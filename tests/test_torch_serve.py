@@ -31,6 +31,7 @@ from crvqa_tpu_torch.data import vqacp as tvqacp
 from crvqa_tpu_torch.models import LxmertConfig, build_lxmert
 from crvqa_tpu_torch.ops.fused_attention import fused_attention
 from tests.test_dress_rehearsal import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _jax_params(seed):

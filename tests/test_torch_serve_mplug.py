@@ -13,6 +13,7 @@ import pytest
 
 from crvqa_tpu_torch.cli import serve_mplug
 from tests.test_dress_rehearsal_mplug import ANSWERS, _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _args(root, extra=()):

@@ -25,6 +25,7 @@ from crvqa_tpu.data.mplug_data import synthetic_mplug_batch
 from crvqa_tpu.train import mplug_train as jtrain
 from crvqa_tpu_torch.cli import serve_mplug
 from tests.test_dress_rehearsal_mplug import ANSWERS, _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARGV = ["--tiny", "--dtype", "float32", "--seed", "11", "--mode", "mask",
         "--beam_size", "2", "--max_answer_len", "6", "--serve_batch_size",

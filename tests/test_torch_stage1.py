@@ -38,6 +38,7 @@ from crvqa_tpu_torch.masking.masker import (magnitude_masks,
 from crvqa_tpu_torch.models import LxmertConfig
 from crvqa_tpu_torch.train import common, stage1
 from crvqa_tpu_torch.train.stage2 import lxmert_meta_model
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                   classifier_dropout=0.0)

@@ -34,6 +34,7 @@ from crvqa_tpu_torch.masking.masker import weight_name
 from crvqa_tpu_torch.masking.prune import lxmert_specs_for
 from crvqa_tpu_torch.models import LxmertConfig
 from tests.test_dress_rehearsal import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 # what the JAX stage-1 CLI writes for these flags
 STAGE1_FILES = {"args.txt", "best_eval_results_vqa_noMASK.txt", "ckpt_4",

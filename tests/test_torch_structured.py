@@ -40,6 +40,7 @@ from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
 from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
 from crvqa_tpu_torch.models import LxmertConfig
 from crvqa_tpu_torch.train import stage2
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                   classifier_dropout=0.0)

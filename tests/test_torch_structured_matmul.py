@@ -20,6 +20,8 @@ import jax.numpy as jnp
 
 from crvqa_tpu.ops import structured_matmul as jsm
 from crvqa_tpu_torch.ops import structured_matmul as tsm
+from tests.test_torch_masked_matmul import off_cpu
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, HS, K, M = 6, 64, 256, 256
 MASKS = {"some": [1, 0, 1, 0, 0, 1], "all_kept": [1] * H,
@@ -181,10 +183,15 @@ def test_kernel_preconditions_and_devices():
     with pytest.raises(ValueError, match="is not"):
         tsm.head_compact_matmul_pallas(x, wt[:-1], keep, H, HS, bm=128)
     with pytest.raises(ValueError, match="unsupported devices"):
-        tsm.head_compact_matmul_pallas(x.to("meta"), wt.to("meta"), keep, H,
+        tsm.head_compact_matmul_pallas(off_cpu("xpu", M, K),
+                                       off_cpu("xpu", H * HS, K), keep, H,
                                        HS, bm=128, bk=128)
     with pytest.raises(ValueError, match="unsupported devices"):
         tsm.head_compact_matmul_pallas(x, wt.to("meta"), keep, H, HS, bm=128,
                                        bk=128)
+    # `meta` (utils/mfu.count_flops) takes the plain version, as the CPU
+    assert tsm.head_compact_matmul_pallas(
+        x.to("meta"), wt.to("meta"), keep, H, HS, bm=128,
+        bk=128).device.type == "meta"
     assert tsm.head_compact_matmul_pallas.launches == 0
     assert tsm.operand_pass.launches == 0

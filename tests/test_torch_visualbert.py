@@ -40,6 +40,7 @@ from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
 from crvqa_tpu_torch.models import VisualBertConfig, build_visualbert
 from crvqa_tpu_torch.ops.fused_attention import fused_attention
 from crvqa_tpu_torch.train import stage2
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, TEXT, BOXES = 3, 14, 36
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,

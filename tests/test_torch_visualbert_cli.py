@@ -30,6 +30,7 @@ from crvqa_tpu_torch.cli import serve_vqa as tserve
 from crvqa_tpu_torch.core.torch_compat import load_state_dict_file
 from crvqa_tpu_torch.ops.fused_attention import fused_attention
 from tests.test_dress_rehearsal import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 # the flags of tests/test_cli_mplug_visualbert.py::test_visualbert_stage2_cli
 STAGE2_ARGV = ["--tiny", "--synthetic", "32", "--zero_rate", "0.7",

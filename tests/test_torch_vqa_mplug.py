@@ -18,6 +18,7 @@ from crvqa_tpu.ops import kthvalue as jkthvalue
 from crvqa_tpu_torch.cli import vqa_mplug
 from crvqa_tpu_torch.ops import kthvalue
 from crvqa_tpu_torch.core import checkpoint as ckpt
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _argv(out, extra=()):

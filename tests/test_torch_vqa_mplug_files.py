@@ -17,6 +17,7 @@ import torch
 from crvqa_tpu_torch.cli import serve_mplug, vqa_mplug
 from tests.test_dress_rehearsal_mplug import ANSWERS, _fabricate
 from tests.test_torch_vqa_mplug import _argv
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

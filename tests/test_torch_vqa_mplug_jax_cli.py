@@ -8,6 +8,7 @@ import torch
 
 from crvqa_tpu_torch.cli import vqa_mplug
 from tests.test_torch_vqa_mplug import _argv
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("distill", [False, True])

@@ -35,6 +35,7 @@ from crvqa_tpu_torch.data import vqacp as tvqacp
 from crvqa_tpu_torch.data import vqavs as tvqavs
 from crvqa_tpu_torch.evals import scoring as tscoring
 from tests.test_dress_rehearsal_vqavs import _fabricate
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 DROPOUT_0 = ["--hidden_dropout_prob", "0", "--attention_probs_dropout_prob",
              "0", "--classifier_dropout", "0"]

@@ -14,6 +14,7 @@ from crvqa_tpu.data import vqacp as jvqacp
 from crvqa_tpu_torch.data import tokenization as ttok
 from crvqa_tpu_torch.data import vqacp as tvqacp
 from crvqa_tpu_torch.native import wordpiece
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 WORDS = ["what", "color", "is", "the", "dog", "how", "many", "cats", "are",
          "there", "cafe", "a", "red", "ball", "?", ",", "'", "s", "n", "t"]

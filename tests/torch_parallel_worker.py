@@ -1,8 +1,10 @@
 """Launch helpers and rank bodies for the port's multi-process tests
 (tests/test_torch_parallel_*.py): each rank is its own interpreter, as
-torchrun starts them, on gloo over 127.0.0.1. This module imports no JAX.
+torchrun starts them, on gloo over 127.0.0.1. Each test module spawns its
+ranks once and runs all its cases in them. This module imports no JAX.
 
     python -m tests.torch_parallel_worker units RANK WORLD PORT OUT_DIR
+    python -m tests.torch_parallel_worker clis RANK WORLD PORT RUNS_JSON
 """
 from __future__ import annotations
 
@@ -67,19 +69,20 @@ def cli_argv(module: str, port: int, world: int, rank: int, *args) -> list:
             "--num_processes", str(world), "--process_id", str(rank), *args]
 
 
-def run_cli_ranks(module: str, args: list, out_dir, world: int = 2) -> str:
-    """`module`'s CLI over `world` gloo ranks; rank 0 writes into
-    `out_dir`, rank r > 0 is given `<out_dir>_rank<r>` (which must stay
-    empty: only rank 0 writes). Returns rank 0's output."""
+def run_clis_ranks(runs: list, world: int = 2) -> list[str]:
+    """CLI runs over `world` gloo ranks, in one spawn of the ranks
+    (`clis`): `runs` lists (module, args, out_dir), run in turn; rank 0
+    writes into out_dir, rank r > 0 is given `<out_dir>_rank<r>` (which
+    must stay empty: only rank 0 writes). Returns the ranks' outputs."""
     from crvqa_tpu_torch.parallel.dryrun import free_port
 
     port = free_port()
-
-    def argv(r):
-        out = str(out_dir) if r == 0 else f"{out_dir}_rank{r}"
-        return cli_argv(module, port, world, r, "--output_dir", out, *args)
-
-    return run_ranks(argv, world)[0]
+    spec = f"{runs[0][2]}_runs.json"
+    with open(spec, "w") as f:
+        json.dump([[m, list(a), str(o)] for m, a, o in runs], f)
+    return run_ranks(lambda r: [sys.executable, "-m",
+                                "tests.torch_parallel_worker", "clis", str(r),
+                                str(world), str(port), spec], world)
 
 
 def metric_lines(out_dir, key: str) -> list:
@@ -173,20 +176,42 @@ def units(rank: int, world: int, port: int, out_dir: str) -> None:
 
 def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     """The stage-2 steps of test_torch_parallel_jax.py over `world` ranks
-    laid out as `inputs.pt`'s mesh (data x model), without and with ZeRO,
-    from the state the test carried over from the JAX package; then
-    through one window of the steps (`make_multi_step`), with structured
-    head gates from their own carried state, in the scan layout
-    (`--scan_layers`) from its own, and with layer-wise KD
-    (`Stage2Config(use_kd=True, kd_mode="layerwise")`). Rank 0 writes
-    `result.pt`: per run the losses, the whole trained leaves, the
-    gathered Adam moments, the
-    thresholds after a reset and the split leaves' keys (`tp`, None where
-    nothing splits); the structured run also its language head mask and
-    the whole weights' shapes. Every rank writes its scan run to
-    `scan_rank<r>.pt`."""
-    import dataclasses
+    laid out as each of `inputs.pt`'s meshes (data x model) in turn, over
+    one process group (`_stage2_runs`): without and with ZeRO, from the
+    state the test carried over from the JAX package; then through one
+    window of the steps (`make_multi_step`), with structured head gates
+    from their own carried state, in the scan layout (`--scan_layers`)
+    from its own, and with layer-wise KD (`Stage2Config(use_kd=True,
+    kd_mode="layerwise")`). Rank 0 writes `result_<data>x<model>.pt` for
+    each mesh: per run the losses, the whole trained leaves, the gathered
+    Adam moments, the thresholds after a reset and the split leaves' keys
+    (`tp`, None where nothing splits); the structured run also its
+    language head mask and the whole weights' shapes. Every rank writes
+    its scan run to `scan_rank<r>_<data>x<model>.pt`."""
     import datetime
+
+    import torch
+
+    from crvqa_tpu_torch.parallel import mesh as pm
+
+    pm.initialize_multihost(f"127.0.0.1:{port}", world, rank, "cpu",
+                            timeout=datetime.timedelta(seconds=60))
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    for data, model_size in inp["meshes"]:
+        tag = f"{data}x{model_size}"
+        result = _stage2_runs(inp, pm.make_mesh(
+            pm.MeshConfig(data=data, model=model_size), torch.device("cpu")))
+        torch.save(result["scan"], os.path.join(
+            out_dir, f"scan_rank{rank}_{tag}.pt"))
+        if rank == 0:
+            torch.save(result, os.path.join(out_dir, f"result_{tag}.pt"))
+    pm.barrier()
+    pm.shutdown()
+
+
+def _stage2_runs(inp: dict, mesh) -> dict:
+    """`stage2_steps`' runs on one mesh: {run name: its result}."""
+    import dataclasses
 
     import torch
 
@@ -204,12 +229,6 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
     from crvqa_tpu_torch.parallel.zero import zero_optimizer
     from crvqa_tpu_torch.train import stage2
 
-    pm.initialize_multihost(f"127.0.0.1:{port}", world, rank, "cpu",
-                            timeout=datetime.timedelta(seconds=60))
-    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
-    data, model_size = inp["mesh"]
-    mesh = pm.make_mesh(pm.MeshConfig(data=data, model=model_size),
-                        torch.device("cpu"))
     config = LxmertConfig.tiny(**inp["config"])
     dims = (config.l_layers, config.r_layers, config.x_layers)
     specs = lxmert_mask_specs(*dims)
@@ -281,15 +300,25 @@ def stage2_steps(rank: int, world: int, port: int, out_dir: str) -> None:
                       if tp is None else tp.whole_shapes(state.frozen))
             result[name]["whole_shapes"] = {k: tuple(v)
                                             for k, v in shapes.items()}
-    torch.save(result["scan"], os.path.join(out_dir,
-                                            f"scan_rank{rank}.pt"))
-    if rank == 0:
-        torch.save(result, os.path.join(out_dir, "result.pt"))
-    pm.barrier()
-    pm.shutdown()
+    return result
+
+
+def clis(rank: int, world: int, port: int, spec: str) -> None:
+    """The CLI runs of `run_clis_ranks`' `spec` in turn in this rank, each
+    with `--multihost` (`cli_argv`), over one process group: the first run
+    brings it up and `initialize_multihost` leaves it up for the others."""
+    import importlib
+
+    with open(spec) as f:
+        runs = json.load(f)
+    for module, args, out_dir in runs:
+        out = out_dir if rank == 0 else f"{out_dir}_rank{rank}"
+        argv = cli_argv(module, port, world, rank, "--output_dir", out,
+                        *args)
+        importlib.import_module(module).main(argv[3:])
 
 
 if __name__ == "__main__":
     name, rank, world, port, out = sys.argv[1:6]
-    {"units": units, "stage2_steps": stage2_steps}[name](
+    {"units": units, "stage2_steps": stage2_steps, "clis": clis}[name](
         int(rank), int(world), int(port), out)
