@@ -316,7 +316,13 @@ class ProfileWindow:
 
     The Chrome trace goes into `profile_dir` when the window stops; rank 0
     alone traces. A CUDA window whose trace holds no device record (CUPTI
-    can lose a whole session in a long process) logs a warning."""
+    can lose a whole session in a long process) logs a warning.
+
+    The program's spans (`utils.profiling.span`) record over the active
+    window: they are the trace's `crvqa.*` annotations, and on a CUDA
+    device the window's stop logs one line (`log_step`) with each span's
+    device ms per step over the window's steps (`mask_apply_ms`,
+    `forward_ms`, ...)."""
 
     def __init__(self, args: argparse.Namespace):
         self.dir = (getattr(args, "profile_dir", None) if is_main_process()
@@ -328,6 +334,7 @@ class ProfileWindow:
         self.path: Optional[str] = None  # the written trace
         self._prof = None
         self._last: Optional[int] = None
+        self._first: Optional[int] = None  # the step the window opened at
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -346,9 +353,14 @@ class ProfileWindow:
         warm_session(self.device)
 
     def _activate(self) -> None:
+        from ..utils import profiling
+
         self._sync()
         self._prof.step()  # warm-up -> active
         self.active = True
+        self._first = self._last
+        profiling.clear()
+        profiling.tracing(True)
 
     def tick(self, step: int) -> None:
         if self.dir is None:
@@ -375,14 +387,22 @@ class ProfileWindow:
         self._sync()
         self._prof.stop()
         if self.active:
-            from ..utils.profiling import device_kernels, export_trace
+            from ..utils import profiling
 
-            self.path = export_trace(self._prof, self.dir)
-            if self.device.type == "cuda" and not device_kernels(self._prof):
+            records = profiling.spans()
+            profiling.tracing(False)
+            profiling.clear()
+            self.path = profiling.export_trace(self._prof, self.dir)
+            if (self.device.type == "cuda"
+                    and not profiling.device_kernels(self._prof)):
                 logger.warning("--profile_dir: the trace %s holds no device "
                                "kernel (the profiler lost the session's "
                                "device records); it shows host activity "
                                "only", self.path)
+            per_step = profiling.device_ms_per_step(
+                records, self._last - self._first)
+            if self.device.type == "cuda" and per_step:
+                log_step(self._last, **per_step)
         self._prof = None
         self.active = False
         self.dir = None  # one-shot

@@ -6,7 +6,8 @@ One producer thread runs the numpy batch iterator (feature gather and the
 optional bf16 cast release the GIL), copies each batch into pinned host
 memory and starts its copy to the device on a side stream with
 `non_blocking=True`; the consumer waits for that copy's event before it
-uses the batch. Batch order is kept: it is part of the training contract.
+uses the batch (the `data_wait` span holds the queue's wait and that
+one). Batch order is kept: it is part of the training contract.
 Integer question ids (`question_id`, mPLUG's `qid`) and the `valid` flags
 stay numpy (host-consumed).
 """
@@ -18,6 +19,8 @@ from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 _END = object()
 HOST_KEYS = ("question_id", "qid", "valid")
@@ -98,16 +101,18 @@ def prefetch_batches(src: Iterable[dict], device: torch.device,
     t.start()
     try:
         while True:
-            batch, event, err = q.get()
+            with span("data_wait"):
+                batch, event, err = q.get()
+                if event is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(event)
+                    for v in batch.values():
+                        if isinstance(v, torch.Tensor):
+                            v.record_stream(stream)
             if batch is _END:
                 if err is not None:
                     raise err
                 return
-            if event is not None:
-                torch.cuda.current_stream(device).wait_event(event)
-                for v in batch.values():
-                    if isinstance(v, torch.Tensor):
-                        v.record_stream(torch.cuda.current_stream(device))
             yield batch
     finally:
         stop.set()

@@ -16,6 +16,7 @@ import numpy as np
 
 from ..parallel.mesh import (host_all_gather, host_all_gather_local,
                              is_main_process)
+from ..utils.profiling import span
 
 
 def predict(eval_step: Callable, state, batches: Iterable[dict],
@@ -24,22 +25,26 @@ def predict(eval_step: Callable, state, batches: Iterable[dict],
     question ids and labels on the host, with the rows a batch's `valid`
     vector marks as padding dropped. With a `mesh`, `batches` are this
     rank's blocks and every rank must iterate the same number of them (the
-    gathers are collectives)."""
+    gathers are collectives). Spans: each batch's `eval_step` and `fetch`
+    (the gathers and copies to the host), identified by its index."""
     all_logits, all_qids, all_labels = [], [], []
     n_valid = 0
-    for batch in batches:
-        logits = host_all_gather(eval_step(state, batch).float(), mesh)
-        valid = (host_all_gather_local(np.asarray(batch["valid"]), mesh)
-                 if "valid" in batch else np.ones(logits.shape[0], bool))
-        all_logits.append(logits[valid])
-        if "question_id" in batch:
-            all_qids.append(host_all_gather_local(
-                np.asarray(batch["question_id"]), mesh)[valid])
-        if "labels" in batch:
-            labels = batch["labels"]
-            labels = (labels.cpu().numpy() if hasattr(labels, "cpu")
-                      else np.asarray(labels))
-            all_labels.append(host_all_gather_local(labels, mesh)[valid])
+    for i, batch in enumerate(batches):
+        with span("eval_step", i):
+            logits = eval_step(state, batch)
+        with span("fetch", i):
+            logits = host_all_gather(logits.float(), mesh)
+            valid = (host_all_gather_local(np.asarray(batch["valid"]), mesh)
+                     if "valid" in batch else np.ones(logits.shape[0], bool))
+            all_logits.append(logits[valid])
+            if "question_id" in batch:
+                all_qids.append(host_all_gather_local(
+                    np.asarray(batch["question_id"]), mesh)[valid])
+            if "labels" in batch:
+                labels = batch["labels"]
+                labels = (labels.cpu().numpy() if hasattr(labels, "cpu")
+                          else np.asarray(labels))
+                all_labels.append(host_all_gather_local(labels, mesh)[valid])
         n_valid += int(valid.sum())
     out = {"logits": (np.concatenate(all_logits) if all_logits
                       else np.zeros((0,)))}

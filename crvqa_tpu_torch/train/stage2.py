@@ -32,6 +32,7 @@ from ..losses import cosine_rep_loss, dispatch_loss, learned_mixin_init
 from ..masking.binarizers import clamp_scores_sign_
 from ..masking.masker import Masker, bias_key, weight_name
 from ..models.layers import set_generators
+from ..utils.profiling import span
 from .common import (HfAdamW, HfAdamWState, TrainMetrics, TrainRNG,
                      allreduce_grads_, batch_score, clip_by_global_norm_,
                      hidden_dropout_generator, linear_warmup_schedule,
@@ -170,13 +171,16 @@ def masked_params(model_dtypes: dict[str, torch.dtype], masker: Masker,
     applied (cast to the model's dtypes) plus the trainable classifier
     under `classifier_key`. Under tensor parallelism (`tp`) the whole
     structured gates apply this rank's part (`tp.local_gates`)."""
-    scores = state.scores if tp is None else tp.local_gates(state.scores)
-    masked = masker.apply_masks(state.frozen, scores, state.thresholds,
-                                generator=generator)
-    out = {n: (t if t.dtype == model_dtypes[n] else t.to(model_dtypes[n]))
-           for n, t in masked.items()}
-    out.update({f"{classifier_key}.{k}": v
-                for k, v in state.train_params["classifier"].items()})
+    with span("mask_apply"):
+        scores = (state.scores if tp is None
+                  else tp.local_gates(state.scores))
+        masked = masker.apply_masks(state.frozen, scores, state.thresholds,
+                                    generator=generator)
+        out = {n: (t if t.dtype == model_dtypes[n]
+                   else t.to(model_dtypes[n]))
+               for n, t in masked.items()}
+        out.update({f"{classifier_key}.{k}": v
+                    for k, v in state.train_params["classifier"].items()})
     return out
 
 
@@ -240,24 +244,26 @@ def make_loss_and_grads(model: torch.nn.Module, masker: Masker,
         leaves = trainable(state, config)
         params = masked_params(dtypes, masker, state, state.rng.device,
                                config.classifier_key, tp)
-        inputs = dict(model_inputs(batch), **extra)
-        out = functional_call(model, params, (), inputs, strict=True)
-        logits, pooled = out[0], out[1]
-        loss = dispatch_loss(
-            config.masker_type, logits=logits, pooled=pooled,
-            labels=batch["labels"], bias=batch.get("bias"),
-            max_label=batch.get("max_label"),
-            lmh_params=state.train_params.get("lmh"),
-            gamma=config.gamma, lmh_w=config.lmh_w)
-        if config.use_kd:
-            loss = loss + config.kd_weight * kd_loss(
-                out, teacher(state, inputs), config.kd_mode)
-        # the last cross layer's visual branch never reaches the logits:
-        # its scores get zero gradients, as under jax.grad
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(leaves.items(), grads)}
+        with span("forward"):
+            inputs = dict(model_inputs(batch), **extra)
+            out = functional_call(model, params, (), inputs, strict=True)
+            logits, pooled = out[0], out[1]
+            loss = dispatch_loss(
+                config.masker_type, logits=logits, pooled=pooled,
+                labels=batch["labels"], bias=batch.get("bias"),
+                max_label=batch.get("max_label"),
+                lmh_params=state.train_params.get("lmh"),
+                gamma=config.gamma, lmh_w=config.lmh_w)
+            if config.use_kd:
+                loss = loss + config.kd_weight * kd_loss(
+                    out, teacher(state, inputs), config.kd_mode)
+        with span("backward"):
+            # the last cross layer's visual branch never reaches the
+            # logits: its scores get zero gradients, as under jax.grad
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(v) if g is None else g
+                     for (k, v), g in zip(leaves.items(), grads)}
         return (loss.detach(), batch_score(logits.detach(), batch["labels"]),
                 grads)
 
@@ -304,28 +310,33 @@ def make_train_step(model: torch.nn.Module, masker: Masker, tx: HfAdamW,
     stacked = {f"scores/{s.key}" for s in masker.specs if s.stacked}
 
     def train_step(state: Stage2State, batch: dict):
-        loss, score, grads = loss_and_grads(state, batch)
-        params = trainable(state, config)
-        allreduce_grads_(grads, mesh)
-        if tp is not None:
-            tp.sum_gate_grads_(grads)
-        # the clip's norm over each layer of a stacked gradient apart, in
-        # the unrolled layout's order: the scan layout's global norm is
-        # then the unrolled one's, bit for bit
-        keys = [(k, g) for k in params for g in (
-            grads[k].unbind(0) if k in stacked else (grads[k],))]
-        clip_by_global_norm_([g for _, g in keys], config.max_grad_norm,
-                             None if tp is None
-                             else [tp.is_split(k) for k, _ in keys], tp)
-        tx.step(params, grads, state.opt_state)
-        if masker.binarizer_name == "MaskedLinear2":
-            # scheme 2's in-place clamp after every optimizer step
-            with torch.no_grad():
-                for s in state.scores.values():
-                    clamp_scores_sign_(s)
-        state.step += 1
-        loss, score, size = reduce_metrics(
-            loss, score, int(batch["labels"].shape[0]), mesh)
+        with span("train_step", state.step):
+            loss, score, grads = loss_and_grads(state, batch)
+            params = trainable(state, config)
+            if mesh is not None or tp is not None:
+                with span("grad_sync"):
+                    allreduce_grads_(grads, mesh)
+                    if tp is not None:
+                        tp.sum_gate_grads_(grads)
+            with span("optimizer"):
+                # the clip's norm over each layer of a stacked gradient
+                # apart, in the unrolled layout's order: the scan layout's
+                # global norm is then the unrolled one's, bit for bit
+                keys = [(k, g) for k in params for g in (
+                    grads[k].unbind(0) if k in stacked else (grads[k],))]
+                clip_by_global_norm_(
+                    [g for _, g in keys], config.max_grad_norm,
+                    None if tp is None
+                    else [tp.is_split(k) for k, _ in keys], tp)
+                tx.step(params, grads, state.opt_state)
+                if masker.binarizer_name == "MaskedLinear2":
+                    # scheme 2's in-place clamp after every optimizer step
+                    with torch.no_grad():
+                        for s in state.scores.values():
+                            clamp_scores_sign_(s)
+            state.step += 1
+            loss, score, size = reduce_metrics(
+                loss, score, int(batch["labels"].shape[0]), mesh)
         return state, TrainMetrics(loss=loss, score=score, batch_size=size)
 
     return train_step
@@ -372,7 +383,9 @@ def make_threshold_reset(masker: Masker, tp=None) -> Callable:
     scores: every rank gets the whole matrix's threshold, ties included."""
 
     def reset(state: Stage2State) -> Stage2State:
-        state.thresholds = masker.reset_thresholds(full_scores(state, tp))
+        with span("reset", state.step):
+            state.thresholds = masker.reset_thresholds(
+                full_scores(state, tp))
         return state
 
     return reset

@@ -1,10 +1,17 @@
 """Tracing and metrics sinks (counterpart of `crvqa_tpu/utils/profiling.py`).
 
-- `trace(logdir, device)`: a `torch.profiler` session over the enclosed
-  work (CPU activity, plus CUDA activity on a CUDA device), written to
-  `logdir` as a Chrome trace (`chrome://tracing`, Perfetto, TensorBoard's
-  profiler plugin).
-- `StepTimer`: wall-clock step times with warm-up exclusion.
+- Spans: `span(name, step)` marks one layer's work inside the program
+  (the stage-2 step and its mask apply, forward, backward, gradient sync
+  and optimizer; the threshold reset; `predict`'s eval step and fetch;
+  the prefetch consumer's wait). Recording is off until `tracing(True)`;
+  on, each span keeps a record (`SpanRecord`: name, identifier, parent,
+  host times, and on the card the device time between a pair of CUDA
+  events) and is a profiler annotation `crvqa.<name>`, so a profiler
+  session places it on the trace's clock beside the device operations.
+  `spans()` reads the records, `clear()` drops them. `--profile_dir`
+  (`cli/common.ProfileWindow`) records over its window.
+- Profiler sessions: `activities`, `warm_session`, `device_kernels`,
+  `export_trace` (`ProfileWindow`'s Chrome trace).
 - `MetricsWriter`: `metrics.jsonl` (one JSON object per line, values as
   `float(v)` unrounded), mirrored into a TensorBoard event file
   (`tensorboard_dir`) and optionally wandb (the reference's
@@ -14,11 +21,12 @@
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import socket
 import time
-from typing import Iterator, Optional
+from typing import Optional
 
 import torch
 
@@ -73,58 +81,124 @@ def export_trace(prof, logdir: str) -> str:
     return path
 
 
-@contextlib.contextmanager
-def trace(logdir: Optional[str], device="cpu") -> Iterator[None]:
-    """A torch.profiler trace of the enclosed work into `logdir` (no-op
-    when it is None). On a CUDA device the enclosed work is synchronised
-    before the session stops, so its kernels are in the trace."""
-    if logdir is None:
-        yield
-        return
-    from torch.profiler import profile
-
-    prof = profile(activities=activities(device))
-    prof.start()
-    try:
-        yield
-    finally:
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        prof.stop()
-        export_trace(prof, logdir)
+# ------------------------------------------------------------------ spans
+# Recording is off by default: `span` then costs one test of `_ON` and
+# returns `_NULL`. Spans are opened and closed on one thread (the loop
+# that drives the steps); autograd's backward thread and the prefetch
+# producer open none.
+_ON = False
+_EVENTS = False  # CUDA events at the span edges
+_NULL = contextlib.nullcontext()
+_RECORDS: list["SpanRecord"] = []
+_OPEN: list[int] = []  # indices of the open spans, outermost first
 
 
-class StepTimer:
-    """Wall-clock per-step timing with warm-up exclusion; JSON-line
-    report."""
+@dataclasses.dataclass
+class SpanRecord:
+    """One span: `step` is the identifier every span of one unit of work
+    shares (the optimizer step at a train step's entry, a batch's index
+    in `predict`), `parent` the index of the enclosing span in `spans()`,
+    host times from `time.perf_counter_ns()`, and `device_ms` the time
+    the current CUDA stream took from the span's entry to its exit
+    (resolved by `spans()`; None off the card)."""
 
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: list[float] = []
-        self._t0: Optional[float] = None
-        self._count = 0
+    name: str
+    step: Optional[int]
+    parent: Optional[int]
+    host_start_ns: int
+    host_end_ns: Optional[int] = None
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
 
-    def stop(self) -> None:
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._times.append(dt)
+class _Span:
+    """An open span: its record, a pair of CUDA events when `_EVENTS`,
+    and the profiler annotation `crvqa.<name>`."""
 
-    def summary(self, batch_size: Optional[int] = None) -> dict:
-        if not self._times:
-            return {"steps": 0}
-        mean = sum(self._times) / len(self._times)
-        out = {
-            "steps": len(self._times),
-            "mean_step_ms": round(mean * 1000, 3),
-            "min_step_ms": round(min(self._times) * 1000, 3),
-        }
-        if batch_size:
-            out["examples_per_sec"] = round(batch_size / mean, 2)
-        return out
+    __slots__ = ("name", "step", "record", "mark")
+
+    def __init__(self, name: str, step: Optional[int]):
+        self.name, self.step = name, step
+        self.mark = torch.profiler.record_function("crvqa." + name)
+
+    def __enter__(self) -> "SpanRecord":
+        parent = _OPEN[-1] if _OPEN else None
+        step = self.step if parent is None else _RECORDS[parent].step
+        rec = self.record = SpanRecord(self.name, step, parent, 0)
+        self.mark.__enter__()
+        _OPEN.append(len(_RECORDS))
+        _RECORDS.append(rec)
+        if _EVENTS:
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        rec.host_start_ns = time.perf_counter_ns()
+        return rec
+
+    def __exit__(self, *exc) -> bool:
+        rec = self.record
+        rec.host_end_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        if _OPEN:
+            _OPEN.pop()
+        self.mark.__exit__(*exc)
+        return False
+
+
+def span(name: str, step: Optional[int] = None):
+    """A context manager over one layer's work while recording is on
+    (`tracing`): a root span takes `step` as its identifier, a span opened
+    inside another takes its parent's. Off, the shared null context."""
+    if not _ON:
+        return _NULL
+    return _Span(name, step)
+
+
+def tracing(on: bool) -> None:
+    """Turn span recording on or off. Where CUDA is available each span
+    also records a pair of CUDA events on the current stream; nothing
+    synchronises."""
+    global _ON, _EVENTS
+    _ON = bool(on)
+    _EVENTS = _ON and torch.cuda.is_available()
+
+
+def spans() -> list[SpanRecord]:
+    """The records since the last `clear()`, in the order the spans
+    opened, each closed span's device time resolved from its events.
+    Read after a synchronisation: an event the device has not reached
+    yet is waited for."""
+    for rec in _RECORDS:
+        if rec.events is not None and rec.host_end_ns is not None:
+            start, end = rec.events
+            end.synchronize()
+            rec.device_ms = start.elapsed_time(end)
+            rec.events = None
+    return list(_RECORDS)
+
+
+def clear() -> None:
+    """Drop every record (the open spans' too)."""
+    _RECORDS.clear()
+    _OPEN.clear()
+
+
+def device_ms_per_step(records: list[SpanRecord], steps: int
+                       ) -> dict[str, float]:
+    """`<name>_ms`: each span name's summed device ms over `steps`, for
+    the names whose every record has a device time."""
+    total: dict[str, float] = {}
+    untimed = set()
+    for rec in records:
+        if rec.device_ms is None:
+            untimed.add(rec.name)
+        else:
+            total[rec.name] = total.get(rec.name, 0.0) + rec.device_ms
+    if steps <= 0:
+        return {}
+    return {f"{n}_ms": t / steps for n, t in total.items()
+            if n not in untimed}
 
 
 class MetricsWriter:

@@ -137,21 +137,6 @@ def test_log_step_matches_jax(tmp_path, capsys):
     assert '"loss": 0.1234567891' in b
 
 
-def test_step_timer_summary_matches_jax(monkeypatch):
-    ticks = iter(np.arange(0.0, 100.0, 0.125))
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-    out = []
-    for mod in (jprof, tprof):
-        t = mod.StepTimer(warmup=1)
-        for _ in range(4):
-            t.start()
-            t.stop()
-        out.append(t.summary(batch_size=8))
-    assert out[0] == out[1]
-    assert set(out[1]) == {"steps", "mean_step_ms", "min_step_ms",
-                           "examples_per_sec"}
-
-
 # ------------------------------------------------------------- windows
 
 class _FakeProfile:
@@ -277,17 +262,6 @@ def test_profile_window_warns_when_a_cuda_trace_has_no_kernel(
     assert all(os.path.exists(w.path) for w in windows.values())
     assert len(warned) == 1 and windows["cuda"].path in warned[0]
     assert "no device kernel" in warned[0]
-
-
-def test_trace_context_writes_a_chrome_trace(tmp_path):
-    with tprof.trace(str(tmp_path)):
-        with torch.profiler.record_function("inside"):
-            torch.ones(4).sum()
-    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
-    assert any(e.get("name") == "inside"
-               for e in json.load(open(path))["traceEvents"])
-    with tprof.trace(None):  # no-op
-        pass
 
 
 # ---------------------------------------------------------------- CLIs
