@@ -61,6 +61,15 @@ Phases (each one's seconds are logged):
               and heads bit for bit, outputs and gradients to the plain
               versions with the same offsets at phases 5 and 11's
               tolerances.
+ 5b. epilogue-kernel  the output blocks' epilogue kernels
+              (`ops/residual_layernorm.py`: dropout, residual add and
+              LayerNorm forward, and its backward) at stage 2's sites, batch
+              2048: LXMERT's 14 and 36 rows and VisualBERT's 50, bf16,
+              rate 0.1, and 36 rows in fp32; against their plain versions
+              (the kernels' formulas step by step) and the eager chain,
+              the saved keep mask bit for bit against the draw; timed
+              beside both (the eager chain's forward and forward +
+              backward under autograd as the yardstick).
   6. serve    `crvqa_tpu_torch.cli.serve_vqa.main` at full LXMERT width
               (768 hidden, 12x64 heads, 9/5/5 layers, 2274 answers) on
               seeded weights and fabricated data: 512 requests at batch 32 in
@@ -97,7 +106,9 @@ Phases (each one's seconds are logged):
               classifier4masker.bin with serve_vqa. Then 8 steps with the
               recompute backward (`BWD_IMPL = "recompute"`).
  10. step     examples per second over timed train steps (synchronised,
-              after warm-up), device time by kernel of one step (profile),
+              after warm-up; the first warm-up step launches the epilogue
+              kernels 58 times forward and 55 backward, `epilogue_per_step`),
+              device time by kernel of one step (profile),
               and one full-width fp32 step with dropout on through the
               kernels against the same step through the plain versions from
               the same generators.
@@ -190,12 +201,14 @@ Phases (each one's seconds are logged):
               with two threshold resets, a checkpoint, an eval and the
               export. Checks finite losses, 12 forward-for-grad and 12
               stored-backward launches per step and 12 primal per eval
-              batch, the zero rate after the reset; then 3 warm-up and 10
+              batch, the zero rate after the reset; then one counted step
+              (also 24 + 24 epilogue launches), 3 warm-up and 10
               timed steps on one batch kept on the card (examples per
               second, device time of two profiled steps), 2 layer-wise KD
               steps (12 + 12 + 12 launches each), and one fp32
               step with dropout on through the kernels against the plain
-              versions (`_close_to`).
+              versions, the epilogue's eager chain among them
+              (`_close_to`).
  19. visualbert-serve  `serve_vqa --model_type visualbert` at that width:
               512 requests at batch 32 over phase serve's store, through
               phase visualbert-train's mask.pt and classifier4masker.bin,
@@ -1230,6 +1243,136 @@ TEMPLATES = ["What color is the {}?", "How many {}s are there?",
 SUBJECTS = ["man", "woman", "dog", "cat", "frisbee", "car", "person"]
 
 
+# --------------------------------------------------------------- phase 5b
+
+EPILOGUE_ROWS = [(14, "bfloat16"), (36, "bfloat16"), (VISUALBERT_SHAPE[0],
+                                                      "bfloat16"),
+                 (36, "float32")]
+EPILOGUE_BATCH = 2048  # the benchmark's stage-2 batch
+
+
+def _epilogue_counted(fn):
+    """fn() with the epilogue kernels' launch counters read around it: (fn's
+    result, (forward, backward) launches)."""
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    before = (rl.residual_layernorm.launches,
+              rl.residual_layernorm_bwd.launches)
+    result = fn()
+    return result, (rl.residual_layernorm.launches - before[0],
+                    rl.residual_layernorm_bwd.launches - before[1])
+
+
+def epilogue_per_step(config) -> tuple[int, int]:
+    """(forward, backward) epilogue launches of one stage-2 step: two output
+    blocks a language and a visual LXMERT layer, six a cross layer (the
+    shared cross attention's block runs twice), the backward all but the
+    last cross layer's three visual ones, which reach no loss; VisualBERT
+    two a layer, forward and backward."""
+    if hasattr(config, "x_layers"):
+        fwd = 2 * (config.l_layers + config.r_layers) + 6 * config.x_layers
+        return fwd, fwd - 3
+    return 2 * config.num_hidden_layers, 2 * config.num_hidden_layers
+
+
+def _plain_epilogue(*args, kernels=True):
+    """The output blocks' epilogue on the eager chain (`layers` looks it
+    up at call time)."""
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    return rl.residual_layernorm(*args, kernels=False)
+
+
+def _epilogue_bytes_ms(n: int, rows: int, item: int) -> tuple[float, float]:
+    """(forward, backward) ms to move one call's bytes over HBM: forward y,
+    the residual and the fp32 draw read, out, z and the byte mask written;
+    backward g, z and the mask read, dz and dy written; each row's fp32
+    mean and rstd once."""
+    fwd = n * (2 * item + 4 + 2 * item + 1) + 8 * rows
+    bwd = n * (2 * item + 1 + 2 * item) + 8 * rows
+    return 1e3 * fwd / HBM_BYTES_PER_S, 1e3 * bwd / HBM_BYTES_PER_S
+
+
+def phase_epilogue_kernel(torch, device, rehearse: bool, seed: int
+                          ) -> list[dict]:
+    """Module docstring, phase 5b."""
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    rows = []
+    b = 2 if rehearse else EPILOGUE_BATCH
+    for s, dtype in EPILOGUE_ROWS:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator().manual_seed(seed + s)
+        y, res, g = (torch.randn(b, s, 768, generator=gen).to(device, dt)
+                     for _ in range(3))
+        w = (1.0 + 0.3 * torch.randn(768, generator=gen)).to(device)
+        bias = (0.3 * torch.randn(768, generator=gen)).to(device)
+        r = torch.rand(y.shape, generator=gen).to(device)
+        fwd_args = (y, res, r, w, bias, MAIN_RATE, 1e-12)
+        (out, z, keep, mean, rstd), launches = _epilogue_counted(
+            lambda: rl._fwd(*fwd_args))
+        ref = rl.fwd_reference(*fwd_args)
+        eager = rl.plain(y, res, r, w, bias, 1e-12, MAIN_RATE)
+        (dz, dy, dw, db), bwd_launches = _epilogue_counted(
+            lambda: rl.residual_layernorm_bwd(g, z, keep, mean, rstd, w,
+                                              MAIN_RATE, params=True))
+        ref_b = rl.bwd_reference(g, z, keep, mean, rstd, w, MAIN_RATE)
+        if not rehearse:
+            torch.cuda.synchronize()
+        step = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+        near = lambda a, c: bool(((a.float() - c.float()).abs() <= step * (
+            a.float().abs() + c.float().abs()) + 1e-4 * c.float().abs().max()
+        ).all())
+        row = {"batch": b, "rows": s, "dtype": dtype, "rate": MAIN_RATE,
+               "launches": [launches[0], bwd_launches[1]],
+               "keep_exact": bool(torch.equal(keep, r < 1.0 - MAIN_RATE)),
+               "z_err": _max_err(torch, [z], [ref[1]]),
+               "out_err": _max_err(torch, [out], [ref[0]]),
+               "out_vs_eager_err": _max_err(torch, [out], [eager]),
+               "bwd_err": _max_err(torch, [dz, dy], ref_b[:2]),
+               "param_err": _max_err(torch, [dw, db], ref_b[2:])}
+        ok = (row["keep_exact"] and row["z_err"] == 0.0
+              and near(out, ref[0]) and near(out, eager)
+              and near(dz, ref_b[0]) and near(dy, ref_b[1])
+              and all(torch.allclose(x, y_, rtol=1e-4, atol=1e-4 * float(
+                  y_.abs().max())) for x, y_ in zip((dw, db), ref_b[2:]))
+              and row["launches"] == [int(not rehearse)] * 2)
+        item = 2 if dtype == "bfloat16" else 4
+        row["fwd_bound_ms"], row["bwd_bound_ms"] = _epilogue_bytes_ms(
+            y.numel(), b * s, item)
+        if not rehearse:
+            leaves = [t.clone().requires_grad_() for t in (y, res)]
+            eager_fwd = lambda: rl.plain(*leaves, r, w, bias, 1e-12,
+                                         MAIN_RATE)
+            row["fwd_ms"] = _graph_ms(torch, lambda: rl._fwd(*fwd_args))
+            row["fwd_plain_ms"] = _graph_ms(torch,
+                                            lambda: rl.fwd_reference(
+                                                *fwd_args))
+            row["fwd_library_ms"] = _graph_ms(torch, eager_fwd)
+            row["bwd_ms"] = _graph_ms(torch, lambda: (
+                rl.residual_layernorm_bwd(g, z, keep, mean, rstd, w,
+                                          MAIN_RATE)))
+            row["bwd_params_ms"] = _graph_ms(torch, lambda: (
+                rl.residual_layernorm_bwd(g, z, keep, mean, rstd, w,
+                                          MAIN_RATE, params=True)))
+            row["bwd_plain_ms"] = _graph_ms(torch, lambda: rl.bwd_reference(
+                g, z, keep, mean, rstd, w, MAIN_RATE, params=False))
+            row["library_fwd_bwd_ms"] = _graph_ms(
+                torch, lambda: torch.autograd.grad(eager_fwd(), leaves, g))
+            row["library_bwd_ms"] = (row["library_fwd_bwd_ms"]
+                                     - row["fwd_library_ms"])
+            row["draw_ms"] = _graph_ms(torch, lambda: torch.rand(
+                y.shape, device=device))
+        rows.append(row)
+        log("epilogue-kernel: " + json.dumps(row))
+        check(ok, f"epilogue-kernel: the kernels disagree with their plain "
+                  f"versions or the eager chain at {b} x {s} {dtype}: {row} "
+                  f"(keep and z exact; outputs and dz, dy within {step} "
+                  f"relative plus 1e-4 of the largest; weight and bias "
+                  f"gradients 1e-4)")
+    return rows
+
+
 def fabricate(root: str, config, rng, torch, seed: int) -> dict:
     """VQA-CP-shaped files of the real widths from `seed`: vocab, answer
     vocabulary, image features as a pickle and a .bin store, a stage-2
@@ -2221,7 +2364,11 @@ def phase_step(torch, device, rehearse: bool, seed: int,
     model, masker, cfg, state, tx, batch = _stage2_setup(
         torch, config, device, seed, TRAIN_BATCH)
     step = stage2.make_train_step(model, masker, tx, cfg)
-    for _ in range(WARMUP_STEPS):
+    (state, _), epilogue = _epilogue_counted(lambda: step(state, batch))
+    want = tuple(n * (not rehearse) for n in epilogue_per_step(config))
+    check(epilogue == want, f"step: epilogue launches (forward, backward) "
+                            f"{epilogue} != {want}")
+    for _ in range(WARMUP_STEPS - 1):
         state, _ = step(state, batch)
     sync()
     if not rehearse:
@@ -2237,7 +2384,7 @@ def phase_step(torch, device, rehearse: bool, seed: int,
     out = {"batch": TRAIN_BATCH, "timed_steps": TIMED_STEPS,
            "step_ms": 1e3 * dt / TIMED_STEPS,
            "examples_per_s": TIMED_STEPS * TRAIN_BATCH / dt,
-           "losses": losses}
+           "losses": losses, "epilogue_launches": epilogue}
     check(all(np.isfinite(losses)), f"timed steps: losses {losses}")
     if not rehearse:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2258,15 +2405,21 @@ def phase_step(torch, device, rehearse: bool, seed: int,
         torch, config, device, seed + 1, CHECK_BATCH)
     fn = stage2.make_loss_and_grads(model, masker, cfg)
     rng = (state.rng.device.get_state(), state.rng.host.get_state())
-    (loss_k, _, grads_k), launches = _run_counted(lambda: fn(state, batch))
+    ((loss_k, _, grads_k), launches), epilogue = _epilogue_counted(
+        lambda: _run_counted(lambda: fn(state, batch)))
     state.rng.device.set_state(rng[0])
     state.rng.host.set_state(rng[1])
-    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    saved = layers.fused_attention, layers.residual_layernorm
+    layers.fused_attention = _plain_attention
+    layers.residual_layernorm = _plain_epilogue
     try:
         loss_p, _, grads_p = fn(state, batch)
     finally:
-        layers.fused_attention = saved
+        layers.fused_attention, layers.residual_layernorm = saved
     sync()
+    want = tuple(n * (not rehearse) for n in epilogue_per_step(config))
+    check(epilogue == want, f"step check: epilogue launches (forward, "
+                            f"backward) {epilogue} != {want}")
     scores = [k for k in grads_k if k.startswith("scores/")]
     gmax = max(grads_p[k].abs().max().item() for k in scores)
     dmax = max((grads_k[k] - grads_p[k]).abs().max().item() for k in scores)
@@ -2274,7 +2427,7 @@ def phase_step(torch, device, rehearse: bool, seed: int,
     check_out = {"batch": CHECK_BATCH, "loss_kernels": loss_k.item(),
                  "loss_plain": loss_p.item(), "loss_abs_diff": dloss,
                  "score_grad_max": gmax, "score_grad_max_abs_diff": dmax,
-                 "launches": launches}
+                 "launches": launches, "epilogue_launches": epilogue}
     log("step check: " + json.dumps(check_out))
     # fp32 throughout; the kernels sum in another order than the plain
     # versions' cuBLAS products, and the difference travels 19 layers
@@ -4225,12 +4378,17 @@ def phase_visualbert_train(torch, device, rehearse: bool, seed: int,
     model, masker, cfg, state, tx, batch = _visualbert_setup(
         torch, bf16, device, seed, TRAIN_BATCH)
     step = stage2.make_train_step(model, masker, tx, cfg)
-    _, step_launches = _run_counted(lambda: step(state, batch))
+    (_, step_launches), epilogue = _epilogue_counted(
+        lambda: _run_counted(lambda: step(state, batch)))
     check(step_launches == _launch_counts(
         on_card, fused_attention_fwd_train=per_step,
         fused_attention_bwd_stored=per_step),
         f"visualbert-step: one step's launches {step_launches}")
+    want = tuple(n * on_card for n in epilogue_per_step(config))
+    check(epilogue == want, f"visualbert-step: epilogue launches (forward, "
+                            f"backward) {epilogue} != {want}")
     result["step_launches"] = step_launches
+    result["epilogue_launches"] = epilogue
     result["timed"] = _timed_steps(torch, step, state, batch, rehearse,
                                    "visualbert-step")
     # 2 layer-wise KD steps: the dense teacher adds its primal forward
@@ -4261,11 +4419,13 @@ def phase_visualbert_train(torch, device, rehearse: bool, seed: int,
         lambda: fn(state, batch))
     state.rng.device.set_state(rng[0])
     state.rng.host.set_state(rng[1])
-    saved, layers.fused_attention = layers.fused_attention, _plain_attention
+    saved = layers.fused_attention, layers.residual_layernorm
+    layers.fused_attention = _plain_attention
+    layers.residual_layernorm = _plain_epilogue
     try:
         loss_p, _, grads_p = fn(state, batch)
     finally:
-        layers.fused_attention = saved
+        layers.fused_attention, layers.residual_layernorm = saved
     scores = sorted(k for k in grads_k if k.startswith("scores/"))
     flat = lambda g: torch.cat([g[k].reshape(-1) for k in scores])
     # the longest sum of a weight gradient: over every row of the batch
@@ -6402,6 +6562,8 @@ def main(argv=None) -> int:
                            device, rehearse, seed)
         offset_rows = phase("offset-kernels", phase_offset_kernels, torch,
                             device, rehearse, seed)
+        epilogue_rows = phase("epilogue-kernel", phase_epilogue_kernel,
+                              torch, device, rehearse, seed)
         serve = phase("serve", phase_serve, torch, device, rehearse, seed,
                       keep.name)
         profile = (None if rehearse else
@@ -6484,6 +6646,7 @@ def main(argv=None) -> int:
                        "stage2_variants": variants,
                        "mplug_files": mplug_files, "resume": resume,
                        "offset_kernel_rows": offset_rows,
+                       "epilogue_kernel_rows": epilogue_rows,
                        "parallel": parallel, "flop_counts": COUNT_S,
                        "kernels": kernels},
                       f, indent=1)

@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.fused_attention import MAX_HEADS_TIMES_SEQ, fused_attention
 from ..ops.midseq_attention import midseq_attention
 from ..ops.midseq_attention import supported as midseq_supported
+from ..ops.residual_layernorm import residual_layernorm
 
 # Bidirectional cross attention in one pass (`LxmertXLayer`): project q, k
 # and v and run the output block ONCE over the [lang; visn] concatenation
@@ -324,25 +325,43 @@ def row_parallel(dense: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
     return tp.reduce_from_model(F.linear(x, dense.weight)) + dense.bias
 
 
-class AttentionOutput(nn.Module):
-    """dense -> dropout -> residual add -> LayerNorm (`LxmertAttentionOutput`).
-    `in_size` is the attention's width, heads x head size: the hidden size
-    unless the heads were compacted (`masking/compaction.py`). Under
-    tensor parallelism the dense is row-parallel (`row_parallel`)."""
+class _OutputBlock(nn.Module):
+    """dense -> dropout -> residual add -> LayerNorm, the closing block of
+    every attention and FFN sublayer. The epilogue after the dense is
+    `ops/residual_layernorm.py`: one kernel pair on the card, the eager
+    chain on the CPU and with `kernels=False` (the model's setting under a
+    second-order optimizer, as for the attentions). Under tensor
+    parallelism the dense is row-parallel (`row_parallel`)."""
 
-    def __init__(self, hidden_size: int, dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32,
-                 in_size: Optional[int] = None):
+    def __init__(self, in_size: int, hidden_size: int, dropout_rate: float,
+                 dtype: torch.dtype, kernels: bool):
         super().__init__()
-        self.dense = nn.Linear(in_size or hidden_size, hidden_size,
-                               dtype=dtype)
+        self.dense = nn.Linear(in_size, hidden_size, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
         self.LayerNorm = LayerNorm(hidden_size)
+        self.kernels = kernels
         self.tp = None
 
     def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(
-            row_parallel(self.dense, hidden, self.tp)) + residual)
+        y = row_parallel(self.dense, hidden, self.tp)
+        rate = self.dropout.rate if self.dropout.training else 0.0
+        generator = (_need_generator(self.dropout.generator, "dropout")
+                     if rate else None)
+        ln = self.LayerNorm
+        return residual_layernorm(y, residual, ln.weight, ln.bias, ln.eps,
+                                  rate, generator, kernels=self.kernels)
+
+
+class AttentionOutput(_OutputBlock):
+    """`LxmertAttentionOutput`. `in_size` is the attention's width, heads x
+    head size: the hidden size unless the heads were compacted
+    (`masking/compaction.py`)."""
+
+    def __init__(self, hidden_size: int, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32,
+                 in_size: Optional[int] = None, kernels: bool = True):
+        super().__init__(in_size or hidden_size, hidden_size, dropout_rate,
+                         dtype, kernels)
 
 
 class SelfAttentionLayer(nn.Module):
@@ -400,21 +419,14 @@ class Intermediate(nn.Module):
         return self.act(self.dense(x))
 
 
-class FFNOutput(nn.Module):
-    """`LxmertOutput`: dense -> dropout -> residual add -> LayerNorm (the
-    dense row-parallel under tensor parallelism)."""
+class FFNOutput(_OutputBlock):
+    """`LxmertOutput`: the FFN's output block."""
 
     def __init__(self, intermediate_size: int, hidden_size: int,
-                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.dense = nn.Linear(intermediate_size, hidden_size, dtype=dtype)
-        self.dropout = Dropout(dropout_rate)
-        self.LayerNorm = LayerNorm(hidden_size)
-        self.tp = None
-
-    def forward(self, hidden, residual):
-        return self.LayerNorm(self.dropout(
-            row_parallel(self.dense, hidden, self.tp)) + residual)
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32,
+                 kernels: bool = True):
+        super().__init__(intermediate_size, hidden_size, dropout_rate, dtype,
+                         kernels)
 
 
 class TransformerLayer(nn.Module):

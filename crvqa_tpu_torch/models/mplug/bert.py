@@ -54,7 +54,8 @@ class MPlugBertConfig:
     # and (without self caches) the decoder's layers in a training forward
     # (`--use_checkpoint`; the JAX config's use_remat)
     use_checkpoint: bool = False
-    # False: the eager attention everywhere (the setting under AdaHessian)
+    # False: the eager attention and output-block epilogues everywhere (the
+    # setting under AdaHessian)
     attention_kernels: bool = True
 
     @property
@@ -113,7 +114,7 @@ class BertSelfBlock(nn.Module):
                                        c.attention_probs_dropout_prob,
                                        c.dtype, kernels=c.attention_kernels)
         self.output = AttentionOutput(c.hidden_size, c.hidden_dropout_prob,
-                                      c.dtype)
+                                      c.dtype, kernels=c.attention_kernels)
 
     def forward(self, x, context, bias, kv=None, self_cache=None,
                 cache_position=None):
@@ -142,7 +143,8 @@ class BertLayer(nn.Module):
         self.intermediate = Intermediate(c.hidden_size, c.intermediate_size,
                                          c.hidden_act, c.dtype)
         self.output = FFNOutput(c.intermediate_size, c.hidden_size,
-                                c.hidden_dropout_prob, c.dtype)
+                                c.hidden_dropout_prob, c.dtype,
+                                kernels=c.attention_kernels)
 
     def forward(self, x, self_bias=None, enc_states=None, enc_bias=None,
                 cross_kv=None, self_cache=None, cache_position=None,
@@ -205,7 +207,8 @@ class FusionLayer(nn.Module):
         self.intermediate = Intermediate(c.hidden_size, c.intermediate_size,
                                          c.hidden_act, c.dtype)
         self.output = FFNOutput(c.intermediate_size, c.hidden_size,
-                                c.hidden_dropout_prob, c.dtype)
+                                c.hidden_dropout_prob, c.dtype,
+                                kernels=c.attention_kernels)
 
     def forward(self, text, text_bias, image, image_bias):
         if not self.stride:

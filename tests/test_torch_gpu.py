@@ -1621,3 +1621,261 @@ def test_offset_keep_bits_are_the_global_keep_mask():
     want = fa.keep_mask(torch.arange(row0, row0 + b).cuda(), sq, heads * sk,
                         0.1, 1234, col0=head0 * sk).view(b, sq, heads, sk)
     assert torch.equal(keep, want)
+
+
+# ------------------------------- output-block epilogue (residual LayerNorm)
+#
+# The kernels against the eager chain (`residual_layernorm.plain`) from the
+# same generators. Both round z alike; the row statistics and the
+# LayerNorm backward's sums run in another order, so each output and dz
+# lies within one step of its dtype (bf16: one step at the larger of the
+# two values' binades; fp32: 1e-5 relative) plus 1e-4 of the largest (fp32
+# cancellation in W * gg - s1 - xh * s2). dy = T(dz * inv_keep) rounds
+# twice, so a step of dz reaches two steps of dy. The weight and bias
+# gradients sum up to 2048 x 50 rows in fp32 in another order: 1e-4
+# relative.
+
+EPILOGUE_SHAPES = [(2048, 14), (2048, 36), (2048, 50), (1, 13)]
+
+
+def _ulp_close(got, want, dtype, what, steps=1):
+    got, want = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+        tol = steps * torch.exp2(torch.floor(torch.log2(big)) - 7)
+    else:
+        tol = 1e-5 * want.abs()
+    err = (got - want).abs()
+    assert bool((err <= tol + 1e-4 * want.abs().max()).all()), (
+        what, err.max().item())
+
+
+def _epilogue_inputs(b, s, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(b, s, 768, generator=g).cuda().to(dtype)
+    res = torch.randn(b, s, 768, generator=g).cuda().to(dtype)
+    w = (1.0 + 0.3 * torch.randn(768, generator=g)).cuda()
+    bias = (0.3 * torch.randn(768, generator=g)).cuda()
+    go = torch.randn(b, s, 768, generator=g).cuda().to(dtype)
+    return y, res, w, bias, go
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", EPILOGUE_SHAPES)
+def test_residual_layernorm_kernels_match_eager_chain(b, s, dtype, rate):
+    """One forward and one backward launch at LXMERT's and VisualBERT's
+    stage-2 sites and a 13-row call: the output and the gradients of y, the
+    residual, the weight and the bias against autograd of the eager chain
+    from a generator in the same state; the generator's offset after the
+    call is the eager chain's; dy is zero exactly where the draw drops
+    (or dz is 0: W * gg - s1 - xh * s2 cancels to exactly 0 in fp32 at a
+    few of 10^7 elements, in either chain at its own)."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    y, res, w, bias, go = _epilogue_inputs(b, s, dtype, seed=b + s)
+    leaves = [t.clone().requires_grad_() for t in (y, res, w, bias)]
+    gen = torch.Generator("cuda").manual_seed(7)
+    before = (rl.residual_layernorm.launches,
+              rl.residual_layernorm_bwd.launches)
+    out = rl.residual_layernorm(*leaves, 1e-12, rate, gen)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert (rl.residual_layernorm.launches - before[0],
+            rl.residual_layernorm_bwd.launches - before[1]) == (1, 1)
+    ref_leaves = [t.clone().requires_grad_() for t in (y, res, w, bias)]
+    ref_gen = torch.Generator("cuda").manual_seed(7)
+    r = (torch.rand(y.shape, generator=ref_gen, device="cuda") if rate
+         else None)
+    want = rl.plain(ref_leaves[0], ref_leaves[1], r, ref_leaves[2],
+                    ref_leaves[3], 1e-12, rate)
+    want.backward(go)
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
+    assert out.dtype == dtype and out.shape == y.shape
+    _ulp_close(out, want, dtype, "out")
+    _ulp_close(leaves[0].grad, ref_leaves[0].grad, dtype, "y", steps=2)
+    _ulp_close(leaves[1].grad, ref_leaves[1].grad, dtype, "residual")
+    for got, ref, name in zip(leaves[2:], ref_leaves[2:], ("weight", "bias")):
+        torch.testing.assert_close(got.grad, ref.grad, rtol=1e-4,
+                                   atol=1e-4 * ref.grad.abs().max().item(),
+                                   msg=name)
+    if rate:  # dy = keep ? T(dz * inv_keep) : 0, and dz is the residual's
+        assert torch.equal(leaves[0].grad == 0, (r >= 1.0 - rate)
+                           | (leaves[1].grad == 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_layernorm_keep_mask_is_the_eager_draw(dtype):
+    """The forward kernel's saved keep mask is `torch.rand(...) < keep_prob`
+    bit for bit, z is the eager chain's rounded sum bit for bit, and mean
+    and rstd are those of z."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    y, res, w, bias, _ = _epilogue_inputs(2048, 36, dtype, seed=3)
+    r = torch.rand(y.shape, generator=torch.Generator("cuda").manual_seed(1),
+                   device="cuda")
+    out, z, keep, mean, rstd = rl._launch_fwd(y, res, r, w, bias, 0.1, 1e-12,
+                                              save=True)
+    assert keep.dtype == torch.bool and torch.equal(keep, r < 0.9)
+    want_z = torch.where(r < 0.9, y / 0.9,
+                         torch.zeros((), dtype=dtype, device="cuda")) + res
+    assert torch.equal(z, want_z)
+    zf = z.float().view(-1, 768)
+    torch.testing.assert_close(mean, zf.mean(-1), rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, torch.rsqrt(zf.var(-1, unbiased=False)
+                                                 + 1e-12), rtol=1e-5, atol=0)
+
+
+def test_residual_layernorm_eval_writes_only_the_output():
+    """Without gradients (eval, serving, the KD teacher) one forward launch
+    and no backward; the output is the eager chain's."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    y, res, w, bias, _ = _epilogue_inputs(64, 36, torch.bfloat16, seed=4)
+    before = (rl.residual_layernorm.launches,
+              rl.residual_layernorm_bwd.launches)
+    with torch.inference_mode():
+        out = rl.residual_layernorm(y, res, w, bias, 1e-12)
+    assert (rl.residual_layernorm.launches - before[0],
+            rl.residual_layernorm_bwd.launches - before[1]) == (1, 0)
+    _ulp_close(out, rl.plain(y, res, None, w, bias, 1e-12, 0.0),
+               torch.bfloat16, "out")
+
+
+def test_residual_layernorm_checkpointed_recompute_is_identical():
+    """An FFN output block at full width, bf16, dropout on, under
+    `layers.checkpointed`: the recompute redraws the same mask, so the
+    gradients equal the stored run's bit for bit (two forward launches,
+    one backward)."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    block = layers.FFNOutput(3072, 768, 0.1, torch.bfloat16)
+    layers.init_weights_(block, torch.Generator().manual_seed(0))
+    block = block.cuda().train()
+    g = torch.Generator().manual_seed(1)
+    hidden = torch.randn(256, 36, 3072, generator=g).cuda().bfloat16()
+    residual = torch.randn(256, 36, 768, generator=g).cuda().bfloat16()
+    go = torch.randn(256, 36, 768, generator=g).cuda().bfloat16()
+    grads = []
+    for checkpoint in (False, True):
+        layers.set_generators(block, torch.Generator("cuda").manual_seed(3),
+                              torch.Generator().manual_seed(3))
+        h, r = (t.clone().requires_grad_() for t in (hidden, residual))
+        block.zero_grad(set_to_none=True)
+        before = (rl.residual_layernorm.launches,
+                  rl.residual_layernorm_bwd.launches)
+        out = (layers.checkpointed(block, h, r) if checkpoint
+               else block(h, r))
+        out.backward(go)
+        assert (rl.residual_layernorm.launches - before[0],
+                rl.residual_layernorm_bwd.launches - before[1]) == (
+            1 + checkpoint, 1)
+        grads.append([h.grad, r.grad, block.dense.weight.grad,
+                      block.LayerNorm.weight.grad, block.LayerNorm.bias.grad])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["width", "dtype", "weight_dtype", "shape"])
+def test_residual_layernorm_raises_on_what_it_does_not_take(case):
+    """A width the kernels were not built for, fp16, bf16 LayerNorm
+    parameters, a residual of another shape: raised before any launch."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    width = 512 if case == "width" else 768
+    dtype = torch.float16 if case == "dtype" else torch.bfloat16
+    y = torch.randn(4, 14, width, device="cuda", dtype=dtype)
+    res = torch.randn(4, 7 if case == "shape" else 14, width, device="cuda",
+                      dtype=dtype)
+    w = torch.ones(width, device="cuda", dtype=torch.bfloat16
+                   if case == "weight_dtype" else torch.float32)
+    bias = torch.zeros(width, device="cuda")
+    before = rl.residual_layernorm.launches
+    with pytest.raises((ValueError, TypeError)):
+        rl.residual_layernorm(y, res, w, bias, 1e-12)
+    assert rl.residual_layernorm.launches == before
+
+
+def _stage2_full_depth(model_name):
+    """(loss-and-grads fn, state, batch) of a full-depth stage-2 step at
+    full width, fp32, batch 8: LXMERT 9/5/5 or VisualBERT 12 layers."""
+    from crvqa_tpu_torch.cli.common import visualbert_uniform_masker
+    from crvqa_tpu_torch.data.prefetch import to_device
+    from crvqa_tpu_torch.data.synthetic import synthetic_batch
+    from crvqa_tpu_torch.masking.masker import Masker
+    from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
+    from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
+    from crvqa_tpu_torch.models import VisualBertConfig, build_visualbert
+    from crvqa_tpu_torch.train import stage2
+
+    gen = torch.Generator().manual_seed(0)
+    if model_name == "lxmert":
+        cfg = LxmertConfig(vocab_size=64, ans_num=16)
+        masker = Masker.create(
+            lxmert_mask_specs(cfg.l_layers, cfg.r_layers, cfg.x_layers),
+            ModalSparsity.from_compression(0.3, 0.3, 0.3, 0.7),
+            controlled_init="magnitude")
+        params = build_lxmert(cfg, "cpu", gen).state_dict()
+        sc = stage2.Stage2Config(masker_type="lmh", hidden_size=768)
+        model = stage2.lxmert_meta_model(cfg)
+        style = {}
+    else:
+        cfg = VisualBertConfig(vocab_size=64, ans_num=16)
+        masker = visualbert_uniform_masker(cfg, 0.7,
+                                           controlled_init="magnitude")
+        params = build_visualbert(cfg, "cpu", gen).state_dict()
+        sc = stage2.Stage2Config(masker_type="lmh", hidden_size=768,
+                                 classifier_key="cls")
+        model = stage2.visualbert_meta_model(cfg)
+        style = dict(style="visualbert")
+    state, _ = stage2.init_state(model, masker, params, sc, 0, "cuda")
+    batch = to_device(synthetic_batch(batch_size=8, vocab_size=64,
+                                      ans_num=16, seed=1, **style),
+                      torch.device("cuda"))
+    return stage2.make_loss_and_grads(model, masker, sc), state, batch
+
+
+@pytest.mark.parametrize("model_name,fwd,bwd", [("lxmert", 58, 55),
+                                                ("visualbert", 24, 24)])
+def test_stage2_step_runs_the_epilogue_kernels_at_every_site(model_name, fwd,
+                                                             bwd):
+    """A full-depth stage-2 step launches the forward kernel at every
+    output block (LXMERT: 18 language, 10 visual, 30 cross sites; the
+    shared cross attention's output block runs twice) and the backward at
+    every one that reaches the loss (not the last cross layer's three
+    visual sites); VisualBERT 24 and 24. Loss and score gradients agree
+    with the same step on the eager epilogue, from the same generators:
+    loss within 1e-5 relative, score gradients within 1e-3 of their
+    largest."""
+    _need_card()
+    from crvqa_tpu_torch.ops import residual_layernorm as rl
+
+    fn, state, batch = _stage2_full_depth(model_name)
+    rng = (state.rng.device.get_state(), state.rng.host.get_state())
+    before = (rl.residual_layernorm.launches,
+              rl.residual_layernorm_bwd.launches)
+    loss_k, _, grads_k = fn(state, batch)
+    torch.cuda.synchronize()
+    assert (rl.residual_layernorm.launches - before[0],
+            rl.residual_layernorm_bwd.launches - before[1]) == (fwd, bwd)
+    state.rng.device.set_state(rng[0])
+    state.rng.host.set_state(rng[1])
+    saved = layers.residual_layernorm
+    layers.residual_layernorm = (
+        lambda *a, kernels=True: rl.residual_layernorm(*a, kernels=False))
+    try:
+        loss_p, _, grads_p = fn(state, batch)
+    finally:
+        layers.residual_layernorm = saved
+    assert rl.residual_layernorm.launches - before[0] == fwd
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    scores = [k for k in grads_k if k.startswith("scores/")]
+    gmax = max(grads_p[k].abs().max().item() for k in scores)
+    for k in scores:
+        torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
+                                   atol=1e-3 * gmax, msg=k)
