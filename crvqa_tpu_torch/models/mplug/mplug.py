@@ -8,6 +8,11 @@ Training entries: `loss` (the JAX module's `__call__`), `answer_logits` (the
 momentum twins' soft labels) and `momentum_update`. The twins are a second
 parameter dict run through the same module, not `_m` submodules.
 
+Spans (`utils/profiling.span`, recorded only under `tracing(True)`):
+`visual_encoder` (the ViT and the `visn_*` adapter), `text_fusion` (the
+text and fusion encoders) and `decoder` (the decoder, the LM head and,
+in `loss`, the loss), children of the training step's `forward`.
+
 `forward(fn, *args)` runs `fn(self, *args)`: the hook through which
 `torch.func.functional_call` runs any method, or a whole generation loop,
 on a parameter dict (the masked weights) in one reparametrisation.
@@ -20,6 +25,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ...utils.profiling import span
 from ..layers import Dropout, LayerNorm
 from .bert import (FusionEncoder, MPlugBertConfig, TextDecoder, TextEncoder,
                    lm_loss_per_sequence, soft_label_distill_loss)
@@ -83,18 +89,28 @@ class MPlug(nn.Module):
         """image + question -> (fused decoder memory [B, 1 + P + Lq,
         hidden], its mask) (`MPLUG.forward` eval path,
         model_vqa_mplug.py:119-130)."""
-        image_embeds = self.visual_encoder(images)
-        if hasattr(self, "visn_fc"):
-            image_embeds = self.visn_dropout(
-                self.visn_layer_norm(self.visn_fc(image_embeds)))
-        image_mask = torch.ones(image_embeds.shape[:-1], dtype=torch.float32,
-                                device=image_embeds.device)
-        text_embeds = self.text_encoder(question_ids, question_mask)
-        image_out, question_out = self.fusion_encoder(
-            text_embeds, question_mask, image_embeds, image_mask)
-        states = torch.cat([image_out, question_out], dim=1)
-        state_mask = torch.cat([image_mask, question_mask.float()], dim=1)
+        with span("visual_encoder"):
+            image_embeds = self.visual_encoder(images)
+            if hasattr(self, "visn_fc"):
+                image_embeds = self.visn_dropout(
+                    self.visn_layer_norm(self.visn_fc(image_embeds)))
+            image_mask = torch.ones(image_embeds.shape[:-1],
+                                    dtype=torch.float32,
+                                    device=image_embeds.device)
+        with span("text_fusion"):
+            text_embeds = self.text_encoder(question_ids, question_mask)
+            image_out, question_out = self.fusion_encoder(
+                text_embeds, question_mask, image_embeds, image_mask)
+            states = torch.cat([image_out, question_out], dim=1)
+            state_mask = torch.cat([image_mask, question_mask.float()],
+                                   dim=1)
         return states, state_mask
+
+    def _answer_logits(self, states, state_mask, answer_ids, answer_mask):
+        b, a, length = answer_ids.shape
+        return self.text_decoder(answer_ids.reshape(b * a, length),
+                                 answer_mask.reshape(b * a, length),
+                                 states, state_mask, memory_groups=a)
 
     def answer_logits(self, images, question_ids, question_mask, answer_ids,
                       answer_mask) -> torch.Tensor:
@@ -103,10 +119,9 @@ class MPlug(nn.Module):
         UNREPLICATED memory (`memory_groups=A`), so its cross-attention is
         (A*L, 1 + P + Lq) per question."""
         states, state_mask = self.encode(images, question_ids, question_mask)
-        b, a, length = answer_ids.shape
-        return self.text_decoder(answer_ids.reshape(b * a, length),
-                                 answer_mask.reshape(b * a, length),
-                                 states, state_mask, memory_groups=a)
+        with span("decoder"):
+            return self._answer_logits(states, state_mask, answer_ids,
+                                       answer_mask)
 
     def loss(self, images, question_ids, question_mask, answer_ids,
              answer_mask, weights, bias=None, soft_labels=None,
@@ -120,18 +135,21 @@ class MPlug(nn.Module):
         distill (modeling_mplug.py:1915-1917)."""
         c = self.config
         b, a, length = answer_ids.shape
-        logits = self.answer_logits(images, question_ids, question_mask,
-                                    answer_ids, answer_mask)
-        flat_ids = answer_ids.reshape(b * a, length)
-        per_answer = lm_loss_per_sequence(logits, flat_ids, c.pad_token_id)
-        if soft_labels is not None:
-            distill = soft_label_distill_loss(logits, soft_labels, flat_ids,
+        states, state_mask = self.encode(images, question_ids, question_mask)
+        with span("decoder"):
+            logits = self._answer_logits(states, state_mask, answer_ids,
+                                         answer_mask)
+            flat_ids = answer_ids.reshape(b * a, length)
+            per_answer = lm_loss_per_sequence(logits, flat_ids,
                                               c.pad_token_id)
-            per_answer = (1.0 - alpha) * per_answer + alpha * distill
-        loss = weights.reshape(b * a) * per_answer
-        if bias is not None:
-            loss = (1.0 - bias.reshape(b * a)) * loss
-        return loss.sum() / b
+            if soft_labels is not None:
+                distill = soft_label_distill_loss(logits, soft_labels,
+                                                  flat_ids, c.pad_token_id)
+                per_answer = (1.0 - alpha) * per_answer + alpha * distill
+            loss = weights.reshape(b * a) * per_answer
+            if bias is not None:
+                loss = (1.0 - bias.reshape(b * a)) * loss
+            return loss.sum() / b
 
     def decode_logits(self, answer_ids, answer_mask, states, state_mask,
                       cross_kv=None, position=None, memory_groups: int = 1):

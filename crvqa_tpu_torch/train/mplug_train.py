@@ -19,6 +19,12 @@ masked weight replaced by `w * binarize(s, t)` (`Masker.apply_masks`), as
 stage 2 does. One reparametrisation covers a whole call (encode, the cross
 K/V projections and the beam loop), through `MPlug.forward(fn, ...)`.
 
+Spans (`utils/profiling.span`, off unless `tracing(True)`): the stage-2
+names and tree, `train_step` holding `mask_apply`, `forward` (the
+model's `visual_encoder`, `text_fusion` and `decoder` inside),
+`backward`, `grad_sync` (with a mesh) and `optimizer` (the clip and the
+two-group step); `reset` around a threshold reset.
+
 The state is updated IN PLACE by the step (the JAX package returns a new
 state). Trained leaves are fp32 masters (scores and head parameters in mask
 mode, every parameter in full mode, the twins always); frozen parameters are
@@ -39,6 +45,7 @@ from ..models.layers import set_generators
 from ..models.mplug import MPlug, momentum_update_
 from ..models.mplug.generator import (beam_generate, init_self_caches,
                                       precompute_cross_kv)
+from ..utils.profiling import span
 from .common import (AdamWState, GroupAdamW, Schedule, TrainRNG,
                      allreduce_grads_, allreduce_mean_,
                      clip_by_global_norm_, hidden_dropout_generator)
@@ -395,10 +402,12 @@ def masked_params(model: torch.nn.Module, masker: Optional[Masker],
     """The model's parameter dict from the live state: masks applied (when
     a masker and scores are given), every leaf in the model's dtype.
     Differentiable in the scores and in fp32 master parameters."""
-    params = state.params
-    if masker is not None and state.scores is not None:
-        params = masker.apply_masks(params, state.scores, state.thresholds)
-    return _cast(params, param_dtypes(model))
+    with span("mask_apply"):
+        params = state.params
+        if masker is not None and state.scores is not None:
+            params = masker.apply_masks(params, state.scores,
+                                        state.thresholds)
+        return _cast(params, param_dtypes(model))
 
 
 def run_masked(model: torch.nn.Module, masker: Optional[Masker],
@@ -479,22 +488,26 @@ def make_loss_and_grads(model: torch.nn.Module, config: MPlugTrainConfig,
             set_generators(model, hidden_dropout_generator(
                 state.rng, state.step, mesh), state.rng.host,
                 mesh.data_index if mesh else 0)
-            return functional_call(
-                model,
-                masked_params(model, masker if mask_mode else None, state),
-                (MPlug.loss, *(batch[k] for k in _BATCH_KEYS),
-                 batch["weights"]),
-                dict(bias=bias, soft_labels=soft, alpha=alpha), strict=True)
+            params = masked_params(model, masker if mask_mode else None,
+                                   state)
+            with span("forward"):
+                return functional_call(
+                    model, params,
+                    (MPlug.loss, *(batch[k] for k in _BATCH_KEYS),
+                     batch["weights"]),
+                    dict(bias=bias, soft_labels=soft, alpha=alpha),
+                    strict=True)
 
         if second_order:
             from .timm_optim import hutchinson
 
             return hutchinson(loss_fn, leaves, state.rng.device, z=z)
         loss = loss_fn(leaves)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(leaves.items(), grads)}
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(v) if g is None else g
+                     for (k, v), g in zip(leaves.items(), grads)}
         return loss.detach(), grads
 
     return loss_and_grads
@@ -523,26 +536,33 @@ def make_train_step(model: torch.nn.Module, config: MPlugTrainConfig,
     tx: list = []  # built at the first step, from its leaves
 
     def train_step(state: MPlugState, batch: dict):
-        leaves = trainable(state, config)
-        if not tx:
-            opt = make_two_group_adamw(config, leaves)
-            if zero is not None:
-                from ..parallel.zero import ZeroOptimizer
+        with span("train_step", state.step):
+            leaves = trainable(state, config)
+            if not tx:
+                opt = make_two_group_adamw(config, leaves)
+                if zero is not None:
+                    from ..parallel.zero import ZeroOptimizer
 
-                opt = ZeroOptimizer(opt, zero)
-            tx.append(opt)
-        if second_order:
-            loss, grads, hess = loss_and_grads(state, batch)
-            allreduce_grads_(grads, mesh)
-            allreduce_grads_(hess, mesh)
-            tx[0].step(leaves, (grads, hess), state.opt_state)
-        else:
-            loss, grads = loss_and_grads(state, batch)
-            allreduce_grads_(grads, mesh)
-            clip_by_global_norm_(list(grads.values()), config.max_grad_norm)
-            tx[0].step(leaves, grads, state.opt_state)
-        state.step += 1
-        return state, reduce_loss(loss, mesh)
+                    opt = ZeroOptimizer(opt, zero)
+                tx.append(opt)
+            if second_order:
+                loss, grads, hess = loss_and_grads(state, batch)
+                averaged, grads = [grads, hess], (grads, hess)
+            else:
+                loss, grads = loss_and_grads(state, batch)
+                averaged = [grads]
+            if mesh is not None:
+                with span("grad_sync"):
+                    for g in averaged:
+                        allreduce_grads_(g, mesh)
+            with span("optimizer"):
+                if not second_order:
+                    clip_by_global_norm_(list(grads.values()),
+                                         config.max_grad_norm)
+                tx[0].step(leaves, grads, state.opt_state)
+            state.step += 1
+            loss = reduce_loss(loss, mesh)
+        return state, loss
 
     return train_step
 
@@ -557,10 +577,11 @@ def make_threshold_reset(masker: Masker) -> Callable:
 
     def reset(state: MPlugState, target: Optional[float] = None
               ) -> MPlugState:
-        state.thresholds = masker.reset_thresholds(state.scores, target)
-        if state.scores_m is not None:
-            state.thresholds_m = masker.reset_thresholds(state.scores_m,
-                                                         target)
+        with span("reset", state.step):
+            state.thresholds = masker.reset_thresholds(state.scores, target)
+            if state.scores_m is not None:
+                state.thresholds_m = masker.reset_thresholds(state.scores_m,
+                                                             target)
         return state
 
     return reset

@@ -1879,3 +1879,53 @@ def test_stage2_step_runs_the_epilogue_kernels_at_every_site(model_name, fwd,
     for k in scores:
         torch.testing.assert_close(grads_k[k], grads_p[k], rtol=0,
                                    atol=1e-3 * gmax, msg=k)
+
+
+def test_mplug_step_at_published_widths_launches_and_records():
+    """One bf16 mPLUG mask step of the benchmark's program
+    (`portbench/families/mplug.py`, the `vqa_mplug` CLI's objects) at the
+    published widths and the cell's batch of 128: 30 mid-length forward
+    launches (12 ViT, 5 fusion cross, the stride layer, 12 decoder cross)
+    and 29 backward (the ViT's first block has no gradient); the spans'
+    tree, each with device time, the step's children covering at least
+    98% of it (the host's work between them can leave the card idle
+    inside the step; the benchmark's traced run reports the coverage of
+    its recorded steps, 99.3-99.6%)."""
+    _need_card()
+    from crvqa_tpu_torch.ops.midseq_attention import (midseq_attention,
+                                                      midseq_attention_bwd)
+    from crvqa_tpu_torch.train import mplug_train
+    from crvqa_tpu_torch.utils import profiling
+    from portbench.families import mplug as family
+    from portbench.harness.cells import Benchmark
+    from portbench.harness.inputs import make_weights
+    from portbench.harness.mplug_inputs import make_pool
+    from portbench.reference import mplug as ref
+
+    bench, seed = Benchmark(), 2718281829
+    cfg = bench.config("mplug-base")
+    trf = dict(bench.traffic("mplug-mask-b128"), pool_batches=1)
+    prog = family.build(cfg, trf, make_weights(ref.param_table(cfg), seed,
+                                               "cuda"), seed, "cuda")
+    batch = make_pool(cfg, trf, seed, "cuda")[0]
+    step = mplug_train.make_train_step(prog.model, prog.config, prog.masker)
+    for _ in range(3):  # builds the kernels, then steady steps
+        step(prog.state, batch)
+    fwd, bwd = midseq_attention.launches, midseq_attention_bwd.launches
+    profiling.tracing(True)
+    try:
+        step(prog.state, batch)
+    finally:
+        profiling.tracing(False)
+    torch.cuda.synchronize()
+    recs = profiling.spans()
+    profiling.clear()
+    assert midseq_attention.launches - fwd == 30
+    assert midseq_attention_bwd.launches - bwd == 29
+    assert [(r.name, r.parent) for r in recs] == [
+        ("train_step", None), ("mask_apply", 0), ("forward", 0),
+        ("visual_encoder", 2), ("text_fusion", 2), ("decoder", 2),
+        ("backward", 0), ("optimizer", 0)]
+    assert all(r.device_ms is not None and r.device_ms >= 0 for r in recs)
+    kids = sum(r.device_ms for r in recs if r.parent == 0)
+    assert kids >= 0.98 * recs[0].device_ms, (kids, recs[0].device_ms)

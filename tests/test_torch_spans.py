@@ -10,6 +10,10 @@
 - Off, `span` is the shared null context and records nothing.
 - The reset, `predict`'s `eval_step` / `fetch` and the prefetch
   consumer's `data_wait` are roots; `predict`'s carry the batch's index.
+- An mPLUG mask step records the same tree, its `forward` holding the
+  model's `visual_encoder`, `text_fusion` and `decoder`, siblings in
+  order and apart inside their parent; the reset is a root; recording changes no output and,
+  off, nothing is recorded.
 - A stage-2 CLI run with `--profile_dir` writes a Chrome trace holding
   the `crvqa.*` annotations; on a CUDA device the window logs each span's
   device ms per step.
@@ -29,7 +33,7 @@ from crvqa_tpu_torch.masking.masker import Masker
 from crvqa_tpu_torch.masking.sparsity_control import ModalSparsity
 from crvqa_tpu_torch.masking.spec import lxmert_mask_specs
 from crvqa_tpu_torch.models import LxmertConfig, VisualBertConfig
-from crvqa_tpu_torch.train import stage2
+from crvqa_tpu_torch.train import mplug_train, stage2
 from crvqa_tpu_torch.train.evaluation import predict
 from crvqa_tpu_torch.utils import profiling
 from tests.torch_threads import one_thread  # noqa: F401 (autouse)
@@ -292,3 +296,89 @@ def test_stage2_cli_trace_holds_the_program_annotations(tmp_path, cli):
     assert not profiling._ON and profiling.spans() == []
     if common._metrics_writer is not None:
         common._metrics_writer.close()
+
+
+MPLUG_TREE = [("train_step", None), ("mask_apply", 0), ("forward", 0),
+              ("visual_encoder", 2), ("text_fusion", 2), ("decoder", 2),
+              ("backward", 0), ("optimizer", 0)]
+
+
+def _mplug_program(mesh=None):
+    """(train step, reset, fresh state, 2 batches) of the tiny mPLUG mask
+    training as `vqa_mplug` builds it, in float32, dropout on."""
+    from crvqa_tpu_torch.cli import vqa_mplug
+    from crvqa_tpu_torch.data.mplug_data import synthetic_mplug_batch
+
+    args = vqa_mplug.build_parser().parse_args(
+        ["--tiny", "--device", "cpu", "--dtype", "float32",
+         "--output_dir", "unused"])
+    config, _, model = vqa_mplug.build_model(args)
+    masker = vqa_mplug.build_masker(args, config)
+    cfg = vqa_mplug.train_config(args, 10)
+    state = mplug_train.init_state(
+        model, vqa_mplug.initial_params(args, config), cfg, "cpu",
+        masker=masker, seed=0, train=True)
+    batches = [{k: torch.from_numpy(v) for k, v in synthetic_mplug_batch(
+        batch_size=2, image_res=config.vit.image_res,
+        vocab_size=config.bert.vocab_size, uint8_images=True,
+        seed=i).items() if k != "qid"} for i in range(2)]
+    return (mplug_train.make_train_step(model, cfg, masker, mesh=mesh),
+            mplug_train.make_threshold_reset(masker), state, batches)
+
+
+def _mplug_train():
+    """Two steps and a reset on a fresh state: (losses, state)."""
+    step_fn, reset_fn, state, batches = _mplug_program()
+    losses = [step_fn(state, b)[1] for b in batches]
+    return losses, reset_fn(state, 0.5)
+
+
+def test_mplug_recording_changes_no_output_and_off_records_nothing():
+    off_losses, off = _mplug_train()
+    assert profiling.spans() == []
+    profiling.tracing(True)
+    on_losses, on = _mplug_train()
+    assert profiling.spans()
+    assert all(torch.equal(a, b) for a, b in zip(off_losses, on_losses))
+    for part in ("scores", "thresholds"):
+        a, b = getattr(off, part), getattr(on, part)
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for moment in ("mu", "nu"):
+        a, b = getattr(off.opt_state, moment), getattr(on.opt_state, moment)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("with_mesh", [False, True], ids=["plain", "mesh"])
+def test_an_mplug_step_records_its_tree_and_the_children_tile_it(
+        with_mesh):
+    from crvqa_tpu_torch.parallel.mesh import make_mesh
+
+    step_fn, reset_fn, state, batches = _mplug_program(
+        make_mesh() if with_mesh else None)
+    step_fn(state, batches[0])  # step 0, unrecorded
+    profiling.tracing(True)
+    step_fn(state, batches[1])  # step 1
+    reset_fn(state)
+    recs = profiling.spans()
+    want = list(MPLUG_TREE)
+    if with_mesh:
+        want.insert(7, ("grad_sync", 0))
+    want.append(("reset", None))
+    assert [(r.name, r.parent) for r in recs] == want
+    assert {r.step for r in recs[:-1]} == {1} and recs[-1].step == 2
+    # each span inside its parent, siblings in order and apart
+    for i, r in enumerate(recs):
+        assert r.host_start_ns <= r.host_end_ns
+        if r.parent is not None:
+            up = recs[r.parent]
+            assert up.host_start_ns <= r.host_start_ns
+            assert r.host_end_ns <= up.host_end_ns
+    # siblings follow each other without overlap: the children tile their
+    # parent up to the host's own work between them (on the card the
+    # benchmark's traced run reads their device coverage of train_step)
+    for parent in (0, 2):
+        kids = [r for r in recs if r.parent == parent]
+        assert all(a.host_end_ns <= b.host_start_ns
+                   for a, b in zip(kids, kids[1:]))
+    assert all(r.device_ms is None for r in recs)
